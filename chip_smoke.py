@@ -8,7 +8,7 @@ Run from the repository root with no arguments::
 It needs one CUDA device and ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``).
 Phases, each of which raises on failure (nothing is caught):
 
-1. the card's name and power limit; build both hand kernels from
+1. the card's name and power limit; build the three hand kernels from
    ``tnc_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel);
 2. plan the main path's configuration — a 28-qubit, depth-12 random
    circuit on the Sycamore layout (p1 = p2 = 0.4, seed 42), contracted to
@@ -17,7 +17,7 @@ Phases, each of which raises on failure (nothing is caught):
    shapes: every chain group through ``fused_chain``, medium and stem
    steps (and a ragged shape) through ``fused_complex_dot``, with one
    float64 case each; time kernel, plain version and library call (device
-   time from ``torch.profiler``, and wall time per call) beside the bound;
+   and wall time per call, from CUDA events) beside the bound;
 3. the main path: ``contract_tensor_network(tn, path, TorchBackend())``
    once to warm up and three times timed, launch counts reset just before
    each timed run and read just after it;
@@ -29,8 +29,18 @@ Phases, each of which raises on failure (nothing is caught):
 6. where the time goes: the device-resident part of the main path timed
    alone, and one run under ``torch.profiler`` (device time by kernel,
    busy share);
-7. one JSON line of per-kernel numbers, the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+7. the PEPS cell — the norm of ``peps(4, 4, 2, 32, 0)`` with seeded
+   random leaves at the O(1) scale 2^-4.5, ``Greedy`` path: first
+   ``fused_transpose_dot`` against its plain version at each distinct
+   shape of the steps its gate admits (float64 once), timed beside the
+   bound, the plain version and ``torch.einsum``; then the norm under the
+   default policy (one warm-up, three timed runs, the device-resident part
+   and a profile), under the forced ``fused_transpose`` rung (its launches
+   and routed steps must equal the plan's gate), both against the norm in
+   complex128 on the card; and ``peps(3, 3, 2, 16, 0)`` on the forced
+   rung against the complex128 numpy oracle;
+8. one JSON line of path numbers, one of per-kernel numbers, the card
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result when CUDA is unavailable or the
 ``tnc_tpu_torch`` package is not beside it.
@@ -38,6 +48,7 @@ It exits non-zero without a result when CUDA is unavailable or the
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -52,6 +63,10 @@ QUBITS = 28
 DEPTH = 12
 SEED = 42
 SMALL_QUBITS = 20  # the configuration checked whole against the host oracle
+# the PEPS cell: peps(length, depth, physical_dim, virtual_dim, layers), its
+# norm contracted exactly; and a small one checked against the host oracle
+PEPS = (4, 4, 2, 32, 0)
+PEPS_SMALL = (3, 3, 2, 16, 0)
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -64,6 +79,9 @@ COMPLEX_MAC_FLOPS = 6.0
 
 F32_REL_TOL = 1e-5
 F64_REL_TOL = 1e-12
+# cycles of torch.cuda._sleep per second, at or above the H100's top SM
+# clock (1980 MHz), so a sleep lasts at least its nominal time
+SLEEP_CYCLES_PER_S = 2.0e9
 
 
 def fail(msg: str) -> None:
@@ -84,41 +102,37 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 2) -> tuple[float, float]:
-    """``(device_ms, wall_ms)`` per call of ``fn()``.
+    """``(device_ms, wall_ms)`` per call of ``fn()``, both from CUDA events.
 
-    ``device_ms`` is the device time of every kernel, copy and memset the
-    ``reps`` calls ran, from ``torch.profiler``, over ``reps``: the card's
-    own time, without the host's cost of launching. ``wall_ms`` is CUDA
-    events around a loop of ``reps`` back-to-back calls, over ``reps``:
-    what a caller waits per call, host overhead included."""
+    ``wall_ms``: events around a loop of ``reps`` back-to-back calls, over
+    ``reps`` — what a caller waits per call, host overhead included.
+    ``device_ms``: the same loop queued behind ``torch.cuda._sleep`` (twice
+    as long as the host took to issue the loop), so the card runs the calls
+    back to back with no host gaps: its own time per call. (The profiler's
+    ``key_averages()`` was tried for this and, late in this script, kept
+    only some of the records of a kernel launched through ctypes.)"""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    issue_s = time.perf_counter() - t0
+    end.synchronize()
+    wall = start.elapsed_time(end) / reps
+    torch.cuda._sleep(int(2 * issue_s * SLEEP_CYCLES_PER_S) + 1000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
-    wall = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(
-        ev.self_device_time_total for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA
-    )
-    if device_us == 0:
-        print("  torch.profiler recorded no device time; device ms falls back "
-              "to the CUDA-event loop", flush=True)
-        return wall, wall
-    return device_us / 1e3 / reps, wall
+    return start.elapsed_time(end) / reps, wall
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -326,22 +340,27 @@ def check_dot(program, gen) -> dict:
     }
 
 
-def run_main_path(tn, path, backend, label: str, reps: int = 3):
+def run_main_path(tn, path, backend, label: str, reps: int = 3) -> dict:
     """One warm-up and ``reps`` timed ``contract_tensor_network`` runs.
     Launch and routing counts are reset just before each timed run and
-    read just after it. Returns the last result, the wall seconds of
-    every timed run and the counts of the last one."""
+    read just after it. Returns the last result (``out``), the wall
+    seconds of every timed run (``walls``), and the launch counts, routed
+    steps and peak device memory of the last one."""
     import torch
 
     from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
-    from tnc_tpu_torch.ops.split_complex import FUSED_ROUTED, reset_routed
+    from tnc_tpu_torch.ops.split_complex import (
+        FUSED_ROUTED,
+        FUSED_TRANSPOSE_ROUTED,
+        reset_routed,
+    )
     from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
 
     contract_tensor_network(tn, path, backend)
     walls = []
-    out = None
+    run = {"out": None}
     for _ in range(reps):
-        del out
+        run["out"] = None
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -351,14 +370,21 @@ def run_main_path(tn, path, backend, label: str, reps: int = 3):
         out = contract_tensor_network(tn, path, backend)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts = (dict(LAUNCHES), dict(FUSED_ROUTED))
+        run = {
+            "out": out, "walls": walls, "launches": dict(LAUNCHES),
+            "routed": dict(FUSED_ROUTED),
+            "transpose_routed": dict(FUSED_TRANSPOSE_ROUTED),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+        }
+        del out
         print(f"[{label}] wall {walls[-1]:.4f} s, max_memory_allocated "
-              f"{torch.cuda.max_memory_allocated()} bytes, launches {counts[0]}, "
-              f"routed {counts[1]}", flush=True)
-    return out, walls, counts
+              f"{run['peak_bytes']} bytes, launches {run['launches']}, "
+              f"routed {run['routed']}, transpose routed "
+              f"{run['transpose_routed']}", flush=True)
+    return run
 
 
-def profile_device_path(tn, path, backend, reps: int = 3) -> dict:
+def profile_device_path(tn, path, backend, label: str, reps: int = 3) -> dict:
     """Where the main path's time goes: the device-resident part
     (``execute_on_device``: placement and every step, no copy back) timed
     on its own, then one run under ``torch.profiler`` for device time by
@@ -394,13 +420,234 @@ def profile_device_path(tn, path, backend, reps: int = 3) -> dict:
     ]
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    print(f"[profile] device-resident run: {[f'{t:.4f}' for t in times]} s; "
+    print(f"[profile {label}] device-resident run: {[f'{t:.4f}' for t in times]} s; "
           f"profiled run {prof_wall:.4f} s, device busy {busy_s:.4f} s "
           f"({busy_s / prof_wall:.3f} of it)", flush=True)
     for dev, key, count in rows[:14]:
         print(f"  {dev / 1e3:10.3f} ms  x{count:<5d} {key[:90]}", flush=True)
-    return {"device_s": statistics.median(times), "profiled_s": prof_wall,
-            "device_busy_s": busy_s}
+    return {"device_s": statistics.median(times), "device_runs_s": times,
+            "profiled_s": prof_wall, "device_busy_s": busy_s}
+
+
+def build_peps(args):
+    """``peps(*args)`` with seeded random leaves at the O(1) scale
+    (``unit_scale``: 2^-4.5 for the PEPS cell, where the default per-leaf
+    scale would put the norm near float32's underflow)."""
+    from tnc_tpu_torch.builders.peps import peps
+    from tnc_tpu_torch.tensornetwork.approximate import attach_random_data, unit_scale
+
+    tn = peps(*args)
+    return attach_random_data(tn, np.random.default_rng(SEED), scale=unit_scale(tn))
+
+
+def transpose_gate(program) -> tuple[int, dict]:
+    """``(admitted, routed)``: how many steps of the program the fused
+    transpose-dot's gate admits, and how many it routes, per reason."""
+    from tnc_tpu_torch.ops.split_complex import fused_transpose_ineligible_reason
+
+    reasons = [fused_transpose_ineligible_reason(st) for st in program.steps]
+    return reasons.count(None), dict(collections.Counter(r for r in reasons if r))
+
+
+def transpose_cases(program) -> list:
+    """The distinct ``(first, second, step indices)`` operand layouts of the
+    steps the fused transpose-dot's gate admits."""
+    from tnc_tpu_torch.ops.split_complex import (
+        _fused_transpose_layouts,
+        fused_transpose_step_eligible,
+    )
+
+    cases: dict = {}
+    for i, st in enumerate(program.steps):
+        if fused_transpose_step_eligible(st):
+            first, second = _fused_transpose_layouts(st)
+            cases.setdefault((first.key(), second.key()), (first, second, []))[2].append(i)
+    return list(cases.values())
+
+
+def einsum_spec(a_lay, b_lay) -> str:
+    """The ``torch.einsum`` equation of a transpose-dot on the stored views:
+    contract digits paired in order, output the first operand's free digits
+    then the second's (the kernel's flat ``(M, N)`` order)."""
+    if [a_lay.view[a] for a in a_lay.k_axes] != [b_lay.view[b] for b in b_lay.k_axes]:
+        fail(f"contract digits of {a_lay.key()} and {b_lay.key()} differ")
+    letters = iter("abcdefghijklmnopqrstuvwxyz")
+    a = [""] * len(a_lay.view)
+    b = [""] * len(b_lay.view)
+    for ax, bx in zip(a_lay.k_axes, b_lay.k_axes):
+        a[ax] = b[bx] = next(letters)
+    for ax in a_lay.f_axes:
+        a[ax] = next(letters)
+    for bx in b_lay.f_axes:
+        b[bx] = next(letters)
+    out = "".join(a[ax] for ax in a_lay.f_axes) + "".join(b[bx] for bx in b_lay.f_axes)
+    return f"{''.join(a)},{''.join(b)}->{out}"
+
+
+def check_transpose(program, gen) -> dict:
+    """Every distinct admitted layout of the PEPS plan through
+    ``fused_transpose_dot`` against ``fused_transpose_reference`` on the
+    card, timed beside the bound, the plain version and ``torch.einsum``;
+    returns the kernel's record, each time a mean over the plan's launches
+    (each shape weighted by the steps that have it)."""
+    import torch
+
+    from tnc_tpu_torch.ops.cuda_complex import (
+        fused_transpose_dot,
+        fused_transpose_reference,
+    )
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    rows = []
+    worst = 0.0
+    cases = transpose_cases(program)
+    for first, second, steps in cases:
+        k, m, n = first.k_size, first.f_size, second.f_size
+        ops = (rnd(first.view), rnd(first.view), rnd(second.view), rnd(second.view))
+        got = fused_transpose_dot(*ops, first, second)
+        torch.cuda.synchronize()
+        want = fused_transpose_reference(*ops, first, second)
+        err, scale = max_err(got, want)
+        check(err <= F32_REL_TOL * scale,
+              f"fused_transpose_dot {first.key()} x {second.key()}: max|err| "
+              f"{err} > {F32_REL_TOL} * {scale}")
+        worst = max(worst, err)
+        del got
+        a_c, b_c = torch.complex(ops[0], ops[1]), torch.complex(ops[2], ops[3])
+        spec = einsum_spec(first, second)
+        lib_err = float((torch.einsum(spec, a_c, b_c).reshape(m, n)
+                         - torch.complex(*want)).abs().max())
+        check(lib_err <= F32_REL_TOL * 2 * scale,
+              f"einsum {spec} disagrees with the plain version by {lib_err}")
+        del want
+        reps = 10 if 8.0 * k * m * n > 1e11 else 20
+        ms, wall = time_ms(lambda: fused_transpose_dot(*ops, first, second), reps, 1)
+        plain, _ = time_ms(lambda: fused_transpose_reference(*ops, first, second), reps, 1)
+        lib, _ = time_ms(lambda: torch.einsum(spec, a_c, b_c), reps, 1)
+        del a_c, b_c
+        nbytes = 4.0 * 2 * (ops[0].numel() + ops[2].numel() + m * n)
+        b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * k * m * n, "float32")
+        rows.append((len(steps), ms, plain, b_ms, b_by, lib))
+        print(f"  fused_transpose_dot steps {steps} {first.view} k{first.k_axes} x "
+              f"{second.view} k{second.k_axes} (K={k} M={m} N={n}): err {err:.3e} "
+              f"(scale {scale:.3e}) device: kernel {ms:.4f} ms plain {plain:.4f} ms "
+              f"einsum {lib:.4f} ms; kernel wall per call {wall:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops per complex "
+              f"multiply-add)", flush=True)
+        del ops
+        torch.cuda.empty_cache()
+    # one float64 case at the smallest admitted shape
+    first, second, _ = min(cases, key=lambda c: c[0].k_size * c[0].f_size * c[1].f_size)
+    ops = [rnd(first.view, torch.float64), rnd(first.view, torch.float64),
+           rnd(second.view, torch.float64), rnd(second.view, torch.float64)]
+    err, scale = max_err(fused_transpose_dot(*ops, first, second),
+                         fused_transpose_reference(*ops, first, second))
+    check(err <= F64_REL_TOL * scale,
+          f"fused_transpose_dot float64 {first.key()}: max|err| {err} > {F64_REL_TOL} * {scale}")
+    print(f"  fused_transpose_dot float64 {first.view} x {second.view}: err {err:.3e} "
+          f"(scale {scale:.3e})", flush=True)
+    n_launch = sum(r[0] for r in rows)
+
+    def mean(j):
+        return sum(r[0] * r[j] for r in rows) / n_launch
+
+    return {
+        "max_abs_err": worst,
+        "ms": mean(1),
+        "plain_ms": mean(2),
+        "bound_ms": mean(3),
+        # the term that decides most of the launch-summed bound
+        "bound_by": "bytes" if sum(r[0] * r[3] for r in rows if r[4] == "bytes") * 2
+        > sum(r[0] * r[3] for r in rows) else "operations",
+        "library_ms": mean(5),
+    }
+
+
+def run_peps(backend) -> dict:
+    """The PEPS cell: its norm under the default policy (timed, profiled)
+    and under the forced ``fused_transpose`` rung (launches and routed
+    steps held to the plan's gate), both held to the same network
+    contracted in complex128 on the card; then the small PEPS on the
+    forced rung against the host oracle."""
+    import torch
+
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+    from tnc_tpu_torch.ops.program import build_program, step_flops
+    from tnc_tpu_torch.ops.split_complex import plan_kernels
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    def scalar(leaf) -> complex:
+        z = complex(np.asarray(leaf.data.into_data()).reshape(()))
+        check(math.isfinite(z.real) and math.isfinite(z.imag), f"non-finite norm {z}")
+        return z
+
+    def forced(tn, path, label):
+        os.environ["TNC_TPU_COMPLEX_MULT"] = "fused_transpose"
+        try:
+            return run_main_path(tn, path, backend, label, reps=1)
+        finally:
+            del os.environ["TNC_TPU_COMPLEX_MULT"]
+
+    tn = build_peps(PEPS)
+    path = plan(tn)
+    program = build_program(tn, path)
+    admitted, routed = transpose_gate(program)
+    modes = plan_kernels(program).modes
+    flops = [step_flops(st) for st in program.steps]
+    stems = [i for i, mode in enumerate(modes) if mode == "strassen"]
+    stem_flops = sum(flops[i] for i in stems)
+    print(f"[peps] peps{PEPS}: {len(program.steps)} steps, {sum(flops):.4e} complex "
+          f"multiply-adds, default modes {dict(collections.Counter(modes))}, Strassen "
+          f"steps {stems} carry {stem_flops:.4e} ({stem_flops / sum(flops):.3f}); "
+          f"fused_transpose gate admits {admitted}, routes {routed}", flush=True)
+
+    default = run_main_path(tn, path, backend, "peps default", reps=3)
+    z = scalar(default.pop("out"))
+    prof = profile_device_path(tn, path, backend, "peps", reps=2)
+    ft = forced(tn, path, "peps fused_transpose rung")
+    z_ft = scalar(ft.pop("out"))
+    check(ft["launches"]["fused_transpose_dot"] == admitted,
+          f"fused_transpose_dot launched {ft['launches']['fused_transpose_dot']} "
+          f"times for {admitted} admitted steps")
+    check(ft["transpose_routed"] == routed,
+          f"routed {ft['transpose_routed']}, the plan's gate says {routed}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    z128 = scalar(contract_tensor_network(
+        tn, path, TorchBackend(dtype="complex128", split_complex=False)))
+    t128 = time.perf_counter() - t0
+    for name, got in (("default rung", z), ("fused_transpose rung", z_ft)):
+        rel = abs(got - z128) / abs(z128)
+        print(f"[check] peps{PEPS} {name} {got!r} vs complex128 on the card "
+              f"{z128!r}: relative {rel:.3e}", flush=True)
+        check(rel <= 1e-4, f"peps {name} off complex128 by {rel}")
+    print(f"[peps] complex128 native contraction {t128:.4f} s wall", flush=True)
+    del tn
+
+    small = build_peps(PEPS_SMALL)
+    small_path = plan(small)
+    run = forced(small, small_path, "peps small fused_transpose rung")
+    got = scalar(run["out"])
+    want = scalar(contract_tensor_network(small, small_path, NumpyBackend()))
+    rel = abs(got - want) / abs(want)
+    print(f"[check] peps{PEPS_SMALL} fused_transpose rung {got!r} vs numpy complex128 "
+          f"{want!r}: relative {rel:.3e}", flush=True)
+    check(rel <= 1e-4, f"peps{PEPS_SMALL} off the host oracle by {rel}")
+    check(run["launches"]["fused_transpose_dot"] == 2,
+          f"peps{PEPS_SMALL} launched fused_transpose_dot "
+          f"{run['launches']['fused_transpose_dot']} times, not 2")
+    return {
+        "config": list(PEPS), "seed": SEED, "steps": len(program.steps),
+        "admitted": admitted, "wall_s": statistics.median(default["walls"]),
+        "wall_runs_s": default["walls"], "peak_bytes": default["peak_bytes"],
+        **prof, "fused_transpose_wall_s": ft["walls"][0],
+        "fused_transpose_peak_bytes": ft["peak_bytes"],
+        "fused_transpose_launches": ft["launches"]["fused_transpose_dot"],
+        "norm": [z.real, z.imag], "norm_fused_transpose": [z_ft.real, z_ft.imag],
+        "norm_complex128": [z128.real, z128.imag], "complex128_wall_s": t128,
+    }
 
 
 def main() -> int:
@@ -431,7 +678,8 @@ def main() -> int:
     # 1. build
     t0 = time.perf_counter()
     cuda_complex.build_kernels()
-    print(f"[build] both kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] {len(cuda_complex.BUILD_LOG)} kernels in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in cuda_complex.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -445,8 +693,10 @@ def main() -> int:
     path = plan(tn)
     program = build_program(tn, path)
     policy = plan_kernels(program)
+    admitted, routed = transpose_gate(program)
     print(f"[plan] {QUBITS} qubits: {len(program.steps)} steps, "
-          f"{len(policy.chains)} chains {list(policy.chains)}", flush=True)
+          f"{len(policy.chains)} chains {list(policy.chains)}; fused_transpose gate "
+          f"admits {admitted}, routes {routed}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print("[kernels] fused_chain against fused_chain_reference", flush=True)
     chain_rec = check_chains(program, policy, gen)
@@ -455,7 +705,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 3. main path
-    sv_leaf, walls, (launches, _) = run_main_path(tn, path, backend, "main path")
+    main = run_main_path(tn, path, backend, "main path")
+    sv_leaf, walls, launches = main["out"], main["walls"], main["launches"]
+    del main
     check(launches["fused_chain"] == len(policy.chains),
           f"fused_chain launched {launches['fused_chain']} times for "
           f"{len(policy.chains)} chains")
@@ -495,11 +747,11 @@ def main() -> int:
     # 5. forced fused rung
     os.environ["TNC_TPU_COMPLEX_MULT"] = "fused"
     try:
-        fused_leaf, fused_walls, (launches, _) = run_main_path(
-            tn, path, backend, "fused rung", reps=1
-        )
+        fused = run_main_path(tn, path, backend, "fused rung", reps=1)
     finally:
         del os.environ["TNC_TPU_COMPLEX_MULT"]
+    fused_leaf, fused_walls, launches = fused["out"], fused["walls"], fused["launches"]
+    del fused
     check(launches["fused_complex_dot"] > 0, "fused rung launched no fused_complex_dot")
     dot_rec["launches"] = launches["fused_complex_dot"]
     fused_sv = np.asarray(fused_leaf.data.into_data())
@@ -512,7 +764,18 @@ def main() -> int:
     del fused_leaf, fused_sv, sv
 
     # 6. where the main path's time goes
-    prof = profile_device_path(tn, path, backend)
+    prof = profile_device_path(tn, path, backend, "random28")
+
+    # 7. the PEPS cell: the transpose kernel at the plan's shapes, then
+    # the path under the default policy and the forced fused_transpose rung
+    peps_tn = build_peps(PEPS)
+    peps_program = build_program(peps_tn, plan(peps_tn))
+    del peps_tn
+    print("[kernels] fused_transpose_dot against fused_transpose_reference", flush=True)
+    transpose_rec = check_transpose(peps_program, gen)
+    torch.cuda.empty_cache()
+    peps_rec = run_peps(backend)
+    transpose_rec["launches"] = peps_rec["fused_transpose_launches"]
 
     kernels = [
         dict(name="fused_chain", route="cuda",
@@ -521,6 +784,9 @@ def main() -> int:
         dict(name="fused_complex_dot", route="cuda",
              source="tnc_tpu_torch/ops/csrc/fused_complex_dot.cu",
              replaces="tnc_tpu/ops/pallas_complex.py:113", **dot_rec),
+        dict(name="fused_transpose_dot", route="cuda",
+             source="tnc_tpu_torch/ops/csrc/fused_transpose_dot.cu",
+             replaces="tnc_tpu/ops/pallas_complex.py:391", **transpose_rec),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -529,6 +795,7 @@ def main() -> int:
                       "steps": len(program.steps), "chains": len(policy.chains),
                       "wall_s": statistics.median(walls), "wall_runs_s": walls,
                       "fused_rung_wall_s": fused_walls[0], **prof},
+        "peps": peps_rec,
     }), flush=True)
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in kernels]}),
           flush=True)

@@ -121,7 +121,7 @@ def test_statevector_is_normalized_and_counters_stay_on_host():
     reset_routed()
     got, _ = _contract_both("random10", TorchBackend(device="cpu"), RefNumpyBackend())
     assert abs(float(np.vdot(got, got).real) - 1.0) <= 1e-5
-    assert LAUNCHES == {"fused_chain": 0, "fused_complex_dot": 0}
+    assert LAUNCHES == {"fused_chain": 0, "fused_complex_dot": 0, "fused_transpose_dot": 0}
 
 
 def test_fused_rung_counts_routed_steps(monkeypatch):

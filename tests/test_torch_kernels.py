@@ -185,7 +185,11 @@ def test_wrappers_run_plain_version_on_cpu(dtype):
     got_t = cc.fused_complex_dot(ops[0].T.contiguous().T, ops[1].T.contiguous().T,
                                  ops[2], ops[3])
     _close([_np(g) for g in got_t], [_np(w) for w in want], dtype)
-    assert cc.LAUNCHES == {"fused_chain": 0, "fused_complex_dot": 0}
+    # the transpose-dot wrapper on the same operands read as (K, F) views
+    a_lay, b_lay = cc.OperandLayout((7, 5), (0,), (1,)), cc.OperandLayout((7, 3), (0,), (1,))
+    got_tr = cc.fused_transpose_dot(*ops, a_lay, b_lay)
+    _close([_np(g) for g in got_tr], [_np(w) for w in want], dtype)
+    assert cc.LAUNCHES == {"fused_chain": 0, "fused_complex_dot": 0, "fused_transpose_dot": 0}
 
 
 def test_wrapper_validation():

@@ -203,8 +203,8 @@ def test_forcing_knobs(monkeypatch):
     monkeypatch.setenv("TNC_TPU_DOT_PRECISION", "auto")
     assert port_sc.dot_precision_forced() is ref_sc.dot_precision_forced() is None
     monkeypatch.setenv("TNC_TPU_COMPLEX_MULT", "fused_transpose")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_sc.complex_mult_forced()
+    assert port_sc.complex_mult_forced() == ref_sc.complex_mult_forced() == "fused_transpose"
+    assert port_sc.complex_mult_key() == ref_sc.complex_mult_key() == "fused_transpose"
     monkeypatch.delenv("TNC_TPU_COMPLEX_MULT")
     assert port_sc.complex_mult_env() == ref_sc.complex_mult_env() == "gauss"
     assert port_sc.complex_mult_key() == ref_sc.complex_mult_key() == "auto"

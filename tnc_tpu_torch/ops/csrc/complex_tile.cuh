@@ -1,5 +1,6 @@
-// One output tile of a split-complex product, shared by both hand kernels
-// (fused_complex_dot.cu and fused_chain.cu).
+// One output tile of a split-complex product, shared by the hand kernels
+// (fused_complex_dot.cu, fused_chain.cu; fused_transpose_dot.cu stages its
+// own tiles and shares the arithmetic below).
 //
 //   C = A^T B,  A: (K, M), B: (K, N), C: (M, N), every matrix a (re, im) pair
 //   re = ar^T br - ai^T bi,   im = ar^T bi + ai^T br
@@ -61,6 +62,85 @@ __host__ __device__ inline long long tile_count(long long M, long long N) {
   return ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
 }
 
+template <typename T>
+__device__ __forceinline__ void zero_tile(T (&x)[kTM][kTN]) {
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) x[i][j] = T(0);
+  }
+}
+
+// pr/pi += this thread's 4 x 4 micro-tile of one staged K step. The staged
+// tiles are (kBK x PM) and (kBK x PN) arrays (PM, PN >= 64: a kernel may pad
+// its rows); thread (tx, ty) owns rows ty + 16 i and columns tx + 16 j.
+template <typename T, int PM, int PN>
+__device__ __forceinline__ void fma_step(const T (&ar)[kBK][PM],
+                                         const T (&ai)[kBK][PM],
+                                         const T (&br)[kBK][PN],
+                                         const T (&bi)[kBK][PN], int tx,
+                                         int ty, T (&pr)[kTM][kTN],
+                                         T (&pi)[kTM][kTN]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    T xr[kTM], xi[kTM], yr[kTN], yi[kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      xr[i] = ar[kk][ty + 16 * i];
+      xi[i] = ai[kk][ty + 16 * i];
+    }
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      yr[j] = br[kk][tx + 16 * j];
+      yi[j] = bi[kk][tx + 16 * j];
+    }
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        pr[i][j] = fma(xr[i], yr[j], pr[i][j]);
+        pr[i][j] = fma(-xi[i], yi[j], pr[i][j]);
+        pi[i][j] = fma(xr[i], yi[j], pi[i][j]);
+        pi[i][j] = fma(xi[i], yr[j], pi[i][j]);
+      }
+    }
+  }
+}
+
+// acc += part: folds one K step's partial sums into the running totals.
+template <typename T>
+__device__ __forceinline__ void fold_tile(T (&acc)[kTM][kTN],
+                                          const T (&part)[kTM][kTN]) {
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] += part[i][j];
+  }
+}
+
+// Writes this thread's micro-tile of the output tile at (m0, n0) into the
+// row-major (M, N) pair, skipping out-of-range rows and columns.
+template <typename T>
+__device__ __forceinline__ void store_tile(const T (&accr)[kTM][kTN],
+                                           const T (&acci)[kTM][kTN],
+                                           long long m0, long long n0,
+                                           long long M, long long N, int tx,
+                                           int ty, T* cr, T* ci) {
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const long long m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const long long n = n0 + tx + 16 * j;
+      if (n < N) {
+        cr[m * N + n] = accr[i][j];
+        ci[m * N + n] = acci[i][j];
+      }
+    }
+  }
+}
+
 // Computes output tile `tile` (row-major over the tile grid) of C = A^T B.
 // Every thread of the block must call it with the same arguments.
 template <typename T>
@@ -76,26 +156,14 @@ __device__ void complex_tile(const Operand<T>& a, const Operand<T>& b,
 
   T accr[kTM][kTN];
   T acci[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      accr[i][j] = T(0);
-      acci[i][j] = T(0);
-    }
-  }
+  zero_tile(accr);
+  zero_tile(acci);
 
   for (long long k0 = 0; k0 < K; k0 += kBK) {
     T pr[kTM][kTN];  // this K step's partial sums
     T pi[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        pr[i][j] = T(0);
-        pi[i][j] = T(0);
-      }
-    }
+    zero_tile(pr);
+    zero_tile(pi);
     for (int idx = tid; idx < kBK * kBM; idx += kThreads) {
       const int kk = idx / kBM;
       const int mm = idx % kBM;
@@ -117,54 +185,12 @@ __device__ void complex_tile(const Operand<T>& a, const Operand<T>& b,
       s.bi[kk][nn] = ok ? __ldcg(b.im + off) : T(0);
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      T xr[kTM], xi[kTM], yr[kTN], yi[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        xr[i] = s.ar[kk][ty + 16 * i];
-        xi[i] = s.ai[kk][ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        yr[j] = s.br[kk][tx + 16 * j];
-        yi[j] = s.bi[kk][tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          pr[i][j] = fma(xr[i], yr[j], pr[i][j]);
-          pr[i][j] = fma(-xi[i], yi[j], pr[i][j]);
-          pi[i][j] = fma(xr[i], yi[j], pi[i][j]);
-          pi[i][j] = fma(xi[i], yr[j], pi[i][j]);
-        }
-      }
-    }
+    fma_step(s.ar, s.ai, s.br, s.bi, tx, ty, pr, pi);
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        accr[i][j] += pr[i][j];
-        acci[i][j] += pi[i][j];
-      }
-    }
+    fold_tile(accr, pr);
+    fold_tile(acci, pi);
   }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const long long n = n0 + tx + 16 * j;
-      if (n < N) {
-        cr[m * N + n] = accr[i][j];
-        ci[m * N + n] = acci[i][j];
-      }
-    }
-  }
+  store_tile(accr, acci, m0, n0, M, N, tx, ty, cr, ci);
 }
 
 }  // namespace tnc

@@ -2,20 +2,25 @@
 and plain PyTorch versions — the port's counterpart of
 ``tnc_tpu.ops.pallas_complex``.
 
-Two kernels, built from ``csrc/`` for Hopper (``sm_90a``) with ``nvcc`` at
-first use and loaded through ``ctypes``:
+Three kernels, built from ``csrc/`` for Hopper (``sm_90a``) with ``nvcc``
+at first use and loaded through ``ctypes``:
 
 - :func:`fused_complex_dot` (``csrc/fused_complex_dot.cu``) computes
   ``re = arᵀbr − aiᵀbi`` and ``im = arᵀbi + aiᵀbr`` for contract-first
   ``A: (K, M)``, ``B: (K, N)`` in one pass — the counterpart of
   ``fused_complex_dot_kl``;
+- :func:`fused_transpose_dot` (``csrc/fused_transpose_dot.cu``) computes
+  the same product with both operands read in their raw stored macro
+  views, the permutation (an :class:`OperandLayout`) applied while tiles
+  are fetched — the counterpart of ``fused_transpose_dot_kl``;
 - :func:`fused_chain` (``csrc/fused_chain.cu``) runs a whole chain of
   small consecutive steps (grouped by
   :func:`tnc_tpu_torch.ops.program.chain_groups`) as one cooperative launch
   — the counterpart of ``fused_chain_kl``.
 
 Beside each kernel is its plain version (:func:`fused_complex_dot_reference`,
-:func:`fused_chain_reference`). A wrapper given CPU tensors runs the plain
+:func:`fused_transpose_reference`, :func:`fused_chain_reference`). A
+wrapper given CPU tensors runs the plain
 version: that is the CPU implementation. Given CUDA tensors it launches the
 kernel or raises; nothing here falls back from the kernel to the plain
 version. :data:`LAUNCHES` counts the kernel launches per kernel (plain
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -45,12 +51,15 @@ MIN_FLOPS = 1 << 22  # below this a single step is launch-dominated
 CHAIN_MAX_ELEMS = 1 << 20
 
 #: kernel launches per kernel since the last :func:`reset_launches`
-LAUNCHES: dict[str, int] = {"fused_chain": 0, "fused_complex_dot": 0}
+LAUNCHES: dict[str, int] = {
+    "fused_chain": 0, "fused_complex_dot": 0, "fused_transpose_dot": 0,
+}
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 _SOURCES = {
     "fused_complex_dot": "fused_complex_dot.cu",
     "fused_chain": "fused_chain.cu",
+    "fused_transpose_dot": "fused_transpose_dot.cu",
 }
 _HEADERS = ("complex_tile.cuh",)
 NVCC_FLAGS = (
@@ -67,6 +76,9 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()
 _CHAIN_PLANS: dict[tuple, "_ChainPlan"] = {}
 _CHAIN_PLANS_MAX = 4096  # distinct chain shapes kept before the cache restarts
+# the transpose kernel's offset tables, by (digit sizes, strides, device)
+_OFFSET_TABLES: dict[tuple, object] = {}
+_OFFSET_TABLES_MAX = 256
 
 
 def reset_launches() -> None:
@@ -197,6 +209,12 @@ def _library(name: str) -> ctypes.CDLL:
                 fn.argtypes = [_P, _P, _LL, _LL, _P, _P, _LL, _LL, _P, _P,
                                _LL, _LL, _LL, _P]
                 fn.restype = _I
+        elif name == "fused_transpose_dot":
+            for fn in (lib.tnc_fused_transpose_dot_f32,
+                       lib.tnc_fused_transpose_dot_f64):
+                fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                               _LL, _LL, _LL, _P]
+                fn.restype = _I
         else:
             for fn in (lib.tnc_fused_chain_f32, lib.tnc_fused_chain_f64):
                 fn.argtypes = [_P, _P, _I, _P, _LL, _P, _P, _P]
@@ -223,8 +241,9 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check_parts(what: str, tensors) -> None:
-    """Device, dtype and rank checks shared by both wrappers."""
+def _check_parts(what: str, tensors, two_d: bool = True) -> None:
+    """Device and dtype checks shared by the wrappers (and, with
+    ``two_d``, that every operand is a matrix)."""
     import torch
 
     device, dtype = tensors[0].device, tensors[0].dtype
@@ -233,7 +252,7 @@ def _check_parts(what: str, tensors) -> None:
             raise ValueError(f"{what}: operands on different devices")
         if t.dtype != dtype:
             raise ValueError(f"{what}: operands of different dtypes")
-        if t.dim() != 2:
+        if two_d and t.dim() != 2:
             raise ValueError(f"{what}: operands must be 2-D, got {tuple(t.shape)}")
     if device.type == "cuda" and dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{what}: kernel takes float32 or float64, got {dtype}")
@@ -292,6 +311,279 @@ def fused_complex_dot(ar, ai, br, bi):
         )
     _check(lib, rc, "fused_complex_dot")
     LAUNCHES["fused_complex_dot"] += 1
+    return re, im
+
+
+# -- fused transpose-dot ----------------------------------------------------
+
+
+def _tile(dim: int, cap: int, floor: int) -> int | None:
+    """Largest tile ≤ ``cap`` that divides ``dim`` and is ≥ ``floor`` (the
+    reference's TPU tiling rule, kept for :func:`_plan_transpose_tiles`)."""
+    t = min(cap, dim)
+    while t >= floor:
+        if dim % t == 0:
+            return t
+        t //= 2
+    return None
+
+
+class OperandLayout:
+    """How the raw stored macro view of one dot operand maps onto the
+    logical contract-dim-leading ``(K, F)`` matrix the product reads (the
+    reference's ``OperandLayout``).
+
+    ``view``: the stored macro view shape (a step's ``a_view`` /
+    ``b_view``). ``k_axes`` / ``f_axes``: stored axis ids whose dims merge
+    into the flat contract (``K``) and free (``F``) index, each listed most
+    significant digit first — in *permuted* order, so decomposing a flat
+    index over them recovers the stored coordinates without materialising
+    the transpose.
+    """
+
+    __slots__ = ("view", "k_axes", "f_axes")
+
+    def __init__(self, view, k_axes, f_axes):
+        self.view = tuple(int(d) for d in view)
+        self.k_axes = tuple(int(a) for a in k_axes)
+        self.f_axes = tuple(int(a) for a in f_axes)
+
+    @property
+    def kd(self) -> int:
+        """Stored axis carrying the fastest-varying contract digit."""
+        return self.k_axes[-1]
+
+    @property
+    def fd(self) -> int:
+        """Stored axis carrying the fastest-varying free digit."""
+        return self.f_axes[-1]
+
+    @property
+    def k_size(self) -> int:
+        return int(math.prod(self.view[a] for a in self.k_axes))
+
+    @property
+    def f_size(self) -> int:
+        return int(math.prod(self.view[a] for a in self.f_axes))
+
+    def key(self) -> tuple:
+        return (self.view, self.k_axes, self.f_axes)
+
+
+def operand_layout(view, perm, dot_shape, cfirst) -> OperandLayout | None:
+    """The :class:`OperandLayout` of a step operand from its compiler
+    fields, or ``None`` when the flat contract dim is not an exact run of
+    permuted macro axes (``k = 1``, an empty free side, or a contract dim
+    straddling a fused run).
+
+    >>> lay = operand_layout((4, 8, 128), (1, 0, 2), (8, 4, 128), True)
+    >>> lay.k_axes, lay.f_axes          # k = axis 1 (dim 8), frees (4, 128)
+    ((1,), (0, 2))
+    >>> operand_layout((4, 8), None, (4, 8), True).k_axes
+    (0,)
+    >>> operand_layout((4, 8), None, (1, 32), True) is None   # k == 1
+    True
+    """
+    view = tuple(int(d) for d in view)
+    n = len(view)
+    order = tuple(perm) if perm is not None else tuple(range(n))
+    if sorted(order) != list(range(n)):
+        return None
+    k = int(dot_shape[0] if cfirst else dot_shape[-1])
+    if cfirst:
+        k_axes: list[int] = []
+        prod = 1
+        i = 0
+        while prod < k and i < n:
+            prod *= view[order[i]]
+            k_axes.append(order[i])
+            i += 1
+        if prod != k:
+            return None
+        f_axes = list(order[i:])
+    else:
+        rev: list[int] = []
+        prod = 1
+        i = n - 1
+        while prod < k and i >= 0:
+            prod *= view[order[i]]
+            rev.append(order[i])
+            i -= 1
+        if prod != k:
+            return None
+        k_axes = list(reversed(rev))
+        f_axes = list(order[: i + 1])
+    if not k_axes or not f_axes:
+        return None
+    return OperandLayout(view, k_axes, f_axes)
+
+
+def _plan_transpose_tiles(
+    a_lay: OperandLayout, b_lay: OperandLayout
+) -> tuple[int, int, int] | None:
+    """The reference's ``(tm, tn, tk)`` TPU tiles for one transpose-dot, or
+    ``None`` when its floors reject the layouts. The CUDA kernel picks its
+    own tiles and takes any shape; the port keeps this only so its gate
+    (``tile_floor``) routes the same steps as the reference's."""
+    tm = _tile(a_lay.view[a_lay.fd], 128, 8)
+    tn = _tile(b_lay.view[b_lay.fd], 128, 128)
+    tka = _tile(a_lay.view[a_lay.kd], 512, 8)
+    tkb = _tile(b_lay.view[b_lay.kd], 512, 8)
+    if tm is None or tn is None or tka is None or tkb is None:
+        return None
+    tk = math.gcd(tka, tkb)
+    if tk < 8:
+        return None
+    return tm, tn, tk
+
+
+def transpose_dot_ineligible_reason(
+    a_lay: OperandLayout | None,
+    b_lay: OperandLayout | None,
+    k: int,
+    m: int,
+    n: int,
+) -> str | None:
+    """Why :func:`fused_transpose_dot` should not take a step — ``None``
+    when it should. The reference's reasons and floors, so both packages
+    route the same steps (counted in ``split_complex.FUSED_TRANSPOSE_ROUTED``):
+
+    - ``layout``: a flat dim is not an exact run of permuted macro axes;
+    - ``flop_floor``: under :data:`MIN_FLOPS`;
+    - ``minor_axes``: an operand's fastest contract and free digits are
+      not its two stored minor axes (the kernel relies on one of them
+      being stride 1 to read coalesced);
+    - ``tile_floor``: the reference's TPU tiles do not fit.
+
+    >>> sq = operand_layout((128, 128), None, (128, 128), True)
+    >>> transpose_dot_ineligible_reason(sq, sq, 128, 128, 128) is None
+    True
+    >>> transpose_dot_ineligible_reason(sq, sq, 16, 16, 16)
+    'flop_floor'
+    """
+    if a_lay is None or b_lay is None:
+        return "layout"
+    if 2 * k * m * n < MIN_FLOPS:
+        return "flop_floor"
+    for lay in (a_lay, b_lay):
+        nax = len(lay.view)
+        if {lay.kd, lay.fd} != {nax - 2, nax - 1}:
+            return "minor_axes"
+    if _plan_transpose_tiles(a_lay, b_lay) is None:
+        return "tile_floor"
+    return None
+
+
+def _as_kf(t, lay: OperandLayout):
+    """A stored operand as its logical ``(K, F)`` matrix: view, permute to
+    ``k_axes + f_axes``, reshape."""
+    return t.reshape(lay.view).permute(lay.k_axes + lay.f_axes).reshape(
+        lay.k_size, lay.f_size
+    )
+
+
+def fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout):
+    """Plain version of :func:`fused_transpose_dot`: each operand viewed,
+    permuted and reshaped to ``(K, F)``, then the four products of
+    :func:`fused_complex_dot_reference`."""
+    return fused_complex_dot_reference(
+        _as_kf(ar, a_layout), _as_kf(ai, a_layout),
+        _as_kf(br, b_layout), _as_kf(bi, b_layout),
+    )
+
+
+def _digit_offsets(sizes, strides, device):
+    """Stored offset of every flat index over mixed-radix digits of the
+    given sizes (most significant first) and element strides: the table
+    one side (contract or free) of an operand is read through. Built once
+    per (sizes, strides, device) and kept in :data:`_OFFSET_TABLES`."""
+    import torch
+
+    key = (tuple(sizes), tuple(strides), device)
+    off = _OFFSET_TABLES.get(key)
+    if off is None:
+        idx = torch.arange(math.prod(sizes), device=device, dtype=torch.int64)
+        off = torch.zeros_like(idx)
+        for size, stride in zip(reversed(sizes), reversed(strides)):
+            off += (idx % size) * stride
+            idx = idx.div(size, rounding_mode="floor")
+        if len(_OFFSET_TABLES) >= _OFFSET_TABLES_MAX:
+            _OFFSET_TABLES.clear()
+        _OFFSET_TABLES[key] = off
+    return off
+
+
+def _gather_tables(t, lay: OperandLayout):
+    """``(off_k, off_f, k_unit)`` of one stored operand for the kernel:
+    the contract and free offset tables, and whether the contract index
+    has the smaller stride (the kernel walks it fastest)."""
+    strides = t.stride()
+
+    def table(axes):
+        return _digit_offsets(
+            [lay.view[a] for a in axes], [strides[a] for a in axes], t.device
+        )
+
+    return table(lay.k_axes), table(lay.f_axes), int(strides[lay.kd] < strides[lay.fd])
+
+
+def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
+    """``(re, im)`` of the complex product ``Aᵀ·B`` where ``A`` and ``B``
+    are the logical ``(K, M)`` / ``(K, N)`` matrices of two stored operands.
+
+    ``ar, ai``: the first operand's raw stored macro view
+    (``a_layout.view``-shaped, any strides, real and imaginary parts
+    alike), NOT pre-transposed; ``br, bi`` likewise for ``b_layout``.
+    Returns the flat ``(M, N)`` pair of the operands' dtype, rows iterating
+    the first operand's free digits and columns the second's — the prep +
+    dot path's order, so a step reshapes it to ``out_store`` unchanged.
+    CPU tensors run :func:`fused_transpose_reference`; CUDA tensors
+    (float32 or float64) launch the kernel on the current stream.
+    """
+    import torch
+
+    what = "fused_transpose_dot"
+    _check_parts(what, (ar, ai, br, bi), two_d=False)
+    _check_pair(what, ar, ai)
+    _check_pair(what, br, bi)
+    for t, lay in ((ar, a_layout), (br, b_layout)):
+        if tuple(t.shape) != lay.view:
+            raise ValueError(
+                f"{what}: operand of shape {tuple(t.shape)} for stored view {lay.view}"
+            )
+        # the kernel's offset tables address the storage only when the
+        # contract and free axes split the stored axes between them
+        if sorted(lay.k_axes + lay.f_axes) != list(range(len(lay.view))):
+            raise ValueError(
+                f"{what}: k_axes {lay.k_axes} and f_axes {lay.f_axes} do not "
+                f"partition the axes of view {lay.view}"
+            )
+    k = a_layout.k_size
+    if b_layout.k_size != k:
+        raise ValueError(
+            f"{what}: contract sizes differ ({k} vs {b_layout.k_size})"
+        )
+    if ar.device.type == "cpu":
+        return fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout)
+    m, n = a_layout.f_size, b_layout.f_size
+    a_k, a_f, a_unit = _gather_tables(ar, a_layout)
+    b_k, b_f, b_unit = _gather_tables(br, b_layout)
+    lib = _library("fused_transpose_dot")
+    fn = (
+        lib.tnc_fused_transpose_dot_f32
+        if ar.dtype == torch.float32
+        else lib.tnc_fused_transpose_dot_f64
+    )
+    re = torch.empty((m, n), dtype=ar.dtype, device=ar.device)
+    im = torch.empty((m, n), dtype=ar.dtype, device=ar.device)
+    with torch.cuda.device(ar.device):
+        rc = fn(
+            ar.data_ptr(), ai.data_ptr(), a_k.data_ptr(), a_f.data_ptr(), a_unit,
+            br.data_ptr(), bi.data_ptr(), b_k.data_ptr(), b_f.data_ptr(), b_unit,
+            re.data_ptr(), im.data_ptr(), k, m, n, _stream(ar.device),
+        )
+    _check(lib, rc, what)
+    LAUNCHES[what] += 1
     return re, im
 
 

@@ -14,10 +14,14 @@ four):
 A :class:`KernelPolicy` chooses per step between that lowering (``gauss``),
 the four-product one (``naive``), the single-step hand kernel
 (``fused`` — :func:`~tnc_tpu_torch.ops.cuda_complex.fused_complex_dot`),
-one Strassen level (``strassen``), and chains of small steps that run as
-one launch of :func:`~tnc_tpu_torch.ops.cuda_complex.fused_chain`. The
-policy is planned exactly as the reference plans it with no fitted cost
-model, so both packages make the same choice for every step.
+the hand kernel that reads both operands in their raw stored views and
+applies the macro permutation while fetching tiles (``fused_transpose``
+— :func:`~tnc_tpu_torch.ops.cuda_complex.fused_transpose_dot`), one
+Strassen level (``strassen``), and chains of small steps that run as one
+launch of :func:`~tnc_tpu_torch.ops.cuda_complex.fused_chain`. The policy
+is planned exactly as the reference plans it with no fitted cost model,
+so both packages make the same choice for every step; the two fused
+rungs run only when ``TNC_TPU_COMPLEX_MULT`` forces them.
 
 Products outside the hand kernels are ``torch.matmul`` in full FP32:
 :class:`~tnc_tpu_torch.ops.backends.TorchBackend` turns TF32 off.
@@ -43,6 +47,7 @@ logger = logging.getLogger(__name__)
 EFFECTIVE_FLOP_FACTOR = {
     "naive": 1.0,
     "fused": 1.0,  # naive arithmetic in one kernel
+    "fused_transpose": 1.0,  # naive arithmetic, no transposed copy
     "gauss": 0.75,
     "strassen": 21.0 / 32.0,  # gauss × one Strassen level
 }
@@ -58,17 +63,24 @@ DOT_PRECISION_MODES = ("highest", "high")
 #: a kernel that fails to build or launch raises instead.
 FUSED_ROUTED: dict[str, int] = {}
 
+#: steps routed away from the fused transpose-dot kernel, per reason — the
+#: port of the reference's ``ops.fused_transpose_fallback{reason}``
+#: counter; a routed step runs the prep + naive dots.
+FUSED_TRANSPOSE_ROUTED: dict[str, int] = {}
+
 
 def reset_routed() -> None:
-    """Clear :data:`FUSED_ROUTED`."""
+    """Clear :data:`FUSED_ROUTED` and :data:`FUSED_TRANSPOSE_ROUTED`."""
     FUSED_ROUTED.clear()
+    FUSED_TRANSPOSE_ROUTED.clear()
 
 
 def complex_mult_env() -> str:
     """The per-step complex-multiply base mode, ``gauss`` unless
     ``TNC_TPU_COMPLEX_MULT`` forces one (read as the reference reads it).
-    The forcing values are ``naive``, ``gauss``, ``fused``, ``strassen``,
-    ``chain`` and ``auto`` (the unforced promotion ladder)."""
+    The forcing values are ``naive``, ``gauss``, ``fused``,
+    ``fused_transpose``, ``strassen``, ``chain`` and ``auto`` (the unforced
+    promotion ladder)."""
     return os.environ.get("TNC_TPU_COMPLEX_MULT", "gauss")
 
 
@@ -79,11 +91,6 @@ def complex_mult_forced() -> str | None:
     mode = os.environ.get("TNC_TPU_COMPLEX_MULT")
     if mode is None or mode == "auto":
         return None
-    if mode == "fused_transpose":
-        raise NotImplementedError(
-            "TNC_TPU_COMPLEX_MULT=fused_transpose: the fused transpose-dot "
-            "kernel is not ported to the GPU yet"
-        )
     return mode
 
 
@@ -114,12 +121,19 @@ def dot_precision_key() -> str:
 
 def resolved_step_mode(step, mode: str | None = None) -> str:
     """The arithmetic :func:`apply_step_split` runs for a requested mode
-    (``strassen`` below the crossover → gauss; ``chain`` / ``auto``
-    outside a policy → gauss; unknown → gauss)."""
+    (``strassen`` below the crossover → gauss; ``fused_transpose`` on a
+    step its gate rejects → naive; ``chain`` / ``auto`` outside a policy →
+    gauss; unknown → gauss)."""
     if mode is None:
         mode = complex_mult_env()
     if mode == "strassen":
         return "strassen" if _strassen_step_eligible(step) else "gauss"
+    if mode == "fused_transpose":
+        return (
+            "fused_transpose"
+            if fused_transpose_ineligible_reason(step) is None
+            else "naive"
+        )
     if mode in ("naive", "fused"):
         return mode
     return "gauss"
@@ -206,6 +220,13 @@ def apply_step_split(
     rung runs full FP32 here."""
     if mode is None:
         mode = complex_mult_env()
+    if mode == "fused_transpose":
+        # the kernel reads the RAW stored pairs, so it runs before any
+        # operand is prepped (the transposed copy is what it avoids)
+        out = _try_fused_transpose_step(apair, bpair, step)
+        if out is not None:
+            return out
+        mode = "naive"  # routed: the prep + naive dots below
     if mode == "strassen" and not _strassen_step_eligible(step):
         mode = "gauss"  # forced-strassen steps below the crossover
     ar, ai, br, bi = _step_operands(apair, bpair, step)
@@ -287,6 +308,89 @@ def _try_fused_step(ar, ai, br, bi, step):
     return re.reshape(step.out_store), im.reshape(step.out_store)
 
 
+# -- fused transpose-dot step glue ------------------------------------------
+
+
+def _fused_transpose_layouts(step):
+    """``(first, second)`` :class:`~tnc_tpu_torch.ops.cuda_complex.
+    OperandLayout` pair of one step with ``swap`` folded out (the first
+    operand supplies the output rows); ``None`` on a side whose layout
+    cannot be described."""
+    from tnc_tpu_torch.ops.cuda_complex import operand_layout
+
+    a = operand_layout(step.a_view, step.a_perm, step.a_dot, step.a_cfirst)
+    b = operand_layout(step.b_view, step.b_perm, step.b_dot, step.b_cfirst)
+    return (b, a) if step.swap else (a, b)
+
+
+def fused_transpose_ineligible_reason(step) -> str | None:
+    """Why the fused transpose-dot should not take one step — ``None``
+    when it should (the static half of the gate, as in the reference).
+    ``staged_prep`` rejects operands that carry a staged op plan: the
+    reference keeps them off the kernel, and so does the port (whose
+    executors ignore the staged plans)."""
+    from tnc_tpu_torch.ops.cuda_complex import transpose_dot_ineligible_reason
+    from tnc_tpu_torch.ops.program import step_dims
+
+    if step.a_ops is not None or step.b_ops is not None:
+        return "staged_prep"
+    m, k, n = step_dims(step)
+    first, second = _fused_transpose_layouts(step)
+    return transpose_dot_ineligible_reason(first, second, k, m, n)
+
+
+def fused_transpose_step_eligible(step) -> bool:
+    """Does the static gate admit this step to the fused transpose-dot?"""
+    return fused_transpose_ineligible_reason(step) is None
+
+
+def fused_transpose_runtime_ineligible_reason(apair, bpair, step) -> str | None:
+    """The half of the gate that needs live buffers: parts that are not
+    float32 (``dtype``) and buffers carrying an extra leading batch axis
+    (``batch``)."""
+    import torch
+
+    ar, br = apair[0], bpair[0]
+    if ar.dtype != torch.float32 or br.dtype != torch.float32:
+        return "dtype"
+    if ar.numel() != math.prod(step.a_view) or br.numel() != math.prod(step.b_view):
+        return "batch"
+    return None
+
+
+def _note_fused_transpose_routed(reason: str, k: int, m: int, n: int) -> None:
+    """Count one step the transpose-dot's gate sent to prep + naive dots."""
+    FUSED_TRANSPOSE_ROUTED[reason] = FUSED_TRANSPOSE_ROUTED.get(reason, 0) + 1
+    logger.debug(
+        "fused transpose-dot kernel: step (K=%d, M=%d, N=%d) runs prep + "
+        "naive dots: %s", k, m, n, reason,
+    )
+
+
+def _try_fused_transpose_step(apair, bpair, step):
+    """Route one step through :func:`~tnc_tpu_torch.ops.cuda_complex.
+    fused_transpose_dot` on its RAW stored (real, imag) pairs when the gate
+    admits it; ``None`` means 'run the prep + naive dots'. Every routed
+    step is counted in :data:`FUSED_TRANSPOSE_ROUTED` with its reason. A
+    kernel error propagates."""
+    from tnc_tpu_torch.ops.cuda_complex import fused_transpose_dot
+    from tnc_tpu_torch.ops.program import step_dims
+
+    reason = fused_transpose_ineligible_reason(
+        step
+    ) or fused_transpose_runtime_ineligible_reason(apair, bpair, step)
+    if reason is not None:
+        m, k, n = step_dims(step)
+        _note_fused_transpose_routed(reason, k, m, n)
+        return None
+    first_lay, second_lay = _fused_transpose_layouts(step)
+    a = tuple(p.reshape(step.a_view) for p in apair)
+    b = tuple(p.reshape(step.b_view) for p in bpair)
+    first, second = (b, a) if step.swap else (a, b)
+    re, im = fused_transpose_dot(*first, *second, first_lay, second_lay)
+    return re.reshape(step.out_store), im.reshape(step.out_store)
+
+
 # -- kernel promotion ladder --------------------------------------------
 
 
@@ -295,7 +399,7 @@ class KernelPolicy:
     """Per-step kernel choice for one program.
 
     ``modes[i]`` is the lowering of step ``i`` (``naive`` / ``gauss`` /
-    ``fused`` / ``strassen``); ``chains`` are ``(start, end)`` step spans
+    ``fused`` / ``fused_transpose`` / ``strassen``); ``chains`` are ``(start, end)`` step spans
     that execute as ONE fused multi-step launch
     (:func:`tnc_tpu_torch.ops.cuda_complex.fused_chain`). Chained steps
     carry mode ``naive`` — the chain kernel's arithmetic.
@@ -356,8 +460,9 @@ def plan_kernel_steps(
     has no calibration layer; ``cost_model`` must be ``None``).
 
     ``force`` (default: the ``TNC_TPU_COMPLEX_MULT`` override) pins the
-    decision: ``naive``/``gauss``/``fused`` uniformly (``fused`` routes
-    steps its gate rejects to naive dots, counted); ``strassen`` promotes
+    decision: ``naive``/``gauss``/``fused``/``fused_transpose`` uniformly
+    (the fused rungs route steps their gates reject to naive dots,
+    counted); ``strassen`` promotes
     every step over the crossover (others run gauss); ``chain`` fuses
     every groupable run (others run gauss). Unforced:
 
@@ -377,7 +482,7 @@ def plan_kernel_steps(
     if force is None:
         force = complex_mult_forced()
     pmodes = plan_precision_modes(steps, precision_force)
-    if force in ("naive", "gauss", "fused"):
+    if force in ("naive", "gauss", "fused", "fused_transpose"):
         return KernelPolicy((force,) * n, (), pmodes)
     if force == "strassen":
         modes = tuple(
