@@ -9,15 +9,19 @@ It needs one CUDA device and ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``).
 Phases, each of which raises on failure (nothing is caught):
 
 1. the card's name and power limit; build the three hand kernels from
-   ``tnc_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel);
+   ``tnc_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel) and
+   print each kernel's registers and spills from ``ptxas -v``;
 2. plan the main path's configuration — a 28-qubit, depth-12 random
    circuit on the Sycamore layout (p1 = p2 = 0.4, seed 42), contracted to
    its open statevector with the ``Greedy`` path — and hold each kernel
    against its plain PyTorch version on the card at the program's own
-   shapes: every chain group through ``fused_chain``, medium and stem
-   steps (and a ragged shape) through ``fused_complex_dot``, with one
-   float64 case each; time kernel, plain version and library call (device
-   and wall time per call, from CUDA events) beside the bound;
+   shapes: every chain group through ``fused_chain``; every distinct
+   shape the forced ``fused`` rung launches (and a ragged shape) through
+   ``fused_complex_dot``, the stem's result also against a float64
+   product beside cuBLAS's; one float64 case each; time kernel, plain
+   version and library call (device and wall time per call, from CUDA
+   events) beside the bound, ``fused_complex_dot``'s record weighted by
+   the rung's launches;
 3. the main path: ``contract_tensor_network(tn, path, TorchBackend())``
    once to warm up and three times timed, launch counts reset just before
    each timed run and read just after it;
@@ -32,15 +36,18 @@ Phases, each of which raises on failure (nothing is caught):
 7. the PEPS cell — the norm of ``peps(4, 4, 2, 32, 0)`` with seeded
    random leaves at the O(1) scale 2^-4.5, ``Greedy`` path: first
    ``fused_transpose_dot`` against its plain version at each distinct
-   shape of the steps its gate admits (float64 once), timed beside the
-   bound, the plain version and ``torch.einsum``; then the norm under the
+   shape of the steps its gate admits (float64 once; the heaviest, steps
+   18/19, also against a float64 product beside cuBLAS's), timed beside
+   the bound, the plain version and ``torch.einsum`` and weighted by the
+   steps that have each shape; then the norm under the
    default policy (one warm-up, three timed runs, the device-resident part
    and a profile), under the forced ``fused_transpose`` rung (its launches
    and routed steps must equal the plan's gate), both against the norm in
    complex128 on the card; and ``peps(3, 3, 2, 16, 0)`` on the forced
    rung against the complex128 numpy oracle;
-8. one JSON line of path numbers, one of per-kernel numbers, the card
-   line, and the last line ``{"ok": true, "device": {...}}``.
+8. one JSON line of path numbers (with each kernel's per-shape rows and
+   float64 errors), one of per-kernel numbers, the card line, and the
+   last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result when CUDA is unavailable or the
 ``tnc_tpu_torch`` package is not beside it.
@@ -52,6 +59,7 @@ import collections
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -73,8 +81,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # CUDA-core FMA rates
 # real flops per complex multiply-add in a bound: the Gauss identity needs
 # three real products (6 flops), the least any lowering of the product
-# needs; the hand kernels do four (8 flops), so their share of the bound
-# is at most 6/8
+# needs, and what the single-product hand kernels do
 COMPLEX_MAC_FLOPS = 6.0
 
 F32_REL_TOL = 1e-5
@@ -133,6 +140,38 @@ def time_ms(fn, reps: int = 20, warmup: int = 2) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, wall
+
+
+def kernel_instances(log: str) -> list[tuple[str, int, int]]:
+    """``(label, registers, spill store bytes)`` of every kernel in a
+    ``ptxas -v`` log, labelled by its template arguments: element type,
+    the tile variant's integers (``Variant<T, GM, TM, TN, BK, stages, fold,
+    unroll>``), and for the transpose kernel the offset type and
+    pipeline."""
+    out = []
+    name, spill = "", 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            t = re.search(r"VariantI([fd])((?:Li\d+E)+)", name)
+            label = name[:40]
+            if t:
+                ints = ",".join(re.findall(r"Li(\d+)E", t.group(2)))
+                label = f"{'float' if t.group(1) == 'f' else 'double'}<{ints}>"
+                tail = re.match(r"EE([ix])Lb([01])E", name[t.end():])
+                if tail:
+                    label += " int32" if tail.group(1) == "i" else " int64"
+                    label += " staged" if tail.group(2) == "1" else " direct"
+            out.append((label, int(m.group(1)), spill))
+            name = ""
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -252,40 +291,64 @@ def check_chains(program, policy, gen) -> dict:
     }
 
 
+def fused_rung_shapes(program) -> collections.Counter:
+    """``(K, M, N)`` of every ``fused_complex_dot`` launch the forced
+    ``fused`` rung makes on ``program``, counted: the steps whose gate
+    admits them (both operands contract-first, over the flop floor), in
+    the kernel's operand order (``split_complex._try_fused_step``)."""
+    from tnc_tpu_torch.ops.cuda_complex import eligible
+    from tnc_tpu_torch.ops.program import step_dims
+
+    shapes: collections.Counter = collections.Counter()
+    for st in program.steps:
+        m, k, n = step_dims(st)
+        if st.swap:
+            m, n = n, m
+        if st.a_cfirst and st.b_cfirst and eligible(k, m, n):
+            shapes[(k, m, n)] += 1
+    return shapes
+
+
+def against_float64(what, got, want, exact, scale) -> tuple[float, float]:
+    """The kernel's and cuBLAS's (the plain version's) largest error
+    against a float64 product, over max|C|; fails when the kernel's is
+    more than twice cuBLAS's."""
+    k_err = max_err([g.double() for g in got], exact)[0] / scale
+    p_err = max_err([w.double() for w in want], exact)[0] / scale
+    print(f"  {what} against float64: kernel {k_err:.3e}, plain (cuBLAS) "
+          f"{p_err:.3e} of max|C|", flush=True)
+    check(k_err <= 2 * p_err, f"{what}: error {k_err} against float64 is over "
+          f"twice cuBLAS's {p_err}")
+    return k_err, p_err
+
+
 def check_dot(program, gen) -> dict:
-    """Medium and stem steps of the program (the forced ``fused`` rung's
-    shapes), a ragged shape and a float64 case through
-    ``fused_complex_dot`` against its plain version; returns the kernel's
-    record (times averaged over the program's shapes)."""
+    """Every distinct ``(K, M, N)`` the forced ``fused`` rung launches
+    ``fused_complex_dot`` at, a ragged shape and a float64 case, against
+    the plain version; returns the kernel's record, each time a mean over
+    the rung's launches (each shape weighted by its launches; ``expect``:
+    their count) and the per-shape rows (``shapes``)."""
     import torch
 
     from tnc_tpu_torch.ops.cuda_complex import (
-        eligible,
         fused_complex_dot,
         fused_complex_dot_reference,
     )
-    from tnc_tpu_torch.ops.program import step_dims, step_flops
-    from tnc_tpu_torch.ops.split_complex import step_bucket
 
-    fusable = [
-        st for st in program.steps
-        if st.a_cfirst and st.b_cfirst and step_bucket(st) != "small"
-        and eligible(step_dims(st)[1], step_dims(st)[0], step_dims(st)[2])
-    ]
-    fusable.sort(key=step_flops)
-    # the stem step, the heaviest medium step, and a mid-sized medium one
-    picks = [fusable[-1], fusable[-2], fusable[len(fusable) // 2]]
-    shapes = [(step_dims(st)[1], step_dims(st)[0], step_dims(st)[2], "step")
-              for st in picks]
-    k, m, n, _ = shapes[-1]
-    shapes.append((k + 3, m + 17, n + 29, "ragged"))
+    counts = fused_rung_shapes(program)
+    # heaviest first, so the stem's float64 product fits beside nothing else
+    shapes = [(k, m, n, counts[(k, m, n)])
+              for k, m, n in sorted(counts, key=lambda s: -math.prod(s))]
+    k, m, n, _ = shapes[len(shapes) // 2]
+    shapes.append((k + 3, m + 17, n + 29, 0))  # ragged: not a launch of the rung
 
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
 
     rows = []
     worst = 0.0
-    for k, m, n, kind in shapes:
+    f64 = None
+    for k, m, n, launches in shapes:
         ar, ai, br, bi = rnd(k, m), rnd(k, m), rnd(k, n), rnd(k, n)
         got = fused_complex_dot(ar, ai, br, bi)
         torch.cuda.synchronize()
@@ -294,16 +357,14 @@ def check_dot(program, gen) -> dict:
         check(err <= F32_REL_TOL * scale,
               f"fused_complex_dot {(k, m, n)}: max|err| {err} > {F32_REL_TOL} * {scale}")
         worst = max(worst, err)
-        if (k, m, n) == shapes[0][:3]:
+        if f64 is None:
             # the longest K: both float32 results against a float64 product
             exact = fused_complex_dot_reference(*(t.double() for t in (ar, ai, br, bi)))
-            k_err = max_err([g.double() for g in got], exact)[0] / scale
-            p_err = max_err([w.double() for w in want], exact)[0] / scale
+            f64 = against_float64(f"fused_complex_dot K={k} M={m} N={n}", got, want,
+                                  exact, scale)
             del exact
-            print(f"  fused_complex_dot K={k} M={m} N={n} against float64: kernel "
-                  f"{k_err:.3e}, plain (cuBLAS) {p_err:.3e} of max|C|", flush=True)
         del got, want
-        reps = 10 if 8.0 * k * m * n > 1e12 else 20
+        reps = 3 if 8.0 * k * m * n > 1e13 else 10 if 8.0 * k * m * n > 1e11 else 20
         ms, wall = time_ms(lambda: fused_complex_dot(ar, ai, br, bi), reps, 1)
         plain, _ = time_ms(lambda: fused_complex_dot_reference(ar, ai, br, bi), reps, 1)
         a_c, b_c = torch.complex(ar, ai), torch.complex(br, bi)
@@ -311,17 +372,20 @@ def check_dot(program, gen) -> dict:
         del a_c, b_c
         nbytes = 4.0 * 2 * (k * m + k * n + m * n)
         b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * k * m * n, "float32")
-        if kind == "step":
-            rows.append((ms, plain, b_ms, b_by, lib))
+        if launches:
+            rows.append({"k": k, "m": m, "n": n, "launches": launches, "ms": ms,
+                         "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                         "bound_by": b_by})
+        kind = f"x{launches}" if launches else "ragged"
         print(f"  fused_complex_dot {kind} K={k} M={m} N={n}: err {err:.3e} "
               f"(scale {scale:.3e}) device: kernel {ms:.4f} ms plain {plain:.4f} ms "
               f"complex64 matmul {lib:.4f} ms; kernel wall per call {wall:.4f} ms; "
               f"bound {b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops per complex "
-              f"multiply-add)", flush=True)
+              f"multiply-add); kernel/plain {ms / plain:.3f}", flush=True)
         del ar, ai, br, bi
         torch.cuda.empty_cache()
-    # one float64 case at a mid-sized step's shape
-    k, m, n, _ = shapes[2]
+    # one float64 case at the middle shape
+    k, m, n, _ = shapes[len(shapes) // 2]
     ops = [rnd(k, m, dtype=torch.float64), rnd(k, m, dtype=torch.float64),
            rnd(k, n, dtype=torch.float64), rnd(k, n, dtype=torch.float64)]
     err, scale = max_err(fused_complex_dot(*ops), fused_complex_dot_reference(*ops))
@@ -329,14 +393,24 @@ def check_dot(program, gen) -> dict:
           f"fused_complex_dot float64 {(k, m, n)}: max|err| {err} > {F64_REL_TOL} * {scale}")
     print(f"  fused_complex_dot float64 K={k} M={m} N={n}: err {err:.3e} "
           f"(scale {scale:.3e})", flush=True)
-    n_rows = len(rows)
+    return {"max_abs_err": worst, **launch_weighted(rows), "expect": sum(counts.values()),
+            "float64_errors": f64, "shapes": rows}
+
+
+def launch_weighted(rows) -> dict:
+    """Times of per-shape rows as means over launches (each row weighted by
+    its ``launches``); ``bound_by`` is the term that decides most of the
+    launch-summed bound."""
+    n = sum(r["launches"] for r in rows)
+
+    def mean(key):
+        return sum(r["launches"] * r[key] for r in rows) / n
+
+    by_bytes = sum(r["launches"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     return {
-        "max_abs_err": worst,
-        "ms": sum(r[0] for r in rows) / n_rows,
-        "plain_ms": sum(r[1] for r in rows) / n_rows,
-        "bound_ms": sum(r[2] for r in rows) / n_rows,
-        "bound_by": "bytes" if sum(r[3] == "bytes" for r in rows) * 2 > n_rows else "operations",
-        "library_ms": sum(r[4] for r in rows) / n_rows,
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+        "bound_by": "bytes" if 2 * by_bytes > n * mean("bound_ms") else "operations",
+        "library_ms": mean("library_ms"),
     }
 
 
@@ -489,12 +563,14 @@ def check_transpose(program, gen) -> dict:
     ``fused_transpose_dot`` against ``fused_transpose_reference`` on the
     card, timed beside the bound, the plain version and ``torch.einsum``;
     returns the kernel's record, each time a mean over the plan's launches
-    (each shape weighted by the steps that have it)."""
+    (each shape weighted by the steps that have it), and the per-shape rows
+    (``shapes``)."""
     import torch
 
     from tnc_tpu_torch.ops.cuda_complex import (
         fused_transpose_dot,
         fused_transpose_reference,
+        gather_copy_mode,
     )
 
     def rnd(shape, dtype=torch.float32):
@@ -502,7 +578,9 @@ def check_transpose(program, gen) -> dict:
 
     rows = []
     worst = 0.0
-    cases = transpose_cases(program)
+    cases = sorted(transpose_cases(program),
+                   key=lambda c: -c[0].k_size * c[0].f_size * c[1].f_size)
+    f64 = None
     for first, second, steps in cases:
         k, m, n = first.k_size, first.f_size, second.f_size
         ops = (rnd(first.view), rnd(first.view), rnd(second.view), rnd(second.view))
@@ -514,6 +592,12 @@ def check_transpose(program, gen) -> dict:
               f"fused_transpose_dot {first.key()} x {second.key()}: max|err| "
               f"{err} > {F32_REL_TOL} * {scale}")
         worst = max(worst, err)
+        if f64 is None:
+            # the heaviest (longest K) case against a float64 product
+            exact = fused_transpose_reference(*(t.double() for t in ops), first, second)
+            f64 = against_float64(f"fused_transpose_dot K={k} M={m} N={n}", got, want,
+                                  exact, scale)
+            del exact
         del got
         a_c, b_c = torch.complex(ops[0], ops[1]), torch.complex(ops[2], ops[3])
         spec = einsum_spec(first, second)
@@ -529,17 +613,20 @@ def check_transpose(program, gen) -> dict:
         del a_c, b_c
         nbytes = 4.0 * 2 * (ops[0].numel() + ops[2].numel() + m * n)
         b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * k * m * n, "float32")
-        rows.append((len(steps), ms, plain, b_ms, b_by, lib))
+        modes = (gather_copy_mode(ops[0], ops[1], first), gather_copy_mode(ops[2], ops[3], second))
+        rows.append({"k": k, "m": m, "n": n, "launches": len(steps), "steps": steps,
+                     "modes": modes, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": b_ms, "bound_by": b_by})
         print(f"  fused_transpose_dot steps {steps} {first.view} k{first.k_axes} x "
-              f"{second.view} k{second.k_axes} (K={k} M={m} N={n}): err {err:.3e} "
-              f"(scale {scale:.3e}) device: kernel {ms:.4f} ms plain {plain:.4f} ms "
-              f"einsum {lib:.4f} ms; kernel wall per call {wall:.4f} ms; bound "
-              f"{b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops per complex "
-              f"multiply-add)", flush=True)
+              f"{second.view} k{second.k_axes} (K={k} M={m} N={n}, copy modes "
+              f"{modes}): err {err:.3e} (scale {scale:.3e}) device: kernel {ms:.4f} "
+              f"ms plain {plain:.4f} ms einsum {lib:.4f} ms; kernel wall per call "
+              f"{wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops "
+              f"per complex multiply-add); kernel/plain {ms / plain:.3f}", flush=True)
         del ops
         torch.cuda.empty_cache()
     # one float64 case at the smallest admitted shape
-    first, second, _ = min(cases, key=lambda c: c[0].k_size * c[0].f_size * c[1].f_size)
+    first, second, _ = cases[-1]
     ops = [rnd(first.view, torch.float64), rnd(first.view, torch.float64),
            rnd(second.view, torch.float64), rnd(second.view, torch.float64)]
     err, scale = max_err(fused_transpose_dot(*ops, first, second),
@@ -548,21 +635,8 @@ def check_transpose(program, gen) -> dict:
           f"fused_transpose_dot float64 {first.key()}: max|err| {err} > {F64_REL_TOL} * {scale}")
     print(f"  fused_transpose_dot float64 {first.view} x {second.view}: err {err:.3e} "
           f"(scale {scale:.3e})", flush=True)
-    n_launch = sum(r[0] for r in rows)
-
-    def mean(j):
-        return sum(r[0] * r[j] for r in rows) / n_launch
-
-    return {
-        "max_abs_err": worst,
-        "ms": mean(1),
-        "plain_ms": mean(2),
-        "bound_ms": mean(3),
-        # the term that decides most of the launch-summed bound
-        "bound_by": "bytes" if sum(r[0] * r[3] for r in rows if r[4] == "bytes") * 2
-        > sum(r[0] * r[3] for r in rows) else "operations",
-        "library_ms": mean(5),
-    }
+    return {"max_abs_err": worst, **launch_weighted(rows), "float64_errors": f64,
+            "shapes": rows}
 
 
 def run_peps(backend) -> dict:
@@ -681,9 +755,9 @@ def main() -> int:
     print(f"[build] {len(cuda_complex.BUILD_LOG)} kernels in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in cuda_complex.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for label, regs, spill in kernel_instances(log):
+            print(f"  {name} {label}: {regs} registers, {spill} bytes spill stores",
+                  flush=True)
 
     backend = TorchBackend()  # turns TF32 off
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul left on")
@@ -753,6 +827,9 @@ def main() -> int:
     fused_leaf, fused_walls, launches = fused["out"], fused["walls"], fused["launches"]
     del fused
     check(launches["fused_complex_dot"] > 0, "fused rung launched no fused_complex_dot")
+    check(launches["fused_complex_dot"] == dot_rec["expect"],
+          f"fused rung launched fused_complex_dot {launches['fused_complex_dot']} times; "
+          f"its timed shapes weigh {dot_rec['expect']} launches")
     dot_rec["launches"] = launches["fused_complex_dot"]
     fused_sv = np.asarray(fused_leaf.data.into_data())
     scale = float(np.max(np.abs(sv)))
@@ -796,6 +873,10 @@ def main() -> int:
                       "wall_s": statistics.median(walls), "wall_runs_s": walls,
                       "fused_rung_wall_s": fused_walls[0], **prof},
         "peps": peps_rec,
+        "shapes": {"fused_complex_dot": dot_rec["shapes"],
+                   "fused_transpose_dot": transpose_rec["shapes"]},
+        "float64_errors": {"fused_complex_dot": dot_rec["float64_errors"],
+                           "fused_transpose_dot": transpose_rec["float64_errors"]},
     }), flush=True)
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in kernels]}),
           flush=True)

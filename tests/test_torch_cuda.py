@@ -90,6 +90,110 @@ def test_transpose_kernel_on_a_peps_layout(dtype, layouts):
     assert cc.LAUNCHES["fused_transpose_dot"] == 2
 
 
+def _operand(rows, cols, dtype, g, offset=0):
+    """A (rows, cols) matrix whose storage starts ``offset`` elements into
+    its buffer."""
+    buf = torch.randn(rows * cols + offset, generator=g, device="cuda", dtype=dtype)
+    return buf[offset:].view(rows, cols)
+
+
+# (K, M, N, storage offset of every operand): the engine's edges
+ENGINE_EDGES = {
+    "offset1": (96, 200, 300, 1),   # misaligned: no 16-byte copies
+    "short_k": (5, 200, 300, 0),    # K under one stage
+    "ragged_k": (100, 130, 70, 0),  # K not a multiple of any stage depth
+    "small_mn": (64, 3, 17, 0),     # M and N under every tile
+    "wide": (1100, 1024, 4096, 0),  # 128 x 64 tiles
+    "deep_k": (700, 130, 70, 0),    # 6 tiles of 64 x 64, 44 stages, ragged K
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ENGINE_EDGES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_engine_edges_on_the_card(dtype, case):
+    """``fused_complex_dot`` at the shapes and alignments the pipelined
+    engine treats specially, against its plain version."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    k, m, n, offset = ENGINE_EDGES[case]
+    ops = (_operand(k, m, dtype, g, offset), _operand(k, m, dtype, g, offset),
+           _operand(k, n, dtype, g, offset), _operand(k, n, dtype, g, offset))
+    if offset:
+        assert cc.strided_copy_mode(ops[0], ops[1]) != cc.COPY_VEC
+    cc.reset_launches()
+    got = cc.fused_complex_dot(*ops)
+    torch.cuda.synchronize()
+    assert got[0].shape == (m, n)
+    assert _max_rel_err(got, cc.fused_complex_dot_reference(*ops)) <= tol
+    assert cc.LAUNCHES["fused_complex_dot"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_long_contraction_against_float64(dtype):
+    """The stem's contract length (K = 16384) at a narrow output: in
+    float32 the kernel's error against a float64 product is at most twice
+    cuBLAS's (chip_smoke.py holds the stem's full width to the same)."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    k, m, n = 16384, 96, 200
+    ops = [torch.randn(k, f, generator=g, device="cuda", dtype=dtype)
+           for f in (m, m, n, n)]
+    got = cc.fused_complex_dot(*ops)
+    want = cc.fused_complex_dot_reference(*ops)
+    if dtype == torch.float64:
+        assert _max_rel_err(got, want) <= 1e-12
+        return
+    exact = cc.fused_complex_dot_reference(*(t.double() for t in ops))
+    k_err = _max_rel_err([t.double() for t in got], exact)
+    p_err = _max_rel_err([t.double() for t in want], exact)
+    assert _max_rel_err(got, want) <= 1e-5
+    assert k_err <= 2 * p_err
+
+
+# (first, second): the contract index stride 1 on both (the staged
+# pipeline, 16-byte copies), on one, on neither (16-byte copies along the
+# free index), and a digit of 6 that allows only element copies in float32
+TRANSPOSE_UNITS = {
+    "k_unit_both": (((2, 16, 48, 32), (1, 3), (0, 2)), ((2, 16, 40, 32), (1, 3), (0, 2))),
+    "k_unit_second": (((2, 32, 8, 24), (1, 2), (0, 3)), ((40, 32, 8), (1, 2), (0,))),
+    "k_unit_none": (((2, 32, 36), (1,), (0, 2)), ((2, 32, 72), (1,), (0, 2))),
+    "k_digit_6": (((36, 6), (1,), (0,)), ((70, 6), (1,), (0,))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TRANSPOSE_UNITS))
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_transpose_kernel_copy_modes(dtype, offset, case):
+    """``fused_transpose_dot`` through each copy mode and both pipelines
+    (``offset`` 1 leaves the 16-byte copies), against its plain version."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    a_lay, b_lay = (cc.OperandLayout(*lay) for lay in TRANSPOSE_UNITS[case])
+
+    def rnd(lay):
+        n = lay.k_size * lay.f_size
+        buf = torch.randn(n + offset, generator=g, device="cuda", dtype=dtype)
+        return buf[offset:].view(lay.view)
+
+    ops = (rnd(a_lay), rnd(a_lay), rnd(b_lay), rnd(b_lay))
+    modes = (cc.gather_copy_mode(ops[0], ops[1], a_lay),
+             cc.gather_copy_mode(ops[2], ops[3], b_lay))
+    if offset:
+        assert not {cc.COPY_VEC, cc.COPY_VEC_K} & set(modes)
+    elif case == "k_unit_both":
+        assert modes == (cc.COPY_VEC_K, cc.COPY_VEC_K)
+    got = cc.fused_transpose_dot(*ops, a_lay, b_lay)
+    torch.cuda.synchronize()
+    assert got[0].shape == (a_lay.f_size, b_lay.f_size)
+    assert _max_rel_err(got, cc.fused_transpose_reference(*ops, a_lay, b_lay)) <= tol
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_mixed_devices():
     """A CUDA operand beside a CPU one is refused before any launch."""

@@ -212,11 +212,10 @@ def test_kernel_offset_tables_address_the_logical_matrix(view, k_axes, f_axes, b
                            generator=torch.Generator().manual_seed(3))
         t = base.permute(*np.argsort(base_perm).tolist())
         assert tuple(t.shape) == view and not t.is_contiguous()
-    off_k, off_f, k_unit = cc._gather_tables(t, lay)
+    off_k, off_f = cc._gather_tables(t, lay)
     assert off_k.shape == (lay.k_size,) and off_f.shape == (lay.f_size,)
     gathered = base.reshape(-1)[off_k[:, None] + off_f[None, :]]
     assert torch.equal(gathered, cc._as_kf(t, lay))
-    assert k_unit == int(t.stride(lay.kd) < t.stride(lay.fd))
 
 
 @pytest.mark.parametrize(
@@ -326,3 +325,99 @@ def test_unit_scale_keeps_the_norm_of_order_one():
     z = complex(contract_tensor_network(tn, path, NumpyBackend()).data.into_data())
     assert 0.05 < abs(z) < 20.0
     assert math.isfinite(abs(z))
+
+
+# (view, k_axes, f_axes, storage offset, copy mode by dtype): the stride-1
+# index is walked, 16 bytes at a time when its digit is a whole number of
+# vectors and every other stride and the base are aligned
+GATHER_MODES = [
+    ((2, 32, 32), (1,), (0, 2), 0, {"float32": "VEC", "float64": "VEC"}),  # k_unit 0
+    ((2, 32, 32), (2,), (0, 1), 0, {"float32": "VEC_K", "float64": "VEC_K"}),  # k_unit 1
+    ((2, 32, 6), (2,), (0, 1), 0, {"float32": "WALK_K", "float64": "VEC_K"}),  # digit 6
+    ((2, 6, 5), (1,), (0, 2), 0, {"float32": "WALK_F", "float64": "WALK_F"}),  # digit 5
+    ((2, 32, 32), (2,), (0, 1), 1, {"float32": "WALK_K", "float64": "WALK_K"}),
+    ((2, 32, 32), (1,), (0, 2), 1, {"float32": "WALK_F", "float64": "WALK_F"}),
+]
+
+
+@pytest.mark.parametrize("view,k_axes,f_axes,offset,modes", GATHER_MODES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gather_copy_mode_rules(view, k_axes, f_axes, offset, modes, dtype):
+    """Which copy the transpose kernel makes of a stored operand: 16-byte
+    copies along the stride-1 index (``COPY_VEC_K`` when that is the
+    contract index, which selects the staged pipeline) only when four (or
+    two) consecutive indices are one aligned run of the storage."""
+    n = math.prod(view)
+    base = torch.zeros(n + offset, dtype=getattr(torch, dtype))
+    t = base[offset:].view(view)
+    assert t.storage_offset() == offset
+    lay = cc.OperandLayout(view, k_axes, f_axes)
+    assert cc.gather_copy_mode(t, t, lay) == getattr(cc, "COPY_" + modes[dtype])
+    if offset == 0:
+        # one misaligned part is enough to leave the 16-byte copies
+        shifted = torch.zeros(n + 1, dtype=t.dtype)[1:].view(view)
+        assert cc.gather_copy_mode(t, shifted, lay) in (cc.COPY_WALK_K, cc.COPY_WALK_F)
+
+
+def test_gather_copy_mode_int64_tables_walk_the_contract_index():
+    """The staged pipeline is built for int32 tables only: with int64
+    tables a stride-1 contract index is copied element-wise, while 16-byte
+    copies along the free index stay."""
+    t = torch.zeros(2, 32, 32)
+    k_fast = cc.OperandLayout((2, 32, 32), (2,), (0, 1))
+    f_fast = cc.OperandLayout((2, 32, 32), (1,), (0, 2))
+    assert cc.gather_copy_mode(t, t, k_fast, "int64") == cc.COPY_WALK_K
+    assert cc.gather_copy_mode(t, t, k_fast, "int32") == cc.COPY_VEC_K
+    assert cc.gather_copy_mode(t, t, f_fast, "int64") == cc.COPY_VEC
+
+
+def test_gather_copy_mode_needs_aligned_outer_strides():
+    """A row stride that is not a whole number of vectors breaks the
+    alignment of every row after the first."""
+    t = torch.zeros(2, 5, 9)[..., :8]  # strides (45, 9, 1)
+    lay = cc.OperandLayout((2, 5, 8), (2,), (0, 1))
+    assert cc.gather_copy_mode(t, t, lay) == cc.COPY_WALK_K
+    lay_f = cc.OperandLayout((2, 5, 8), (1,), (0, 2))
+    assert cc.gather_copy_mode(t, t, lay_f) == cc.COPY_WALK_F
+
+
+def test_offset_table_width():
+    """int32 tables where every offset of the storage fits 31 bits (the
+    PEPS operands: at most 2^24 elements), int64 beyond."""
+    peps = (2, 32, 8192, 32)
+    assert cc.offset_dtype(peps, torch.empty(0).new_empty(peps).stride()) == "int32"
+    assert cc.offset_dtype((2, 2**30), (2**30, 1)) == "int32"  # top offset 2^31 - 1
+    assert cc.offset_dtype((2, 2**30), (2**30 + 1, 1)) == "int64"  # top offset 2^31
+    t = torch.zeros(2, 8, 4)
+    lay = cc.OperandLayout((2, 8, 4), (1,), (0, 2))
+    off_k, off_f = cc._gather_tables(t, lay)
+    assert off_k.dtype == off_f.dtype == torch.int32
+    wide_k, wide_f = cc._gather_tables(t, lay, "int64")
+    assert wide_k.dtype == torch.int64 and torch.equal(wide_k, off_k.long())
+    assert torch.equal(wide_f, off_f.long())
+
+
+# the layouts of the card tests (tests/test_torch_cuda.py, PEPS_LAYOUTS),
+# with each operand's k_unit and copy mode in float32
+CARD_LAYOUTS = [
+    (((2, 32, 32), (1,), (0, 2)), 0, "VEC"),
+    (((2, 32, 1024), (1,), (0, 2)), 0, "VEC"),
+    (((2, 32, 32, 8, 32), (1, 3), (0, 2, 4)), 0, "VEC"),
+    (((64, 32, 37, 8), (1, 3), (0, 2)), 1, "VEC_K"),
+]
+
+
+@pytest.mark.parametrize("layout,k_unit,mode", CARD_LAYOUTS)
+def test_k_unit_on_the_card_test_layouts(layout, k_unit, mode):
+    """``k_unit`` (the contract index has the smaller stride) and the copy
+    mode of each operand the card tests hand the kernel: the mode walks or
+    vectorises the contract index exactly when ``k_unit``, with int32 and
+    with int64 offset tables."""
+    lay = cc.OperandLayout(*layout)
+    t = torch.zeros(lay.view)
+    assert int(t.stride(lay.kd) < t.stride(lay.fd)) == k_unit
+    along_k = (cc.COPY_VEC_K, cc.COPY_WALK_K)
+    got = cc.gather_copy_mode(t, t, lay)
+    assert got == getattr(cc, "COPY_" + mode)
+    assert (got in along_k) == bool(k_unit)
+    assert (cc.gather_copy_mode(t, t, lay, "int64") in along_k) == bool(k_unit)

@@ -314,3 +314,125 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         cc.build_kernels()
     assert not list(tmp_path.iterdir())
 
+
+
+def test_every_included_header_is_listed():
+    """Each library's digest covers every header its source includes, so a
+    change to the tile engine rebuilds both single-product kernels."""
+    import re
+
+    sources = sorted(cc.CSRC_DIR.glob("*.cu")) + sorted(cc.CSRC_DIR.glob("*.cuh"))
+    assert {p.name for p in sources if p.suffix == ".cu"} == set(cc._SOURCES.values())
+    for path in sources:
+        for header in re.findall(r'#include "([^"]+)"', path.read_text()):
+            assert header in cc._HEADERS, (path.name, header)
+
+
+# (K, M, N) of every launch of the forced ``fused`` rung on the random28
+# plan and of the PEPS steps the transpose gate admits, with the tile
+# variant each gets (0: 128 x 64, 1: 64 x 64, 2: 8 x 512)
+GEMM_SHAPES = [
+    ((16384, 8192, 16384), 0),  # random28 stem
+    ((128, 8192, 131072), 0),   # random28 step 335
+    ((1024, 4096, 16384), 0),
+    ((16, 4096, 65536), 0),
+    ((128, 128, 1048576), 0),
+    ((8, 128, 8192), 1),        # 128 tiles of 128 x 64 would leave SMs idle
+    ((1, 2, 134217728), 2),     # an outer product: a few rows
+    ((1024, 16384, 16384), 0),  # PEPS steps 18/19
+    ((1024, 2048, 8192), 0),    # PEPS steps 11/15
+    ((32, 64, 2048), 1),        # PEPS steps 0/4 and 2/3
+]
+
+
+@pytest.mark.parametrize("kmn,variant", GEMM_SHAPES)
+@pytest.mark.parametrize("offset_itemsize", [0, 4, 8])
+@pytest.mark.parametrize("staged", [False, True])
+def test_gemm_config_by_shape(kmn, variant, offset_itemsize, staged):
+    """The launch configuration of each main-path shape: its tile, ring
+    depth, vector width and a shared-memory request the card grants (the
+    offset tables of the transpose kernel included)."""
+    _, m, n = kmn
+    cfg = cc.gemm_config(m, n, 4, offset_itemsize, staged=staged)
+    assert cfg.variant == variant
+    assert (cfg.bm, cfg.bn) == {0: (128, 64), 1: (64, 64), 2: (8, 512)}[variant]
+    assert cfg.bk == {0: 32, 1: 16, 2: 8}[variant]
+    assert cfg.stages == (2 if staged else 3)
+    assert cfg.vec == 4
+    assert 0 < cfg.smem_bytes <= cc.MAX_SMEM_BYTES
+    if variant == 0:
+        assert cfg.tiles(m, n) >= cc.H100_SMS
+    double = cc.gemm_config(m, n, 8, offset_itemsize, staged=staged)
+    assert (double.variant, double.bm, double.bn, double.vec) == (3, 64, 64, 2)
+    assert double.smem_bytes <= cc.MAX_SMEM_BYTES
+
+
+def test_gemm_config_counts_the_staged_slots():
+    """Shared memory of the two pipelines of the 128 x 64 tile: the direct
+    ring of three [k][f] slots plus two stages of both sides' sums, or two
+    raw slots and two compute slots (ar ai; br, bi - br, br + bi)."""
+    slot = 2 * 32 * 132 + 2 * 32 * 68
+    direct = cc.gemm_config(8192, 16384, 4)
+    assert direct.smem_bytes == 4 * (3 * slot + 2 * 32 * 68 + 2 * 32 * 132)
+    staged = cc.gemm_config(16384, 16384, 4, 4, staged=True)
+    assert staged.smem_bytes == 4 * 2 * (slot + 2 * 32 * 132 + 3 * 32 * 68) + 4 * (128 + 64)
+    with pytest.raises(ValueError, match="2-byte"):
+        cc.gemm_config(64, 64, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_strided_copy_mode_16_byte_rules(dtype):
+    """16-byte copies only when the free index has stride 1, the row
+    stride is a whole number of vectors and both parts start 16-byte
+    aligned; else element copies along the stride-1 index."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    base = torch.zeros(1024, dtype=dtype)
+    x = base[:96].view(8, 12)
+    assert cc.strided_copy_mode(x, x) == cc.COPY_VEC
+    shifted = base[1:97].view(8, 12)  # storage_offset 1: misaligned base
+    assert shifted.storage_offset() == 1
+    assert cc.strided_copy_mode(shifted, shifted) == cc.COPY_WALK_F
+    assert cc.strided_copy_mode(x, shifted) == cc.COPY_WALK_F  # one part misaligned
+    assert cc.strided_copy_mode(x.T, x.T) == cc.COPY_WALK_K  # sf = 8, sk = 1
+    every_other = base[:192].view(8, 24)[:, ::2]  # sf = 2
+    assert cc.strided_copy_mode(every_other, every_other) == cc.COPY_WALK_F
+    odd_rows = base[:8 * (vec + 1)].view(8, vec + 1)  # row stride off the vector
+    assert cc.strided_copy_mode(odd_rows, odd_rows) == cc.COPY_WALK_F
+
+
+# (M, N, SMs, variant): 128 x 64 tiles only where they give every SM a
+# block, 8 x 512 for a few rows, else 64 x 64
+TILE_CHOICES = [
+    (8192, 16384, 132, 0),  # the random28 stem
+    (65, 8448, 132, 0),     # 132 tiles of 128 x 64: one per SM
+    (65, 8384, 132, 1),     # 131 tiles of 128 x 64: one SM idle
+    (65, 8384, 131, 0),     # the same on a card of 131 SMs
+    (256, 1024, 132, 1),    # 32 tiles of 128 x 64
+    (64, 2048, 132, 1),     # PEPS steps 0/4 and 2/3: a 64-row output
+    (8, 4096, 132, 2),      # a few rows
+    (9, 4096, 132, 1),
+    (100, 100, 132, 1),
+]
+
+
+@pytest.mark.parametrize("m,n,sms,variant", TILE_CHOICES)
+def test_gemm_config_picks_the_tile_that_fills_the_card(m, n, sms, variant):
+    """The tile variant by output shape and SM count: 128 x 64 exactly
+    when more than 64 rows and at least one such tile per SM."""
+    cfg = cc.gemm_config(m, n, 4, sms=sms)
+    assert cfg.variant == variant
+    wide_tiles = -(-m // 128) * -(-n // 64)
+    assert (cfg.variant == 0) == (m > 64 and wide_tiles >= sms)
+
+
+def test_cached_library_keeps_its_ptxas_log(monkeypatch, tmp_path):
+    """A library built earlier is not rebuilt, and its ``ptxas -v`` log,
+    kept beside it, is what ``BUILD_LOG`` reports (chip_smoke.py prints
+    registers and spills from it)."""
+    monkeypatch.setenv("TNC_TPU_TORCH_KERNEL_DIR", str(tmp_path))
+    monkeypatch.setattr(cc, "BUILD_LOG", {})
+    lib = cc.library_path("fused_chain")
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 40 registers")
+    assert cc.build_kernels(["fused_chain"]) == {"fused_chain": lib}
+    assert cc.BUILD_LOG == {"fused_chain": "ptxas info    : Used 40 registers"}

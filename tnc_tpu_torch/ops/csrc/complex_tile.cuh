@@ -1,6 +1,7 @@
-// One output tile of a split-complex product, shared by the hand kernels
-// (fused_complex_dot.cu, fused_chain.cu; fused_transpose_dot.cu stages its
-// own tiles and shares the arithmetic below).
+// One output tile of a split-complex product: the tile of fused_chain.cu,
+// whose stages are a few hundred bytes each and bound by latency, not by
+// arithmetic (the single-product kernels use complex_gemm.cuh's pipelined
+// engine instead).
 //
 //   C = A^T B,  A: (K, M), B: (K, N), C: (M, N), every matrix a (re, im) pair
 //   re = ar^T br - ai^T bi,   im = ar^T bi + ai^T br

@@ -5,43 +5,71 @@
 // A: (K, M), B: (K, N), accumulated in the operand type).
 //
 // What bounds it on an H100: at the shapes the forced `fused` rung gives it
-// (K >= 128 on the big steps) it does 8*K*M*N FP32 operations for
-// 8*(K*M + K*N + M*N) bytes, far above the card's 20 FP32-operations-per-byte
-// ridge (67 TFLOP/s over 3.35 TB/s), so it is bound by operations on the
-// CUDA cores. The design therefore spends its effort on reuse: each operand
-// tile is staged in shared memory once and every staged value feeds all four
-// real products from registers (complex_tile.cuh), with no separate
-// elementwise epilogue. It takes any shape (ragged edges are bounds-checked),
-// so unlike the TPU kernel it needs no tile floor. Tensor cores (wgmma,
-// 3xTF32) and TMA are later work.
+// (K >= 128 on the heavy steps) it does 6*K*M*N FP32 operations (three
+// real products per complex multiply-add) for 8*(K*M + K*N + M*N) bytes,
+// far above the card's 20 FP32-operations-per-byte ridge (67 TFLOP/s over
+// 3.35 TB/s), so it is bound by operations on the CUDA cores. The design
+// (complex_gemm.cuh's direct pipeline) keeps the FMA pipe fed: a
+// three-stage cp.async ring in dynamic shared memory hides the loads, the
+// Gauss identity cuts the multiplies to three, the B side's sums are
+// formed once per stage in shared memory, and a 128 x 64 tile with an
+// 8 x 4 register micro-tile read through 128-bit shared loads spends 7
+// loads and 8 adds on 96 FMAs per contract index. Both operands are
+// Strided sources: 16-byte copies when the free index has stride 1 and
+// rows are 16-byte aligned (the contract-first operands of the main path),
+// else one element per copy. The wrapper (cuda_complex.fused_complex_dot)
+// picks the tile variant and the copy modes. This replaces a
+// single-buffered 64 x 64 tile with scalar shared loads and four products
+// per complex multiply-add. Tensor cores (wgmma, 3xTF32) and TMA are
+// later work.
 #include <cuda_runtime.h>
 
-#include "complex_tile.cuh"
+#include "complex_gemm.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(tnc::kThreads)
-    fused_complex_dot_kernel(tnc::Operand<T> a, tnc::Operand<T> b, long long K,
-                             long long M, long long N, T* cr, T* ci) {
-  __shared__ tnc::TileSmem<T> s;
-  const long long tiles = tnc::tile_count(M, N);
+namespace g = tnc::gemm;
+
+template <class Cfg>
+__global__ void __launch_bounds__(g::kThreads, 1)
+    fused_complex_dot_kernel(g::Strided<typename Cfg::T> a,
+                             g::Strided<typename Cfg::T> b, long long K,
+                             long long M, long long N, typename Cfg::T* cr,
+                             typename Cfg::T* ci) {
+  using T = typename Cfg::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const long long tiles = g::tile_count<Cfg>(M, N);
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    tnc::complex_tile<T>(a, b, K, M, N, tile, cr, ci, s);
+    long long m0, n0;
+    g::tile_origin<Cfg>(tile, M, N, &m0, &n0);
+    a.f0 = m0;
+    b.f0 = n0;
+    g::complex_gemm_tile<Cfg, false>(a, b, K, M, N, m0, n0, cr, ci, smem);
+    __syncthreads();  // the next tile refills the ring
   }
 }
 
-template <typename T>
-int launch(const T* ar, const T* ai, long long a_sk, long long a_sf,
-           const T* br, const T* bi, long long b_sk, long long b_sf,
-           T* cr, T* ci, long long K, long long M, long long N, void* stream) {
-  const long long tiles = tnc::tile_count(M, N);
+template <class Cfg>
+int launch(const typename Cfg::T* ar, const typename Cfg::T* ai,
+           long long a_sk, long long a_sf, int a_mode,
+           const typename Cfg::T* br, const typename Cfg::T* bi,
+           long long b_sk, long long b_sf, int b_mode, typename Cfg::T* cr,
+           typename Cfg::T* ci, long long K, long long M, long long N,
+           void* stream) {
+  static bool done[64] = {false};
+  // the direct pipeline reads every tile as [k][f]
+  if (a_mode == g::kVecK || b_mode == g::kVecK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = g::prepare(fused_complex_dot_kernel<Cfg>, Cfg::kTileBytes, done);
+  if (rc != 0) return rc;
+  const long long tiles = g::tile_count<Cfg>(M, N);
   if (tiles == 0) return 0;
   const long long grid = tiles < (1LL << 30) ? tiles : (1LL << 30);
-  tnc::Operand<T> a{ar, ai, a_sk, a_sf};
-  tnc::Operand<T> b{br, bi, b_sk, b_sf};
-  fused_complex_dot_kernel<T>
-      <<<static_cast<unsigned int>(grid), tnc::kThreads, 0,
+  const g::Strided<typename Cfg::T> a{ar, ai, a_sk, a_sf, K, M, a_mode, 0};
+  const g::Strided<typename Cfg::T> b{br, bi, b_sk, b_sf, K, N, b_mode, 0};
+  fused_complex_dot_kernel<Cfg>
+      <<<static_cast<unsigned int>(grid), g::kThreads, Cfg::kTileBytes,
          static_cast<cudaStream_t>(stream)>>>(a, b, K, M, N, cr, ci);
   return static_cast<int>(cudaGetLastError());
 }
@@ -50,22 +78,37 @@ int launch(const T* ar, const T* ai, long long a_sk, long long a_sf,
 
 extern "C" {
 
+// a_mode / b_mode: each operand's copy mode (tnc::gemm::Mode); variant:
+// 0 = 128 x 64 tiles, 1 = 64 x 64, 2 = 8 x 512.
 int tnc_fused_complex_dot_f32(const float* ar, const float* ai, long long a_sk,
-                              long long a_sf, const float* br, const float* bi,
-                              long long b_sk, long long b_sf, float* cr,
-                              float* ci, long long K, long long M, long long N,
+                              long long a_sf, int a_mode, const float* br,
+                              const float* bi, long long b_sk, long long b_sf,
+                              int b_mode, float* cr, float* ci, long long K,
+                              long long M, long long N, int variant,
                               void* stream) {
-  return launch<float>(ar, ai, a_sk, a_sf, br, bi, b_sk, b_sf, cr, ci, K, M, N,
-                       stream);
+  if (variant == 0)
+    return launch<g::Wide>(ar, ai, a_sk, a_sf, a_mode, br, bi, b_sk, b_sf,
+                           b_mode, cr, ci, K, M, N, stream);
+  if (variant == 1)
+    return launch<g::Narrow>(ar, ai, a_sk, a_sf, a_mode, br, bi, b_sk, b_sf,
+                             b_mode, cr, ci, K, M, N, stream);
+  if (variant == 2)
+    return launch<g::Flat>(ar, ai, a_sk, a_sf, a_mode, br, bi, b_sk, b_sf,
+                           b_mode, cr, ci, K, M, N, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// variant: 3 (64 x 64 tiles of doubles)
 int tnc_fused_complex_dot_f64(const double* ar, const double* ai,
-                              long long a_sk, long long a_sf, const double* br,
-                              const double* bi, long long b_sk, long long b_sf,
+                              long long a_sk, long long a_sf, int a_mode,
+                              const double* br, const double* bi,
+                              long long b_sk, long long b_sf, int b_mode,
                               double* cr, double* ci, long long K, long long M,
-                              long long N, void* stream) {
-  return launch<double>(ar, ai, a_sk, a_sf, br, bi, b_sk, b_sf, cr, ci, K, M,
-                        N, stream);
+                              long long N, int variant, void* stream) {
+  if (variant == 3)
+    return launch<g::Double>(ar, ai, a_sk, a_sf, a_mode, br, bi, b_sk, b_sf,
+                             b_mode, cr, ci, K, M, N, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* tnc_error_string(int code) {

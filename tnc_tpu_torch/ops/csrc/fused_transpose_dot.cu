@@ -12,8 +12,9 @@
 // because the two axis sets partition the stored axes: each term is the
 // mixed-radix digits of the flat index times the stored strides. The
 // wrapper (cuda_complex.fused_transpose_dot) computes the two offset
-// tables of each operand on the device, once per layout and strides; the
-// kernel only adds and loads.
+// tables of each operand on the device, once per layout and strides, as
+// int32 when every offset of both operands fits (the PEPS operands hold at
+// most 2^24 elements) and int64 otherwise; the kernel only adds and loads.
 // The result is the flat row-major (M, N) pair
 //   re = ar^T br - ai^T bi,   im = ar^T bi + ai^T br
 // with rows iterating the first operand's free digits and columns the
@@ -21,144 +22,138 @@
 // gives, so callers reshape it to the step's stored output unchanged.
 //
 // What bounds it on an H100: on the PEPS steps it takes (K = 32 and 1024,
-// M and N 64 to 16384) the naive product does 8*K*M*N FP32 operations on
-// operands of 8*(K*M + K*N) bytes read once, far above the card's ~20
-// operations per byte, so it is bound by operations on the CUDA cores, as
-// fused_complex_dot is. What the TPU kernel saved, the HBM pass of the
-// materialised transpose, is saved here too: each operand element is read
-// from device memory straight into the shared-memory tile.
+// M and N 64 to 16384) the product does 6*K*M*N FP32 operations (three
+// real products per complex multiply-add) on operands of 8*(K*M + K*N)
+// bytes read once, far above the card's ~20 operations per byte, so it is
+// bound by operations on the CUDA cores, as fused_complex_dot is. What the
+// TPU kernel saved, the HBM pass of the materialised transpose, is saved
+// here too: each operand element goes from device memory straight into
+// the shared-memory ring.
 //
-// Design. The output tiling, the 4 x 4 register micro-tile, the four FMAs
-// per staged value and the two-level accumulation (each 16-deep K step
-// summed into fresh registers, then folded into the total) are those of
-// complex_tile.cuh. What differs is staging. At the start of an output
-// tile the block copies the free offsets of its 64 rows and 64 columns
-// into shared memory; each staged element is then one load of its contract
-// offset (16 distinct values a step, served by L1) and one load of the
-// operand. An earlier version decomposed the contract index into digits
-// inside the K loop: the 64-bit divisions, done by one warp while the
-// block waited at a barrier, made it much slower than fused_complex_dot
-// on the same problem. The gate (transpose_dot_ineligible_reason, minor_axes)
-// puts each operand's fastest contract and free digits on its two stored
-// minor axes, so one of them has stride 1: consecutive threads walk that
-// index (k_unit says which), and the staged rows are padded by one element
-// so the contract-fastest walk stores to shared memory without bank
-// conflicts. Loads go through the read-only cache (__ldg): with the
-// contract-fastest walk a K step uses half of each 128-byte line and the
-// next K step the other half. Ragged edges are bounds-checked (a free
-// offset of -1 marks a row or column past the end; such elements load as
-// 0 and are not stored). TF32 and tensor cores stay off. wgmma with TMA
-// boxes for the gather is later work.
+// Design. The arithmetic, tiles and accumulation are complex_gemm.cuh's,
+// the same engine as fused_complex_dot; what differs is the source. At the
+// start of an output tile the block copies the free offsets of its rows
+// and columns into shared memory; a stage's copies read the contract
+// offset of each contract index or vector they copy once (an L1-resident
+// table), so a copy costs one add. The gate (transpose_dot_ineligible_reason,
+// minor_axes) puts each operand's fastest contract and free digits on its
+// two stored minor axes, so one of them has stride 1, and the wrapper picks
+// the copy mode from it (cuda_complex.gather_copy_mode):
+//
+// - free index stride 1 (k_unit = 0), its stored digit a multiple of 4 and
+//   every other stride and the base 16-byte aligned: 16-byte cp.async
+//   along it into the [k][f] tile the arithmetic reads (four consecutive
+//   free indices stay within one digit run);
+// - contract index stride 1 (k_unit = 1; PEPS steps 2/3/6/7 and 18/19 on
+//   both operands), aligned likewise and with int32 tables: 16-byte
+//   cp.async of four consecutive contract indices into a K-fastest tile,
+//   transposed per stage into the [k][f] layout through registers (the
+//   engine's staged pipeline, taken whenever an operand is read this way).
+//   Element copies into the [k][f] tile instead were slower on PEPS
+//   steps 18/19, and reading K-fastest fragments directly would need four
+//   contract indices of every fragment live at once;
+// - otherwise one element per copy, lanes walking the stride-1 index.
+//
+// Ragged edges are bounds-checked (a free offset of -1 marks a row or
+// column past the end; such elements copy 0 bytes and are not stored).
+// TF32 and tensor cores stay off; wgmma with TMA boxes for the gather is
+// later work.
 #include <cuda_runtime.h>
 
-#include "complex_tile.cuh"
+#include "complex_gemm.cuh"
 
 namespace {
 
-using tnc::kBK;
-using tnc::kBM;
-using tnc::kBN;
-using tnc::kThreads;
-using tnc::kTM;
-using tnc::kTN;
+namespace g = tnc::gemm;
 
-// One operand: its stored parts and offset tables (K and F entries).
-template <typename T>
-struct Gathered {
-  const T* re;
-  const T* im;
-  const long long* off_k;
-  const long long* off_f;
-  int k_unit;  // 1: the contract index has the smaller stride (walk it fastest)
-};
-
-template <typename T>
-struct GatherSmem {
-  T ar[kBK][kBM + 1];
-  T ai[kBK][kBM + 1];
-  T br[kBK][kBN + 1];
-  T bi[kBK][kBN + 1];
-  long long a_off_f[kBM];
-  long long b_off_f[kBN];
-};
-
-// Stages the (kBK x 64) tile at contract index k0 of an operand's real and
-// imaginary parts (rows padded to P = 65); off_f holds the tile's 64 free
-// offsets, -1 past the end.
-template <typename T, int P>
-__device__ __forceinline__ void stage(const Gathered<T>& g, long long k0,
-                                      long long K, const long long* off_f,
-                                      T (&sr)[kBK][P], T (&si)[kBK][P]) {
-  constexpr int kF = P - 1;
-  for (int idx = threadIdx.x; idx < kBK * kF; idx += kThreads) {
-    const int kk = g.k_unit ? idx % kBK : idx / kF;
-    const int ff = g.k_unit ? idx / kBK : idx % kF;
-    const long long k = k0 + kk;
-    const long long of = off_f[ff];
-    const bool in = k < K && of >= 0;
-    const long long off = in ? __ldg(g.off_k + k) + of : 0;
-    sr[kk][ff] = in ? __ldg(g.re + off) : T(0);
-    si[kk][ff] = in ? __ldg(g.im + off) : T(0);
-  }
+template <class Cfg, bool kStaged>
+__host__ __device__ constexpr size_t tile_bytes() {
+  return kStaged ? Cfg::kStagedBytes : Cfg::kTileBytes;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fused_transpose_dot_kernel(Gathered<T> a, Gathered<T> b, long long K,
-                               long long M, long long N, T* cr, T* ci) {
-  __shared__ GatherSmem<T> s;
+template <class Cfg, typename Off, bool kStaged>
+__global__ void __launch_bounds__(g::kThreads, 1)
+    fused_transpose_dot_kernel(g::Gathered<typename Cfg::T, Off> a,
+                               g::Gathered<typename Cfg::T, Off> b,
+                               long long K, long long M, long long N,
+                               typename Cfg::T* cr, typename Cfg::T* ci) {
+  using T = typename Cfg::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  Off* a_off = reinterpret_cast<Off*>(smem_raw + tile_bytes<Cfg, kStaged>());
+  Off* b_off = a_off + Cfg::BM;
+  a.tile_off = a_off;
+  b.tile_off = b_off;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const long long tiles_n = (N + kBN - 1) / kBN;
-  const long long tiles = tnc::tile_count(M, N);
+  const long long tiles = g::tile_count<Cfg>(M, N);
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long m0 = (tile / tiles_n) * kBM;
-    const long long n0 = (tile % tiles_n) * kBN;
-    if (tid < kBM) {
-      const long long m = m0 + tid;
-      s.a_off_f[tid] = m < M ? __ldg(a.off_f + m) : -1;
-    } else if (tid < kBM + kBN) {
-      const long long n = n0 + (tid - kBM);
-      s.b_off_f[tid - kBM] = n < N ? __ldg(b.off_f + n) : -1;
+    long long m0, n0;
+    g::tile_origin<Cfg>(tile, M, N, &m0, &n0);
+    for (int i = tid; i < Cfg::BM + Cfg::BN; i += g::kThreads) {
+      if (i < Cfg::BM) {
+        const long long m = m0 + i;
+        a_off[i] = m < M ? __ldg(a.off_f + m) : Off(-1);
+      } else {
+        const long long n = n0 + (i - Cfg::BM);
+        b_off[i - Cfg::BM] = n < N ? __ldg(b.off_f + n) : Off(-1);
+      }
     }
     __syncthreads();
-
-    T accr[kTM][kTN];
-    T acci[kTM][kTN];
-    tnc::zero_tile(accr);
-    tnc::zero_tile(acci);
-    for (long long k0 = 0; k0 < K; k0 += kBK) {
-      stage(a, k0, K, s.a_off_f, s.ar, s.ai);
-      stage(b, k0, K, s.b_off_f, s.br, s.bi);
-      __syncthreads();
-      T pr[kTM][kTN];  // this K step's partial sums
-      T pi[kTM][kTN];
-      tnc::zero_tile(pr);
-      tnc::zero_tile(pi);
-      tnc::fma_step(s.ar, s.ai, s.br, s.bi, tx, ty, pr, pi);
-      __syncthreads();
-      tnc::fold_tile(accr, pr);
-      tnc::fold_tile(acci, pi);
-    }
-    tnc::store_tile(accr, acci, m0, n0, M, N, tx, ty, cr, ci);
+    g::complex_gemm_tile<Cfg, kStaged>(a, b, K, M, N, m0, n0, cr, ci, smem);
+    __syncthreads();  // the next tile refills the ring and the tables
   }
 }
 
-template <typename T>
-int launch(const T* ar, const T* ai, const long long* a_off_k,
-           const long long* a_off_f, int a_k_unit, const T* br, const T* bi,
-           const long long* b_off_k, const long long* b_off_f, int b_k_unit,
-           T* cr, T* ci, long long K, long long M, long long N, void* stream) {
-  const long long tiles = tnc::tile_count(M, N);
+template <class Cfg, typename Off, bool kStaged>
+int launch(const typename Cfg::T* ar, const typename Cfg::T* ai,
+           const void* a_off_k, const void* a_off_f, int a_mode,
+           const typename Cfg::T* br, const typename Cfg::T* bi,
+           const void* b_off_k, const void* b_off_f, int b_mode,
+           typename Cfg::T* cr, typename Cfg::T* ci, long long K, long long M,
+           long long N, void* stream) {
+  static bool done[64] = {false};
+  // the operand tiles, then the free offsets of the tile's rows and columns
+  constexpr size_t bytes =
+      tile_bytes<Cfg, kStaged>() + sizeof(Off) * (Cfg::BM + Cfg::BN);
+  const int rc =
+      g::prepare(fused_transpose_dot_kernel<Cfg, Off, kStaged>, bytes, done);
+  if (rc != 0) return rc;
+  const long long tiles = g::tile_count<Cfg>(M, N);
   if (tiles == 0) return 0;
   const long long grid = tiles < (1LL << 30) ? tiles : (1LL << 30);
-  const Gathered<T> a{ar, ai, a_off_k, a_off_f, a_k_unit};
-  const Gathered<T> b{br, bi, b_off_k, b_off_f, b_k_unit};
-  fused_transpose_dot_kernel<T>
-      <<<static_cast<unsigned int>(grid), kThreads, 0,
+  using G = g::Gathered<typename Cfg::T, Off>;
+  const G a{ar, ai, static_cast<const Off*>(a_off_k),
+            static_cast<const Off*>(a_off_f), K, M, a_mode, nullptr};
+  const G b{br, bi, static_cast<const Off*>(b_off_k),
+            static_cast<const Off*>(b_off_f), K, N, b_mode, nullptr};
+  fused_transpose_dot_kernel<Cfg, Off, kStaged>
+      <<<static_cast<unsigned int>(grid), g::kThreads, bytes,
          static_cast<cudaStream_t>(stream)>>>(a, b, K, M, N, cr, ci);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Cfg>
+int launch_any(const typename Cfg::T* ar, const typename Cfg::T* ai,
+               const void* a_off_k, const void* a_off_f, int a_mode,
+               const typename Cfg::T* br, const typename Cfg::T* bi,
+               const void* b_off_k, const void* b_off_f, int b_mode,
+               typename Cfg::T* cr, typename Cfg::T* ci, long long K,
+               long long M, long long N, int off64, void* stream) {
+  // the staged pipeline whenever an operand is copied along its contract
+  // index; it is built for int32 tables only (int64 addressing spills)
+  const bool staged = a_mode == g::kVecK || b_mode == g::kVecK;
+  if (off64 && staged) return static_cast<int>(cudaErrorInvalidValue);
+  if (off64)
+    return launch<Cfg, long long, false>(ar, ai, a_off_k, a_off_f, a_mode, br,
+                                         bi, b_off_k, b_off_f, b_mode, cr, ci,
+                                         K, M, N, stream);
+  if (staged)
+    return launch<Cfg, int, true>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                                  b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                                  stream);
+  return launch<Cfg, int, false>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                                 b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                                 stream);
 }
 
 }  // namespace
@@ -166,30 +161,45 @@ int launch(const T* ar, const T* ai, const long long* a_off_k,
 extern "C" {
 
 // a_off_k/a_off_f: the first operand's contract (K) and free (M) offset
-// tables; b_off_k/b_off_f the second's (K, N). The first operand gives the
-// output rows.
+// tables; b_off_k/b_off_f the second's (K, N), int64 when off64 else int32.
+// The first operand gives the output rows. a_mode / b_mode: copy modes
+// (tnc::gemm::Mode; kVecK on either selects the staged pipeline); variant:
+// 0 = 128 x 64 tiles, 1 = 64 x 64, 2 = 8 x 512.
 int tnc_fused_transpose_dot_f32(const float* ar, const float* ai,
-                                const long long* a_off_k,
-                                const long long* a_off_f, int a_k_unit,
-                                const float* br, const float* bi,
-                                const long long* b_off_k,
-                                const long long* b_off_f, int b_k_unit,
-                                float* cr, float* ci, long long K, long long M,
-                                long long N, void* stream) {
-  return launch<float>(ar, ai, a_off_k, a_off_f, a_k_unit, br, bi, b_off_k,
-                       b_off_f, b_k_unit, cr, ci, K, M, N, stream);
+                                const void* a_off_k, const void* a_off_f,
+                                int a_mode, const float* br, const float* bi,
+                                const void* b_off_k, const void* b_off_f,
+                                int b_mode, float* cr, float* ci, long long K,
+                                long long M, long long N, int off64,
+                                int variant, void* stream) {
+  if (variant == 0)
+    return launch_any<g::Wide>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                               b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                               off64, stream);
+  if (variant == 1)
+    return launch_any<g::Narrow>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                                 b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                                 off64, stream);
+  if (variant == 2)
+    return launch_any<g::Flat>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                               b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                               off64, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// variant: 3 (64 x 64 tiles of doubles)
 int tnc_fused_transpose_dot_f64(const double* ar, const double* ai,
-                                const long long* a_off_k,
-                                const long long* a_off_f, int a_k_unit,
-                                const double* br, const double* bi,
-                                const long long* b_off_k,
-                                const long long* b_off_f, int b_k_unit,
-                                double* cr, double* ci, long long K,
-                                long long M, long long N, void* stream) {
-  return launch<double>(ar, ai, a_off_k, a_off_f, a_k_unit, br, bi, b_off_k,
-                        b_off_f, b_k_unit, cr, ci, K, M, N, stream);
+                                const void* a_off_k, const void* a_off_f,
+                                int a_mode, const double* br, const double* bi,
+                                const void* b_off_k, const void* b_off_f,
+                                int b_mode, double* cr, double* ci,
+                                long long K, long long M, long long N,
+                                int off64, int variant, void* stream) {
+  if (variant == 3)
+    return launch_any<g::Double>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                                 b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                                 off64, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* tnc_error_string(int code) {

@@ -18,6 +18,14 @@ at first use and loaded through ``ctypes``:
   :func:`tnc_tpu_torch.ops.program.chain_groups`) as one cooperative launch
   — the counterpart of ``fused_chain_kl``.
 
+The two single-product kernels share one pipelined tile engine
+(``csrc/complex_gemm.cuh``: a ``cp.async`` ring, 128-bit fragment loads,
+three real products per complex multiply-add); this module chooses its
+launch configuration (:func:`gemm_config`) and each operand's copy mode
+(:func:`strided_copy_mode`, :func:`gather_copy_mode`), so that choice is
+tested on the CPU. The chain kernel keeps the small tile of
+``csrc/complex_tile.cuh``.
+
 Beside each kernel is its plain version (:func:`fused_complex_dot_reference`,
 :func:`fused_transpose_reference`, :func:`fused_chain_reference`). A
 wrapper given CPU tensors runs the plain
@@ -39,6 +47,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 MIN_FLOPS = 1 << 22  # below this a single step is launch-dominated
 
@@ -61,15 +70,16 @@ _SOURCES = {
     "fused_chain": "fused_chain.cu",
     "fused_transpose_dot": "fused_transpose_dot.cu",
 }
-_HEADERS = ("complex_tile.cuh",)
+_HEADERS = ("complex_tile.cuh", "complex_gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
-#: ``ptxas -v`` output (registers, shared memory, spills) of each kernel
-#: built by this process, by kernel name
+#: ``ptxas -v`` output (registers, shared memory, spills) of each kernel's
+#: library, by kernel name: from the build, or kept beside a library built
+#: earlier
 BUILD_LOG: dict[str, str] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -157,6 +167,10 @@ def build_kernels(names=None) -> dict[str, Path]:
     names = list(_SOURCES) if names is None else list(names)
     out = {name: library_path(name) for name in names}
     todo = [name for name in names if not out[name].exists()]
+    for name in names:
+        log = out[name].with_suffix(".log")
+        if name not in todo and log.exists():
+            BUILD_LOG[name] = log.read_text()
     if not todo:
         return out
     out_dir = build_dir()
@@ -180,6 +194,7 @@ def build_kernels(names=None) -> dict[str, Path]:
             errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        out[name].with_suffix(".log").write_text(log)
         os.replace(tmp, out[name])
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
@@ -206,14 +221,14 @@ def _library(name: str) -> ctypes.CDLL:
         lib.tnc_error_string.restype = ctypes.c_char_p
         if name == "fused_complex_dot":
             for fn in (lib.tnc_fused_complex_dot_f32, lib.tnc_fused_complex_dot_f64):
-                fn.argtypes = [_P, _P, _LL, _LL, _P, _P, _LL, _LL, _P, _P,
-                               _LL, _LL, _LL, _P]
+                fn.argtypes = [_P, _P, _LL, _LL, _I, _P, _P, _LL, _LL, _I, _P, _P,
+                               _LL, _LL, _LL, _I, _P]
                 fn.restype = _I
         elif name == "fused_transpose_dot":
             for fn in (lib.tnc_fused_transpose_dot_f32,
                        lib.tnc_fused_transpose_dot_f64):
                 fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
-                               _LL, _LL, _LL, _P]
+                               _LL, _LL, _LL, _I, _I, _P]
                 fn.restype = _I
         else:
             for fn in (lib.tnc_fused_chain_f32, lib.tnc_fused_chain_f64):
@@ -267,6 +282,156 @@ def _check_pair(what: str, re, im) -> None:
         )
 
 
+# -- the tile engine's launch configuration (csrc/complex_gemm.cuh) -------
+
+#: how the engine copies one operand's stage (``tnc::gemm::Mode``):
+#: 16-byte copies along the stride-1 free index; one element per copy with
+#: lanes walking the contract index; one element per copy with lanes
+#: walking the free index; 16-byte copies along the stride-1 contract index
+#: into a K-fastest tile that the staged pipeline transposes
+COPY_VEC, COPY_WALK_K, COPY_WALK_F, COPY_VEC_K = 0, 1, 2, 3
+
+#: shared memory one block may use on an H100, in bytes
+MAX_SMEM_BYTES = 232_448
+#: streaming multiprocessors of an H100 SXM (the default for planning)
+H100_SMS = 132
+
+
+class GemmVariant(NamedTuple):
+    """One tile variant of the engine (``Wide``, ``Narrow``, ``Flat``,
+    ``Double`` in ``csrc/complex_gemm.cuh``): a ``gm x (256 / gm)`` grid
+    of threads, each owning ``tm x tn`` outputs, ``bk`` contract indices
+    per stage, ``stages`` stages in the ring."""
+
+    index: int
+    dtype: str
+    gm: int
+    tm: int
+    tn: int
+    bk: int
+    stages: int
+
+    @property
+    def bm(self) -> int:
+        return self.gm * self.tm
+
+    @property
+    def bn(self) -> int:
+        return (256 // self.gm) * self.tn
+
+
+GEMM_VARIANTS = (
+    GemmVariant(0, "float32", 16, 8, 4, 32, 3),  # 128 x 64
+    GemmVariant(1, "float32", 16, 4, 4, 16, 3),  # 64 x 64
+    GemmVariant(2, "float32", 2, 4, 4, 8, 3),    # 8 x 512
+    GemmVariant(3, "float64", 16, 4, 4, 16, 3),  # 64 x 64
+)
+_WIDE, _NARROW, _FLAT, _DOUBLE = GEMM_VARIANTS
+
+
+class GemmConfig(NamedTuple):
+    """A launch of the engine: the variant, its tile (``bm x bn``, ``bk``
+    deep), ring depth, elements per 16-byte copy (``vec``) and dynamic
+    shared memory in bytes (the kernel sizes its launch from its own
+    ``kTileBytes`` / ``kStagedBytes``, which this count mirrors)."""
+
+    variant: int
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    vec: int
+    smem_bytes: int
+
+    def tiles(self, m: int, n: int) -> int:
+        return -(-m // self.bm) * -(-n // self.bn)
+
+
+def gemm_config(m: int, n: int, itemsize: int, offset_itemsize: int = 0,
+                sms: int = H100_SMS, staged: bool = False) -> GemmConfig:
+    """The engine's launch configuration for an ``(M, N)`` output of
+    ``itemsize``-byte elements; ``offset_itemsize`` is the width of the
+    transpose kernel's offset tables (0 for strided operands), whose tile
+    rows and columns also live in shared memory. ``staged``: the staged
+    pipeline (an operand copied with :data:`COPY_VEC_K`), whose two raw and
+    two compute slots replace the ring (``stages`` is then 2).
+
+    float64 takes 64 x 64 tiles. float32 takes 8 x 512 tiles when
+    ``M <= 8`` (the outer-product steps, where a 64-row tile would compute
+    mostly padding); 128 x 64 tiles when ``M > 64`` and they still give
+    every SM a block; else 64 x 64 tiles, so that more blocks fill the
+    card.
+
+    >>> gemm_config(8192, 16384, 4)[:5]   # the random28 stem
+    (0, 128, 64, 32, 3)
+    >>> gemm_config(64, 2048, 4, 4)       # a K = 32 PEPS step
+    GemmConfig(variant=1, bm=64, bn=64, bk=16, stages=3, vec=4, smem_bytes=70144)
+    >>> gemm_config(2, 2**27, 4)[:3]      # an outer product
+    (2, 8, 512)
+    """
+    if itemsize == 8:
+        var = _DOUBLE
+    elif itemsize == 4:
+        if m <= _FLAT.bm:
+            var = _FLAT
+        elif m > _NARROW.bm and -(-m // _WIDE.bm) * -(-n // _WIDE.bn) >= sms:
+            var = _WIDE
+        else:
+            var = _NARROW
+    else:
+        raise ValueError(f"no engine variant for {itemsize}-byte elements")
+    vec = 16 // itemsize
+    bm, bn = var.bm, var.bn
+    pm, pn = bm + vec, bn + vec
+    slot = 2 * var.bk * pm + 2 * var.bk * pn
+    if staged:
+        stages = 2
+        compute = 2 * var.bk * pm + 3 * var.bk * pn  # ar ai; br, bi - br, br + bi
+        elems = 2 * (slot + compute)
+    else:
+        stages = var.stages
+        elems = stages * slot + 2 * var.bk * (pn + pm)  # + br + bi, ar + ai, two stages
+    smem = itemsize * elems + offset_itemsize * (bm + bn)
+    return GemmConfig(var.index, bm, bn, var.bk, stages, vec, smem)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    import torch
+
+    key = torch.device(device).index
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[key]
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def strided_copy_mode(re, im) -> int:
+    """The copy mode of one ``(K, F)`` operand pair read through its two
+    strides: 16-byte copies when the free index has stride 1, the row
+    stride is a whole number of 16-byte vectors and both parts start
+    16-byte aligned; else element copies, walking the contract index when
+    it has stride 1.
+
+    >>> import torch
+    >>> x = torch.zeros(8, 12)
+    >>> strided_copy_mode(x, x), strided_copy_mode(x.T, x.T)
+    (0, 1)
+    >>> strided_copy_mode(x[:, 1:], x[:, 1:])     # misaligned base
+    2
+    """
+    vec = 16 // re.element_size()
+    sk, sf = re.stride()
+    if sf == 1 and sk % vec == 0 and _aligned(re, im):
+        return COPY_VEC
+    return COPY_WALK_K if sk == 1 else COPY_WALK_F
+
+
 # -- single-step fused complex product -------------------------------------
 
 
@@ -282,10 +447,9 @@ def fused_complex_dot(ar, ai, br, bi):
     ``ar, ai: (K, M)``; ``br, bi: (K, N)``, float32 or float64 (any
     strides, real and imaginary parts alike); outputs ``(M, N)`` of the
     same dtype. CPU tensors run :func:`fused_complex_dot_reference`; CUDA
-    tensors launch the kernel on the current stream.
+    tensors launch the kernel on the current stream, with the tile variant
+    of :func:`gemm_config` and each operand's :func:`strided_copy_mode`.
     """
-    import torch
-
     _check_parts("fused_complex_dot", (ar, ai, br, bi))
     _check_pair("fused_complex_dot", ar, ai)
     _check_pair("fused_complex_dot", br, bi)
@@ -295,22 +459,42 @@ def fused_complex_dot(ar, ai, br, bi):
         raise ValueError(f"fused_complex_dot: contract dims differ ({k} vs {kb})")
     if ar.device.type == "cpu":
         return fused_complex_dot_reference(ar, ai, br, bi)
+    out = _launch_complex_dot(ar, ai, br, bi)
+    LAUNCHES["fused_complex_dot"] += 1
+    return out
+
+
+def _outputs(m: int, n: int, like):
+    """The uninitialised ``(re, im)`` outputs of one launch."""
+    import torch
+
+    return tuple(torch.empty((m, n), dtype=like.dtype, device=like.device)
+                 for _ in range(2))
+
+
+def _launch_complex_dot(ar, ai, br, bi):
+    """One launch of the kernel on checked operands; raises on a CUDA
+    error."""
+    import torch
+
+    (k, m), n = ar.shape, br.shape[1]
     lib = _library("fused_complex_dot")
     fn = (
         lib.tnc_fused_complex_dot_f32
         if ar.dtype == torch.float32
         else lib.tnc_fused_complex_dot_f64
     )
-    re = torch.empty((m, n), dtype=ar.dtype, device=ar.device)
-    im = torch.empty((m, n), dtype=ar.dtype, device=ar.device)
+    cfg = gemm_config(m, n, ar.element_size(), sms=_sm_count(ar.device))
+    re, im = _outputs(m, n, ar)
     with torch.cuda.device(ar.device):
         rc = fn(
             ar.data_ptr(), ai.data_ptr(), ar.stride(0), ar.stride(1),
+            strided_copy_mode(ar, ai),
             br.data_ptr(), bi.data_ptr(), br.stride(0), br.stride(1),
-            re.data_ptr(), im.data_ptr(), k, m, n, _stream(ar.device),
+            strided_copy_mode(br, bi),
+            re.data_ptr(), im.data_ptr(), k, m, n, cfg.variant, _stream(ar.device),
         )
     _check(lib, rc, "fused_complex_dot")
-    LAUNCHES["fused_complex_dot"] += 1
     return re, im
 
 
@@ -492,14 +676,29 @@ def fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout):
     )
 
 
-def _digit_offsets(sizes, strides, device):
+def offset_dtype(view, strides) -> str:
+    """``"int32"`` when every element offset of a tensor of this shape
+    and these strides fits 31 bits (the transpose kernel's tables are then
+    int32), else ``"int64"``.
+
+    >>> offset_dtype((2, 32, 8192, 32), (2**23, 2**18, 32, 1))
+    'int32'
+    >>> offset_dtype((2, 2**31), (2**31, 1))
+    'int64'
+    """
+    top = sum((int(d) - 1) * int(s) for d, s in zip(view, strides) if d > 0)
+    return "int32" if top < 2**31 else "int64"
+
+
+def _digit_offsets(sizes, strides, device, dtype: str = "int64"):
     """Stored offset of every flat index over mixed-radix digits of the
     given sizes (most significant first) and element strides: the table
-    one side (contract or free) of an operand is read through. Built once
-    per (sizes, strides, device) and kept in :data:`_OFFSET_TABLES`."""
+    one side (contract or free) of an operand is read through, of
+    ``dtype`` (``int32`` or ``int64``). Built once per (sizes, strides,
+    device, dtype) and kept in :data:`_OFFSET_TABLES`."""
     import torch
 
-    key = (tuple(sizes), tuple(strides), device)
+    key = (tuple(sizes), tuple(strides), device, dtype)
     off = _OFFSET_TABLES.get(key)
     if off is None:
         idx = torch.arange(math.prod(sizes), device=device, dtype=torch.int64)
@@ -507,24 +706,65 @@ def _digit_offsets(sizes, strides, device):
         for size, stride in zip(reversed(sizes), reversed(strides)):
             off += (idx % size) * stride
             idx = idx.div(size, rounding_mode="floor")
+        off = off.to(getattr(torch, dtype))
         if len(_OFFSET_TABLES) >= _OFFSET_TABLES_MAX:
             _OFFSET_TABLES.clear()
         _OFFSET_TABLES[key] = off
     return off
 
 
-def _gather_tables(t, lay: OperandLayout):
-    """``(off_k, off_f, k_unit)`` of one stored operand for the kernel:
-    the contract and free offset tables, and whether the contract index
-    has the smaller stride (the kernel walks it fastest)."""
+def _gather_tables(t, lay: OperandLayout, dtype: str | None = None):
+    """``(off_k, off_f)``: the contract and free offset tables of one
+    stored operand for the kernel, of ``dtype`` (default
+    :func:`offset_dtype` of ``t``)."""
     strides = t.stride()
+    dtype = dtype or offset_dtype(t.shape, strides)
 
     def table(axes):
         return _digit_offsets(
-            [lay.view[a] for a in axes], [strides[a] for a in axes], t.device
+            [lay.view[a] for a in axes], [strides[a] for a in axes], t.device, dtype
         )
 
-    return table(lay.k_axes), table(lay.f_axes), int(strides[lay.kd] < strides[lay.fd])
+    return table(lay.k_axes), table(lay.f_axes)
+
+
+def gather_copy_mode(re, im, lay: OperandLayout, table_dtype: str = "int32") -> int:
+    """The copy mode of one stored operand pair read through its offset
+    tables. The stride-1 index is walked: the contract index when it has
+    the smaller stride (``k_unit``), else the free index. 16-byte copies
+    (:data:`COPY_VEC_K` along the contract index, :data:`COPY_VEC` along
+    the free one) when that index's fastest digit has stride 1 and a whole
+    number of vectors, every other stride is a whole number of vectors and
+    both parts start 16-byte aligned (four consecutive indices are then
+    one aligned run of the storage); else element copies
+    (:data:`COPY_WALK_K`, :data:`COPY_WALK_F`). With int64 offset tables
+    (``table_dtype``) the contract index is always copied element-wise:
+    the staged pipeline is built for int32 tables only.
+
+    >>> import torch
+    >>> t = torch.zeros(2, 32, 32)
+    >>> gather_copy_mode(t, t, OperandLayout((2, 32, 32), (1,), (0, 2)))
+    0
+    >>> gather_copy_mode(t, t, OperandLayout((2, 32, 32), (2,), (0, 1)))
+    3
+    >>> u = torch.zeros(2, 32, 30)
+    >>> gather_copy_mode(u, u, OperandLayout((2, 32, 30), (2,), (0, 1)))
+    1
+    """
+    strides = re.stride()
+    k_unit = strides[lay.kd] < strides[lay.fd]
+    unit = lay.kd if k_unit else lay.fd
+    vec = 16 // re.element_size()
+    if (
+        strides[unit] == 1
+        and not (k_unit and table_dtype == "int64")
+        and lay.view[unit] % vec == 0
+        and all(s % vec == 0 for ax, s in enumerate(strides)
+                if ax != unit and lay.view[ax] > 1)
+        and _aligned(re, im)
+    ):
+        return COPY_VEC_K if k_unit else COPY_VEC
+    return COPY_WALK_K if k_unit else COPY_WALK_F
 
 
 def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
@@ -538,10 +778,10 @@ def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
     the first operand's free digits and columns the second's — the prep +
     dot path's order, so a step reshapes it to ``out_store`` unchanged.
     CPU tensors run :func:`fused_transpose_reference`; CUDA tensors
-    (float32 or float64) launch the kernel on the current stream.
+    (float32 or float64) launch the kernel on the current stream, with the
+    offset tables of :func:`offset_dtype`'s width and each operand's
+    :func:`gather_copy_mode`.
     """
-    import torch
-
     what = "fused_transpose_dot"
     _check_parts(what, (ar, ai, br, bi), two_d=False)
     _check_pair(what, ar, ai)
@@ -565,25 +805,43 @@ def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
         )
     if ar.device.type == "cpu":
         return fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout)
-    m, n = a_layout.f_size, b_layout.f_size
-    a_k, a_f, a_unit = _gather_tables(ar, a_layout)
-    b_k, b_f, b_unit = _gather_tables(br, b_layout)
+    out = _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout)
+    LAUNCHES[what] += 1
+    return out
+
+
+def _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
+    """One launch of the kernel on checked operands; raises on a CUDA
+    error."""
+    import torch
+
+    k, m, n = a_layout.k_size, a_layout.f_size, b_layout.f_size
+    # one table width for both operands: int32 unless an offset needs more
+    off = "int32"
+    if "int64" in (offset_dtype(ar.shape, ar.stride()), offset_dtype(br.shape, br.stride())):
+        off = "int64"
+    a_k, a_f = _gather_tables(ar, a_layout, off)
+    b_k, b_f = _gather_tables(br, b_layout, off)
     lib = _library("fused_transpose_dot")
     fn = (
         lib.tnc_fused_transpose_dot_f32
         if ar.dtype == torch.float32
         else lib.tnc_fused_transpose_dot_f64
     )
-    re = torch.empty((m, n), dtype=ar.dtype, device=ar.device)
-    im = torch.empty((m, n), dtype=ar.dtype, device=ar.device)
+    off_bytes = 8 if off == "int64" else 4
+    a_mode = gather_copy_mode(ar, ai, a_layout, off)
+    b_mode = gather_copy_mode(br, bi, b_layout, off)
+    cfg = gemm_config(m, n, ar.element_size(), off_bytes, _sm_count(ar.device),
+                      staged=COPY_VEC_K in (a_mode, b_mode))
+    re, im = _outputs(m, n, ar)
     with torch.cuda.device(ar.device):
         rc = fn(
-            ar.data_ptr(), ai.data_ptr(), a_k.data_ptr(), a_f.data_ptr(), a_unit,
-            br.data_ptr(), bi.data_ptr(), b_k.data_ptr(), b_f.data_ptr(), b_unit,
-            re.data_ptr(), im.data_ptr(), k, m, n, _stream(ar.device),
+            ar.data_ptr(), ai.data_ptr(), a_k.data_ptr(), a_f.data_ptr(), a_mode,
+            br.data_ptr(), bi.data_ptr(), b_k.data_ptr(), b_f.data_ptr(), b_mode,
+            re.data_ptr(), im.data_ptr(), k, m, n, int(off == "int64"), cfg.variant,
+            _stream(ar.device),
         )
-    _check(lib, rc, what)
-    LAUNCHES[what] += 1
+    _check(lib, rc, "fused_transpose_dot")
     return re, im
 
 
