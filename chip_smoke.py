@@ -44,10 +44,26 @@ Phases, each of which raises on failure (nothing is caught):
    and a profile), under the forced ``fused_transpose`` rung (its launches
    and routed steps must equal the plan's gate), both against the norm in
    complex128 on the card; and ``peps(3, 3, 2, 16, 0)`` on the forced
-   rung against the complex128 numpy oracle;
-8. one JSON line of path numbers (with each kernel's per-shape rows and
-   float64 errors), one of per-kernel numbers, the card line, and the
-   last line ``{"ok": true, "device": {...}}``.
+   rung against the complex128 numpy oracle; the CUDA-event time of every
+   step of the PEPS norm (``run_steps_timed``);
+8. the sliced cell — one amplitude of ``sycamore_circuit(53, 10,
+   default_rng(42))`` on the all-zeros bitstring, ``simplify_network``,
+   ``Greedy`` path, ``find_slicing`` to 2^29 elements: 128 slices of 169
+   steps. ``fused_chain`` against its plain version on the chain operands
+   slice 0 builds; ``contract_tensor_network_sliced`` once to warm up and
+   three times timed (``fused_chain`` launched once per chain and slice);
+   the device-resident part, a profile of four slices and the CUDA-event
+   time of every step of slice 0; slices 0-7 and the whole amplitude against
+   complex128 on the card (the first 32 slices only if complex128 of all
+   would take over 30 s); the forced ``fused`` rung on slices 0-7 (its
+   ``fused_complex_dot`` launches held against the plain version on slice
+   0's operands, its launches and routed steps against the plan's gate,
+   its sum against the default rung's); a 20-qubit depth-6 amplitude over
+   4 slices against the complex128 numpy oracle;
+9. one JSON line of path numbers (with each kernel's per-shape rows,
+   float64 errors and launches by path), one of per-kernel numbers over
+   the launches of every path, the card line, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result when CUDA is unavailable or the
 ``tnc_tpu_torch`` package is not beside it.
@@ -56,6 +72,7 @@ It exits non-zero without a result when CUDA is unavailable or the
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -75,6 +92,12 @@ SMALL_QUBITS = 20  # the configuration checked whole against the host oracle
 # norm contracted exactly; and a small one checked against the host oracle
 PEPS = (4, 4, 2, 32, 0)
 PEPS_SMALL = (3, 3, 2, 16, 0)
+# the sliced cell: a Sycamore single amplitude (qubits, depth, rng seed, log2 of
+# the slicing target), and a small one checked against the host oracle
+SLICED = (53, 10, 42, 29)
+SLICED_SMALL = (20, 6, 7, 7)
+SLICED_CHECK_S = 30.0  # complex128 of every slice if it takes at most this, else 32
+FUSED_RANGE = (0, 8)  # the slices the sliced cell's forced fused rung runs
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -230,44 +253,55 @@ def chain_slot_sizes(steps) -> dict[int, int]:
     return sizes
 
 
-def check_chains(program, policy, gen) -> dict:
+def hold_chain(first_ops, link_ops, links, label: str, launches: int) -> dict:
+    """One chain group through ``fused_chain`` against
+    ``fused_chain_reference`` on the same operands, timed beside the bound
+    and the plain version; a row weighted by ``launches``."""
+    import torch
+
+    from tnc_tpu_torch.ops import cuda_complex
+
+    got = cuda_complex.fused_chain(first_ops, link_ops, links)
+    torch.cuda.synchronize()
+    want = cuda_complex.fused_chain_reference(first_ops, link_ops, links)
+    err, scale = max_err(got, want)
+    check(err <= F32_REL_TOL * scale,
+          f"fused_chain {label}: max|err| {err} > {F32_REL_TOL} * {scale}")
+    ms, wall = time_ms(lambda: cuda_complex.fused_chain(first_ops, link_ops, links))
+    plain, plain_wall = time_ms(
+        lambda: cuda_complex.fused_chain_reference(first_ops, link_ops, links))
+    ops = list(first_ops) + [t for pair in link_ops for t in pair]
+    nbytes = sum(t.numel() for t in ops) * 4 + 2 * got[0].numel() * 4
+    shape = (first_ops[0].shape[1], first_ops[2].shape[1])
+    flops = COMPLEX_MAC_FLOPS * first_ops[0].shape[0] * shape[0] * shape[1]
+    for (cr, _), link in zip(link_ops, links):
+        x = cr.shape[1]
+        # a link contracts all K*F elements of the carried value with X
+        flops += COMPLEX_MAC_FLOPS * shape[0] * shape[1] * x
+        shape = link.out_shape(x)
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    print(f"  fused_chain {label}: err {err:.3e} (scale {scale:.3e}) "
+          f"device: kernel {ms:.5f} ms plain {plain:.5f} ms; wall per call: "
+          f"kernel {wall:.5f} ms plain {plain_wall:.5f} ms; bound {b_ms:.3e} ms "
+          f"({b_by})", flush=True)
+    return {"label": label, "launches": launches, "err": err, "ms": ms, "plain_ms": plain,
+            "wall_ms": wall, "plain_wall_ms": plain_wall, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_chains(program, policy, gen) -> list[dict]:
     """Every chain group of the program through ``fused_chain`` against
-    ``fused_chain_reference`` on the card; returns the kernel's record."""
+    ``fused_chain_reference`` on the card, on random operands; returns the
+    rows (one launch each)."""
     import torch
 
     from tnc_tpu_torch.ops.cuda_complex import fused_chain, fused_chain_reference
     from tnc_tpu_torch.ops.split_complex import chain_operands
 
     rows = []
-    worst = 0.0
     for s, e in policy.chains:
         steps = program.steps[s:e]
         buffers = random_buffers(program, chain_slot_sizes(steps), torch.float32, gen)
-        first_ops, link_ops, links = chain_operands(steps, buffers)
-        got = fused_chain(first_ops, link_ops, links)
-        torch.cuda.synchronize()
-        want = fused_chain_reference(first_ops, link_ops, links)
-        err, scale = max_err(got, want)
-        check(err <= F32_REL_TOL * scale,
-              f"fused_chain {s}..{e}: max|err| {err} > {F32_REL_TOL} * {scale}")
-        worst = max(worst, err)
-        ms, wall = time_ms(lambda: fused_chain(first_ops, link_ops, links))
-        plain, plain_wall = time_ms(lambda: fused_chain_reference(first_ops, link_ops, links))
-        ops = list(first_ops) + [t for pair in link_ops for t in pair]
-        nbytes = sum(t.numel() for t in ops) * 4 + 2 * got[0].numel() * 4
-        shape = (first_ops[0].shape[1], first_ops[2].shape[1])
-        flops = COMPLEX_MAC_FLOPS * first_ops[0].shape[0] * shape[0] * shape[1]
-        for (cr, _), link in zip(link_ops, links):
-            x = cr.shape[1]
-            # a link contracts all K*F elements of the carried value with X
-            flops += COMPLEX_MAC_FLOPS * shape[0] * shape[1] * x
-            shape = link.out_shape(x)
-        b_ms, b_by = bound_ms(nbytes, flops, "float32")
-        rows.append((ms, plain, b_ms, b_by))
-        print(f"  fused_chain steps {s}..{e - 1}: err {err:.3e} (scale {scale:.3e}) "
-              f"device: kernel {ms:.5f} ms plain {plain:.5f} ms; wall per call: "
-              f"kernel {wall:.5f} ms plain {plain_wall:.5f} ms; bound {b_ms:.3e} ms "
-              f"({b_by})", flush=True)
+        rows.append(hold_chain(*chain_operands(steps, buffers), f"steps {s}..{e - 1}", 1))
     # one float64 case: the longest chain group
     s, e = max(policy.chains, key=lambda c: c[1] - c[0])
     steps = program.steps[s:e]
@@ -280,13 +314,22 @@ def check_chains(program, policy, gen) -> dict:
           flush=True)
     print("  fused_chain: no single PyTorch call computes a chain of steps; "
           "library_ms is null", flush=True)
-    n = len(rows)
+    return rows
+
+
+def chain_record(rows) -> dict:
+    """The chain kernel's record over its rows, each time a mean over the
+    rows' launches."""
+    n = sum(r["launches"] for r in rows)
+
+    def mean(key):
+        return sum(r["launches"] * r[key] for r in rows) / n
+
+    by_bytes = sum(r["launches"] for r in rows if r["bound_by"] == "bytes")
     return {
-        "max_abs_err": worst,
-        "ms": sum(r[0] for r in rows) / n,
-        "plain_ms": sum(r[1] for r in rows) / n,
-        "bound_ms": sum(r[2] for r in rows) / n,
-        "bound_by": "bytes" if sum(r[3] == "bytes" for r in rows) * 2 >= n else "operations",
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+        "bound_by": "bytes" if 2 * by_bytes >= n else "operations",
         "library_ms": None,
     }
 
@@ -322,12 +365,54 @@ def against_float64(what, got, want, exact, scale) -> tuple[float, float]:
     return k_err, p_err
 
 
+def hold_dot(ar, ai, br, bi, launches: int, label: str, f64: bool = False) -> dict:
+    """``fused_complex_dot`` on these operands against the plain version
+    (and, with ``f64``, both against a float64 product beside cuBLAS's),
+    timed beside the plain version, the library call and the bound; a row
+    weighted by ``launches``."""
+    import torch
+
+    from tnc_tpu_torch.ops import cuda_complex
+
+    k, m, n = ar.shape[0], ar.shape[1], br.shape[1]
+    got = cuda_complex.fused_complex_dot(ar, ai, br, bi)
+    torch.cuda.synchronize()
+    want = cuda_complex.fused_complex_dot_reference(ar, ai, br, bi)
+    err, scale = max_err(got, want)
+    check(err <= F32_REL_TOL * scale,
+          f"fused_complex_dot {(k, m, n)}: max|err| {err} > {F32_REL_TOL} * {scale}")
+    row = {"k": k, "m": m, "n": n, "launches": launches, "err": err}
+    if f64:
+        exact = cuda_complex.fused_complex_dot_reference(
+            *(t.double() for t in (ar, ai, br, bi)))
+        row["float64"] = against_float64(f"fused_complex_dot K={k} M={m} N={n}", got,
+                                         want, exact, scale)
+        del exact
+    del got, want
+    reps = 3 if 8.0 * k * m * n > 1e13 else 10 if 8.0 * k * m * n > 1e11 else 20
+    ms, wall = time_ms(lambda: cuda_complex.fused_complex_dot(ar, ai, br, bi), reps, 1)
+    plain, _ = time_ms(lambda: cuda_complex.fused_complex_dot_reference(ar, ai, br, bi),
+                       reps, 1)
+    a_c, b_c = torch.complex(ar, ai), torch.complex(br, bi)
+    lib, _ = time_ms(lambda: a_c.mT @ b_c, reps, 1)
+    del a_c, b_c
+    nbytes = 4.0 * 2 * (k * m + k * n + m * n)
+    b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * k * m * n, "float32")
+    row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    print(f"  fused_complex_dot {label} K={k} M={m} N={n}: err {err:.3e} "
+          f"(scale {scale:.3e}) device: kernel {ms:.4f} ms plain {plain:.4f} ms "
+          f"complex64 matmul {lib:.4f} ms; kernel wall per call {wall:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops per complex "
+          f"multiply-add); kernel/plain {ms / plain:.3f}", flush=True)
+    return row
+
+
 def check_dot(program, gen) -> dict:
     """Every distinct ``(K, M, N)`` the forced ``fused`` rung launches
     ``fused_complex_dot`` at, a ragged shape and a float64 case, against
-    the plain version; returns the kernel's record, each time a mean over
-    the rung's launches (each shape weighted by its launches; ``expect``:
-    their count) and the per-shape rows (``shapes``)."""
+    the plain version, on random operands; returns the per-shape rows
+    (``shapes``, each weighted by the rung's launches at that shape), the
+    rung's launch count (``expect``) and the stem's float64 errors."""
     import torch
 
     from tnc_tpu_torch.ops.cuda_complex import (
@@ -346,43 +431,10 @@ def check_dot(program, gen) -> dict:
         return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
 
     rows = []
-    worst = 0.0
-    f64 = None
-    for k, m, n, launches in shapes:
-        ar, ai, br, bi = rnd(k, m), rnd(k, m), rnd(k, n), rnd(k, n)
-        got = fused_complex_dot(ar, ai, br, bi)
-        torch.cuda.synchronize()
-        want = fused_complex_dot_reference(ar, ai, br, bi)
-        err, scale = max_err(got, want)
-        check(err <= F32_REL_TOL * scale,
-              f"fused_complex_dot {(k, m, n)}: max|err| {err} > {F32_REL_TOL} * {scale}")
-        worst = max(worst, err)
-        if f64 is None:
-            # the longest K: both float32 results against a float64 product
-            exact = fused_complex_dot_reference(*(t.double() for t in (ar, ai, br, bi)))
-            f64 = against_float64(f"fused_complex_dot K={k} M={m} N={n}", got, want,
-                                  exact, scale)
-            del exact
-        del got, want
-        reps = 3 if 8.0 * k * m * n > 1e13 else 10 if 8.0 * k * m * n > 1e11 else 20
-        ms, wall = time_ms(lambda: fused_complex_dot(ar, ai, br, bi), reps, 1)
-        plain, _ = time_ms(lambda: fused_complex_dot_reference(ar, ai, br, bi), reps, 1)
-        a_c, b_c = torch.complex(ar, ai), torch.complex(br, bi)
-        lib, _ = time_ms(lambda: a_c.mT @ b_c, reps, 1)
-        del a_c, b_c
-        nbytes = 4.0 * 2 * (k * m + k * n + m * n)
-        b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * k * m * n, "float32")
-        if launches:
-            rows.append({"k": k, "m": m, "n": n, "launches": launches, "ms": ms,
-                         "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                         "bound_by": b_by})
-        kind = f"x{launches}" if launches else "ragged"
-        print(f"  fused_complex_dot {kind} K={k} M={m} N={n}: err {err:.3e} "
-              f"(scale {scale:.3e}) device: kernel {ms:.4f} ms plain {plain:.4f} ms "
-              f"complex64 matmul {lib:.4f} ms; kernel wall per call {wall:.4f} ms; "
-              f"bound {b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops per complex "
-              f"multiply-add); kernel/plain {ms / plain:.3f}", flush=True)
-        del ar, ai, br, bi
+    for i, (k, m, n, launches) in enumerate(shapes):
+        row = hold_dot(rnd(k, m), rnd(k, m), rnd(k, n), rnd(k, n), launches,
+                       f"x{launches}" if launches else "ragged", f64=i == 0)
+        rows.append(row)
         torch.cuda.empty_cache()
     # one float64 case at the middle shape
     k, m, n, _ = shapes[len(shapes) // 2]
@@ -393,8 +445,8 @@ def check_dot(program, gen) -> dict:
           f"fused_complex_dot float64 {(k, m, n)}: max|err| {err} > {F64_REL_TOL} * {scale}")
     print(f"  fused_complex_dot float64 K={k} M={m} N={n}: err {err:.3e} "
           f"(scale {scale:.3e})", flush=True)
-    return {"max_abs_err": worst, **launch_weighted(rows), "expect": sum(counts.values()),
-            "float64_errors": f64, "shapes": rows}
+    return {"expect": sum(counts.values()), "float64_errors": rows[0]["float64"],
+            "shapes": [r for r in rows if r["launches"]], "ragged_err": rows[-1]["err"]}
 
 
 def launch_weighted(rows) -> dict:
@@ -414,12 +466,13 @@ def launch_weighted(rows) -> dict:
     }
 
 
-def run_main_path(tn, path, backend, label: str, reps: int = 3) -> dict:
-    """One warm-up and ``reps`` timed ``contract_tensor_network`` runs.
-    Launch and routing counts are reset just before each timed run and
-    read just after it. Returns the last result (``out``), the wall
-    seconds of every timed run (``walls``), and the launch counts, routed
-    steps and peak device memory of the last one."""
+def run_counted(fn, label: str, reps: int = 3) -> dict:
+    """One warm-up and ``reps`` timed calls of ``fn()`` (a contraction from
+    host leaves to the host result). Launch and routing counts are reset
+    just before each timed call and read just after it. Returns the last
+    result (``out``), the wall seconds of every timed call (``walls``), and
+    the launch counts, routed steps and peak device memory of the last
+    one."""
     import torch
 
     from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
@@ -428,9 +481,8 @@ def run_main_path(tn, path, backend, label: str, reps: int = 3) -> dict:
         FUSED_TRANSPOSE_ROUTED,
         reset_routed,
     )
-    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
 
-    contract_tensor_network(tn, path, backend)
+    fn()
     walls = []
     run = {"out": None}
     for _ in range(reps):
@@ -441,7 +493,7 @@ def run_main_path(tn, path, backend, label: str, reps: int = 3) -> dict:
         reset_launches()
         reset_routed()
         t0 = time.perf_counter()
-        out = contract_tensor_network(tn, path, backend)
+        out = fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         run = {
@@ -458,30 +510,43 @@ def run_main_path(tn, path, backend, label: str, reps: int = 3) -> dict:
     return run
 
 
-def profile_device_path(tn, path, backend, label: str, reps: int = 3) -> dict:
-    """Where the main path's time goes: the device-resident part
-    (``execute_on_device``: placement and every step, no copy back) timed
-    on its own, then one run under ``torch.profiler`` for device time by
-    kernel and the device's busy share."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def run_main_path(tn, path, backend, label: str, reps: int = 3) -> dict:
+    """:func:`run_counted` of ``contract_tensor_network(tn, path, backend)``."""
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
 
+    return run_counted(lambda: contract_tensor_network(tn, path, backend), label, reps)
+
+
+def device_run(tn, path, backend):
+    """A callable running the device-resident part of the contraction
+    (``execute_on_device``: placement and every step, no copy back)."""
     from tnc_tpu_torch.ops.program import build_program, flat_leaf_tensors
 
     program = build_program(tn, path)
     arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    return lambda: backend.execute_on_device(program, arrays)
+
+
+def profile_device_path(run, label: str, reps: int = 3, profiled=None) -> dict:
+    """Where a path's time goes: its device-resident part ``run()`` timed
+    on its own ``reps`` times, then one call of ``profiled`` (default:
+    ``run``) under ``torch.profiler`` for device time by kernel and the
+    device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = backend.execute_on_device(program, arrays)
+        out = run()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         del out
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = backend.execute_on_device(program, arrays)
+        out = (profiled or run)()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     del out
@@ -652,11 +717,6 @@ def run_peps(backend) -> dict:
     from tnc_tpu_torch.ops.split_complex import plan_kernels
     from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
 
-    def scalar(leaf) -> complex:
-        z = complex(np.asarray(leaf.data.into_data()).reshape(()))
-        check(math.isfinite(z.real) and math.isfinite(z.imag), f"non-finite norm {z}")
-        return z
-
     def forced(tn, path, label):
         os.environ["TNC_TPU_COMPLEX_MULT"] = "fused_transpose"
         try:
@@ -679,7 +739,8 @@ def run_peps(backend) -> dict:
 
     default = run_main_path(tn, path, backend, "peps default", reps=3)
     z = scalar(default.pop("out"))
-    prof = profile_device_path(tn, path, backend, "peps", reps=2)
+    prof = profile_device_path(device_run(tn, path, backend), "peps", reps=2)
+    steps = timed_steps(backend, program, device_buffers(backend, tn), "peps")
     ft = forced(tn, path, "peps fused_transpose rung")
     z_ft = scalar(ft.pop("out"))
     check(ft["launches"]["fused_transpose_dot"] == admitted,
@@ -716,12 +777,313 @@ def run_peps(backend) -> dict:
         "config": list(PEPS), "seed": SEED, "steps": len(program.steps),
         "admitted": admitted, "wall_s": statistics.median(default["walls"]),
         "wall_runs_s": default["walls"], "peak_bytes": default["peak_bytes"],
-        **prof, "fused_transpose_wall_s": ft["walls"][0],
+        **prof, "step_times": steps, "fused_transpose_wall_s": ft["walls"][0],
         "fused_transpose_peak_bytes": ft["peak_bytes"],
         "fused_transpose_launches": ft["launches"]["fused_transpose_dot"],
         "norm": [z.real, z.imag], "norm_fused_transpose": [z_ft.real, z_ft.imag],
         "norm_complex128": [z128.real, z128.imag], "complex128_wall_s": t128,
     }
+
+
+def device_buffers(backend, tn):
+    """A callable giving a fresh buffer list over the network's leaves,
+    placed on the card once."""
+    from tnc_tpu_torch.ops.backends import place_buffers
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+
+    full = place_buffers([leaf.data.into_data() for leaf in flat_leaf_tensors(tn)],
+                         backend.dtype, backend.split_complex, backend.device)
+    return lambda: list(full)
+
+
+def timed_steps(backend, program, buffers, label: str, top: int = 8) -> dict:
+    """Time between CUDA events around every step and chain of one run of
+    ``program`` under the backend's policy (``run_steps_timed``). A first
+    run gives the wall time of the whole; the timed run is queued behind a
+    ``torch.cuda._sleep`` twice as long (at most 2 s), so the card runs
+    the steps back to back while the host stays ahead. Where the host
+    falls behind (many small units), a unit's event time holds its issue
+    time too, so the sum is ``event_ms``, beside the host's ``host_ms``,
+    and not device time. ``buffers()`` gives the run's own buffer list."""
+    import torch
+
+    from tnc_tpu_torch.ops.backends import run_steps_timed
+
+    policy = backend.kernel_policy(program)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = run_steps_timed(program, buffers(), policy)
+    wall = time.perf_counter() - t0
+    del out
+    torch.cuda._sleep(int(min(2 * wall, 2.0) * SLEEP_CYCLES_PER_S))
+    out, records = run_steps_timed(program, buffers(), policy)
+    del out
+    total = sum(r["ms"] for r in records)
+    host = sum(r["host_ms"] for r in records)
+    by_mode: dict = collections.defaultdict(float)
+    for r in records:
+        by_mode[r["mode"]] += r["ms"]
+    heavy = sorted(records, key=lambda r: -r["ms"])[:top]
+    print(f"[steps {label}] {len(records)} launch units, {total:.3f} ms between their "
+          f"events, issued in {host:.3f} ms of host time (untimed run {wall * 1e3:.3f} ms "
+          f"wall); by mode "
+          f"{ {m: round(v, 4) for m, v in by_mode.items()} }", flush=True)
+    for r in heavy:
+        print(f"  {r['ms']:10.4f} ms ({r['ms'] / total:.3f})  {r['mode']:<9s} {r['label']}  "
+              f"{r['flops']:.3e} multiply-adds, issued in {r['host_ms']:.4f} ms", flush=True)
+    return {"units": len(records), "event_ms": total, "host_ms": host,
+            "untimed_wall_ms": wall * 1e3, "by_mode_ms": dict(by_mode),
+            "heaviest": [{k: r[k] for k in ("label", "mode", "flops", "ms", "host_ms")}
+                         for r in heavy]}
+
+
+@contextlib.contextmanager
+def holding(name: str, hold):
+    """While active, every call the port makes to ``cuda_complex.<name>``
+    (the split-complex step glue looks the wrapper up at each call) first
+    goes to ``hold(*args)`` with the real wrapper in place, which holds the
+    kernel against its plain version on exactly those operands."""
+    from tnc_tpu_torch.ops import cuda_complex
+
+    real = getattr(cuda_complex, name)
+
+    def wrapper(*args):
+        setattr(cuda_complex, name, real)
+        try:
+            hold(*args)
+        finally:
+            setattr(cuda_complex, name, wrapper)
+        return real(*args)
+
+    setattr(cuda_complex, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cuda_complex, name, real)
+
+
+def build_sliced(cfg):
+    """``(tn, path, slicing)`` of a Sycamore single amplitude: the circuit
+    ``sycamore_circuit(qubits, depth, default_rng(seed))`` closed on the
+    all-zeros bitstring, ``simplify_network``, the ``Greedy`` path and
+    ``find_slicing`` to 2^target elements."""
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.slicing import find_slicing
+    from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+
+    qubits, depth, seed, target = cfg
+    tn, _ = sycamore_circuit(qubits, depth, np.random.default_rng(seed)
+                             ).into_amplitude_network("0" * qubits)
+    tn = simplify_network(tn)
+    path = plan(tn)
+    return tn, path, find_slicing(tn.tensors, path.toplevel, float(2 ** target))
+
+
+def fused_gate(program) -> tuple[list, dict]:
+    """``(admitted, routed)``: the steps whose ``fused_complex_dot`` gate
+    admits them, in order, and the others counted per reason — what the
+    forced ``fused`` rung does (``split_complex._try_fused_step``)."""
+    from tnc_tpu_torch.ops.cuda_complex import ineligible_reason
+    from tnc_tpu_torch.ops.program import step_dims
+
+    admitted, routed = [], collections.Counter()
+    for i, st in enumerate(program.steps):
+        m, k, n = step_dims(st)
+        if st.swap:
+            m, n = n, m
+        reason = "layout" if not (st.a_cfirst and st.b_cfirst) else ineligible_reason(k, m, n)
+        if reason is None:
+            admitted.append(i)
+        else:
+            routed[reason] += 1
+    return admitted, dict(routed)
+
+
+def scalar(result) -> complex:
+    """The one value of a contraction's result: a leaf tensor or an array."""
+    if hasattr(result, "legs"):
+        result = result.data.into_data()
+    z = complex(np.asarray(result).reshape(()))
+    check(math.isfinite(z.real) and math.isfinite(z.imag), f"non-finite amplitude {z}")
+    return z
+
+
+def run_sliced(backend) -> dict:
+    """The sliced cell: one Sycamore-53 depth-10 amplitude over its 128
+    slices (``SLICED``). Plan; ``fused_chain`` held against its plain
+    version on slice 0's own chain operands; the amplitude through
+    ``contract_tensor_network_sliced`` (one warm-up, three timed runs,
+    ``fused_chain`` launched once per chain and slice), its device-resident
+    part, a profile and the CUDA-event time of every step of one slice;
+    complex128 on the card slice by slice; the forced ``fused`` rung on
+    ``FUSED_RANGE`` (``fused_complex_dot`` held against its plain version
+    on slice 0's own operands, then launches and routed steps held to the
+    plan's gate); and the small configuration against the numpy oracle.
+    Returns the path record and the kernels' rows."""
+    import torch
+
+    from tnc_tpu_torch.contractionpath.slicing import sliced_flops, sliced_peak
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend, place_buffers
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors, step_flops
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
+
+    qubits, depth, seed, target = SLICED
+    t0 = time.perf_counter()
+    tn, path, sl = build_sliced(SLICED)
+    sp = build_sliced_program(tn, path, sl)
+    plan_s = time.perf_counter() - t0
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    policy = backend.kernel_policy(sp.program)
+    n = sl.num_slices
+    per_slice = sum(step_flops(st) for st in sp.program.steps)
+    total = sliced_flops(tn.tensors, path.toplevel, sl)
+    peak = sliced_peak(tn.tensors, path.toplevel, sl)
+    admitted, routed = fused_gate(sp.program)
+    modes = dict(collections.Counter(policy.modes))
+    print(f"[sliced plan] sycamore({qubits}, {depth}, rng {seed}), {len(tn.tensors)} tensors "
+          f"after simplify, planned in {plan_s:.2f} s: {n} slices over legs {list(sl.legs)} "
+          f"(dims {list(sl.dims)}), per-slice peak {peak:.4e} elements (target 2^{target}), "
+          f"{per_slice:.4e} complex multiply-adds per slice, {total:.4e} in all; "
+          f"{len(sp.program.steps)} steps, default modes {modes}, chains "
+          f"{list(policy.chains)}; forced fused gate admits {len(admitted)} {admitted}, "
+          f"routes {routed}", flush=True)
+
+    # fused_chain on the chain operands slice 0 builds, in the order it runs them
+    print("[kernels] fused_chain against fused_chain_reference on slice 0's operands",
+          flush=True)
+    chain_rows = []
+    spans = iter(policy.chains)
+
+    def hold_chain_call(first_ops, link_ops, links):
+        s, e = next(spans)
+        chain_rows.append(hold_chain(first_ops, link_ops, links,
+                                     f"sliced steps {s}..{e - 1}", n))
+
+    with holding("fused_chain", hold_chain_call):
+        backend.execute_sliced(sp, arrays, slice_range=(0, 1))
+    check(len(chain_rows) == len(policy.chains),
+          f"slice 0 ran {len(chain_rows)} chains, the policy has {len(policy.chains)}")
+    torch.cuda.empty_cache()
+
+    # the amplitude, all slices
+    main = run_counted(lambda: contract_tensor_network_sliced(tn, path, sl, backend),
+                       "sliced main path")
+    z = scalar(main["out"])
+    check(main["launches"]["fused_chain"] == len(policy.chains) * n,
+          f"fused_chain launched {main['launches']['fused_chain']} times for "
+          f"{len(policy.chains)} chains x {n} slices")
+    prof = profile_device_path(
+        lambda: backend.execute_sliced(sp, arrays, host=False), "sliced", reps=2,
+        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, 4), host=False))
+    full = place_buffers(arrays, backend.dtype, backend.split_complex, backend.device)
+    steps = timed_steps(backend, sp.program, lambda: backend.slice_buffers(sp, full, 0),
+                        "sliced slice 0")
+    del full
+    torch.cuda.empty_cache()
+
+    # complex128 on the card, slice by slice
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    refs = []
+    limit = n
+    t0 = time.perf_counter()
+    while len(refs) < limit:
+        s = len(refs)
+        refs.append(scalar(oracle.execute_sliced(sp, arrays, slice_range=(s, s + 1))))
+        if s == 7 and (time.perf_counter() - t0) / 8 * n > SLICED_CHECK_S:
+            limit = 32
+    t128 = time.perf_counter() - t0
+    scale8 = max(abs(r) for r in refs[:8])
+    worst8 = 0.0
+    for s in range(8):
+        got = scalar(backend.execute_sliced(sp, arrays, slice_range=(s, s + 1)))
+        worst8 = max(worst8, abs(got - refs[s]))
+        check(abs(got - refs[s]) <= 1e-4 * scale8,
+              f"slice {s}: {got!r} off complex128 {refs[s]!r} by {abs(got - refs[s])}")
+    if limit == n:
+        scope, got_sum = f"all {n} slices", z
+    else:
+        scope = "the first 32 slices (complex128 of all would take over "\
+                f"{SLICED_CHECK_S:g} s)"
+        got_sum = scalar(backend.execute_sliced(sp, arrays, slice_range=(0, 32)))
+    want_sum = sum(refs)
+    abs_sum = sum(abs(r) for r in refs)
+    print(f"[check] sliced slices 0-7 against complex128 on the card: max|diff| "
+          f"{worst8:.3e} (gate 1e-4 x max|ref_s| = {1e-4 * scale8:.3e}); {scope}: "
+          f"{got_sum!r} vs {want_sum!r}, |diff| {abs(got_sum - want_sum):.3e} (gate 1e-4 x "
+          f"sum|ref_s| = {1e-4 * abs_sum:.3e}); complex128 slices took {t128:.3f} s",
+          flush=True)
+    check(abs(got_sum - want_sum) <= 1e-4 * abs_sum,
+          f"sliced amplitude over {scope} off complex128 by {abs(got_sum - want_sum)}")
+
+    # the forced fused rung on the first slices
+    lo, hi = FUSED_RANGE
+    width = hi - lo
+    default_range = scalar(backend.execute_sliced(sp, arrays, slice_range=FUSED_RANGE))
+    print("[kernels] fused_complex_dot against fused_complex_dot_reference on slice 0's "
+          "operands (forced fused rung)", flush=True)
+    dot_rows = []
+    steps_iter = iter(admitted)
+    os.environ["TNC_TPU_COMPLEX_MULT"] = "fused"
+    try:
+        with holding("fused_complex_dot", lambda ar, ai, br, bi: dot_rows.append(
+                hold_dot(ar, ai, br, bi, width, f"sliced step {next(steps_iter)}"))):
+            backend.execute_sliced(sp, arrays, slice_range=(0, 1))
+        torch.cuda.empty_cache()
+        fused = run_counted(lambda: backend.execute_sliced(sp, arrays, slice_range=FUSED_RANGE),
+                            "sliced fused rung", reps=1)
+    finally:
+        del os.environ["TNC_TPU_COMPLEX_MULT"]
+    check(len(dot_rows) == len(admitted),
+          f"slice 0 launched fused_complex_dot {len(dot_rows)} times, gate admits "
+          f"{len(admitted)}")
+    check(fused["launches"]["fused_complex_dot"] == len(admitted) * width,
+          f"fused rung launched fused_complex_dot {fused['launches']['fused_complex_dot']} "
+          f"times over {width} slices; the gate admits {len(admitted)} steps a slice")
+    want_routed = {r: c * width for r, c in routed.items()}
+    check(fused["routed"] == want_routed,
+          f"fused rung routed {fused['routed']}, the plan's gate says {want_routed}")
+    z_fused = scalar(fused["out"])
+    gate = 1e-5 * sum(abs(r) for r in refs[lo:hi])
+    print(f"[check] sliced fused rung on slices {lo}-{hi - 1}: {z_fused!r} vs default rung "
+          f"{default_range!r}, |diff| {abs(z_fused - default_range):.3e} (gate {gate:.3e})",
+          flush=True)
+    check(abs(z_fused - default_range) <= gate, "sliced fused rung disagrees with the default")
+
+    # the small sliced configuration against the host oracle
+    small_tn, small_path, small_sl = build_sliced(SLICED_SMALL)
+    reset_launches()
+    got = scalar(contract_tensor_network_sliced(small_tn, small_path, small_sl, backend))
+    small_chains = LAUNCHES["fused_chain"]
+    want = scalar(contract_tensor_network_sliced(small_tn, small_path, small_sl, NumpyBackend()))
+    small_rel = abs(got - want) / abs(want)
+    print(f"[check] sycamore{SLICED_SMALL[:3]} over {small_sl.num_slices} slices: {got!r} vs "
+          f"numpy complex128 {want!r}, relative {small_rel:.3e}; fused_chain launched "
+          f"{small_chains} times", flush=True)
+    check(small_rel <= 1e-5, f"small sliced amplitude off the host oracle by {small_rel}")
+    check(small_chains > 0, "the small sliced amplitude launched no fused_chain")
+
+    record = {
+        "config": list(SLICED), "tensors": len(tn.tensors), "slices": n,
+        "legs": list(sl.legs), "peak_elems": peak, "macs_per_slice": per_slice,
+        "macs": total, "steps": len(sp.program.steps), "modes": modes,
+        "chains": [list(c) for c in policy.chains], "fused_admitted": admitted,
+        "fused_routed": routed, "plan_s": plan_s,
+        "wall_s": statistics.median(main["walls"]), "wall_runs_s": main["walls"],
+        "peak_bytes": main["peak_bytes"], "launches": main["launches"], **prof,
+        "per_slice_ms": prof["device_s"] / n * 1e3, "step_times": steps,
+        "amplitude": [z.real, z.imag], "check_scope": scope,
+        "complex128": [want_sum.real, want_sum.imag], "complex128_sum_abs": abs_sum,
+        "complex128_s": t128, "slices_0_7_max_diff": worst8,
+        "fused_range": list(FUSED_RANGE), "fused_wall_s": fused["walls"][0],
+        "fused_launches": fused["launches"], "fused_diff": abs(z_fused - default_range),
+        "small": {"config": list(SLICED_SMALL), "slices": small_sl.num_slices,
+                  "relative": small_rel, "fused_chain_launches": small_chains},
+    }
+    return {"record": record, "chain_rows": chain_rows, "dot_rows": dot_rows,
+            "chain_launches": main["launches"]["fused_chain"],
+            "dot_launches": fused["launches"]["fused_complex_dot"]}
 
 
 def main() -> int:
@@ -773,7 +1135,7 @@ def main() -> int:
           f"admits {admitted}, routes {routed}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print("[kernels] fused_chain against fused_chain_reference", flush=True)
-    chain_rec = check_chains(program, policy, gen)
+    chain_rows = check_chains(program, policy, gen)
     print("[kernels] fused_complex_dot against fused_complex_dot_reference", flush=True)
     dot_rec = check_dot(program, gen)
     torch.cuda.empty_cache()
@@ -786,7 +1148,7 @@ def main() -> int:
           f"fused_chain launched {launches['fused_chain']} times for "
           f"{len(policy.chains)} chains")
     check(launches["fused_chain"] > 0, "main path launched no fused_chain")
-    chain_rec["launches"] = launches["fused_chain"]
+    chain_launches = {"random28": launches["fused_chain"]}
 
     # 4. correctness
     sv = np.asarray(sv_leaf.data.into_data())
@@ -830,7 +1192,7 @@ def main() -> int:
     check(launches["fused_complex_dot"] == dot_rec["expect"],
           f"fused rung launched fused_complex_dot {launches['fused_complex_dot']} times; "
           f"its timed shapes weigh {dot_rec['expect']} launches")
-    dot_rec["launches"] = launches["fused_complex_dot"]
+    dot_launches = {"random28 fused rung": launches["fused_complex_dot"]}
     fused_sv = np.asarray(fused_leaf.data.into_data())
     scale = float(np.max(np.abs(sv)))
     fdiff = float(np.max(np.abs(fused_sv - sv)))
@@ -841,7 +1203,7 @@ def main() -> int:
     del fused_leaf, fused_sv, sv
 
     # 6. where the main path's time goes
-    prof = profile_device_path(tn, path, backend, "random28")
+    prof = profile_device_path(device_run(tn, path, backend), "random28")
 
     # 7. the PEPS cell: the transpose kernel at the plan's shapes, then
     # the path under the default policy and the forced fused_transpose rung
@@ -853,6 +1215,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     peps_rec = run_peps(backend)
     transpose_rec["launches"] = peps_rec["fused_transpose_launches"]
+    torch.cuda.empty_cache()
+
+    # 8. the sliced cell
+    sliced = run_sliced(backend)
+    chain_launches["sycamore53_m10_sliced"] = sliced["chain_launches"]
+    dot_launches["sycamore53_m10_sliced fused rung"] = sliced["dot_launches"]
+
+    # each kernel's record over the launches of every path: a row's times
+    # weigh as many launches as that path makes at the row's operands
+    by_path = {
+        "fused_chain": {"random28": chain_record(chain_rows),
+                        "sycamore53_m10_sliced": chain_record(sliced["chain_rows"])},
+        "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
+                              "sycamore53_m10_sliced fused rung":
+                                  launch_weighted(sliced["dot_rows"])},
+    }
+    chain_rows += sliced["chain_rows"]
+    chain_rec = {**chain_record(chain_rows), "launches": sum(chain_launches.values())}
+    dot_rows = dot_rec["shapes"] + sliced["dot_rows"]
+    dot_rec = {**launch_weighted(dot_rows), "launches": sum(dot_launches.values()),
+               "max_abs_err": max([r["err"] for r in dot_rows] + [dot_rec["ragged_err"]]),
+               "float64_errors": dot_rec["float64_errors"]}
 
     kernels = [
         dict(name="fused_chain", route="cuda",
@@ -873,7 +1257,11 @@ def main() -> int:
                       "wall_s": statistics.median(walls), "wall_runs_s": walls,
                       "fused_rung_wall_s": fused_walls[0], **prof},
         "peps": peps_rec,
-        "shapes": {"fused_complex_dot": dot_rec["shapes"],
+        "sycamore53_m10_sliced": sliced["record"],
+        "launches_by_path": {"fused_chain": chain_launches,
+                             "fused_complex_dot": dot_launches},
+        "kernels_by_path": by_path,
+        "shapes": {"fused_chain": chain_rows, "fused_complex_dot": dot_rows,
                    "fused_transpose_dot": transpose_rec["shapes"]},
         "float64_errors": {"fused_complex_dot": dot_rec["float64_errors"],
                            "fused_transpose_dot": transpose_rec["float64_errors"]},

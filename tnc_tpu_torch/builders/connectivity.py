@@ -91,6 +91,42 @@ def sycamore_connect() -> list[tuple[int, int]]:
     ]
 
 
+# Per-round Sycamore two-qubit activation patterns (1-based labels,
+# ``connectivity.rs:150-253`` sycamore_a..d).
+def sycamore_a() -> list[tuple[int, int]]:
+    return [
+        (31, 32), (29, 24), (40, 26), (53, 44), (21, 22), (18, 7), (25, 15),
+        (48, 42), (8, 11), (5, 1), (16, 6), (46, 51), (14, 4), (2, 3),
+        (12, 10), (47, 41), (13, 27), (9, 17), (20, 19), (50, 43), (28, 39),
+        (23, 30), (34, 33), (49, 45),
+    ]
+
+
+def sycamore_b() -> list[tuple[int, int]]:
+    return [
+        (32, 37), (24, 21), (26, 18), (44, 25), (22, 35), (7, 8), (15, 5),
+        (42, 16), (1, 4), (6, 2), (51, 12), (14, 36), (3, 13), (10, 9),
+        (41, 20), (27, 38), (17, 28), (19, 23), (43, 34),
+    ]
+
+
+def sycamore_c() -> list[tuple[int, int]]:
+    return [
+        (52, 32), (31, 24), (29, 26), (40, 44), (37, 22), (21, 7), (18, 15),
+        (25, 42), (35, 11), (8, 1), (5, 6), (16, 51), (4, 3), (2, 10),
+        (12, 41), (36, 27), (13, 17), (9, 19), (20, 43), (38, 39), (28, 30),
+        (23, 33), (34, 45),
+    ]
+
+
+def sycamore_d() -> list[tuple[int, int]]:
+    return [
+        (32, 21), (24, 18), (26, 25), (44, 48), (22, 8), (7, 5), (15, 16),
+        (42, 46), (11, 4), (1, 2), (6, 12), (51, 47), (14, 13), (3, 9),
+        (10, 20), (41, 50), (27, 28), (17, 23), (19, 34), (43, 49),
+    ]
+
+
 def _hexagon_connectivity(
     row_length: int,
     stride: int,

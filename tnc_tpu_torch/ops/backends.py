@@ -9,6 +9,10 @@ counterpart of ``tnc_tpu.ops.backends``):
   :mod:`tnc_tpu_torch.ops.split_complex` (chains of small steps through
   the hand-written ``fused_chain`` kernel, the stem step through Strassen,
   the rest through the Gauss identity).
+
+Both run sliced programs (:meth:`Backend.execute_sliced`): the numpy
+oracle loops on the host, :class:`TorchBackend` keeps the full leaves on
+the device and loops over the slices there.
 """
 
 from __future__ import annotations
@@ -27,6 +31,24 @@ class Backend:
     name: str = "base"
 
     def execute(self, program: ContractionProgram, arrays: Sequence[Any]) -> np.ndarray:
+        raise NotImplementedError
+
+    def execute_sliced(
+        self,
+        sp,
+        arrays: Sequence[Any],
+        max_slices: int | None = None,
+        host: bool = True,
+        hoist: bool | None = None,
+        slice_range: tuple[int, int] | None = None,
+    ):
+        """Sum a :class:`~tnc_tpu_torch.ops.sliced.SlicedProgram` over its
+        slices. ``max_slices`` caps the sum to the first slices;
+        ``slice_range=(lo, hi)`` sums only that contiguous shard (the two
+        exclude each other). ``host=False`` returns the result in
+        **stored** shape, where it was computed. ``hoist=True`` asks for the
+        slice-invariant stem to run once, which the port does not do yet
+        (ROADMAP A2): it raises."""
         raise NotImplementedError
 
 
@@ -54,6 +76,97 @@ def _run_steps(program: ContractionProgram, buffers: list[Any]) -> Any:
         buffers[step.lhs] = apply_step(buffers[step.lhs], buffers[step.rhs], step)
         buffers[step.rhs] = None  # free eagerly
     return buffers[program.result_slot]
+
+
+def run_steps_timed(
+    program: ContractionProgram,
+    buffers: list[Any],
+    policy=None,
+) -> tuple[Any, list[dict]]:
+    """Run a split-complex program through :func:`~tnc_tpu_torch.ops.
+    split_complex.run_steps_split`, timing each launch unit: one record
+    per step, and one per fused chain (whose record sums its steps'
+    flops). Returns ``(result, records)``; the result in stored shape.
+
+    A record holds ``label`` (``step[i] MxK·KxN``, or ``step[s..e] chain
+    xN``), ``mode`` (the arithmetic that ran: ``chain``, or what
+    :func:`~tnc_tpu_torch.ops.split_complex.resolved_step_mode` gives),
+    the predicted ``flops`` (complex multiply-adds), ``bytes_in`` and
+    ``bytes_out`` at the buffers' bytes per complex element (operands
+    read, their prep pass, the result written; a chain reads its
+    operands and writes its last result), ``ms`` and ``host_ms``.
+    ``host_ms`` is the host's time to issue the unit. On a CUDA buffer
+    ``ms`` is the time between CUDA events recorded on the current stream
+    before and after the unit — device time when the stream is ahead of
+    the host (a caller that queues ``torch.cuda._sleep`` first makes it
+    so), else the host's issue time shows in it — read after one
+    synchronise at the end; on the CPU it is wall time, as ``host_ms``.
+    """
+    import math
+    import time
+
+    import torch
+
+    from tnc_tpu_torch.ops.program import step_elems, step_flops, step_label
+    from tnc_tpu_torch.ops.split_complex import resolved_step_mode, run_steps_split
+
+    first = next(b for b in buffers if b is not None)[0]
+    on_cuda = first.device.type == "cuda"
+    complex_bytes = 2 * first.element_size()
+    steps = program.steps
+    chains = set(policy.chains) if policy is not None else set()
+
+    def mark():
+        if on_cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def operand_elems(view, perm, ops) -> float:
+        return (3.0 if perm is not None or ops else 1.0) * float(math.prod(view))
+
+    def record_of(start: int, end: int) -> dict:
+        if (start, end) in chains:
+            group = steps[start:end]
+            head = group[0]
+            elems_in = operand_elems(head.a_view, head.a_perm, head.a_ops) + operand_elems(
+                head.b_view, head.b_perm, head.b_ops)
+            run_slot = head.lhs
+            for st in group[1:]:
+                if st.lhs == run_slot:
+                    elems_in += operand_elems(st.b_view, st.b_perm, st.b_ops)
+                else:
+                    elems_in += operand_elems(st.a_view, st.a_perm, st.a_ops)
+                run_slot = st.lhs
+            return {"label": f"step[{start}..{end - 1}] chain x{len(group)}",
+                    "mode": "chain", "flops": sum(step_flops(st) for st in group),
+                    "bytes_in": elems_in * complex_bytes,
+                    "bytes_out": step_elems(group[-1])[1] * complex_bytes}
+        step = steps[start]
+        resolved = resolved_step_mode(step, policy.modes[start] if policy is not None else None)
+        elems_in, elems_out = step_elems(step, mode=resolved)
+        return {"label": step_label(start, step), "mode": resolved,
+                "flops": step_flops(step), "bytes_in": elems_in * complex_bytes,
+                "bytes_out": elems_out * complex_bytes}
+
+    pending = []
+
+    def on_unit(start: int, end: int, run) -> None:
+        record = record_of(start, end)
+        h0, t0 = time.perf_counter(), mark()
+        run()
+        pending.append((record, t0, mark(), time.perf_counter() - h0))
+
+    out = run_steps_split(program, buffers, policy=policy, on_unit=on_unit)
+    if on_cuda:
+        torch.cuda.synchronize(first.device)
+    records = []
+    for record, t0, t1, host_s in pending:
+        record["ms"] = t0.elapsed_time(t1) if on_cuda else (t1 - t0) * 1e3
+        record["host_ms"] = host_s * 1e3
+        records.append(record)
+    return out, records
 
 
 def place_buffers(
@@ -102,6 +215,29 @@ class NumpyBackend(Backend):
         buffers = [np.asarray(a, dtype=np.complex128) for a in arrays]
         out = _run_steps(program, buffers)
         return np.asarray(out).reshape(program.result_shape)
+
+    def execute_sliced(
+        self,
+        sp,
+        arrays: Sequence[Any],
+        max_slices: int | None = None,
+        host: bool = True,
+        hoist: bool | None = None,
+        slice_range: tuple[int, int] | None = None,
+    ) -> np.ndarray:
+        """The complex128 oracle of a sliced program
+        (:func:`~tnc_tpu_torch.ops.sliced.execute_sliced_numpy`).
+        ``host=False`` returns the result in **stored** shape, as the
+        device backend does."""
+        from tnc_tpu_torch.ops.sliced import execute_sliced_numpy
+
+        out = execute_sliced_numpy(
+            sp, arrays, max_slices=max_slices, hoist=bool(hoist),
+            slice_range=slice_range,
+        )
+        if not host:
+            return out.reshape(sp.program.stored_result_shape)
+        return out
 
 
 #: precision names the backend accepts. ``float32`` is the reference's
@@ -215,6 +351,97 @@ class TorchBackend(Backend):
         ``program.result_legs`` order."""
         buffers = self._device_buffers(arrays)
         return self._run(program, buffers)
+
+    def execute_sliced(
+        self,
+        sp,
+        arrays: Sequence[Any],
+        max_slices: int | None = None,
+        host: bool = True,
+        hoist: bool | None = None,
+        slice_range: tuple[int, int] | None = None,
+    ):
+        """Sum a sliced program over its slices on the device.
+
+        The full leaves are placed on the device once. Each slice pins the
+        sliced axes of the leaves that carry them (a dense copy of the
+        slice: the steps and kernels see the layouts an unsliced program
+        gives them), runs every step under :meth:`kernel_policy` — one
+        policy, planned once, for all slices — and is added to the sum
+        with Kahan compensation, on the real and imaginary parts apart in
+        split mode. The compensation is folded in at the end.
+
+        ``max_slices`` caps the sum to the first slices (at least one);
+        ``slice_range=(lo, hi)`` sums the shard ``[lo, hi)``; the two
+        exclude each other. A program of one slice runs :meth:`execute`
+        (:meth:`execute_on_device` with ``host=False``). ``host=False``
+        returns the stored-shape result on the device, a (real, imag)
+        pair in split mode. ``hoist=None`` means no hoisting;
+        ``hoist=True`` raises until ROADMAP A2 ports the hoist pass.
+        """
+        from tnc_tpu_torch.ops.sliced import HOIST_MISSING, slice_bounds
+
+        if hoist:
+            raise NotImplementedError(HOIST_MISSING)
+        if slice_range is None and sp.slicing.num_slices == 1:
+            if not host:
+                return self.execute_on_device(sp.program, arrays)
+            return self.execute(sp.program, arrays)
+        lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
+        result = self._run_sliced(sp, self._device_buffers(arrays), lo, hi)
+        if not host:
+            return result
+        if self.split_complex:
+            from tnc_tpu_torch.ops.split_complex import combine_array
+
+            return combine_array(*result).reshape(sp.program.result_shape)
+        return result.cpu().numpy().reshape(sp.program.result_shape)
+
+    def slice_buffers(self, sp, full: list[Any], s: int) -> list[Any]:
+        """The buffer list of slice ``s`` over resident leaves ``full``
+        (placed by :meth:`_device_buffers`): a leaf with sliced axes gives
+        a dense copy of its slice, any other leaf itself. The list is the
+        slice's own, to be consumed by one run of the program."""
+        from tnc_tpu_torch.ops.sliced import _slice_indices, index_buffer
+
+        indices = _slice_indices(sp.slicing, s)
+
+        def pin(buf, info):
+            if not info:
+                return buf
+            if self.split_complex:
+                return tuple(index_buffer(p, info, indices).contiguous() for p in buf)
+            return index_buffer(buf, info, indices).contiguous()
+
+        return [pin(buf, info) for buf, info in zip(full, sp.slot_slices)]
+
+    def _run_sliced(self, sp, full: list[Any], lo: int, hi: int):
+        """Kahan sum of slices ``[lo, hi)`` over resident leaves ``full``
+        (never consumed); stored shape."""
+        import torch
+
+        from tnc_tpu_torch.ops.sliced import kahan_add
+        from tnc_tpu_torch.ops.split_complex import run_steps_split
+
+        policy = self.kernel_policy(sp.program)
+        like = full[0][0] if self.split_complex else full[0]
+        shape = sp.program.stored_result_shape
+        with torch.inference_mode():
+            # a (sum, compensation) pair per part: real and imaginary in split mode
+            acc = [
+                (torch.zeros(shape, dtype=like.dtype, device=self.device),
+                 torch.zeros(shape, dtype=like.dtype, device=self.device))
+                for _ in range(2 if self.split_complex else 1)
+            ]
+            for s in range(lo, hi):
+                buffers = self.slice_buffers(sp, full, s)
+                if self.split_complex:
+                    contrib = run_steps_split(sp.program, buffers, self.precision, policy=policy)
+                else:
+                    contrib = (_run_steps(sp.program, buffers),)
+                acc = [kahan_add(sc[0], sc[1], x) for sc, x in zip(acc, contrib)]
+            total = tuple(s + c for s, c in acc)
+        return total if self.split_complex else total[0]
 
     def bind_resident(self, program: ContractionProgram, arrays: Sequence[Any]):
         """Place ``arrays`` on the device once and return a callable that

@@ -98,6 +98,22 @@ def step_elems(st, mode: str | None = None) -> tuple[float, float]:
     return elems_in, float(math.prod(st.out_store))
 
 
+def step_label(i: int, st) -> str:
+    """Self-describing name of one step: index + matmul dims
+    (``step[12] 256x512·512x64``).
+
+    >>> from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
+    >>> from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+    >>> tn = CompositeTensor([LeafTensor.from_const([0, 1], 4),
+    ...                       LeafTensor.from_const([1, 2], 4)])
+    >>> program = build_program(tn, ContractionPath.simple([(0, 1)]))
+    >>> step_label(0, program.steps[0])
+    'step[0] 4x4·4x4'
+    """
+    m, k, n = step_dims(st)
+    return f"step[{i}] {m}x{k}·{k}x{n}"
+
+
 def chain_groups(
     steps,
     max_flops: float | None = None,

@@ -1,0 +1,195 @@
+"""Sliced contraction execution (the port's copy of ``tnc_tpu.ops.sliced``).
+
+A :class:`SlicedProgram` pairs a reduced-metadata
+:class:`~tnc_tpu_torch.ops.program.ContractionProgram` (sliced legs
+removed) with indexing instructions describing, for each input, which
+axes are fixed per slice. Execution sums the program's result over all
+slice index combinations.
+
+On the GPU the slice loop runs in
+:meth:`~tnc_tpu_torch.ops.backends.TorchBackend.execute_sliced`: the full
+leaves stay resident on the card, each slice indexes them and runs every
+step, and the partial results are summed with Kahan compensation.
+:func:`execute_sliced_numpy` is the complex128 host oracle. The
+reference's slice-invariant stem hoisting (``tnc_tpu.ops.hoist``) is not
+ported yet: every slice runs the whole program.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+
+from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+from tnc_tpu_torch.contractionpath.slicing import Slicing
+from tnc_tpu_torch.ops.backends import _run_steps
+from tnc_tpu_torch.ops.program import ContractionProgram, build_program
+from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
+
+HOIST_MISSING = (
+    "hoisting the slice-invariant stem is not ported yet (ROADMAP A2): "
+    "pass hoist=False or None"
+)
+
+
+@dataclass(frozen=True)
+class SlicedProgram:
+    program: ContractionProgram  # over slice-reduced shapes
+    slicing: Slicing
+    # per input slot: ((axis_in_original_tensor, slice_position), ...)
+    # ordered by axis, where slice_position indexes slicing.legs
+    slot_slices: tuple[tuple[tuple[int, int], ...], ...]
+
+    def signature(self) -> tuple:
+        return (self.program.signature(), self.slicing, self.slot_slices)
+
+
+def build_sliced_program(
+    tn: CompositeTensor, contract_path: ContractionPath, slicing: Slicing
+) -> SlicedProgram:
+    """Compile ``tn``'s path with ``slicing.legs`` removed from every leaf."""
+    removed = set(slicing.legs)
+    position = {leg: k for k, leg in enumerate(slicing.legs)}
+
+    slot_slices: list[tuple[tuple[int, int], ...]] = []
+
+    def reduce_tensor(t: LeafTensor) -> LeafTensor:
+        info = tuple(
+            (axis, position[leg])
+            for axis, leg in enumerate(t.legs)
+            if leg in removed
+        )
+        slot_slices.append(info)
+        return LeafTensor(
+            [l for l in t.legs if l not in removed],
+            [d for l, d in t.edges() if l not in removed],
+            t.data,
+        )
+
+    def reduce_network(tensors: Sequence) -> CompositeTensor:
+        out = CompositeTensor()
+        # First pass: leaves in order (matching build_program slot order),
+        # composites recursed afterwards in index order.
+        reduced_children: list = []
+        for child in tensors:
+            if isinstance(child, CompositeTensor):
+                reduced_children.append(None)
+            else:
+                reduced_children.append(reduce_tensor(child))
+        for idx, child in enumerate(tensors):
+            if isinstance(child, CompositeTensor):
+                reduced_children[idx] = reduce_network(child.tensors)
+        for c in reduced_children:
+            out.push_tensor(c)
+        return out
+
+    if contract_path.nested:
+        raise ValueError("Sliced execution expects a flat path")
+
+    reduced_tn = reduce_network(tn.tensors)
+    program = build_program(reduced_tn, contract_path)
+    return SlicedProgram(program, slicing, tuple(slot_slices))
+
+
+def kahan_add(s, c, x):
+    """One compensated (Kahan) accumulation step over arrays or tensors.
+
+    Returns ``(s', c')`` with ``s' + c'`` carrying the running sum to ~2
+    ulp *independent of the number of steps* — the slice loop adds up
+    contributions whose total cancels to orders of magnitude below the
+    individual terms (a single Sycamore amplitude vs per-slice partial
+    sums), where plain float32 accumulation loses the 1e-5 parity target.
+    PyTorch runs each operation eagerly as written, so nothing
+    reassociates the compensation away.
+
+    >>> import numpy as np
+    >>> s = c = np.float32(1.0)
+    >>> c = np.float32(0.0)
+    >>> for _ in range(100):          # plain f32 sum would stay at 1.0
+    ...     s, c = kahan_add(s, c, np.float32(1e-8))
+    >>> 9e-07 < float(s + c) - 1.0 < 1.1e-06
+    True
+    """
+    y = x + c
+    t = s + y
+    return t, y - (t - s)
+
+
+def index_buffer(arr, info, indices):
+    """Pin ``arr``'s sliced axes to the given slice ``indices`` — a numpy
+    array or a torch tensor, by basic indexing (a view of ``arr``).
+
+    ``info`` is the slot's ``slot_slices`` entry: ((axis, slice_pos), …)
+    ordered by axis.
+
+    >>> index_buffer(np.arange(8).reshape(2, 2, 2), ((0, 1), (2, 0)), [1, 0]).tolist()
+    [1, 3]
+    """
+    view = arr
+    for offset, (axis, pos) in enumerate(info):
+        view = view[(slice(None),) * (axis - offset) + (int(indices[pos]),)]
+    return view
+
+
+def _slice_indices(slicing: Slicing, s: int) -> list[int]:
+    """Mixed-radix decomposition of flat slice id ``s``."""
+    idx = []
+    for d in reversed(slicing.dims):
+        idx.append(s % d)
+        s //= d
+    idx.reverse()
+    return idx
+
+
+def slice_bounds(
+    num_slices: int,
+    max_slices: int | None = None,
+    slice_range: tuple[int, int] | None = None,
+) -> tuple[int, int]:
+    """``(lo, hi)``: the slice ids a sliced run sums, ``[lo, hi)``.
+    ``max_slices`` keeps the first slices (at most ``num_slices``, at least
+    one); ``slice_range`` a contiguous shard, clamped to the slices there
+    are. The two exclude each other.
+
+    >>> slice_bounds(128), slice_bounds(128, max_slices=8), slice_bounds(4, slice_range=(2, 9))
+    ((0, 128), (0, 8), (2, 4))
+    """
+    if slice_range is not None:
+        if max_slices is not None:
+            raise ValueError("slice_range and max_slices are exclusive")
+        return max(0, int(slice_range[0])), min(int(slice_range[1]), num_slices)
+    if max_slices is not None:
+        return 0, max(1, min(num_slices, int(max_slices)))
+    return 0, num_slices
+
+
+def execute_sliced_numpy(
+    sp: SlicedProgram,
+    arrays: Sequence[np.ndarray],
+    max_slices: int | None = None,
+    hoist: bool = False,
+    slice_range: tuple[int, int] | None = None,
+) -> np.ndarray:
+    """CPU oracle: python loop over slices, sum of the program's complex128
+    results.
+
+    ``max_slices`` caps the loop (partial sum over the first slices).
+    ``slice_range=(lo, hi)``: partial sum over slice ids ``[lo, hi)``
+    only; mutually exclusive with ``max_slices``. ``hoist=True`` raises:
+    the hoist pass is not ported (ROADMAP A2).
+    """
+    if hoist:
+        raise NotImplementedError(HOIST_MISSING)
+    lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
+    full = [np.asarray(a, dtype=np.complex128) for a in arrays]
+    acc = np.zeros(sp.program.stored_result_shape, dtype=np.complex128)
+    for s in range(lo, hi):
+        indices = _slice_indices(sp.slicing, s)
+        buffers = [
+            index_buffer(arr, info, indices)
+            for arr, info in zip(full, sp.slot_slices)
+        ]
+        acc = acc + _run_steps(sp.program, buffers)
+    return acc.reshape(sp.program.result_shape)

@@ -29,6 +29,7 @@ Products outside the hand kernels are ``torch.matmul`` in full FP32:
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -642,31 +643,40 @@ def run_steps_split(
     buffers: list[tuple[Any, Any] | None],
     precision=None,
     policy: KernelPolicy | None = None,
+    on_unit=None,
 ):
     """Run a whole program on (real, imag) buffer pairs; returns the
     result pair in **stored** shape. ``policy`` promotes steps per the
     kernel ladder; ``None`` runs every step under the env mode
     (``gauss`` default). Buffers are freed as soon as a step consumed
-    them."""
+    them. ``on_unit(start, end, run)``, where given, is called for each
+    launch unit instead of running it: steps ``start..end-1`` (one step,
+    or one fused chain), launched by calling ``run()`` once."""
     steps = program.steps
     chain_end = (
         {s: e for s, e in policy.chains} if policy is not None else {}
     )
-    i = 0
-    while i < len(steps):
-        end = chain_end.get(i)
-        if end is not None:
-            run_chain_split(steps[i:end], buffers)
-            i = end
-            continue
-        step = steps[i]
+
+    def run_unit(start: int, end: int) -> None:
+        if start in chain_end:
+            run_chain_split(steps[start:end], buffers)
+            return
+        step = steps[start]
         buffers[step.lhs] = apply_step_split(
             buffers[step.lhs], buffers[step.rhs], step, precision,
-            mode=policy.modes[i] if policy is not None else None,
+            mode=policy.modes[start] if policy is not None else None,
             precision_mode=(
-                policy.precision_mode(i) if policy is not None else None
+                policy.precision_mode(start) if policy is not None else None
             ),
         )
         buffers[step.rhs] = None
-        i += 1
+
+    i = 0
+    while i < len(steps):
+        end = chain_end.get(i, i + 1)
+        if on_unit is None:
+            run_unit(i, end)
+        else:
+            on_unit(i, end, functools.partial(run_unit, i, end))
+        i = end
     return buffers[program.result_slot]

@@ -57,6 +57,40 @@ def contract_tensor_network(
     return _canonical_result(program, result)
 
 
+def contract_tensor_network_sliced(
+    tn: CompositeTensor,
+    contract_path: ContractionPath,
+    slicing,
+    backend: str | Backend | None = None,
+) -> LeafTensor:
+    """Contract a flat network with ``slicing.legs`` sliced: the path runs
+    once per slice-index combination and the results are summed
+    (:meth:`~tnc_tpu_torch.ops.backends.Backend.execute_sliced`). Peak
+    memory drops by about the product of the sliced dims. ``backend`` as
+    in :func:`contract_tensor_network`: ``None`` is
+    :class:`~tnc_tpu_torch.ops.backends.TorchBackend` on the GPU.
+
+    >>> from tnc_tpu_torch.contractionpath.slicing import Slicing
+    >>> a = LeafTensor([0], [2]); a.data = TensorData.matrix(np.array([1.0, 2.0]))
+    >>> b = LeafTensor([0], [2]); b.data = TensorData.matrix(np.array([3.0, 4.0]))
+    >>> out = contract_tensor_network_sliced(CompositeTensor([a, b]),
+    ...     ContractionPath.simple([(0, 1)]), Slicing((0,), (2,)), "numpy")
+    >>> complex(out.data.into_data())   # slice 0 gives 1*3, slice 1 gives 2*4
+    (11+0j)
+    """
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+
+    backend_obj = get_backend(backend)
+    sp = build_sliced_program(tn, contract_path, slicing)
+    logger.debug(
+        "contract sliced: %d steps x %d slices, backend=%s",
+        len(sp.program.steps), slicing.num_slices, backend_obj.name,
+    )
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    result = backend_obj.execute_sliced(sp, arrays)
+    return _canonical_result(sp.program, result)
+
+
 def _canonical_result(program, result) -> LeafTensor:
     """Permute a result buffer to the reference's ``^``-fold leg order
     (host-side; the device buffer keeps the compiler's order)."""
