@@ -46,10 +46,12 @@ Phases, each of which raises on failure (nothing is caught):
    complex128 on the card; and ``peps(3, 3, 2, 16, 0)`` on the forced
    rung against the complex128 numpy oracle; the CUDA-event time of every
    step of the PEPS norm (``run_steps_timed``);
-8. the sliced cell — one amplitude of ``sycamore_circuit(53, 10,
-   default_rng(42))`` on the all-zeros bitstring, ``simplify_network``,
-   ``Greedy`` path, ``find_slicing`` to 2^29 elements: 128 slices of 169
-   steps. ``fused_chain`` against its plain version on the chain operands
+8. the sliced cell on the per-slice loop, unhoisted
+   (``TorchBackend(sliced_strategy="loop", hoist=False)``) — one amplitude
+   of ``sycamore_circuit(53, 10, default_rng(42))`` on the all-zeros
+   bitstring, ``simplify_network``, ``Greedy`` path, ``find_slicing`` to
+   2^29 elements: 128 slices of 169 steps. ``fused_chain`` against its
+   plain version on the chain operands
    slice 0 builds; ``contract_tensor_network_sliced`` once to warm up and
    three times timed (``fused_chain`` launched once per chain and slice);
    the device-resident part, a profile of four slices and the CUDA-event
@@ -60,7 +62,22 @@ Phases, each of which raises on failure (nothing is caught):
    0's operands, its launches and routed steps against the plan's gate,
    its sum against the default rung's); a 20-qubit depth-6 amplitude over
    4 slices against the complex128 numpy oracle;
-9. one JSON line of path numbers (with each kernel's per-shape rows,
+9. the same cell on the default ``TorchBackend()``: the slice-invariant
+   stem hoisted (128 steps, once), the 41 residual steps chunked and
+   batched over 8 slices at a time. The plan (prelude and residual, chunks,
+   modes, the batch requested and run, the modeled peak); the amplitude
+   once to warm up and three times timed; the device-resident part, the
+   prelude timed apart and a profile of one batch; the amplitude against
+   phase 8's complex128 partials and the loop's amplitude; the forced
+   ``fused`` rung on the first batch (each ``fused_complex_dot`` launch,
+   batched over the slices, held against its plain version on the
+   operands the executor builds; launches and routed steps against the
+   plan's gate; the sum against the default rung's); then
+   ``sycamore_circuit(20, 6, rng 7)`` over 4 slices and ``(20, 8, rng 7)``
+   over 16, whose residuals keep chains, against the numpy oracle, each
+   batched ``fused_chain`` launch held against its plain version (2
+   launches each);
+10. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -96,6 +113,10 @@ PEPS_SMALL = (3, 3, 2, 16, 0)
 # the slicing target), and a small one checked against the host oracle
 SLICED = (53, 10, 42, 29)
 SLICED_SMALL = (20, 6, 7, 7)
+# the small amplitudes whose residuals keep chains on the default sliced path
+# (the cell's residual has none): 4 slices in one batch, 2 chains; 16 slices
+# in two batches of 8, 1 chain
+CHUNKED_SMALL = ((20, 6, 7, 7), (20, 8, 7, 17))
 SLICED_CHECK_S = 30.0  # complex128 of every slice if it takes at most this, else 32
 FUSED_RANGE = (0, 8)  # the slices the sliced cell's forced fused rung runs
 
@@ -271,21 +292,34 @@ def hold_chain(first_ops, link_ops, links, label: str, launches: int) -> dict:
     plain, plain_wall = time_ms(
         lambda: cuda_complex.fused_chain_reference(first_ops, link_ops, links))
     ops = list(first_ops) + [t for pair in link_ops for t in pair]
+    # each operand read once (a 2-D operand of a batched launch is shared by
+    # every row), the output written once
     nbytes = sum(t.numel() for t in ops) * 4 + 2 * got[0].numel() * 4
-    shape = (first_ops[0].shape[1], first_ops[2].shape[1])
-    flops = COMPLEX_MAC_FLOPS * first_ops[0].shape[0] * shape[0] * shape[1]
+    rows = got[0].shape[0] if got[0].dim() == 3 else 1
+    shape = (first_ops[0].shape[-1], first_ops[2].shape[-1])
+    flops = COMPLEX_MAC_FLOPS * rows * first_ops[0].shape[-2] * shape[0] * shape[1]
     for (cr, _), link in zip(link_ops, links):
-        x = cr.shape[1]
+        x = cr.shape[-1]
         # a link contracts all K*F elements of the carried value with X
-        flops += COMPLEX_MAC_FLOPS * shape[0] * shape[1] * x
+        flops += COMPLEX_MAC_FLOPS * rows * shape[0] * shape[1] * x
         shape = link.out_shape(x)
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    row_ms = None
+    if rows > 1:
+        # the same chain on one slice's operands: what the per-slice loop
+        # launches once per slice
+        one = [t[0] if t.dim() == 3 else t for t in ops]
+        row_ms, _ = time_ms(lambda: cuda_complex.fused_chain(
+            tuple(one[:4]), [tuple(one[4 + 2 * i:6 + 2 * i]) for i in range(len(links))],
+            links))
     print(f"  fused_chain {label}: err {err:.3e} (scale {scale:.3e}) "
           f"device: kernel {ms:.5f} ms plain {plain:.5f} ms; wall per call: "
           f"kernel {wall:.5f} ms plain {plain_wall:.5f} ms; bound {b_ms:.3e} ms "
-          f"({b_by})", flush=True)
-    return {"label": label, "launches": launches, "err": err, "ms": ms, "plain_ms": plain,
-            "wall_ms": wall, "plain_wall_ms": plain_wall, "bound_ms": b_ms, "bound_by": b_by}
+          f"({b_by})" + (f"; batch {rows}, one slice's chain {row_ms:.5f} ms"
+                         if row_ms is not None else ""), flush=True)
+    return {"label": label, "launches": launches, "batch": rows, "err": err, "ms": ms,
+            "plain_ms": plain, "wall_ms": wall, "plain_wall_ms": plain_wall,
+            "bound_ms": b_ms, "bound_by": b_by, "one_slice_ms": row_ms}
 
 
 def check_chains(program, policy, gen) -> list[dict]:
@@ -374,14 +408,15 @@ def hold_dot(ar, ai, br, bi, launches: int, label: str, f64: bool = False) -> di
 
     from tnc_tpu_torch.ops import cuda_complex
 
-    k, m, n = ar.shape[0], ar.shape[1], br.shape[1]
+    (k, m), n = ar.shape[-2:], br.shape[-1]
+    rows = max(ar.shape[0] if ar.dim() == 3 else 1, br.shape[0] if br.dim() == 3 else 1)
     got = cuda_complex.fused_complex_dot(ar, ai, br, bi)
     torch.cuda.synchronize()
     want = cuda_complex.fused_complex_dot_reference(ar, ai, br, bi)
     err, scale = max_err(got, want)
     check(err <= F32_REL_TOL * scale,
           f"fused_complex_dot {(k, m, n)}: max|err| {err} > {F32_REL_TOL} * {scale}")
-    row = {"k": k, "m": m, "n": n, "launches": launches, "err": err}
+    row = {"k": k, "m": m, "n": n, "batch": rows, "launches": launches, "err": err}
     if f64:
         exact = cuda_complex.fused_complex_dot_reference(
             *(t.double() for t in (ar, ai, br, bi)))
@@ -389,17 +424,22 @@ def hold_dot(ar, ai, br, bi, launches: int, label: str, f64: bool = False) -> di
                                          want, exact, scale)
         del exact
     del got, want
-    reps = 3 if 8.0 * k * m * n > 1e13 else 10 if 8.0 * k * m * n > 1e11 else 20
+    macs = rows * k * m * n
+    reps = 3 if 8.0 * macs > 1e13 else 10 if 8.0 * macs > 1e11 else 20
     ms, wall = time_ms(lambda: cuda_complex.fused_complex_dot(ar, ai, br, bi), reps, 1)
     plain, _ = time_ms(lambda: cuda_complex.fused_complex_dot_reference(ar, ai, br, bi),
                        reps, 1)
     a_c, b_c = torch.complex(ar, ai), torch.complex(br, bi)
     lib, _ = time_ms(lambda: a_c.mT @ b_c, reps, 1)
     del a_c, b_c
-    nbytes = 4.0 * 2 * (k * m + k * n + m * n)
-    b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * k * m * n, "float32")
+    # each operand read once (a 2-D side of a batched launch is shared), the
+    # outputs written once
+    nbytes = 4.0 * 2 * (ar.numel() + br.numel() + rows * m * n)
+    b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * macs, "float32")
     row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-    print(f"  fused_complex_dot {label} K={k} M={m} N={n}: err {err:.3e} "
+    batch = f" batch {rows} ({'both' if ar.dim() == br.dim() == 3 else 'one side'})" \
+        if rows > 1 else ""
+    print(f"  fused_complex_dot {label}{batch} K={k} M={m} N={n}: err {err:.3e} "
           f"(scale {scale:.3e}) device: kernel {ms:.4f} ms plain {plain:.4f} ms "
           f"complex64 matmul {lib:.4f} ms; kernel wall per call {wall:.4f} ms; "
           f"bound {b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops per complex "
@@ -883,11 +923,16 @@ def fused_gate(program) -> tuple[list, dict]:
     """``(admitted, routed)``: the steps whose ``fused_complex_dot`` gate
     admits them, in order, and the others counted per reason — what the
     forced ``fused`` rung does (``split_complex._try_fused_step``)."""
+    return fused_gate_steps(program.steps)
+
+
+def fused_gate_steps(steps) -> tuple[list, dict]:
+    """:func:`fused_gate` of a bare step sequence."""
     from tnc_tpu_torch.ops.cuda_complex import ineligible_reason
     from tnc_tpu_torch.ops.program import step_dims
 
     admitted, routed = [], collections.Counter()
-    for i, st in enumerate(program.steps):
+    for i, st in enumerate(steps):
         m, k, n = step_dims(st)
         if st.swap:
             m, n = n, m
@@ -909,8 +954,9 @@ def scalar(result) -> complex:
 
 
 def run_sliced(backend) -> dict:
-    """The sliced cell: one Sycamore-53 depth-10 amplitude over its 128
-    slices (``SLICED``). Plan; ``fused_chain`` held against its plain
+    """The sliced cell on the per-slice loop, unhoisted (``backend`` is a
+    ``TorchBackend(sliced_strategy="loop", hoist=False)``): one Sycamore-53
+    depth-10 amplitude over its 128 slices (``SLICED``). Plan; ``fused_chain`` held against its plain
     version on slice 0's own chain operands; the amplitude through
     ``contract_tensor_network_sliced`` (one warm-up, three timed runs,
     ``fused_chain`` launched once per chain and slice), its device-resident
@@ -919,7 +965,8 @@ def run_sliced(backend) -> dict:
     ``FUSED_RANGE`` (``fused_complex_dot`` held against its plain version
     on slice 0's own operands, then launches and routed steps held to the
     plan's gate); and the small configuration against the numpy oracle.
-    Returns the path record and the kernels' rows."""
+    Returns the path record, the kernels' rows, and the cell (network,
+    plan, leaves, complex128 partials) for the chunked phase."""
     import torch
 
     from tnc_tpu_torch.contractionpath.slicing import sliced_flops, sliced_peak
@@ -984,7 +1031,8 @@ def run_sliced(backend) -> dict:
     torch.cuda.empty_cache()
 
     # complex128 on the card, slice by slice
-    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    oracle = TorchBackend(dtype="complex128", split_complex=False, sliced_strategy="loop",
+                          hoist=False)
     refs = []
     limit = n
     t0 = time.perf_counter()
@@ -1083,7 +1131,225 @@ def run_sliced(backend) -> dict:
     }
     return {"record": record, "chain_rows": chain_rows, "dot_rows": dot_rows,
             "chain_launches": main["launches"]["fused_chain"],
+            "dot_launches": fused["launches"]["fused_complex_dot"],
+            "cell": {"tn": tn, "path": path, "slicing": sl, "sp": sp, "arrays": arrays,
+                     "refs": refs, "loop_sum": got_sum}}
+
+
+def chunked_plan(backend, sp) -> dict:
+    """The default sliced path's plan for ``sp``: the hoist split, the
+    residual's chunks and their kernel modes, the slice batch requested and
+    the one the memory budget and the divisor rule leave, and the modeled
+    peak at that batch."""
+    from tnc_tpu_torch.ops.budget import program_peak_bytes
+    from tnc_tpu_torch.ops.chunked import chunk_plan, resolve_batch
+    from tnc_tpu_torch.ops.hoist import hoist_sliced_program, hoist_split_counts
+
+    residual = hoist_sliced_program(sp).residual
+    batch = resolve_batch(residual, backend.slice_batch, backend.split_complex,
+                          backend.dtype, backend.device)[0]
+    plans = chunk_plan(residual, batch, backend.chunk_steps, backend.split_complex,
+                       backend.precision)
+    peak = program_peak_bytes(residual.program, batch=batch)
+    return {
+        **hoist_split_counts(sp), "residual_inputs": residual.program.num_inputs,
+        "chunks": len(plans), "batch_requested": backend.slice_batch, "batch": batch,
+        "modes": [dict(collections.Counter(cp.policy.modes)) for cp in plans],
+        "chains": [list(cp.policy.chains) for cp in plans],
+        "modeled_peak_bytes": peak.peak_bytes, "modeled_peak_step": peak.peak_step,
+        "modeled_bytes_per_slice": peak.bytes_per_batch_unit,
+    }
+
+
+def run_sliced_chunked(backend, cell) -> dict:
+    """The sliced cell on the default ``TorchBackend()``: the stem hoisted,
+    the residual chunked and batched over slices. Plan; the amplitude through
+    ``contract_tensor_network_sliced`` (one warm-up, three timed runs), the
+    device-resident part, the prelude timed apart and a profile of one
+    batch; the amplitude against phase 8's complex128 partials and the
+    loop's amplitude; the forced ``fused`` rung on the first batch
+    (``fused_complex_dot`` held against its plain version on the batched
+    operands the executor builds, launches and routed steps held to the
+    plan's gate, the sum against the default rung's)."""
+    import torch
+
+    from tnc_tpu_torch.ops.backends import place_buffers
+    from tnc_tpu_torch.ops.hoist import hoist_sliced_program, hoisted
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
+
+    tn, path, sl, sp = cell["tn"], cell["path"], cell["slicing"], cell["sp"]
+    arrays, refs = cell["arrays"], cell["refs"]
+    n = sl.num_slices
+    plan_rec = chunked_plan(backend, sp)
+    hp = hoist_sliced_program(sp)
+    print(f"[chunked plan] sycamore{SLICED[:3]}: prelude {plan_rec['prelude_steps']} steps "
+          f"({plan_rec['invariant_flops']:.4e} complex multiply-adds, once), residual "
+          f"{plan_rec['residual_steps']} steps ({plan_rec['residual_flops']:.4e} a slice) over "
+          f"{plan_rec['residual_inputs']} inputs; {plan_rec['chunks']} chunk(s) of at most "
+          f"{backend.chunk_steps} steps, modes {plan_rec['modes']}, chains "
+          f"{plan_rec['chains']}; slice batch requested {plan_rec['batch_requested']}, "
+          f"run at {plan_rec['batch']}; modeled peak {plan_rec['modeled_peak_bytes']} bytes "
+          f"(step {plan_rec['modeled_peak_step']}, {plan_rec['modeled_bytes_per_slice']} bytes "
+          f"a slice of the batch)", flush=True)
+    if plan_rec["batch"] < plan_rec["batch_requested"]:
+        print(f"[chunked plan] the memory budget clamped the slice batch "
+              f"{plan_rec['batch_requested']} -> {plan_rec['batch']}", flush=True)
+
+    main = run_counted(lambda: contract_tensor_network_sliced(tn, path, sl, backend),
+                       "sliced chunked main path")
+    z = scalar(main["out"])
+    prof = profile_device_path(
+        lambda: backend.execute_sliced(sp, arrays, host=False), "sliced chunked", reps=2,
+        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, plan_rec["batch"]),
+                                                host=False))
+    # the prelude apart, on resident leaves
+    full = place_buffers(arrays, backend.dtype, backend.split_complex, backend.device)
+    prelude_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            _, cached = hoisted(sp, full, backend.split_complex, backend.precision)
+        torch.cuda.synchronize()
+        prelude_s.append(time.perf_counter() - t0)
+        del cached
+    del full
+    torch.cuda.empty_cache()
+    batches = n // plan_rec["batch"]
+    per_batch_ms = (prof["device_s"] - statistics.median(prelude_s)) / batches * 1e3
+    print(f"[chunked] wall {statistics.median(main['walls']):.4f} s (runs "
+          f"{[round(w, 4) for w in main['walls']]}), device-resident {prof['device_s']:.4f} s, "
+          f"prelude {statistics.median(prelude_s) * 1e3:.3f} ms (runs "
+          f"{[round(t * 1e3, 3) for t in prelude_s]}), {batches} batches of "
+          f"{plan_rec['batch']}: {per_batch_ms:.3f} ms a batch, "
+          f"{per_batch_ms / plan_rec['batch']:.3f} ms a slice; max_memory_allocated "
+          f"{main['peak_bytes']} bytes against the modeled {plan_rec['modeled_peak_bytes']}",
+          flush=True)
+
+    # against complex128 and the loop
+    # phase 8's complex128 partials and loop sum cover all slices, or the
+    # first 32 when complex128 of all would have taken too long
+    if len(refs) == n:
+        scope, got = f"all {n} slices", z
+    else:
+        scope = f"the first {len(refs)} slices"
+        got = scalar(backend.execute_sliced(sp, arrays, slice_range=(0, len(refs))))
+    loop_z, want = cell["loop_sum"], sum(refs)
+    abs_sum = sum(abs(r) for r in refs)
+    print(f"[check] sliced chunked over {scope}: {got!r} vs complex128 {want!r}, |diff| "
+          f"{abs(got - want):.3e} (gate 1e-4 x sum|ref_s| = {1e-4 * abs_sum:.3e}); vs the "
+          f"unhoisted loop {loop_z!r}, |diff| {abs(got - loop_z):.3e} (gate 1e-5 x sum|ref_s| "
+          f"= {1e-5 * abs_sum:.3e})", flush=True)
+    check(abs(got - want) <= 1e-4 * abs_sum,
+          f"chunked amplitude over {scope} off complex128 by {abs(got - want)}")
+    check(abs(got - loop_z) <= 1e-5 * abs_sum,
+          f"chunked amplitude over {scope} off the loop's by {abs(got - loop_z)}")
+
+    # the forced fused rung on the first batch
+    lo, hi = 0, plan_rec["batch"]
+    admitted_pre, routed_pre = fused_gate_steps([ps.step for ps in hp.prelude_steps])
+    admitted_res, routed_res = fused_gate_steps(hp.residual.program.steps)
+    default_range = scalar(backend.execute_sliced(sp, arrays, slice_range=(lo, hi)))
+    print(f"[kernels] fused_complex_dot against fused_complex_dot_reference on the operands "
+          f"the chunked executor builds for slices {lo}-{hi - 1} (forced fused rung: "
+          f"{len(admitted_pre)} prelude launches, {len(admitted_res)} batched)", flush=True)
+    dot_rows = []
+    labels = iter([f"prelude step {i}" for i in admitted_pre]
+                  + [f"residual step {i}" for i in admitted_res])
+    os.environ["TNC_TPU_COMPLEX_MULT"] = "fused"
+    try:
+        with holding("fused_complex_dot", lambda ar, ai, br, bi: dot_rows.append(
+                hold_dot(ar, ai, br, bi, 1, next(labels)))):
+            backend.execute_sliced(sp, arrays, slice_range=(lo, hi))
+        torch.cuda.empty_cache()
+        fused = run_counted(lambda: backend.execute_sliced(sp, arrays, slice_range=(lo, hi)),
+                            "sliced chunked fused rung", reps=1)
+    finally:
+        del os.environ["TNC_TPU_COMPLEX_MULT"]
+    want_launches = len(admitted_pre) + len(admitted_res)
+    check(len(dot_rows) == want_launches,
+          f"chunked fused rung called fused_complex_dot {len(dot_rows)} times, the gate "
+          f"admits {want_launches}")
+    check(fused["launches"]["fused_complex_dot"] == want_launches,
+          f"chunked fused rung launched fused_complex_dot "
+          f"{fused['launches']['fused_complex_dot']} times; the gate admits "
+          f"{len(admitted_pre)} prelude steps and {len(admitted_res)} residual steps a batch")
+    want_routed = collections.Counter(routed_pre)
+    for reason, count in routed_res.items():
+        want_routed[reason] += count * (hi - lo)
+    check(fused["routed"] == dict(want_routed),
+          f"chunked fused rung routed {fused['routed']}, the plan's gate says "
+          f"{dict(want_routed)}")
+    check(all(r["batch"] == hi - lo for r in dot_rows[len(admitted_pre):]),
+          "a residual launch of the forced rung was not batched")
+    z_fused = scalar(fused["out"])
+    gate = 1e-5 * sum(abs(r) for r in refs[lo:hi])
+    print(f"[check] sliced chunked fused rung on slices {lo}-{hi - 1}: {z_fused!r} vs default "
+          f"rung {default_range!r}, |diff| {abs(z_fused - default_range):.3e} (gate "
+          f"{gate:.3e})", flush=True)
+    check(abs(z_fused - default_range) <= gate,
+          "chunked fused rung disagrees with the default rung")
+    record = {
+        "plan": plan_rec, "wall_s": statistics.median(main["walls"]),
+        "wall_runs_s": main["walls"], "peak_bytes": main["peak_bytes"],
+        "launches": main["launches"], **prof, "prelude_s": statistics.median(prelude_s),
+        "prelude_runs_s": prelude_s, "per_batch_ms": per_batch_ms,
+        "per_slice_ms": per_batch_ms / plan_rec["batch"], "amplitude": [z.real, z.imag],
+        "check_scope": scope, "complex128_diff": abs(got - want),
+        "loop_diff": abs(got - loop_z), "fused_range": [lo, hi],
+        "fused_wall_s": fused["walls"][0], "fused_launches": fused["launches"],
+        "fused_routed": fused["routed"], "fused_diff": abs(z_fused - default_range),
+    }
+    return {"record": record, "dot_rows": dot_rows,
             "dot_launches": fused["launches"]["fused_complex_dot"]}
+
+
+def run_chunked_small(backend) -> dict:
+    """The two small Sycamore amplitudes (``CHUNKED_SMALL``) on the default
+    sliced path, against the complex128 numpy oracle. Each batched
+    ``fused_chain`` launch is held against its plain version on the batched
+    operands the executor builds; then a counted run, whose launches must
+    be one per residual chain and batch."""
+    from tnc_tpu_torch.ops.backends import NumpyBackend
+    from tnc_tpu_torch.ops.chunked import chunk_plan, resolve_batch
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.hoist import hoist_sliced_program
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
+
+    rows, records, launches = [], {}, {}
+    for cfg in CHUNKED_SMALL:
+        name = f"sycamore{cfg[0]}_m{cfg[1]}_t{cfg[3]} chunked"
+        tn, path, sl = build_sliced(cfg)
+        residual = hoist_sliced_program(build_sliced_program(tn, path, sl)).residual
+        batch = resolve_batch(residual, backend.slice_batch, device=backend.device)[0]
+        chains = sum(len(cp.policy.chains) for cp in chunk_plan(
+            residual, batch, backend.chunk_steps, True, backend.precision))
+        expect = chains * (sl.num_slices // batch)
+        print(f"[kernels] fused_chain against fused_chain_reference on the batched operands "
+              f"of sycamore{cfg[:3]} ({sl.num_slices} slices, batch {batch}, {chains} "
+              f"residual chain(s))", flush=True)
+        held = []
+        with holding("fused_chain", lambda f, lk, ln: held.append(hold_chain(
+                f, lk, ln, f"{name} launch {len(held)}", 1))):
+            contract_tensor_network_sliced(tn, path, sl, backend)
+        check(len(held) == expect, f"{name}: {len(held)} chain calls, expected {expect}")
+        check(all(r["batch"] == batch for r in held), f"{name}: a chain launch was not batched")
+        reset_launches()
+        got = scalar(contract_tensor_network_sliced(tn, path, sl, backend))
+        launches[name] = LAUNCHES["fused_chain"]
+        want = scalar(contract_tensor_network_sliced(tn, path, sl, NumpyBackend()))
+        rel = abs(got - want) / abs(want)
+        print(f"[check] {name} over {sl.num_slices} slices: {got!r} vs numpy complex128 "
+              f"{want!r}, relative {rel:.3e}; fused_chain launched {launches[name]} times",
+              flush=True)
+        check(rel <= 1e-5, f"{name} off the host oracle by {rel}")
+        check(launches[name] == expect,
+              f"{name}: fused_chain launched {launches[name]} times, expected {expect}")
+        rows += held
+        records[name] = {"config": list(cfg), "slices": sl.num_slices, "batch": batch,
+                         "chains": chains, "relative": rel, "fused_chain_launches": launches[name]}
+    return {"records": records, "chain_rows": rows, "launches": launches}
 
 
 def main() -> int:
@@ -1217,23 +1483,38 @@ def main() -> int:
     transpose_rec["launches"] = peps_rec["fused_transpose_launches"]
     torch.cuda.empty_cache()
 
-    # 8. the sliced cell
-    sliced = run_sliced(backend)
+    # 8. the sliced cell on the per-slice loop, unhoisted
+    sliced = run_sliced(TorchBackend(sliced_strategy="loop", hoist=False))
     chain_launches["sycamore53_m10_sliced"] = sliced["chain_launches"]
     dot_launches["sycamore53_m10_sliced fused rung"] = sliced["dot_launches"]
+    torch.cuda.empty_cache()
+
+    # 9. the sliced cell on the default path (stem hoisted, residual chunked
+    # and batched over slices), and the two small amplitudes whose residuals
+    # keep chains, through the batched fused_chain
+    chunked = run_sliced_chunked(backend, sliced.pop("cell"))
+    dot_launches["sycamore53_m10_chunked fused rung"] = chunked["dot_launches"]
+    torch.cuda.empty_cache()
+    small = run_chunked_small(backend)
+    chain_launches.update(small["launches"])
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
     by_path = {
         "fused_chain": {"random28": chain_record(chain_rows),
-                        "sycamore53_m10_sliced": chain_record(sliced["chain_rows"])},
+                        "sycamore53_m10_sliced": chain_record(sliced["chain_rows"]),
+                        **{name: chain_record([r for r in small["chain_rows"]
+                                               if r["label"].startswith(name)])
+                           for name in small["launches"]}},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
-                                  launch_weighted(sliced["dot_rows"])},
+                                  launch_weighted(sliced["dot_rows"]),
+                              "sycamore53_m10_chunked fused rung":
+                                  launch_weighted(chunked["dot_rows"])},
     }
-    chain_rows += sliced["chain_rows"]
+    chain_rows += sliced["chain_rows"] + small["chain_rows"]
     chain_rec = {**chain_record(chain_rows), "launches": sum(chain_launches.values())}
-    dot_rows = dot_rec["shapes"] + sliced["dot_rows"]
+    dot_rows = dot_rec["shapes"] + sliced["dot_rows"] + chunked["dot_rows"]
     dot_rec = {**launch_weighted(dot_rows), "launches": sum(dot_launches.values()),
                "max_abs_err": max([r["err"] for r in dot_rows] + [dot_rec["ragged_err"]]),
                "float64_errors": dot_rec["float64_errors"]}
@@ -1258,6 +1539,8 @@ def main() -> int:
                       "fused_rung_wall_s": fused_walls[0], **prof},
         "peps": peps_rec,
         "sycamore53_m10_sliced": sliced["record"],
+        "sycamore53_m10_chunked": chunked["record"],
+        "chunked_small": small["records"],
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
         "kernels_by_path": by_path,

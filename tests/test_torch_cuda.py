@@ -235,3 +235,103 @@ def test_sliced_amplitude_on_the_card():
     got = complex(torch.complex(re, im).cpu().numpy().reshape(()))
     want = complex(np.asarray(NumpyBackend().execute_sliced(sp, arrays)).reshape(()))
     assert abs(got - want) <= 1e-5 * abs(want)
+
+
+# (K, M, N, batch, which side carries the batch axis): a slice batch on both
+# operands, on one (the other shared by every row, batch stride 0), a
+# ragged shape, and rows whose batch stride leaves the 16-byte copies
+BATCHED_DOTS = {
+    "both": (96, 200, 300, 3, "both"),
+    "first": (128, 256, 192, 4, "first"),
+    "second": (64, 3, 517, 2, "second"),
+    "odd_rows": (37, 101, 203, 3, "both"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BATCHED_DOTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_complex_dot_on_the_card(dtype, case):
+    """``fused_complex_dot`` over a slice batch in one launch: against its
+    plain version, and every batch row against the unbatched kernel on that
+    row's operands."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    k, m, n, batch, side = BATCHED_DOTS[case]
+
+    def rnd(rows, cols, batched):
+        shape = (batch, rows, cols) if batched else (rows, cols)
+        return torch.randn(*shape, generator=g, device="cuda", dtype=dtype)
+
+    a_b, b_b = side in ("both", "first"), side in ("both", "second")
+    ops = (rnd(k, m, a_b), rnd(k, m, a_b), rnd(k, n, b_b), rnd(k, n, b_b))
+    if case == "odd_rows" and dtype == torch.float32:
+        assert cc.strided_copy_mode(ops[0], ops[1]) != cc.COPY_VEC
+    cc.reset_launches()
+    got = cc.fused_complex_dot(*ops)
+    torch.cuda.synchronize()
+    assert got[0].shape == (batch, m, n)
+    assert cc.LAUNCHES["fused_complex_dot"] == 1
+    assert _max_rel_err(got, cc.fused_complex_dot_reference(*ops)) <= tol
+    for z in range(batch):
+        row = cc.fused_complex_dot(*(t[z] if t.dim() == 3 else t for t in ops))
+        assert _max_rel_err([g_[z] for g_ in got], row) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["head", "links", "all"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_chain_on_the_card(dtype, which):
+    """``fused_chain`` over a slice batch in one launch, with the batch axis
+    on the head's operands, on the link operands (a 2-D head shared by every
+    row), or on all of them, against its plain version."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    batch = 3
+
+    def rnd(rows, cols, batched):
+        shape = (batch, rows, cols) if batched else (rows, cols)
+        return torch.randn(*shape, generator=g, device="cuda", dtype=dtype)
+
+    head, link = which in ("head", "all"), which in ("links", "all")
+    first = (rnd(8, 16, head), rnd(8, 16, head), rnd(8, 4, head), rnd(8, 4, head))
+    link_ops = [(rnd(8, 4, link), rnd(8, 4, link)),
+                (rnd(16, 4, link).mT, rnd(16, 4, link).mT)]
+    links = [cc.ChainLink(True, (8, 8), 0), cc.ChainLink(False, (4, 8), 0)]
+    cc.reset_launches()
+    got = cc.fused_chain(first, link_ops, links)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["fused_chain"] == 1
+    assert got[0].shape == (batch, 16, 8)
+    assert _max_rel_err(got, cc.fused_chain_reference(first, link_ops, links)) <= tol
+
+
+@pytest.mark.cuda
+def test_chunked_sliced_amplitude_on_the_card():
+    """The default sliced path — the stem hoisted, the residual batched over
+    the 4 slices — on the card against the complex128 numpy oracle: the
+    residual's 2 chains each launched once for the whole batch."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.contractionpath.slicing import find_slicing
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+    from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+
+    tn, _ = sycamore_circuit(20, 6, np.random.default_rng(7)).into_amplitude_network("0" * 20)
+    tn = simplify_network(tn)
+    path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+    sp = build_sliced_program(tn, path, find_slicing(tn.tensors, path.toplevel, 2.0 ** 7))
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    cc.reset_launches()
+    got = complex(np.asarray(TorchBackend().execute_sliced(sp, arrays)).reshape(()))
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["fused_chain"] == 2
+    want = complex(np.asarray(NumpyBackend().execute_sliced(sp, arrays)).reshape(()))
+    assert abs(got - want) <= 1e-5 * abs(want)

@@ -237,31 +237,36 @@ def test_chain_link_shapes_match_reference():
 def _replay_table(plan, flat):
     """Run the chain kernel's stage table in torch exactly as the kernel
     reads it: operand pair ``p`` is ``flat[2p], flat[2p+1]``; negative
-    sources and destinations are the two scratch pairs and the output."""
-    s_len = max(plan.scratch_elems, 1)
+    sources and destinations are the two scratch pairs and the output;
+    batch row ``z`` of an operand starts ``z`` batch strides in, and row
+    ``z`` of a stage's ``(M, N)`` result is written at ``z * M * N``."""
+    batch = plan.batch or 1
+    s_len = batch * max(plan.scratch_elems, 1)
     scratch = torch.zeros(4 * s_len, dtype=flat[0].dtype)
-    out = torch.zeros(plan.out_shape, dtype=flat[0].dtype)
 
-    def view(src, sk, sf, rows, cols):
+    def view(src, sk, sf, sb, z, rows, cols):
         if src >= 0:
-            return [torch.as_strided(t, (rows, cols), (sk, sf), t.storage_offset())
+            return [torch.as_strided(t, (rows, cols), (sk, sf), t.storage_offset() + z * sb)
                     for t in flat[2 * src: 2 * src + 2]]
         pair = -src - 1
-        return [torch.as_strided(scratch, (rows, cols), (sk, sf), (2 * pair + j) * s_len)
-                for j in range(2)]
+        return [torch.as_strided(scratch, (rows, cols), (sk, sf),
+                                 (2 * pair + j) * s_len + z * sb) for j in range(2)]
 
-    outs = (out, out.clone())
-    for a_src, ask, asf, b_src, bsk, bsf, k, m, n, dst in plan.table.tolist():
-        ar, ai = view(a_src, ask, asf, k, m)
-        br, bi = view(b_src, bsk, bsf, k, n)
-        re, im = cc.fused_complex_dot_reference(ar, ai, br, bi)
+    outs = None
+    for a_src, ask, asf, asb, b_src, bsk, bsf, bsb, k, m, n, dst in plan.table.tolist():
+        rows = []
+        for z in range(batch):
+            ar, ai = view(a_src, ask, asf, asb, z, k, m)
+            br, bi = view(b_src, bsk, bsf, bsb, z, k, n)
+            re, im = cc.fused_complex_dot_reference(ar, ai, br, bi)
+            rows.append((re, im))
+            if dst != -3:
+                at = (2 * (-dst - 1)) * s_len + z * m * n
+                scratch[at: at + m * n] = re.reshape(-1)
+                scratch[at + s_len: at + s_len + m * n] = im.reshape(-1)
         if dst == -3:
-            outs = (re, im)
-        else:
-            pair = -dst - 1
-            scratch[2 * pair * s_len: 2 * pair * s_len + m * n] = re.reshape(-1)
-            scratch[(2 * pair + 1) * s_len: (2 * pair + 1) * s_len + m * n] = im.reshape(-1)
-    return outs
+            outs = tuple(torch.stack([r[j] for r in rows]) for j in range(2))
+    return outs if plan.batch is not None else tuple(o[0] for o in outs)
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -285,6 +290,43 @@ def test_chain_stage_table_replays_to_reference(program12, transposed):
         got = _replay_table(plan, flat)
         want = cc.fused_chain_reference(first_ops, link_ops, links)
         _close([_np(g) for g in got], [_np(w) for w in want], np.float64)
+
+
+@pytest.mark.parametrize("which", ["head", "links", "all"])
+def test_batched_chain_stage_table_replays_to_reference(program12, which):
+    """With a slice-batch axis on the head's operands, on the link
+    operands, or on all of them (the others 2-D, batch stride 0), the
+    stage table still computes the chain: replayed row by row it equals
+    ``fused_chain_reference`` on the batch, and each row equals the
+    unbatched chain on that row's operands."""
+    _, port_program = program12
+    batch = 3
+    for idx, (s, e) in enumerate(port_sc.plan_kernels(port_program).chains):
+        steps = port_program.steps[s:e]
+        rows = [_port_buffers(_chain_buffers(steps, port_program.num_inputs, np.float64,
+                                             seed=10 * idx + z)) for z in range(batch)]
+        ops = [port_sc.chain_operands(steps, r) for r in rows]
+        first_ops, link_ops, links = ops[0]
+        head = which in ("head", "all")
+        link = which in ("links", "all")
+        first_ops = tuple(torch.stack([o[0][j] for o in ops]) if head else first_ops[j]
+                          for j in range(4))
+        link_ops = [tuple(torch.stack([o[1][i][j] for o in ops]) if link else pair[j]
+                          for j in range(2)) for i, pair in enumerate(link_ops)]
+        plan = cc._ChainPlan(first_ops, link_ops, links)
+        assert plan.batch == (batch if head or (link and link_ops) else None)
+        flat = list(first_ops) + [t for pair in link_ops for t in pair]
+        got = _replay_table(plan, flat)
+        want = cc.fused_chain_reference(first_ops, link_ops, links)
+        _close([_np(g) for g in got], [_np(w) for w in want], np.float64)
+        if plan.batch is None:
+            continue
+        for z in range(batch):
+            one = cc.fused_chain_reference(
+                tuple(t[z] if t.dim() == 3 else t for t in first_ops),
+                [tuple(t[z] if t.dim() == 3 else t for t in pair) for pair in link_ops],
+                links)
+            _close([_np(g[z]) for g in got], [_np(w) for w in one], np.float64)
 
 
 def test_kernel_library_paths(monkeypatch, tmp_path):

@@ -5,11 +5,14 @@ The network (``sycamore_circuit`` + ``simplify_network``), the plan
 of ``tnc_tpu_torch`` are held to ``tnc_tpu``'s on the same seeds:
 
 - leaves, paths, slicings and program shapes exactly;
-- ``TorchBackend(device="cpu", split_complex=True)`` (float32 parts)
-  against the reference's ``JaxBackend`` slice loop (Pallas in interpret
-  mode) and its complex128 ``NumpyBackend`` within 1e-5 relative — two
-  float32 executions of one plan against each other and against
-  complex128, summed over the slices with Kahan compensation;
+- ``TorchBackend(device="cpu", split_complex=True)`` (float32 parts) on
+  its per-slice loop (``sliced_strategy="loop", hoist=False``: the
+  hoisted, chunked default is held to the reference in
+  ``test_torch_chunked.py``) against the reference's ``JaxBackend`` slice
+  loop (Pallas in interpret mode) and its complex128 ``NumpyBackend``
+  within 1e-5 relative — two float32 executions of one plan against each
+  other and against complex128, summed over the slices with Kahan
+  compensation;
 - the same backend with float64 parts against the port's complex128 numpy
   oracle within 1e-12 relative, and that oracle against the reference's.
 
@@ -34,13 +37,9 @@ import tnc_tpu_torch.ops.sliced as port_sliced
 import tnc_tpu_torch.ops.split_complex as port_split
 from tnc_tpu.builders import connectivity as ref_connectivity
 from tnc_tpu.builders.sycamore_circuit import sycamore_circuit as ref_sycamore
-from tnc_tpu.contractionpath.paths import Greedy as RefGreedy
-from tnc_tpu.contractionpath.paths import OptMethod as RefOptMethod
 from tnc_tpu.ops.backends import JaxBackend
 from tnc_tpu.ops.backends import NumpyBackend as RefNumpyBackend
 from tnc_tpu.ops.hoist import hoist_sliced_program
-from tnc_tpu.ops.program import flat_leaf_tensors as ref_flat
-from tnc_tpu.ops.sliced import build_sliced_program as ref_build_sliced
 from tnc_tpu.partitioning.native_binding import SlicedReplayer
 from tnc_tpu.tensornetwork.contraction import (
     contract_tensor_network_sliced as ref_contract_sliced,
@@ -49,55 +48,18 @@ from tnc_tpu.tensornetwork.simplify import simplify_network as ref_simplify
 from tnc_tpu_torch.builders import connectivity
 from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
 from tnc_tpu_torch.contractionpath import slicing
-from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
 from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend, run_steps_timed
-from tnc_tpu_torch.ops.program import flat_leaf_tensors, step_flops
+from tnc_tpu_torch.ops.program import step_flops
 from tnc_tpu_torch.ops.sliced import build_sliced_program, execute_sliced_numpy, kahan_add
 from tnc_tpu_torch.tensornetwork.contraction import (
     contract_tensor_network,
     contract_tensor_network_sliced,
 )
 from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+from tests._torch_sliced_cases import CELL, SIXTEEN, SMALL, _both, _ids, _scalar
 
-# (qubits, depth, rng seed, log2 of the slicing target)
-SMALL = (20, 6, 7, 7)
-SIXTEEN = (20, 8, 7, 17)
-CELL = (53, 10, 42, 29)
 EXECUTED = [SMALL, SIXTEEN]
 PLANNED = [SMALL, SIXTEEN, CELL]
-
-
-def _ids(cfgs):
-    return [f"q{q}m{m}r{r}t{t}" for q, m, r, t in cfgs]
-
-
-@functools.lru_cache(maxsize=None)
-def _both(cfg, bitstring=None):
-    """The port's and the reference's simplified network, path, slicing and
-    sliced program for one configuration (``bitstring`` defaults to all
-    zeros; ``*`` leaves a qubit open)."""
-    q, m, seed, target = cfg
-    bitstring = bitstring or "0" * q
-    out = {}
-    for side, build, simplify, greedy, opt, find, compile_ in (
-        ("port", sycamore_circuit, simplify_network, Greedy, OptMethod,
-         slicing.find_slicing, build_sliced_program),
-        ("ref", ref_sycamore, ref_simplify, RefGreedy, RefOptMethod,
-         ref_slicing.find_slicing, ref_build_sliced),
-    ):
-        tn, _ = build(q, m, np.random.default_rng(seed)).into_amplitude_network(bitstring)
-        tn = simplify(tn)
-        path = greedy(opt.GREEDY).find_path(tn).replace_path()
-        sl = find(tn.tensors, path.toplevel, float(2 ** target))
-        out[side] = {"tn": tn, "path": path, "slicing": sl,
-                     "sp": compile_(tn, path, sl)}
-    out["port"]["arrays"] = [l.data.into_data() for l in flat_leaf_tensors(out["port"]["tn"])]
-    out["ref"]["arrays"] = [l.data.into_data() for l in ref_flat(out["ref"]["tn"])]
-    return out
-
-
-def _scalar(x) -> complex:
-    return complex(np.asarray(x).reshape(()))
 
 
 def _rel(got, want) -> float:
@@ -193,9 +155,9 @@ def _kmn(st):
 
 
 def test_hoisting_the_cell_leaves_no_chain():
-    """Why the port runs the cell unhoisted: the reference's hoist pass puts
-    128 of its 169 steps, all four chains among them, into the prelude, and
-    the 41 residual steps form no chain."""
+    """Why the cell's loop runs unhoisted to measure the chain kernel: the
+    reference's hoist pass puts 128 of its 169 steps, all four chains among
+    them, into the prelude, and the 41 residual steps form no chain."""
     hp = hoist_sliced_program(_both(CELL)["ref"]["sp"])
     assert len(hp.prelude_steps) == 128 and len(hp.residual.program.steps) == 41
     assert ref_split.plan_kernels(hp.residual.program).chains == ()
@@ -226,9 +188,15 @@ def _reference_results(cfg):
     return _scalar(jax_out), _scalar(numpy_out)
 
 
+def _loop_backend(**kw):
+    """The per-slice loop, unhoisted: what these tests hold to the
+    reference's ``JaxBackend`` loop."""
+    return TorchBackend(device="cpu", sliced_strategy="loop", hoist=False, **kw)
+
+
 def _port_split(cfg, dtype="complex64", **kw):
     port = _both(cfg)["port"]
-    return TorchBackend(dtype=dtype, device="cpu", split_complex=True).execute_sliced(
+    return _loop_backend(dtype=dtype, split_complex=True).execute_sliced(
         port["sp"], port["arrays"], **kw)
 
 
@@ -265,7 +233,7 @@ def test_port_oracle_matches_reference_oracle(cfg):
 def test_native_complex_slices_match_port_oracle():
     port = _both(SMALL)["port"]
     want = _scalar(NumpyBackend().execute_sliced(port["sp"], port["arrays"]))
-    got = _scalar(TorchBackend(dtype="complex128", device="cpu", split_complex=False)
+    got = _scalar(_loop_backend(dtype="complex128", split_complex=False)
                   .execute_sliced(port["sp"], port["arrays"]))
     assert abs(got - want) <= 1e-12 * abs(want)
 
@@ -294,7 +262,7 @@ def test_every_slice_runs_each_chain_and_one_policy(monkeypatch):
 def test_resident_leaves_survive_the_loop():
     """Each slice frees its own buffers; the full leaves the loop indexes
     stay intact, so the same resident leaves serve every slice."""
-    backend = TorchBackend(device="cpu", split_complex=True)
+    backend = _loop_backend(split_complex=True)
     port = _both(SMALL)["port"]
     full = backend._device_buffers(port["arrays"])
     before = [tuple(p.clone() for p in pair) for pair in full]
@@ -327,19 +295,23 @@ def test_max_slices_and_slice_range_exclude_each_other():
     kw = {"max_slices": 2, "slice_range": (0, 2)}
     with pytest.raises(ValueError):
         RefNumpyBackend().execute_sliced(ref["sp"], ref["arrays"], **kw)
-    for backend in (NumpyBackend(), TorchBackend(device="cpu", split_complex=True)):
+    for backend in (NumpyBackend(), _loop_backend(split_complex=True),
+                    TorchBackend(device="cpu", split_complex=True)):
         with pytest.raises(ValueError, match="exclusive"):
             backend.execute_sliced(port["sp"], port["arrays"], **kw)
 
 
 @pytest.mark.parametrize("backend", ["numpy", "torch"])
-def test_hoist_raises_until_ported(backend):
+def test_hoist_matches_unhoisted(backend):
+    """``hoist=True`` (the stem once, then the residual per slice) gives the
+    unhoisted loop's sum, on the numpy oracle (whose default stays off) and
+    on the device loop (whose ``None`` takes the backend's setting)."""
     port = _both(SMALL)["port"]
-    obj = NumpyBackend() if backend == "numpy" else TorchBackend(device="cpu")
-    with pytest.raises(NotImplementedError, match="A2"):
-        obj.execute_sliced(port["sp"], port["arrays"], hoist=True)
-    assert _scalar(obj.execute_sliced(port["sp"], port["arrays"], hoist=None)) == pytest.approx(
-        _scalar(obj.execute_sliced(port["sp"], port["arrays"], hoist=False)))
+    obj = NumpyBackend() if backend == "numpy" else _loop_backend()
+    unhoisted = _scalar(obj.execute_sliced(port["sp"], port["arrays"], hoist=False))
+    hoisted = _scalar(obj.execute_sliced(port["sp"], port["arrays"], hoist=True))
+    assert abs(hoisted - unhoisted) <= 1e-12 * abs(unhoisted)
+    assert _scalar(obj.execute_sliced(port["sp"], port["arrays"], hoist=None)) == unhoisted
 
 
 def test_host_false_keeps_stored_shape_with_open_legs():
@@ -352,12 +324,12 @@ def test_host_false_keeps_stored_shape_with_open_legs():
     assert port["sp"].slicing.num_slices > 1
     ref_dev = JaxBackend(split_complex=True, sliced_strategy="loop", hoist=False
                          ).execute_sliced(ref["sp"], ref["arrays"], host=False)
-    re, im = TorchBackend(device="cpu", split_complex=True).execute_sliced(
+    re, im = _loop_backend(split_complex=True).execute_sliced(
         port["sp"], port["arrays"], host=False)
     stored = port["sp"].program.stored_result_shape
     assert tuple(re.shape) == tuple(im.shape) == stored == tuple(ref_dev[0].shape)
     assert NumpyBackend().execute_sliced(port["sp"], port["arrays"], host=False).shape == stored
-    host = TorchBackend(device="cpu", split_complex=True).execute_sliced(port["sp"], port["arrays"])
+    host = _loop_backend(split_complex=True).execute_sliced(port["sp"], port["arrays"])
     want = RefNumpyBackend().execute_sliced(ref["sp"], ref["arrays"])
     assert host.shape == want.shape == port["sp"].program.result_shape
     assert _rel(host, want) <= 1e-5

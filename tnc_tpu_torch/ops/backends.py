@@ -11,8 +11,11 @@ counterpart of ``tnc_tpu.ops.backends``):
   the rest through the Gauss identity).
 
 Both run sliced programs (:meth:`Backend.execute_sliced`): the numpy
-oracle loops on the host, :class:`TorchBackend` keeps the full leaves on
-the device and loops over the slices there.
+oracle loops on the host; :class:`TorchBackend` keeps the full leaves on
+the device and, by default, runs the reference's default sliced path —
+the slice-invariant stem once (:mod:`tnc_tpu_torch.ops.hoist`), then the
+residual in chunks batched over slices (:mod:`tnc_tpu_torch.ops.chunked`)
+— or, with ``sliced_strategy="loop"``, one slice at a time.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Any, Sequence
 
 import numpy as np
 
-from tnc_tpu_torch.ops.program import ContractionProgram
+from tnc_tpu_torch.ops.program import ContractionProgram, batch_rows, prep_kl
 
 logger = logging.getLogger(__name__)
 
@@ -46,28 +49,24 @@ class Backend:
         slices. ``max_slices`` caps the sum to the first slices;
         ``slice_range=(lo, hi)`` sums only that contiguous shard (the two
         exclude each other). ``host=False`` returns the result in
-        **stored** shape, where it was computed. ``hoist=True`` asks for the
-        slice-invariant stem to run once, which the port does not do yet
-        (ROADMAP A2): it raises."""
+        **stored** shape, where it was computed. ``hoist=True`` runs the
+        slice-invariant stem once and loops only the residual program;
+        ``None`` takes the backend's own setting."""
         raise NotImplementedError
 
 
-def apply_step(a: Any, b: Any, step) -> Any:
+def apply_step(a: Any, b: Any, step, a_batched: bool = False, b_batched: bool = False) -> Any:
     """One pairwise contraction of native (complex) arrays — numpy arrays
     or torch tensors alike: prep each operand (view + macro permute +
-    reshape), fold it to a ``(k, free)`` matrix, one matmul."""
-    av = a.reshape(step.a_view)
-    if step.a_perm is not None:
-        av = av.transpose(step.a_perm) if isinstance(av, np.ndarray) else av.permute(step.a_perm)
-    bv = b.reshape(step.b_view)
-    if step.b_perm is not None:
-        bv = bv.transpose(step.b_perm) if isinstance(bv, np.ndarray) else bv.permute(step.b_perm)
-    av = av.reshape(step.a_dot)
-    bv = bv.reshape(step.b_dot)
-    a2 = av.reshape(step.a_mat) if step.a_cfirst else av.reshape(step.a_mat[::-1]).T
-    b2 = bv.reshape(step.b_mat) if step.b_cfirst else bv.reshape(step.b_mat[::-1]).T
-    out = (b2.T @ a2) if step.swap else (a2.T @ b2)
-    return out.reshape(step.out_store)
+    reshape), fold it to a ``(k, free)`` matrix, one matmul.
+    ``a_batched`` / ``b_batched`` (torch tensors only): that side is
+    ``(B, *stored)``, a leading slice-batch axis, and so is the result;
+    an unbatched side is broadcast over the batch, not copied."""
+    (x,) = prep_kl((a,), step.a_view, step.a_perm, step.a_dot, step.a_cfirst, a_batched)
+    (y,) = prep_kl((b,), step.b_view, step.b_perm, step.b_dot, step.b_cfirst, b_batched)
+    out = (y.swapaxes(-1, -2) @ x) if step.swap else (x.swapaxes(-1, -2) @ y)
+    lead = (batch_rows(a, b, a_batched, b_batched),) if a_batched or b_batched else ()
+    return out.reshape(lead + tuple(step.out_store))
 
 
 def _run_steps(program: ContractionProgram, buffers: list[Any]) -> Any:
@@ -228,7 +227,9 @@ class NumpyBackend(Backend):
         """The complex128 oracle of a sliced program
         (:func:`~tnc_tpu_torch.ops.sliced.execute_sliced_numpy`).
         ``host=False`` returns the result in **stored** shape, as the
-        device backend does."""
+        device backend does. ``hoist`` defaults to off, as in the
+        reference: the plain loop is the oracle the hoisted executors are
+        held against."""
         from tnc_tpu_torch.ops.sliced import execute_sliced_numpy
 
         out = execute_sliced_numpy(
@@ -252,8 +253,17 @@ class TorchBackend(Backend):
     ``device=None`` means ``"cuda"``; if CUDA is absent the constructor
     raises — it never falls back to the CPU. Pass ``device="cpu"`` to run
     on the host (the tests do). ``split_complex=None`` means split on
-    CUDA and native complex on the CPU. On CUDA the constructor turns
-    TF32 off for matmuls and cuDNN
+    CUDA and native complex on the CPU.
+
+    Sliced programs (:meth:`execute_sliced`) run, as the reference's
+    ``JaxBackend`` runs them by default, with ``hoist=True`` (the
+    slice-invariant stem once) and ``sliced_strategy="chunked"``: the
+    residual in chunks of at most ``chunk_steps`` steps, ``slice_batch``
+    slices at a time (:mod:`tnc_tpu_torch.ops.chunked`, the batch clamped
+    to the device's memory). ``sliced_strategy="loop"`` runs one slice at
+    a time instead.
+
+    On CUDA the constructor turns TF32 off for matmuls and cuDNN
     (``torch.backends.cuda.matmul.allow_tf32 = False``,
     ``torch.backends.cudnn.allow_tf32 = False``): every ``precision`` runs
     true FP32, the hand kernels FP32 FMA.
@@ -279,6 +289,10 @@ class TorchBackend(Backend):
         device=None,
         split_complex: bool | None = None,
         precision: str | None = "float32",
+        sliced_strategy: str = "chunked",
+        slice_batch: int = 8,
+        chunk_steps: int = 64,
+        hoist: bool = True,
     ):
         import torch
 
@@ -299,6 +313,12 @@ class TorchBackend(Backend):
             split_complex = self.device.type != "cpu"
         self.split_complex = split_complex
         self.precision = precision
+        if sliced_strategy not in ("loop", "chunked"):
+            raise ValueError(f"unknown sliced_strategy {sliced_strategy!r}")
+        self.sliced_strategy = sliced_strategy
+        self.slice_batch = slice_batch
+        self.chunk_steps = chunk_steps
+        self.hoist = hoist
         self._policy_cache: dict[tuple, Any] = {}
 
     def kernel_policy(self, program: ContractionProgram):
@@ -363,32 +383,55 @@ class TorchBackend(Backend):
     ):
         """Sum a sliced program over its slices on the device.
 
-        The full leaves are placed on the device once. Each slice pins the
-        sliced axes of the leaves that carry them (a dense copy of the
-        slice: the steps and kernels see the layouts an unsliced program
-        gives them), runs every step under :meth:`kernel_policy` — one
-        policy, planned once, for all slices — and is added to the sum
-        with Kahan compensation, on the real and imaginary parts apart in
-        split mode. The compensation is folded in at the end.
+        The full leaves are placed on the device once. ``hoist`` (``None``:
+        the backend's setting) runs the slice-invariant stem once
+        (:func:`~tnc_tpu_torch.ops.hoist.run_prelude`) and only the
+        residual program per slice. Under ``sliced_strategy="chunked"`` the
+        slices then run in batches through
+        :func:`~tnc_tpu_torch.ops.chunked.run_sliced_chunked_placed`; under
+        ``"loop"`` one at a time: each slice pins the sliced axes of the
+        leaves that carry them (a dense copy of the slice), runs every step
+        under :meth:`kernel_policy` — one policy, planned once, for all
+        slices — and is added to the sum with Kahan compensation, on the
+        real and imaginary parts apart in split mode.
 
         ``max_slices`` caps the sum to the first slices (at least one);
         ``slice_range=(lo, hi)`` sums the shard ``[lo, hi)``; the two
         exclude each other. A program of one slice runs :meth:`execute`
         (:meth:`execute_on_device` with ``host=False``). ``host=False``
         returns the stored-shape result on the device, a (real, imag)
-        pair in split mode. ``hoist=None`` means no hoisting;
-        ``hoist=True`` raises until ROADMAP A2 ports the hoist pass.
+        pair in split mode.
         """
-        from tnc_tpu_torch.ops.sliced import HOIST_MISSING, slice_bounds
+        from tnc_tpu_torch.ops.sliced import slice_bounds
 
-        if hoist:
-            raise NotImplementedError(HOIST_MISSING)
+        if hoist is None:
+            hoist = self.hoist
+        if slice_range is not None and max_slices is not None:
+            raise ValueError("slice_range and max_slices are exclusive")
         if slice_range is None and sp.slicing.num_slices == 1:
             if not host:
                 return self.execute_on_device(sp.program, arrays)
             return self.execute(sp.program, arrays)
-        lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
-        result = self._run_sliced(sp, self._device_buffers(arrays), lo, hi)
+        full = self._device_buffers(arrays)
+        if self.sliced_strategy == "chunked" and sp.slicing.num_slices > 1:
+            from tnc_tpu_torch.ops.chunked import run_sliced_chunked_placed
+
+            result = run_sliced_chunked_placed(
+                sp, full, batch=self.slice_batch, chunk_steps=self.chunk_steps,
+                split_complex=self.split_complex, precision=self.precision,
+                dtype=self.dtype, device=self.device, max_slices=max_slices,
+                hoist=hoist, slice_range=slice_range,
+            )
+        else:
+            lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
+            if hoist:
+                import torch
+
+                from tnc_tpu_torch.ops.hoist import hoisted
+
+                with torch.inference_mode():
+                    sp, full = hoisted(sp, full, self.split_complex, self.precision)
+            result = self._run_sliced(sp, full, lo, hi)
         if not host:
             return result
         if self.split_complex:

@@ -1,0 +1,425 @@
+"""Chunked, slice-batched execution of sliced contraction programs (the
+port's copy of ``tnc_tpu.ops.chunked``, the reference's default sliced
+executor).
+
+- The program is **split into chunks** of at most ``chunk_steps`` steps,
+  and each chunk gets its own kernel policy: chains of small steps are
+  planned within a chunk (a chain never crosses a chunk boundary).
+- Slices run in **batches of B**: every buffer that depends on a sliced
+  leaf carries a leading batch axis ``(B, *stored)``, so each product is
+  one batched product for B slices and the host issues each step once
+  per batch instead of once per slice. Buffers that depend on no sliced
+  leaf (unsliced leaves, the hoisted prelude's cached values) stay
+  unbatched and are broadcast, never copied B times. The reference writes
+  this with ``jax.vmap``; here the batch axis is explicit, because the
+  hand kernels are launched through ``ctypes``, which ``torch.func.vmap``
+  cannot batch.
+- The batch sum is folded after the last chunk and accumulated across
+  batches with Kahan compensation, on the real and imaginary parts apart.
+
+Memory: a batch keeps B copies of each live batched intermediate, so B is
+clamped to the device's memory (:mod:`tnc_tpu_torch.ops.budget`) and
+then to the largest divisor of the slice count at or under it.
+
+PyTorch runs eagerly, so nothing is compiled per chunk: a plan (the
+chunks, their policies, which slots carry the batch axis and which
+sliced leaves each chunk gathers) is built once per program and cached.
+Capturing each chunk as a CUDA graph, the counterpart of the reference's
+per-chunk ``jax.jit``, is later work.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import numpy as np
+
+from tnc_tpu_torch.ops.program import ContractionProgram, PairStep
+from tnc_tpu_torch.ops.sliced import SlicedProgram, kahan_add
+
+
+@dataclass(frozen=True)
+class ProgramChunk:
+    steps: tuple[PairStep, ...]
+    in_slots: tuple[int, ...]  # slots read by this chunk (alive at entry)
+    out_slots: tuple[int, ...]  # slots written here and still alive at exit
+
+
+def split_program(
+    program: ContractionProgram, chunk_steps: int
+) -> list[ProgramChunk]:
+    """Split ``program.steps`` into chunks with entry/exit slot lists.
+
+    A slot is alive at step ``i`` if it will still be *read* at some step
+    >= ``i`` (or it is the result slot).
+
+    >>> from tnc_tpu_torch.builders.circuit_builder import Circuit
+    >>> from tnc_tpu_torch.tensornetwork.tensordata import TensorData
+    >>> from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    >>> c = Circuit(); reg = c.allocate_register(3)
+    >>> c.append_gate(TensorData.gate("h"), [reg.qubit(0)])
+    >>> for i in range(2):
+    ...     c.append_gate(TensorData.gate("cx"), [reg.qubit(i), reg.qubit(i + 1)])
+    >>> tn, _ = c.into_amplitude_network("111")
+    >>> path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+    >>> from tnc_tpu_torch.ops.program import build_program
+    >>> program = build_program(tn, path)
+    >>> chunks = split_program(program, 3)
+    >>> len(chunks), sum(len(ch.steps) for ch in chunks) == len(program.steps)
+    (3, True)
+    """
+    steps = program.steps
+    n = len(steps)
+    last_read: dict[int, int] = {program.result_slot: n}
+    for i, st in enumerate(steps):
+        last_read[st.lhs] = max(last_read.get(st.lhs, -1), i)
+        last_read[st.rhs] = max(last_read.get(st.rhs, -1), i)
+    last_read[program.result_slot] = n
+
+    chunks: list[ProgramChunk] = []
+    for a in range(0, n, chunk_steps):
+        b = min(a + chunk_steps, n)
+        read_here: list[int] = []
+        written: set[int] = set()
+        seen: set[int] = set()
+        for i in range(a, b):
+            st = steps[i]
+            # a read is "from outside" if the slot wasn't written earlier
+            # in this same chunk
+            for slot in (st.lhs, st.rhs):
+                if slot not in written and slot not in seen:
+                    read_here.append(slot)
+                    seen.add(slot)
+            written.add(st.lhs)
+        outs = tuple(
+            sorted(s for s in written if last_read.get(s, -1) >= b)
+        )
+        chunks.append(ProgramChunk(steps[a:b], tuple(read_here), outs))
+    return chunks
+
+
+def _run_chunk(chunk: ProgramChunk, buffers: list, batched: set[int]) -> None:
+    """Native-complex steps of one chunk, in place over ``buffers``;
+    ``batched`` (the slots with a batch axis) gains every slot written
+    from a batched operand."""
+    from tnc_tpu_torch.ops.backends import apply_step
+
+    for step in chunk.steps:
+        a_b, b_b = step.lhs in batched, step.rhs in batched
+        buffers[step.lhs] = apply_step(
+            buffers[step.lhs], buffers[step.rhs], step, a_b, b_b)
+        buffers[step.rhs] = None
+        if a_b or b_b:
+            batched.add(step.lhs)
+
+
+@dataclass(frozen=True)
+class ChunkPlan:
+    """How one chunk runs for a batch of slices: its steps and kernel
+    policy (``None`` outside split mode), the sliced leaves it gathers
+    for the batch's slice indices (``leaf_in``: the slots it is the first
+    to read), the slots that carry the batch axis when it starts
+    (``batched_in``, the gathered leaves among them) and when it ends
+    (``batched_out``). A chunk none of whose inputs is batched touches no
+    sliced data: it runs once per batch, unbatched."""
+
+    chunk: ProgramChunk
+    policy: Any
+    leaf_in: tuple[int, ...]
+    batched_in: frozenset[int]
+    batched_out: frozenset[int]
+
+
+# plan cache: key -> list[ChunkPlan]. Locked: callers may run chunked
+# executors from several threads.
+_PLAN_CACHE: "OrderedDict[tuple, list[ChunkPlan]]" = OrderedDict()
+_PLAN_CACHE_MAX = 64
+_PLAN_CACHE_LOCK = threading.Lock()
+
+
+def chunk_plan(
+    sp: SlicedProgram,
+    batch: int,
+    chunk_steps: int,
+    split_complex: bool,
+    precision: str | None,
+) -> list[ChunkPlan]:
+    """The chunks of ``sp`` with their policies and batch bookkeeping,
+    cached by the reference's key (program signature, batch, chunk size,
+    split mode, precision, and the ``TNC_TPU_COMPLEX_MULT`` /
+    ``TNC_TPU_DOT_PRECISION`` overrides in split mode)."""
+    from tnc_tpu_torch.ops.split_complex import (
+        complex_mult_key,
+        dot_precision_key,
+        plan_kernel_steps,
+    )
+
+    key = (
+        sp.signature(),
+        batch,
+        chunk_steps,
+        split_complex,
+        precision,
+        complex_mult_key() if split_complex else None,
+        dot_precision_key() if split_complex else None,
+    )
+    with _PLAN_CACHE_LOCK:
+        hit = _PLAN_CACHE.get(key)
+        if hit is not None:
+            _PLAN_CACHE.move_to_end(key)
+            return hit
+
+    chunks = split_program(sp.program, chunk_steps)
+    num_inputs = sp.program.num_inputs
+    # which slots carry a batch axis: sliced leaves, and anything computed
+    # from a batched slot
+    current = {slot for slot, info in enumerate(sp.slot_slices) if info}
+    written_before: set[int] = set()
+    plans = []
+    for chunk in chunks:
+        # a sliced-leaf slot read here for the first time is gathered for
+        # the batch; a slot id below num_inputs that an earlier chunk
+        # already wrote holds an intermediate (slots are reused as result
+        # holders) and must not be gathered again
+        leaf_in = tuple(
+            slot
+            for slot in chunk.in_slots
+            if slot < num_inputs
+            and sp.slot_slices[slot]
+            and slot not in written_before
+        )
+        written_before.update(step.lhs for step in chunk.steps)
+        batched_in = frozenset(s for s in chunk.in_slots if s in current)
+        for step in chunk.steps:
+            if step.lhs in current or step.rhs in current:
+                current.add(step.lhs)
+        policy = plan_kernel_steps(chunk.steps) if split_complex else None
+        plans.append(ChunkPlan(chunk, policy, leaf_in, batched_in,
+                               frozenset(current)))
+    with _PLAN_CACHE_LOCK:
+        _PLAN_CACHE[key] = plans
+        while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+            _PLAN_CACHE.popitem(last=False)
+    return plans
+
+
+def slice_index_rows(slicing, lo: int, hi: int) -> np.ndarray:
+    """``[hi - lo, n_sliced_legs]`` mixed-radix indices of slices
+    ``lo..hi-1`` (the last sliced leg varies fastest).
+
+    >>> from tnc_tpu_torch.contractionpath.slicing import Slicing
+    >>> slice_index_rows(Slicing((7, 9), (2, 3)), 2, 5).tolist()
+    [[0, 2], [1, 0], [1, 1]]
+    """
+    dims = slicing.dims
+    rows = np.zeros((hi - lo, len(dims)), dtype=np.int64)
+    s = np.arange(lo, hi)
+    for pos in range(len(dims) - 1, -1, -1):
+        rows[:, pos] = s % dims[pos]
+        s //= dims[pos]
+    return rows
+
+
+def gather_slices(buf, info, rows):
+    """The batch of slices of one sliced leaf: ``buf`` with its sliced axes
+    (``info``: ((axis, slice_position), …)) pinned to each row of ``rows``
+    (a ``(B, n_sliced_legs)`` index tensor on ``buf``'s device), as one
+    dense ``(B, *remaining)`` tensor. Works on a (real, imag) pair too.
+
+    >>> import torch
+    >>> x = torch.arange(8).reshape(2, 2, 2)
+    >>> gather_slices(x, ((0, 1), (2, 0)), torch.tensor([[1, 0], [0, 1]])).tolist()
+    [[1, 3], [4, 6]]
+    """
+    if isinstance(buf, tuple):
+        return tuple(gather_slices(p, info, rows) for p in buf)
+    axes = [axis for axis, _ in info]
+    rest = [d for d in range(buf.dim()) if d not in axes]
+    return buf.permute(axes + rest)[tuple(rows[:, pos] for _, pos in info)]
+
+
+def run_sliced_chunked_placed(
+    sp: SlicedProgram,
+    device_full: Sequence[Any],
+    batch: int = 8,
+    chunk_steps: int = 64,
+    split_complex: bool = True,
+    precision: str | None = "float32",
+    dtype: str = "complex64",
+    device=None,
+    max_slices: int | None = None,
+    hoist: bool = False,
+    slice_range: tuple[int, int] | None = None,
+):
+    """Chunked slice-batched execution over already-placed device buffers
+    (:func:`~tnc_tpu_torch.ops.backends.place_buffers`, never consumed);
+    returns the accumulated result in stored shape, on the device (a
+    (real, imag) pair in split mode).
+
+    ``hoist=True`` computes the slice-invariant stem once and runs the
+    chunked slice loop over the residual program only. ``batch`` is
+    clamped to the device's memory and then to the largest divisor of the
+    summed slice count at or under it. ``max_slices`` keeps the first
+    slices; ``slice_range=(lo, hi)`` sums the shard ``[lo, hi)``; the two
+    exclude each other."""
+    import torch
+
+    with torch.inference_mode():
+        if hoist:
+            from tnc_tpu_torch.ops.hoist import hoisted
+
+            sp, device_full = hoisted(sp, device_full, split_complex, precision)
+        return _run_chunked(sp, list(device_full), batch, chunk_steps, split_complex,
+                            precision, dtype, device, max_slices, slice_range)
+
+
+def resolve_batch(
+    sp: SlicedProgram,
+    batch: int,
+    split_complex: bool = True,
+    dtype: str = "complex64",
+    device=None,
+    max_slices: int | None = None,
+    slice_range: tuple[int, int] | None = None,
+) -> tuple[int, int, int]:
+    """``(batch, lo, hi)``: the slice batch a chunked run of ``sp`` uses
+    for the slices ``[lo, hi)`` it sums — the request clamped to the
+    device's memory, then to the largest divisor of ``hi - lo`` at or
+    under it."""
+    from tnc_tpu_torch.ops.budget import clamp_slice_batch
+
+    num = sp.slicing.num_slices
+    batch = clamp_slice_batch(
+        sp.program,
+        batch,
+        device=device,
+        split_complex=split_complex,
+        dtype_bytes=8 if "128" in str(dtype) else 4,
+    )
+    lo = 0
+    if slice_range is not None:
+        if max_slices is not None:
+            raise ValueError("slice_range and max_slices are exclusive")
+        lo = max(0, int(slice_range[0]))
+        num = min(int(slice_range[1]), num)
+        lo = min(lo, num)
+    elif max_slices is not None:
+        num = max(1, min(num, max_slices))
+    span = max(num - lo, 1)
+    batch = max(1, min(batch, span))
+    while span % batch:  # largest divisor <= requested (dims are tiny)
+        batch -= 1
+    return batch, lo, num
+
+
+def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
+                 dtype, device, max_slices, slice_range):
+    import torch
+
+    from tnc_tpu_torch.ops.backends import _run_steps
+    from tnc_tpu_torch.ops.split_complex import run_split_units
+
+    if sp.slicing.num_slices <= 1:
+        # a program of one slice has no batch axis to reduce over: run it
+        # straight, under its own kernel policy
+        buffers = list(device_full)
+        if split_complex:
+            from tnc_tpu_torch.ops.split_complex import plan_kernels, run_steps_split
+
+            return run_steps_split(sp.program, buffers, precision,
+                                   policy=plan_kernels(sp.program))
+        return _run_steps(sp.program, buffers)
+    batch, lo, num = resolve_batch(sp, batch, split_complex, dtype, device,
+                                   max_slices, slice_range)
+    plans = chunk_plan(sp, batch, chunk_steps, split_complex, precision)
+    first = device_full[0][0] if split_complex else device_full[0]
+    rows_all = torch.from_numpy(slice_index_rows(sp.slicing, lo, num)).to(first.device)
+    stored_shape = sp.program.stored_result_shape
+    result_slot = sp.program.result_slot
+
+    if not plans:
+        # zero-step program: the result is the (sliced) leaf itself — sum
+        # its slices
+        leaf = device_full[result_slot]
+        info = sp.slot_slices[result_slot]
+        parts = leaf if split_complex else (leaf,)
+        total = tuple(gather_slices(p, info, rows_all).sum(0).reshape(stored_shape)
+                      for p in parts)
+        return total if split_complex else total[0]
+
+    res_batched = result_slot in plans[-1].batched_out
+    parts = [p.dtype for p in device_full[0]] if split_complex else [first.dtype]
+    # a (sum, compensation) pair per part: real and imaginary in split mode
+    acc = [(torch.zeros(stored_shape, dtype=dt, device=first.device),
+            torch.zeros(stored_shape, dtype=dt, device=first.device)) for dt in parts]
+    for start in range(0, num - lo, batch):
+        rows = rows_all[start:start + batch]
+        b = int(rows.shape[0])
+        buffers = list(device_full)
+        for cp in plans:
+            for slot in cp.leaf_in:
+                buffers[slot] = gather_slices(device_full[slot], sp.slot_slices[slot], rows)
+            batched = set(cp.batched_in)
+            if split_complex:
+                # the chunk's policy spans are relative to the chunk: a chain
+                # is one fused_chain launch for the whole batch
+                run_split_units(cp.chunk.steps, buffers, precision, cp.policy,
+                                batched=batched)
+            else:
+                _run_chunk(cp.chunk, buffers, batched)
+        out = buffers[result_slot]
+        del buffers
+        out = out if split_complex else (out,)
+        # the batch sum in the working precision, then one Kahan step a
+        # batch: the batches' partial sums cancel far below each term
+        contrib = [(x.sum(0) if res_batched else x * b).reshape(stored_shape)
+                   for x in out]
+        acc = [kahan_add(s, c, x) for (s, c), x in zip(acc, contrib)]
+    total = tuple(s + c for s, c in acc)
+    return total if split_complex else total[0]
+
+
+def execute_sliced_batched(
+    sp: SlicedProgram,
+    arrays: Sequence[Any],
+    batch: int = 8,
+    chunk_steps: int = 64,
+    split_complex: bool = True,
+    precision: str | None = "float32",
+    dtype: str = "complex64",
+    device=None,
+    max_slices: int | None = None,
+    host: bool = True,
+    hoist: bool = False,
+    slice_range: tuple[int, int] | None = None,
+):
+    """Run a sliced program as chunked, slice-batched steps on ``device``.
+
+    Places the host ``arrays`` on the device and returns the accumulated
+    result: a complex numpy array in ``result_shape``, or with
+    ``host=False`` the device-resident accumulator in **stored** shape (a
+    (real, imag) pair in split mode). Arguments as in
+    :func:`run_sliced_chunked_placed`."""
+    from tnc_tpu_torch.ops.backends import place_buffers
+
+    if sp.slicing.num_slices <= 1:
+        raise ValueError(
+            "execute_sliced_batched expects a sliced program; "
+            "use TorchBackend.execute for unsliced networks"
+        )
+    device_full = place_buffers(arrays, dtype, split_complex, device)
+    acc = run_sliced_chunked_placed(
+        sp, device_full, batch=batch, chunk_steps=chunk_steps,
+        split_complex=split_complex, precision=precision, dtype=dtype,
+        device=device, max_slices=max_slices, hoist=hoist, slice_range=slice_range,
+    )
+    if not host:
+        return acc
+    if split_complex:
+        from tnc_tpu_torch.ops.split_complex import combine_array
+
+        return combine_array(acc[0], acc[1]).reshape(sp.program.result_shape)
+    return acc.cpu().numpy().reshape(sp.program.result_shape)

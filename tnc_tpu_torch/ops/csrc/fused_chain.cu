@@ -21,6 +21,13 @@
 // by the Python wrapper and passed by value; only the operand pointers change
 // from call to call. A chain longer than kMaxStages stages is run as
 // consecutive launches of kMaxStages stages.
+//
+// Slice batch (the reference runs the kernel under jax.vmap in its chunked
+// executor): every stage runs `batch` independent rows in the same launch,
+// the blocks striding over batch x tiles. Each operand has a batch stride,
+// 0 for an operand every row shares (an unbatched cached value), so nothing
+// is copied per row; row z of a stage's (M, N) result is written at z*M*N,
+// which is the carried value's batch stride in the next stage.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -32,8 +39,8 @@ namespace {
 
 constexpr int kMaxStages = 32;
 // per-stage fields of the host table:
-//   a_src, a_sk, a_sf, b_src, b_sk, b_sf, K, M, N, c_dst
-constexpr int kFields = 10;
+//   a_src, a_sk, a_sf, a_sb, b_src, b_sk, b_sf, b_sb, K, M, N, c_dst
+constexpr int kFields = 12;
 
 template <typename T>
 struct Stage {
@@ -43,7 +50,7 @@ struct Stage {
   const T* bi;
   T* cr;
   T* ci;
-  long long a_sk, a_sf, b_sk, b_sf;
+  long long a_sk, a_sf, a_sb, b_sk, b_sf, b_sb;
   long long K, M, N;
 };
 
@@ -51,6 +58,7 @@ template <typename T>
 struct ChainParams {
   Stage<T> stage[kMaxStages];
   int n_stages;
+  int batch;
 };
 
 template <typename T>
@@ -60,11 +68,17 @@ __global__ void __launch_bounds__(tnc::kThreads)
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < p.n_stages; ++i) {
     const Stage<T>& st = p.stage[i];
-    const tnc::Operand<T> a{st.ar, st.ai, st.a_sk, st.a_sf};
-    const tnc::Operand<T> b{st.br, st.bi, st.b_sk, st.b_sf};
     const long long tiles = tnc::tile_count(st.M, st.N);
-    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      tnc::complex_tile<T>(a, b, st.K, st.M, st.N, tile, st.cr, st.ci, s);
+    const long long work = tiles * p.batch;
+    for (long long t = blockIdx.x; t < work; t += gridDim.x) {
+      const long long z = t / tiles;
+      const tnc::Operand<T> a{st.ar + z * st.a_sb, st.ai + z * st.a_sb,
+                              st.a_sk, st.a_sf};
+      const tnc::Operand<T> b{st.br + z * st.b_sb, st.bi + z * st.b_sb,
+                              st.b_sk, st.b_sf};
+      const long long out = z * st.M * st.N;
+      tnc::complex_tile<T>(a, b, st.K, st.M, st.N, t - z * tiles, st.cr + out,
+                           st.ci + out, s);
     }
     if (i + 1 < p.n_stages) {
       __threadfence();
@@ -91,8 +105,9 @@ int max_resident_blocks(int device) {
 
 template <typename T>
 int launch(const void* const* ptrs, const long long* table, int n_stages,
-           T* scratch, long long scratch_stride, T* out_r, T* out_i,
+           int batch, T* scratch, long long scratch_stride, T* out_r, T* out_i,
            void* stream) {
+  if (batch < 1) return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -114,28 +129,31 @@ int launch(const void* const* ptrs, const long long* table, int n_stages,
   for (int first = 0; first < n_stages; first += kMaxStages) {
     ChainParams<T> p;
     p.n_stages = n_stages - first < kMaxStages ? n_stages - first : kMaxStages;
+    p.batch = batch;
     long long max_tiles = 1;
     for (int i = 0; i < p.n_stages; ++i) {
       const long long* f = table + (first + i) * kFields;
       Stage<T>& st = p.stage[i];
       src(f[0], &st.ar, &st.ai);
-      src(f[3], &st.br, &st.bi);
+      src(f[4], &st.br, &st.bi);
       st.a_sk = f[1];
       st.a_sf = f[2];
-      st.b_sk = f[4];
-      st.b_sf = f[5];
-      st.K = f[6];
-      st.M = f[7];
-      st.N = f[8];
-      if (f[9] == -3) {
+      st.a_sb = f[3];
+      st.b_sk = f[5];
+      st.b_sf = f[6];
+      st.b_sb = f[7];
+      st.K = f[8];
+      st.M = f[9];
+      st.N = f[10];
+      if (f[11] == -3) {
         st.cr = out_r;
         st.ci = out_i;
       } else {
-        const long long pair = -f[9] - 1;
+        const long long pair = -f[11] - 1;
         st.cr = scratch + (2 * pair) * scratch_stride;
         st.ci = scratch + (2 * pair + 1) * scratch_stride;
       }
-      const long long tiles = tnc::tile_count(st.M, st.N);
+      const long long tiles = tnc::tile_count(st.M, st.N) * batch;
       if (tiles > max_tiles) max_tiles = tiles;
     }
     const long long grid = max_tiles < resident ? max_tiles : resident;
@@ -159,18 +177,22 @@ int tnc_chain_max_stages() { return kMaxStages; }
 
 int tnc_chain_table_fields() { return kFields; }
 
+// batch: rows per stage (1 unbatched); scratch_stride: elements of one
+// scratch part, at least batch times the largest carried value
 int tnc_fused_chain_f32(const void* const* ptrs, const long long* table,
-                        int n_stages, float* scratch, long long scratch_stride,
-                        float* out_r, float* out_i, void* stream) {
-  return launch<float>(ptrs, table, n_stages, scratch, scratch_stride, out_r,
-                       out_i, stream);
+                        int n_stages, int batch, float* scratch,
+                        long long scratch_stride, float* out_r, float* out_i,
+                        void* stream) {
+  return launch<float>(ptrs, table, n_stages, batch, scratch, scratch_stride,
+                       out_r, out_i, stream);
 }
 
 int tnc_fused_chain_f64(const void* const* ptrs, const long long* table,
-                        int n_stages, double* scratch, long long scratch_stride,
-                        double* out_r, double* out_i, void* stream) {
-  return launch<double>(ptrs, table, n_stages, scratch, scratch_stride, out_r,
-                        out_i, stream);
+                        int n_stages, int batch, double* scratch,
+                        long long scratch_stride, double* out_r, double* out_i,
+                        void* stream) {
+  return launch<double>(ptrs, table, n_stages, batch, scratch, scratch_stride,
+                        out_r, out_i, stream);
 }
 
 const char* tnc_error_string(int code) {

@@ -22,6 +22,13 @@
 // single-buffered 64 x 64 tile with scalar shared loads and four products
 // per complex multiply-add. Tensor cores (wgmma, 3xTF32) and TMA are
 // later work.
+//
+// Slice batch (the reference's jax.vmap of the kernel in its chunked
+// executor): the batch is the grid's y dimension. Block row z reads each
+// operand at base + z * batch stride, a stride of 0 for an operand every
+// slice shares (never copied per slice), and writes its (M, N) outputs at
+// z * M * N. The 16-byte copy mode needs every row's base aligned, which
+// the wrapper checks on the batch stride too.
 #include <cuda_runtime.h>
 
 #include "complex_gemm.cuh"
@@ -32,13 +39,20 @@ namespace g = tnc::gemm;
 
 template <class Cfg>
 __global__ void __launch_bounds__(g::kThreads, 1)
-    fused_complex_dot_kernel(g::Strided<typename Cfg::T> a,
-                             g::Strided<typename Cfg::T> b, long long K,
-                             long long M, long long N, typename Cfg::T* cr,
-                             typename Cfg::T* ci) {
+    fused_complex_dot_kernel(g::Strided<typename Cfg::T> a, long long a_sb,
+                             g::Strided<typename Cfg::T> b, long long b_sb,
+                             long long K, long long M, long long N,
+                             typename Cfg::T* cr, typename Cfg::T* ci) {
   using T = typename Cfg::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
+  const long long z = blockIdx.y;
+  a.re += z * a_sb;
+  a.im += z * a_sb;
+  b.re += z * b_sb;
+  b.im += z * b_sb;
+  cr += z * M * N;
+  ci += z * M * N;
   const long long tiles = g::tile_count<Cfg>(M, N);
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     long long m0, n0;
@@ -52,15 +66,16 @@ __global__ void __launch_bounds__(g::kThreads, 1)
 
 template <class Cfg>
 int launch(const typename Cfg::T* ar, const typename Cfg::T* ai,
-           long long a_sk, long long a_sf, int a_mode,
+           long long a_sb, long long a_sk, long long a_sf, int a_mode,
            const typename Cfg::T* br, const typename Cfg::T* bi,
-           long long b_sk, long long b_sf, int b_mode, typename Cfg::T* cr,
-           typename Cfg::T* ci, long long K, long long M, long long N,
-           void* stream) {
+           long long b_sb, long long b_sk, long long b_sf, int b_mode,
+           typename Cfg::T* cr, typename Cfg::T* ci, int batch, long long K,
+           long long M, long long N, void* stream) {
   static bool done[64] = {false};
   // the direct pipeline reads every tile as [k][f]
   if (a_mode == g::kVecK || b_mode == g::kVecK)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = g::prepare(fused_complex_dot_kernel<Cfg>, Cfg::kTileBytes, done);
   if (rc != 0) return rc;
   const long long tiles = g::tile_count<Cfg>(M, N);
@@ -68,9 +83,12 @@ int launch(const typename Cfg::T* ar, const typename Cfg::T* ai,
   const long long grid = tiles < (1LL << 30) ? tiles : (1LL << 30);
   const g::Strided<typename Cfg::T> a{ar, ai, a_sk, a_sf, K, M, a_mode, 0};
   const g::Strided<typename Cfg::T> b{br, bi, b_sk, b_sf, K, N, b_mode, 0};
+  const dim3 blocks(static_cast<unsigned int>(grid),
+                    static_cast<unsigned int>(batch));
   fused_complex_dot_kernel<Cfg>
-      <<<static_cast<unsigned int>(grid), g::kThreads, Cfg::kTileBytes,
-         static_cast<cudaStream_t>(stream)>>>(a, b, K, M, N, cr, ci);
+      <<<blocks, g::kThreads, Cfg::kTileBytes,
+         static_cast<cudaStream_t>(stream)>>>(a, a_sb, b, b_sb, K, M, N, cr,
+                                               ci);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -78,36 +96,39 @@ int launch(const typename Cfg::T* ar, const typename Cfg::T* ai,
 
 extern "C" {
 
-// a_mode / b_mode: each operand's copy mode (tnc::gemm::Mode); variant:
-// 0 = 128 x 64 tiles, 1 = 64 x 64, 2 = 8 x 512.
-int tnc_fused_complex_dot_f32(const float* ar, const float* ai, long long a_sk,
-                              long long a_sf, int a_mode, const float* br,
-                              const float* bi, long long b_sk, long long b_sf,
-                              int b_mode, float* cr, float* ci, long long K,
+// a_mode / b_mode: each operand's copy mode (tnc::gemm::Mode); a_sb / b_sb:
+// each operand's batch stride (0: shared by every row); batch: grid rows (1
+// unbatched); variant: 0 = 128 x 64 tiles, 1 = 64 x 64, 2 = 8 x 512.
+int tnc_fused_complex_dot_f32(const float* ar, const float* ai, long long a_sb,
+                              long long a_sk, long long a_sf, int a_mode,
+                              const float* br, const float* bi, long long b_sb,
+                              long long b_sk, long long b_sf, int b_mode,
+                              float* cr, float* ci, int batch, long long K,
                               long long M, long long N, int variant,
                               void* stream) {
   if (variant == 0)
-    return launch<g::Wide>(ar, ai, a_sk, a_sf, a_mode, br, bi, b_sk, b_sf,
-                           b_mode, cr, ci, K, M, N, stream);
+    return launch<g::Wide>(ar, ai, a_sb, a_sk, a_sf, a_mode, br, bi, b_sb, b_sk,
+                           b_sf, b_mode, cr, ci, batch, K, M, N, stream);
   if (variant == 1)
-    return launch<g::Narrow>(ar, ai, a_sk, a_sf, a_mode, br, bi, b_sk, b_sf,
-                             b_mode, cr, ci, K, M, N, stream);
+    return launch<g::Narrow>(ar, ai, a_sb, a_sk, a_sf, a_mode, br, bi, b_sb,
+                             b_sk, b_sf, b_mode, cr, ci, batch, K, M, N, stream);
   if (variant == 2)
-    return launch<g::Flat>(ar, ai, a_sk, a_sf, a_mode, br, bi, b_sk, b_sf,
-                           b_mode, cr, ci, K, M, N, stream);
+    return launch<g::Flat>(ar, ai, a_sb, a_sk, a_sf, a_mode, br, bi, b_sb, b_sk,
+                           b_sf, b_mode, cr, ci, batch, K, M, N, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // variant: 3 (64 x 64 tiles of doubles)
 int tnc_fused_complex_dot_f64(const double* ar, const double* ai,
-                              long long a_sk, long long a_sf, int a_mode,
-                              const double* br, const double* bi,
-                              long long b_sk, long long b_sf, int b_mode,
-                              double* cr, double* ci, long long K, long long M,
-                              long long N, int variant, void* stream) {
+                              long long a_sb, long long a_sk, long long a_sf,
+                              int a_mode, const double* br, const double* bi,
+                              long long b_sb, long long b_sk, long long b_sf,
+                              int b_mode, double* cr, double* ci, int batch,
+                              long long K, long long M, long long N, int variant,
+                              void* stream) {
   if (variant == 3)
-    return launch<g::Double>(ar, ai, a_sk, a_sf, a_mode, br, bi, b_sk, b_sf,
-                             b_mode, cr, ci, K, M, N, stream);
+    return launch<g::Double>(ar, ai, a_sb, a_sk, a_sf, a_mode, br, bi, b_sb,
+                             b_sk, b_sf, b_mode, cr, ci, batch, K, M, N, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

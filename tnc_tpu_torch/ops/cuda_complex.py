@@ -18,6 +18,11 @@ at first use and loaded through ``ctypes``:
   :func:`tnc_tpu_torch.ops.program.chain_groups`) as one cooperative launch
   — the counterpart of ``fused_chain_kl``.
 
+``fused_complex_dot`` and ``fused_chain`` also take a leading slice-batch
+axis (``(B, K, X)`` operands beside 2-D ones, which every batch row
+shares through a batch stride of 0): the chunked sliced executor's
+batch, in one launch — the reference's ``vmap`` of its kernels.
+
 The two single-product kernels share one pipelined tile engine
 (``csrc/complex_gemm.cuh``: a ``cp.async`` ring, 128-bit fragment loads,
 three real products per complex multiply-add); this module chooses its
@@ -221,8 +226,8 @@ def _library(name: str) -> ctypes.CDLL:
         lib.tnc_error_string.restype = ctypes.c_char_p
         if name == "fused_complex_dot":
             for fn in (lib.tnc_fused_complex_dot_f32, lib.tnc_fused_complex_dot_f64):
-                fn.argtypes = [_P, _P, _LL, _LL, _I, _P, _P, _LL, _LL, _I, _P, _P,
-                               _LL, _LL, _LL, _I, _P]
+                fn.argtypes = [_P, _P, _LL, _LL, _LL, _I, _P, _P, _LL, _LL, _LL, _I,
+                               _P, _P, _I, _LL, _LL, _LL, _I, _P]
                 fn.restype = _I
         elif name == "fused_transpose_dot":
             for fn in (lib.tnc_fused_transpose_dot_f32,
@@ -232,7 +237,7 @@ def _library(name: str) -> ctypes.CDLL:
                 fn.restype = _I
         else:
             for fn in (lib.tnc_fused_chain_f32, lib.tnc_fused_chain_f64):
-                fn.argtypes = [_P, _P, _I, _P, _LL, _P, _P, _P]
+                fn.argtypes = [_P, _P, _I, _I, _P, _LL, _P, _P, _P]
                 fn.restype = _I
             lib.tnc_chain_max_stages.restype = _I
             lib.tnc_chain_table_fields.restype = _I
@@ -258,7 +263,8 @@ def _stream(device) -> int:
 
 def _check_parts(what: str, tensors, two_d: bool = True) -> None:
     """Device and dtype checks shared by the wrappers (and, with
-    ``two_d``, that every operand is a matrix)."""
+    ``two_d``, that every operand is a matrix, or a batch of matrices
+    ``(B, rows, cols)``)."""
     import torch
 
     device, dtype = tensors[0].device, tensors[0].dtype
@@ -267,12 +273,29 @@ def _check_parts(what: str, tensors, two_d: bool = True) -> None:
             raise ValueError(f"{what}: operands on different devices")
         if t.dtype != dtype:
             raise ValueError(f"{what}: operands of different dtypes")
-        if two_d and t.dim() != 2:
-            raise ValueError(f"{what}: operands must be 2-D, got {tuple(t.shape)}")
+        if two_d and t.dim() not in (2, 3):
+            raise ValueError(
+                f"{what}: operands must be 2-D or (batch, rows, cols), got "
+                f"{tuple(t.shape)}")
     if device.type == "cuda" and dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{what}: kernel takes float32 or float64, got {dtype}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no implementation for device {device}")
+
+
+def _batch_of(what: str, tensors) -> int | None:
+    """The slice batch of a kernel call: the leading size shared by its 3-D
+    operands, or ``None`` when every operand is 2-D."""
+    sizes = {int(t.shape[0]) for t in tensors if t.dim() == 3}
+    if len(sizes) > 1:
+        raise ValueError(f"{what}: operands disagree on the batch ({sorted(sizes)})")
+    return sizes.pop() if sizes else None
+
+
+def _batch_stride(t) -> int:
+    """Element stride between batch rows: 0 for a 2-D operand, which every
+    row of a batched launch reads."""
+    return int(t.stride(0)) if t.dim() == 3 else 0
 
 
 def _check_pair(what: str, re, im) -> None:
@@ -412,11 +435,11 @@ def _aligned(*tensors) -> bool:
 
 
 def strided_copy_mode(re, im) -> int:
-    """The copy mode of one ``(K, F)`` operand pair read through its two
-    strides: 16-byte copies when the free index has stride 1, the row
-    stride is a whole number of 16-byte vectors and both parts start
-    16-byte aligned; else element copies, walking the contract index when
-    it has stride 1.
+    """The copy mode of one ``(K, F)`` operand pair (or a batch of them,
+    ``(B, K, F)``) read through its strides: 16-byte copies when the free
+    index has stride 1, the row stride and the batch stride are whole
+    numbers of 16-byte vectors and both parts start 16-byte aligned; else
+    element copies, walking the contract index when it has stride 1.
 
     >>> import torch
     >>> x = torch.zeros(8, 12)
@@ -424,10 +447,14 @@ def strided_copy_mode(re, im) -> int:
     (0, 1)
     >>> strided_copy_mode(x[:, 1:], x[:, 1:])     # misaligned base
     2
+    >>> y = torch.zeros(3, 8, 12)
+    >>> z = torch.zeros(400).as_strided((3, 8, 12), (97, 12, 1))  # odd batch stride
+    >>> strided_copy_mode(y, y), strided_copy_mode(z, z)
+    (0, 2)
     """
     vec = 16 // re.element_size()
-    sk, sf = re.stride()
-    if sf == 1 and sk % vec == 0 and _aligned(re, im):
+    sk, sf = re.stride()[-2:]
+    if sf == 1 and sk % vec == 0 and _batch_stride(re) % vec == 0 and _aligned(re, im):
         return COPY_VEC
     return COPY_WALK_K if sk == 1 else COPY_WALK_F
 
@@ -437,8 +464,8 @@ def strided_copy_mode(re, im) -> int:
 
 def fused_complex_dot_reference(ar, ai, br, bi):
     """Plain version of :func:`fused_complex_dot`: the naive four
-    ``torch.matmul`` lowering."""
-    return ar.T @ br - ai.T @ bi, ar.T @ bi + ai.T @ br
+    ``torch.matmul`` lowering (a 2-D operand broadcast over the batch)."""
+    return ar.mT @ br - ai.mT @ bi, ar.mT @ bi + ai.mT @ br
 
 
 def fused_complex_dot(ar, ai, br, bi):
@@ -446,38 +473,46 @@ def fused_complex_dot(ar, ai, br, bi):
 
     ``ar, ai: (K, M)``; ``br, bi: (K, N)``, float32 or float64 (any
     strides, real and imaginary parts alike); outputs ``(M, N)`` of the
-    same dtype. CPU tensors run :func:`fused_complex_dot_reference`; CUDA
-    tensors launch the kernel on the current stream, with the tile variant
-    of :func:`gemm_config` and each operand's :func:`strided_copy_mode`.
+    same dtype. Either side may carry a leading slice-batch axis (``(B, K,
+    M)`` / ``(B, K, N)``): the outputs are then ``(B, M, N)``, every batch
+    row in one launch, a 2-D side read by every row (batch stride 0) —
+    the reference's ``vmap`` of ``fused_complex_dot_kl``. CPU tensors run
+    :func:`fused_complex_dot_reference`; CUDA tensors launch the kernel on
+    the current stream, with the tile variant of :func:`gemm_config` and
+    each operand's :func:`strided_copy_mode`.
     """
     _check_parts("fused_complex_dot", (ar, ai, br, bi))
     _check_pair("fused_complex_dot", ar, ai)
     _check_pair("fused_complex_dot", br, bi)
-    k, m = ar.shape
-    kb, n = br.shape
+    batch = _batch_of("fused_complex_dot", (ar, br))
+    k, m = ar.shape[-2:]
+    kb, n = br.shape[-2:]
     if kb != k:
         raise ValueError(f"fused_complex_dot: contract dims differ ({k} vs {kb})")
     if ar.device.type == "cpu":
         return fused_complex_dot_reference(ar, ai, br, bi)
-    out = _launch_complex_dot(ar, ai, br, bi)
+    if batch is not None and not 0 < batch < 65536:
+        raise ValueError(f"fused_complex_dot: batch {batch} outside 1..65535")
+    out = _launch_complex_dot(ar, ai, br, bi, batch)
     LAUNCHES["fused_complex_dot"] += 1
     return out
 
 
-def _outputs(m: int, n: int, like):
+def _outputs(m: int, n: int, like, batch: int | None = None):
     """The uninitialised ``(re, im)`` outputs of one launch."""
     import torch
 
-    return tuple(torch.empty((m, n), dtype=like.dtype, device=like.device)
+    shape = (m, n) if batch is None else (batch, m, n)
+    return tuple(torch.empty(shape, dtype=like.dtype, device=like.device)
                  for _ in range(2))
 
 
-def _launch_complex_dot(ar, ai, br, bi):
+def _launch_complex_dot(ar, ai, br, bi, batch: int | None = None):
     """One launch of the kernel on checked operands; raises on a CUDA
     error."""
     import torch
 
-    (k, m), n = ar.shape, br.shape[1]
+    (k, m), n = ar.shape[-2:], br.shape[-1]
     lib = _library("fused_complex_dot")
     fn = (
         lib.tnc_fused_complex_dot_f32
@@ -485,14 +520,15 @@ def _launch_complex_dot(ar, ai, br, bi):
         else lib.tnc_fused_complex_dot_f64
     )
     cfg = gemm_config(m, n, ar.element_size(), sms=_sm_count(ar.device))
-    re, im = _outputs(m, n, ar)
+    re, im = _outputs(m, n, ar, batch)
     with torch.cuda.device(ar.device):
         rc = fn(
-            ar.data_ptr(), ai.data_ptr(), ar.stride(0), ar.stride(1),
-            strided_copy_mode(ar, ai),
-            br.data_ptr(), bi.data_ptr(), br.stride(0), br.stride(1),
-            strided_copy_mode(br, bi),
-            re.data_ptr(), im.data_ptr(), k, m, n, cfg.variant, _stream(ar.device),
+            ar.data_ptr(), ai.data_ptr(), _batch_stride(ar), ar.stride(-2),
+            ar.stride(-1), strided_copy_mode(ar, ai),
+            br.data_ptr(), bi.data_ptr(), _batch_stride(br), br.stride(-2),
+            br.stride(-1), strided_copy_mode(br, bi),
+            re.data_ptr(), im.data_ptr(), 1 if batch is None else batch, k, m, n,
+            cfg.variant, _stream(ar.device),
         )
     _check(lib, rc, "fused_complex_dot")
     return re, im
@@ -896,22 +932,23 @@ def chain_out_shape(
 
 def _cdot(xr, xi, yr, yi, xk: int, yk: int):
     """Naive split-complex product contracting axis ``xk`` of ``x`` with
-    axis ``yk`` of ``y``: output rows are ``x``'s free axis."""
-    x2r, x2i = (xr, xi) if xk == 0 else (xr.T, xi.T)
-    y2r, y2i = (yr, yi) if yk == 0 else (yr.T, yi.T)
+    axis ``yk`` of ``y`` (axes of the last two dimensions, after any batch
+    axis): output rows are ``x``'s free axis."""
+    x2r, x2i = (xr, xi) if xk == 0 else (xr.mT, xi.mT)
+    y2r, y2i = (yr, yi) if yk == 0 else (yr.mT, yi.mT)
     return fused_complex_dot_reference(x2r, x2i, y2r, y2i)
 
 
 def _chain_compute(vals, links):
     """The chain's arithmetic on plain tensors, in the reference's order
     (``tnc_tpu.ops.pallas_complex._chain_compute``): accumulation in the
-    operand dtype."""
+    operand dtype. A leading batch axis on any operand carries through."""
     zr, zi = _cdot(vals[0], vals[1], vals[2], vals[3], 0, 0)
     for i, link in enumerate(links):
         cr = vals[4 + 2 * i]
         ci = vals[5 + 2 * i]
-        zr = zr.reshape(link.carried_shape)
-        zi = zi.reshape(link.carried_shape)
+        zr = zr.reshape(zr.shape[:-2] + link.carried_shape)
+        zi = zi.reshape(zi.shape[:-2] + link.carried_shape)
         if link.carried_first:
             zr, zi = _cdot(zr, zi, cr, ci, link.k_axis, 0)
         else:
@@ -921,7 +958,8 @@ def _chain_compute(vals, links):
 
 def fused_chain_reference(first_ops, link_ops, links):
     """Plain version of :func:`fused_chain`: the steps one after another
-    as ``torch.matmul`` calls."""
+    as ``torch.matmul`` calls (the reference's ``vmap`` of it when an
+    operand has a batch axis)."""
     vals = list(first_ops)
     for cr, ci in link_ops:
         vals.extend((cr, ci))
@@ -930,30 +968,41 @@ def fused_chain_reference(first_ops, link_ops, links):
 
 # fields of one stage in the table the chain kernel reads, and the stages
 # one launch takes (kFields, kMaxStages in csrc/fused_chain.cu)
-_CHAIN_FIELDS = 10
+_CHAIN_FIELDS = 12
 CHAIN_STAGES_PER_LAUNCH = 32
 _SCRATCH0, _SCRATCH1, _FINAL = -1, -2, -3
 
 
 class _ChainPlan:
     """The static stage table of one chain shape: built once, reused by
-    every call with the same operand shapes, strides and links."""
+    every call with the same operand shapes, strides, batch and links.
 
-    __slots__ = ("table", "n_stages", "scratch_elems", "out_shape")
+    One row per stage: ``a_src, a_sk, a_sf, a_sb, b_src, b_sk, b_sf,
+    b_sb, K, M, N, c_dst``. A source is an operand pair (>= 0) or a
+    scratch pair (-1, -2); the destination a scratch pair or the output
+    (-3). ``sb`` is the element stride between batch rows (0 for a 2-D
+    operand: every row reads it). Every stage runs all ``batch`` rows and
+    writes row ``z`` of its ``(M, N)`` result at ``z * M * N``, so a
+    carried value's batch stride is its own size."""
+
+    __slots__ = ("table", "n_stages", "scratch_elems", "out_shape", "batch")
 
     def __init__(self, first_ops, link_ops, links):
         import numpy as np
 
         fr, _, sr, _ = first_ops
-        k0, m0 = fr.shape
-        n0 = sr.shape[1]
+        k0, m0 = fr.shape[-2:]
+        n0 = sr.shape[-1]
+        flat = list(first_ops) + [t for pair in link_ops for t in pair]
+        self.batch = _batch_of("fused_chain", flat)
         rows = []
         # head: operand pairs 0 (first) and 1 (second)
         shape = (m0, n0)
         scratch = m0 * n0
         dst = _SCRATCH0 if links else _FINAL
-        rows.append([0, fr.stride(0), fr.stride(1),
-                     1, sr.stride(0), sr.stride(1), k0, m0, n0, dst])
+        rows.append([0, fr.stride(-2), fr.stride(-1), _batch_stride(fr),
+                     1, sr.stride(-2), sr.stride(-1), _batch_stride(sr),
+                     k0, m0, n0, dst])
         for i, ((cr, _), link) in enumerate(zip(link_ops, links)):
             src = dst
             dst = (_SCRATCH1 if src == _SCRATCH0 else _SCRATCH0)
@@ -969,32 +1018,32 @@ class _ChainPlan:
             k = link.carried_shape[link.k_axis]
             f = link.carried_shape[1 - link.k_axis]
             z_sk, z_sf = (c, 1) if link.k_axis == 0 else (1, c)
-            kc, x = cr.shape
+            kc, x = cr.shape[-2:]
             if kc != k:
                 raise ValueError(
                     f"fused_chain: link {i} contracts {k} against {kc}"
                 )
             pair = 2 + i
+            carried = [src, z_sk, z_sf, r * c]
+            other = [pair, cr.stride(-2), cr.stride(-1), _batch_stride(cr)]
             if link.carried_first:
-                rows.append([src, z_sk, z_sf, pair, cr.stride(0), cr.stride(1),
-                             k, f, x, dst])
+                rows.append(carried + other + [k, f, x, dst])
             else:
-                rows.append([pair, cr.stride(0), cr.stride(1), src, z_sk, z_sf,
-                             k, x, f, dst])
+                rows.append(other + carried + [k, x, f, dst])
             shape = link.out_shape(x)
             if dst != _FINAL:
                 scratch = max(scratch, shape[0] * shape[1])
         self.table = np.ascontiguousarray(rows, dtype=np.int64)
         self.n_stages = len(rows)
         self.scratch_elems = scratch if links else 0
-        self.out_shape = shape
+        self.out_shape = shape if self.batch is None else (self.batch,) + shape
 
 
 def _chain_plan(first_ops, link_ops, links) -> _ChainPlan:
+    flat = list(first_ops) + [t for pair in link_ops for t in pair]
     key = (
         first_ops[0].dtype,
-        tuple((tuple(t.shape), t.stride()) for t in first_ops),
-        tuple((tuple(c[0].shape), c[0].stride()) for c in link_ops),
+        tuple((tuple(t.shape), t.stride()) for t in flat[::2]),
         tuple(link.key() for link in links),
     )
     plan = _CHAIN_PLANS.get(key)
@@ -1015,8 +1064,12 @@ def fused_chain(first_ops, link_ops, links):
     caller). ``link_ops = [(cr, ci), ...]``: each follow-on step's
     non-carried operand as ``(K_i, X_i)``. ``links``: one
     :class:`ChainLink` per follow-on step. Any strides are taken (real
-    and imaginary parts alike). Returns the chain's final ``(re, im)``
-    2-D pair, of the operands' dtype.
+    and imaginary parts alike). Any operand may carry a leading
+    slice-batch axis ``(B, K, X)``: the chain then runs for every batch
+    row in the same launch (a 2-D operand read by every row) and the
+    result is ``(B, rows, cols)`` — the reference's ``vmap`` of
+    ``fused_chain_kl``. Returns the chain's final ``(re, im)`` pair, of
+    the operands' dtype.
 
     CPU tensors run :func:`fused_chain_reference`. CUDA tensors launch the
     cooperative chain kernel once (a chain of more than 32 stages takes
@@ -1031,25 +1084,24 @@ def fused_chain(first_ops, link_ops, links):
     for j in range(0, len(flat), 2):
         _check_pair("fused_chain", flat[j], flat[j + 1])
     fr, _, sr, _ = first_ops
-    if fr.shape[0] != sr.shape[0]:
+    if fr.shape[-2] != sr.shape[-2]:
         raise ValueError("fused_chain: head contract dims differ")
     plan = _chain_plan(first_ops, link_ops, links)
     if fr.device.type == "cpu":
         return fused_chain_reference(first_ops, link_ops, links)
     lib = _library("fused_chain")
     dtype, device = fr.dtype, fr.device
+    batch = 1 if plan.batch is None else plan.batch
     fn = lib.tnc_fused_chain_f32 if dtype == torch.float32 else lib.tnc_fused_chain_f64
     out_r = torch.empty(plan.out_shape, dtype=dtype, device=device)
     out_i = torch.empty(plan.out_shape, dtype=dtype, device=device)
-    scratch = torch.empty(
-        (4 * max(plan.scratch_elems, 1),), dtype=dtype, device=device
-    )
+    stride = batch * max(plan.scratch_elems, 1)
+    scratch = torch.empty((4 * stride,), dtype=dtype, device=device)
     ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
     with torch.cuda.device(device):
         rc = fn(
-            ptrs, plan.table.ctypes.data, plan.n_stages, scratch.data_ptr(),
-            max(plan.scratch_elems, 1), out_r.data_ptr(), out_i.data_ptr(),
-            _stream(device),
+            ptrs, plan.table.ctypes.data, plan.n_stages, batch, scratch.data_ptr(),
+            stride, out_r.data_ptr(), out_i.data_ptr(), _stream(device),
         )
     _check(lib, rc, "fused_chain")
     LAUNCHES["fused_chain"] += -(-plan.n_stages // CHAIN_STAGES_PER_LAUNCH)

@@ -25,6 +25,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
+
 from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
 from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor, Tensor
 
@@ -51,6 +53,22 @@ def step_flops(st) -> float:
     """Naive multiply-add count of one step: ``k * m * n``."""
     m, k, n = step_dims(st)
     return float(k) * float(m) * float(n)
+
+
+def steps_flops(steps) -> float:
+    """Naive multiply-add count of a step sequence (``k * m * n`` per dot),
+    the formula under the hoist accounting
+    (:func:`tnc_tpu_torch.ops.hoist.hoist_step_flops`).
+
+    >>> from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
+    >>> from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+    >>> tn = CompositeTensor([LeafTensor.from_const([0, 1], 4),
+    ...                       LeafTensor.from_const([1, 2], 4)])
+    >>> program = build_program(tn, ContractionPath.simple([(0, 1)]))
+    >>> steps_flops(program.steps)   # one (4,4) @ (4,4) dot
+    64.0
+    """
+    return float(sum(step_flops(st) for st in steps))
 
 
 def step_prep_elems(st) -> float:
@@ -112,6 +130,51 @@ def step_label(i: int, st) -> str:
     """
     m, k, n = step_dims(st)
     return f"step[{i}] {m}x{k}·{k}x{n}"
+
+
+def prep_operand(buf, view, perm, dot_shape, batched=False):
+    """Stored buffer → dot operand: view, one macro permute, reshape to
+    ``dot_shape`` (the reference's host-oracle prep; its staged
+    ``a_ops``/lanemix plans exist for TPU tiling and compute the same).
+    Works on numpy arrays and torch tensors alike. A ``batched`` buffer is
+    ``(B, *stored)``: the leading slice-batch axis is kept in front
+    through every view."""
+    lead = tuple(buf.shape[:1]) if batched else ()
+    v = buf.reshape(lead + tuple(view))
+    if perm is not None:
+        axes = tuple(range(len(lead))) + tuple(p + len(lead) for p in perm)
+        v = v.transpose(axes) if isinstance(v, np.ndarray) else v.permute(axes)
+    return v.reshape(lead + tuple(dot_shape))
+
+
+def as_kl(part, dot_shape, cfirst, batched=False):
+    """Post-prep operand (shaped ``dot_shape``, after a leading batch axis
+    when ``batched``) → contract-dim-leading ``(k, frees)`` matrix, or
+    ``(B, k, frees)`` (a transposed view when the contract dim is last)."""
+    lead = tuple(part.shape[:1]) if batched else ()
+    if cfirst:
+        return part.reshape(lead + (int(dot_shape[0]), -1))
+    k = int(dot_shape[-1])
+    return part.reshape(lead + (-1, k)).swapaxes(-1, -2)
+
+
+def prep_kl(parts, view, perm, dot_shape, cfirst, batched=False) -> tuple:
+    """Stored buffers (one, or a split (real, imag) pair) → their
+    ``(k, free)`` dot operands, one per part."""
+    return tuple(
+        as_kl(prep_operand(p, view, perm, dot_shape, batched), dot_shape, cfirst, batched)
+        for p in parts
+    )
+
+
+def batch_rows(a, b, a_batched: bool, b_batched: bool) -> int:
+    """Slices a step's product stands for, from one buffer of each side:
+    the batch of its batched side, else 1."""
+    if a_batched:
+        return int(a.shape[0])
+    if b_batched:
+        return int(b.shape[0])
+    return 1
 
 
 def chain_groups(

@@ -6,13 +6,13 @@ removed) with indexing instructions describing, for each input, which
 axes are fixed per slice. Execution sums the program's result over all
 slice index combinations.
 
-On the GPU the slice loop runs in
-:meth:`~tnc_tpu_torch.ops.backends.TorchBackend.execute_sliced`: the full
-leaves stay resident on the card, each slice indexes them and runs every
-step, and the partial results are summed with Kahan compensation.
-:func:`execute_sliced_numpy` is the complex128 host oracle. The
-reference's slice-invariant stem hoisting (``tnc_tpu.ops.hoist``) is not
-ported yet: every slice runs the whole program.
+On the GPU :meth:`~tnc_tpu_torch.ops.backends.TorchBackend.execute_sliced`
+runs it: by default the slice-invariant stem once
+(:mod:`tnc_tpu_torch.ops.hoist`), then the residual chunked and batched
+over slices (:mod:`tnc_tpu_torch.ops.chunked`); or, as the ``loop``
+strategy, one slice at a time. Either way the full leaves stay resident
+on the card and the partial results are summed with Kahan compensation.
+:func:`execute_sliced_numpy` is the complex128 host oracle.
 """
 
 from __future__ import annotations
@@ -27,12 +27,6 @@ from tnc_tpu_torch.contractionpath.slicing import Slicing
 from tnc_tpu_torch.ops.backends import _run_steps
 from tnc_tpu_torch.ops.program import ContractionProgram, build_program
 from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
-
-HOIST_MISSING = (
-    "hoisting the slice-invariant stem is not ported yet (ROADMAP A2): "
-    "pass hoist=False or None"
-)
-
 
 @dataclass(frozen=True)
 class SlicedProgram:
@@ -177,13 +171,16 @@ def execute_sliced_numpy(
 
     ``max_slices`` caps the loop (partial sum over the first slices).
     ``slice_range=(lo, hi)``: partial sum over slice ids ``[lo, hi)``
-    only; mutually exclusive with ``max_slices``. ``hoist=True`` raises:
-    the hoist pass is not ported (ROADMAP A2).
+    only; mutually exclusive with ``max_slices``. ``hoist=True`` computes
+    the slice-invariant stem once and loops only the residual program (the
+    same steps in the same order, just not once per slice).
     """
-    if hoist:
-        raise NotImplementedError(HOIST_MISSING)
     lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
     full = [np.asarray(a, dtype=np.complex128) for a in arrays]
+    if hoist:
+        from tnc_tpu_torch.ops.hoist import hoisted
+
+        sp, full = hoisted(sp, full)
     acc = np.zeros(sp.program.stored_result_shape, dtype=np.complex128)
     for s in range(lo, hi):
         indices = _slice_indices(sp.slicing, s)

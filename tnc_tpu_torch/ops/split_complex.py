@@ -38,7 +38,7 @@ from typing import Any
 
 import numpy as np
 
-from tnc_tpu_torch.ops.program import ContractionProgram
+from tnc_tpu_torch.ops.program import ContractionProgram, batch_rows, prep_kl
 
 logger = logging.getLogger(__name__)
 
@@ -174,43 +174,20 @@ def gauss_matmul(ar, ai, br, bi):
     return k1 - k3, k1 + k2
 
 
-def _prep_operand(buf, view, perm, dot_shape):
-    """Stored buffer → dot operand: view, one macro permute, reshape to
-    ``dot_shape`` (the reference's host-oracle prep; its staged
-    ``a_ops``/lanemix plans exist for TPU tiling and compute the same)."""
-    v = buf.reshape(view)
-    if perm is not None:
-        v = v.permute(perm)
-    return v.reshape(dot_shape)
-
-
-def _as_kl(part, dot_shape, cfirst):
-    """Post-prep operand (shaped ``dot_shape``) → contract-dim-leading 2-D
-    ``(k, frees)`` matrix (a transposed view when the contract dim is
-    last)."""
-    if cfirst:
-        return part.reshape(int(dot_shape[0]), -1)
-    k = int(dot_shape[-1])
-    return part.reshape(-1, k).T
-
-
-def _step_operands(apair, bpair, step):
-    """The step's four operands as ``(k, free)`` matrices in product
-    order (``swap`` folded out): ``(fr, fi, sr, si)``, plus the a-side
-    and b-side pairs in program order for the Gauss sums."""
-    ar = _as_kl(_prep_operand(apair[0], step.a_view, step.a_perm, step.a_dot),
-                step.a_dot, step.a_cfirst)
-    ai = _as_kl(_prep_operand(apair[1], step.a_view, step.a_perm, step.a_dot),
-                step.a_dot, step.a_cfirst)
-    br = _as_kl(_prep_operand(bpair[0], step.b_view, step.b_perm, step.b_dot),
-                step.b_dot, step.b_cfirst)
-    bi = _as_kl(_prep_operand(bpair[1], step.b_view, step.b_perm, step.b_dot),
-                step.b_dot, step.b_cfirst)
+def _step_operands(apair, bpair, step, a_batched=False, b_batched=False):
+    """The step's four operands as ``(k, free)`` matrices (``(B, k, free)``
+    on a batched side): ``(ar, ai, br, bi)`` in program order, for the
+    Gauss sums (``swap`` is applied by the dot)."""
+    ar, ai = prep_kl(apair, step.a_view, step.a_perm, step.a_dot, step.a_cfirst,
+                     a_batched)
+    br, bi = prep_kl(bpair, step.b_view, step.b_perm, step.b_dot, step.b_cfirst,
+                     b_batched)
     return ar, ai, br, bi
 
 
 def apply_step_split(
-    apair, bpair, step, precision=None, mode=None, precision_mode=None
+    apair, bpair, step, precision=None, mode=None, precision_mode=None,
+    a_batched=False, b_batched=False,
 ):
     """Split-complex analogue of ``backends.apply_step``: one pairwise
     contraction of (real, imag) tensor pairs, the single step kernel of
@@ -218,23 +195,33 @@ def apply_step_split(
     step — the :class:`KernelPolicy` hook; ``None`` falls back to
     :func:`complex_mult_env` (``gauss``). ``precision`` and
     ``precision_mode`` are accepted for the reference's signature; every
-    rung runs full FP32 here."""
+    rung runs full FP32 here.
+
+    ``a_batched`` / ``b_batched``: that side's buffers are ``(B,
+    *stored)``, a leading slice-batch axis (the reference's ``vmap``,
+    written out). The result is then ``(B, *out_store)``. An unbatched
+    side is never copied ``B`` times: its Gauss sums are formed once and
+    the products broadcast it over the batch (``torch.matmul`` folds it
+    or reads it with a zero batch stride)."""
     if mode is None:
         mode = complex_mult_env()
+    lead = ((batch_rows(apair[0], bpair[0], a_batched, b_batched),)
+            if a_batched or b_batched else ())
+    out_shape = lead + tuple(step.out_store)
     if mode == "fused_transpose":
         # the kernel reads the RAW stored pairs, so it runs before any
         # operand is prepped (the transposed copy is what it avoids)
-        out = _try_fused_transpose_step(apair, bpair, step)
+        out = _try_fused_transpose_step(apair, bpair, step, a_batched, b_batched)
         if out is not None:
             return out
         mode = "naive"  # routed: the prep + naive dots below
     if mode == "strassen" and not _strassen_step_eligible(step):
         mode = "gauss"  # forced-strassen steps below the crossover
-    ar, ai, br, bi = _step_operands(apair, bpair, step)
+    ar, ai, br, bi = _step_operands(apair, bpair, step, a_batched, b_batched)
 
     def dot(x, y):
         # x from the a side, y from the b side; swap issues (y, x)
-        return y.T @ x if step.swap else x.T @ y
+        return y.mT @ x if step.swap else x.mT @ y
 
     if mode == "strassen":
         from tnc_tpu_torch.ops.strassen import gauss_strassen_dot_kl
@@ -243,18 +230,18 @@ def apply_step_split(
             re, im = gauss_strassen_dot_kl(br, bi, ar, ai)
         else:
             re, im = gauss_strassen_dot_kl(ar, ai, br, bi)
-        return re.reshape(step.out_store), im.reshape(step.out_store)
+        return re.reshape(out_shape), im.reshape(out_shape)
     if mode == "fused":
-        out = _try_fused_step(ar, ai, br, bi, step)
+        out = _try_fused_step(ar, ai, br, bi, step, lead[0] if lead else 1)
         if out is not None:
-            return out
+            return out[0].reshape(out_shape), out[1].reshape(out_shape)
         mode = "naive"  # routed by shape: same arithmetic as the kernel
     if mode == "naive":
         re = dot(ar, br)
         re -= dot(ai, bi)
         im = dot(ar, bi)
         im += dot(ai, br)
-        return re.reshape(step.out_store), im.reshape(step.out_store)
+        return re.reshape(out_shape), im.reshape(out_shape)
     # gauss, with each full-size product freed as early as the identity
     # allows (k1 - k3 and k1 + k2, in the reference's order)
     k1 = dot(ar + ai, br)
@@ -264,7 +251,7 @@ def apply_step_split(
     re = k1
     re -= k3
     del k3
-    return re.reshape(step.out_store), im.reshape(step.out_store)
+    return re.reshape(out_shape), im.reshape(out_shape)
 
 
 def _strassen_step_eligible(step) -> bool:
@@ -275,20 +262,38 @@ def _strassen_step_eligible(step) -> bool:
     return strassen_eligible(m, k, n)
 
 
-def _note_fused_routed(reason: str, k: int, m: int, n: int) -> None:
-    """Count one step the fused kernel's gate sent to the naive dots."""
-    FUSED_ROUTED[reason] = FUSED_ROUTED.get(reason, 0) + 1
+def auto_step_mode(step) -> str | None:
+    """Per-step promotion for executors outside a full
+    :class:`KernelPolicy` plan (the hoisted prelude, whose stem GEMMs are
+    exactly the Strassen regime): ``strassen`` when the step clears the
+    crossover and no forcing override is set; ``None`` defers to the env
+    default. Eligibility-gated only, as in the reference (the port has no
+    fitted cost model); ``TNC_TPU_COMPLEX_MULT=gauss`` disables it."""
+    if complex_mult_forced() is not None:
+        return None
+    if _strassen_step_eligible(step):
+        return "strassen"
+    return None
+
+
+def _note_fused_routed(reason: str, k: int, m: int, n: int, slices: int = 1) -> None:
+    """Count a step the fused kernel's gate sent to the naive dots, once
+    per slice its product stands for (``slices``: the batch)."""
+    FUSED_ROUTED[reason] = FUSED_ROUTED.get(reason, 0) + slices
     logger.debug(
         "fused complex kernel: step (K=%d, M=%d, N=%d) runs naive dots: %s",
         k, m, n, reason,
     )
 
 
-def _try_fused_step(ar, ai, br, bi, step):
+def _try_fused_step(ar, ai, br, bi, step, slices: int = 1):
     """Route one step through the fused kernel when its gate admits it
-    (both operands contract-first, over the flop floor); ``None`` means
-    'run the naive dots'. Every routed step is counted in
-    :data:`FUSED_ROUTED` with its reason. A kernel error propagates."""
+    (both operands contract-first, over the flop floor — judged on one
+    slice's ``(K, M, N)``, as under the reference's ``vmap``); ``None``
+    means 'run the naive dots'. Every routed step is counted in
+    :data:`FUSED_ROUTED` with its reason, ``slices`` times (the batch it
+    stands for). Batched operands launch the kernel once for the whole
+    batch. A kernel error propagates."""
     from tnc_tpu_torch.ops.cuda_complex import fused_complex_dot, ineligible_reason
     from tnc_tpu_torch.ops.program import step_dims
 
@@ -296,17 +301,15 @@ def _try_fused_step(ar, ai, br, bi, step):
     if step.swap:
         m, n = n, m
     if not (step.a_cfirst and step.b_cfirst):
-        _note_fused_routed("layout", k, m, n)
+        _note_fused_routed("layout", k, m, n, slices)
         return None
     reason = ineligible_reason(k, m, n)
     if reason is not None:
-        _note_fused_routed(reason, k, m, n)
+        _note_fused_routed(reason, k, m, n, slices)
         return None
     if step.swap:
-        re, im = fused_complex_dot(br, bi, ar, ai)
-    else:
-        re, im = fused_complex_dot(ar, ai, br, bi)
-    return re.reshape(step.out_store), im.reshape(step.out_store)
+        return fused_complex_dot(br, bi, ar, ai)
+    return fused_complex_dot(ar, ai, br, bi)
 
 
 # -- fused transpose-dot step glue ------------------------------------------
@@ -345,30 +348,36 @@ def fused_transpose_step_eligible(step) -> bool:
     return fused_transpose_ineligible_reason(step) is None
 
 
-def fused_transpose_runtime_ineligible_reason(apair, bpair, step) -> str | None:
+def fused_transpose_runtime_ineligible_reason(
+    apair, bpair, step, a_batched=False, b_batched=False
+) -> str | None:
     """The half of the gate that needs live buffers: parts that are not
     float32 (``dtype``) and buffers carrying an extra leading batch axis
-    (``batch``)."""
+    (``batch``: a side the executor batched, or a buffer larger than its
+    view)."""
     import torch
 
     ar, br = apair[0], bpair[0]
     if ar.dtype != torch.float32 or br.dtype != torch.float32:
         return "dtype"
-    if ar.numel() != math.prod(step.a_view) or br.numel() != math.prod(step.b_view):
+    if (a_batched or b_batched or ar.numel() != math.prod(step.a_view)
+            or br.numel() != math.prod(step.b_view)):
         return "batch"
     return None
 
 
-def _note_fused_transpose_routed(reason: str, k: int, m: int, n: int) -> None:
-    """Count one step the transpose-dot's gate sent to prep + naive dots."""
-    FUSED_TRANSPOSE_ROUTED[reason] = FUSED_TRANSPOSE_ROUTED.get(reason, 0) + 1
+def _note_fused_transpose_routed(reason: str, k: int, m: int, n: int,
+                                 slices: int = 1) -> None:
+    """Count a step the transpose-dot's gate sent to prep + naive dots,
+    once per slice its product stands for."""
+    FUSED_TRANSPOSE_ROUTED[reason] = FUSED_TRANSPOSE_ROUTED.get(reason, 0) + slices
     logger.debug(
         "fused transpose-dot kernel: step (K=%d, M=%d, N=%d) runs prep + "
         "naive dots: %s", k, m, n, reason,
     )
 
 
-def _try_fused_transpose_step(apair, bpair, step):
+def _try_fused_transpose_step(apair, bpair, step, a_batched=False, b_batched=False):
     """Route one step through :func:`~tnc_tpu_torch.ops.cuda_complex.
     fused_transpose_dot` on its RAW stored (real, imag) pairs when the gate
     admits it; ``None`` means 'run the prep + naive dots'. Every routed
@@ -379,10 +388,12 @@ def _try_fused_transpose_step(apair, bpair, step):
 
     reason = fused_transpose_ineligible_reason(
         step
-    ) or fused_transpose_runtime_ineligible_reason(apair, bpair, step)
+    ) or fused_transpose_runtime_ineligible_reason(
+        apair, bpair, step, a_batched, b_batched)
     if reason is not None:
         m, k, n = step_dims(step)
-        _note_fused_transpose_routed(reason, k, m, n)
+        _note_fused_transpose_routed(
+            reason, k, m, n, batch_rows(apair[0], bpair[0], a_batched, b_batched))
         return None
     first_lay, second_lay = _fused_transpose_layouts(step)
     a = tuple(p.reshape(step.a_view) for p in apair)
@@ -576,26 +587,22 @@ def kernel_plan_summary(
     }
 
 
-def chain_operands(steps, buffers):
+def chain_operands(steps, buffers, batched=frozenset()):
     """The operands of one chain group, ready for
     :func:`~tnc_tpu_torch.ops.cuda_complex.fused_chain`: ``(first_ops,
     link_ops, links)``. Non-carried operands are prepped to
     contract-dim-leading 2-D ``(K, X)`` (a transposed view where the
-    contract dim is last); the carried value is described by a
-    :class:`~tnc_tpu_torch.ops.cuda_complex.ChainLink`."""
+    contract dim is last), or ``(B, K, X)`` when their slot is in
+    ``batched`` (its buffer has a leading slice-batch axis); the carried
+    value is described by a :class:`~tnc_tpu_torch.ops.cuda_complex.
+    ChainLink`."""
     from tnc_tpu_torch.ops.cuda_complex import ChainLink
-
-    def prep_kl(pair, view, perm, dot_shape, cfirst):
-        return tuple(
-            _as_kl(_prep_operand(p, view, perm, dot_shape), dot_shape, cfirst)
-            for p in pair
-        )
 
     head = steps[0]
     a = prep_kl(buffers[head.lhs], head.a_view, head.a_perm, head.a_dot,
-                head.a_cfirst)
+                head.a_cfirst, head.lhs in batched)
     b = prep_kl(buffers[head.rhs], head.b_view, head.b_perm, head.b_dot,
-                head.b_cfirst)
+                head.b_cfirst, head.rhs in batched)
     first, second = (b, a) if head.swap else (a, b)
     first_ops = (first[0], first[1], second[0], second[1])
 
@@ -606,11 +613,11 @@ def chain_operands(steps, buffers):
         carried_a = st.lhs == run_slot
         if carried_a:
             link_ops.append(prep_kl(buffers[st.rhs], st.b_view, st.b_perm,
-                                    st.b_dot, st.b_cfirst))
+                                    st.b_dot, st.b_cfirst, st.rhs in batched))
             carried_dot, carried_cfirst = st.a_dot, st.a_cfirst
         else:
             link_ops.append(prep_kl(buffers[st.lhs], st.a_view, st.a_perm,
-                                    st.a_dot, st.a_cfirst))
+                                    st.a_dot, st.a_cfirst, st.lhs in batched))
             carried_dot, carried_cfirst = st.b_dot, st.b_cfirst
         k = int(carried_dot[0]) if carried_cfirst else int(carried_dot[-1])
         f = int(math.prod(carried_dot)) // max(k, 1)
@@ -622,54 +629,66 @@ def chain_operands(steps, buffers):
     return first_ops, link_ops, links
 
 
-def run_chain_split(steps, buffers):
+def run_chain_split(steps, buffers, batched=None):
     """Execute one chain group as ONE :func:`~tnc_tpu_torch.ops.
     cuda_complex.fused_chain` call, with the sequential loop's buffer
     bookkeeping (every consumed slot freed, the result in the last step's
-    ``lhs`` slot, in its ``out_store`` shape)."""
+    ``lhs`` slot, in its ``out_store`` shape — after a leading batch axis
+    when any operand's slot is in the set ``batched``, which then gains
+    that slot)."""
     from tnc_tpu_torch.ops.cuda_complex import fused_chain
 
-    re, im = fused_chain(*chain_operands(steps, buffers))
-    out_store = steps[-1].out_store
+    batched = set() if batched is None else batched
+    re, im = fused_chain(*chain_operands(steps, buffers, batched))
+    lead = tuple(re.shape[:1]) if re.dim() == 3 else ()
+    out_store = lead + tuple(steps[-1].out_store)
     out = (re.reshape(out_store), im.reshape(out_store))
     for st in steps:
         buffers[st.rhs] = None
     buffers[steps[-1].lhs] = out
+    if lead:
+        batched.add(steps[-1].lhs)
     return out
 
 
-def run_steps_split(
-    program: ContractionProgram,
-    buffers: list[tuple[Any, Any] | None],
+def run_split_units(
+    steps,
+    buffers: list,
     precision=None,
     policy: KernelPolicy | None = None,
     on_unit=None,
-):
-    """Run a whole program on (real, imag) buffer pairs; returns the
-    result pair in **stored** shape. ``policy`` promotes steps per the
-    kernel ladder; ``None`` runs every step under the env mode
-    (``gauss`` default). Buffers are freed as soon as a step consumed
-    them. ``on_unit(start, end, run)``, where given, is called for each
-    launch unit instead of running it: steps ``start..end-1`` (one step,
-    or one fused chain), launched by calling ``run()`` once."""
-    steps = program.steps
+    batched: set[int] | None = None,
+) -> None:
+    """Run a step sequence on (real, imag) buffer pairs in place:
+    ``policy`` (spans relative to ``steps``) promotes steps per the kernel
+    ladder; ``None`` runs every step under the env mode. Consumed buffers
+    are freed at once. ``batched``: the slots whose buffers carry a
+    leading slice-batch axis; it gains every slot a step writes from a
+    batched operand. ``on_unit(start, end, run)``, where given, is called
+    for each launch unit instead of running it: steps ``start..end-1``
+    (one step, or one fused chain), launched by calling ``run()`` once."""
+    batched = set() if batched is None else batched
     chain_end = (
         {s: e for s, e in policy.chains} if policy is not None else {}
     )
 
     def run_unit(start: int, end: int) -> None:
         if start in chain_end:
-            run_chain_split(steps[start:end], buffers)
+            run_chain_split(steps[start:end], buffers, batched)
             return
         step = steps[start]
+        a_b, b_b = step.lhs in batched, step.rhs in batched
         buffers[step.lhs] = apply_step_split(
             buffers[step.lhs], buffers[step.rhs], step, precision,
             mode=policy.modes[start] if policy is not None else None,
             precision_mode=(
                 policy.precision_mode(start) if policy is not None else None
             ),
+            a_batched=a_b, b_batched=b_b,
         )
         buffers[step.rhs] = None
+        if a_b or b_b:
+            batched.add(step.lhs)
 
     i = 0
     while i < len(steps):
@@ -679,4 +698,17 @@ def run_steps_split(
         else:
             on_unit(i, end, functools.partial(run_unit, i, end))
         i = end
+
+
+def run_steps_split(
+    program: ContractionProgram,
+    buffers: list[tuple[Any, Any] | None],
+    precision=None,
+    policy: KernelPolicy | None = None,
+    on_unit=None,
+):
+    """Run a whole program on (real, imag) buffer pairs
+    (:func:`run_split_units`); returns the result pair in **stored**
+    shape."""
+    run_split_units(program.steps, buffers, precision, policy, on_unit)
     return buffers[program.result_slot]

@@ -86,7 +86,9 @@ def strassen_eligible(
 
 def strassen_dot_kl(a, b):
     """One Strassen level of ``aᵀ @ b`` with ``a: (K, M)``, ``b: (K, N)``
-    torch tensors.
+    torch tensors, either of which may carry a leading slice-batch axis
+    (``(B, K, M)``): quadrants are cut from the last two dimensions and
+    the sub-products broadcast an unbatched side over the batch.
 
     Quadrants are taken in the *stored* kl layout — with ``X = aᵀ`` the
     logical Strassen operand, ``X[i][j] == a[j][i]ᵀ``, so every block
@@ -100,25 +102,28 @@ def strassen_dot_kl(a, b):
     >>> b = torch.randn(8, 4, dtype=torch.float64, generator=g)
     >>> torch.allclose(strassen_dot_kl(a, b), a.T @ b)
     True
+    >>> a3 = torch.randn(3, 8, 6, dtype=torch.float64, generator=g)
+    >>> torch.allclose(strassen_dot_kl(a3, b), a3.mT @ b)
+    True
     """
     import torch
 
-    k, m = a.shape
-    _, n = b.shape
+    k, m = a.shape[-2:]
+    n = b.shape[-1]
     if k % 2 or m % 2 or n % 2:
         raise ValueError(f"shape (K={k}, M={m}, N={n}) does not halve")
 
     def dot(x, y):
-        return x.T @ y
+        return x.mT @ y
 
     k2, m2, n2 = k // 2, m // 2, n // 2
     # X = aᵀ is (M, K); X[row block i][col block j] = a[col block j][row block i]ᵀ:
     #   X11 = a[:k2, :m2]ᵀ   X12 = a[k2:, :m2]ᵀ
     #   X21 = a[:k2, m2:]ᵀ   X22 = a[k2:, m2:]ᵀ
-    x11, x21 = a[:k2, :m2], a[:k2, m2:]
-    x12, x22 = a[k2:, :m2], a[k2:, m2:]
-    b11, b12 = b[:k2, :n2], b[:k2, n2:]
-    b21, b22 = b[k2:, :n2], b[k2:, n2:]
+    x11, x21 = a[..., :k2, :m2], a[..., :k2, m2:]
+    x12, x22 = a[..., k2:, :m2], a[..., k2:, m2:]
+    b11, b12 = b[..., :k2, :n2], b[..., :k2, n2:]
+    b21, b22 = b[..., k2:, :n2], b[..., k2:, n2:]
     p1 = dot(x11 + x22, b11 + b22)  # (X11+X22)(Y11+Y22)
     p2 = dot(x21 + x22, b11)        # (X21+X22)Y11
     p3 = dot(x11, b12 - b22)        # X11(Y12-Y22)
@@ -130,9 +135,9 @@ def strassen_dot_kl(a, b):
     c12 = p3 + p5
     c21 = p2 + p4
     c22 = p1 - p2 + p3 + p6
-    top = torch.cat([c11, c12], dim=1)
-    bot = torch.cat([c21, c22], dim=1)
-    return torch.cat([top, bot], dim=0)
+    top = torch.cat([c11, c12], dim=-1)
+    bot = torch.cat([c21, c22], dim=-1)
+    return torch.cat([top, bot], dim=-2)
 
 
 def gauss_strassen_dot_kl(ar, ai, br, bi):

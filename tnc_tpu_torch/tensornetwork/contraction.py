@@ -68,7 +68,9 @@ def contract_tensor_network_sliced(
     (:meth:`~tnc_tpu_torch.ops.backends.Backend.execute_sliced`). Peak
     memory drops by about the product of the sliced dims. ``backend`` as
     in :func:`contract_tensor_network`: ``None`` is
-    :class:`~tnc_tpu_torch.ops.backends.TorchBackend` on the GPU.
+    :class:`~tnc_tpu_torch.ops.backends.TorchBackend` on the GPU with its
+    defaults — the slice-invariant stem hoisted and run once, the residual
+    chunked and batched over slices, as the reference runs it.
 
     >>> from tnc_tpu_torch.contractionpath.slicing import Slicing
     >>> a = LeafTensor([0], [2]); a.data = TensorData.matrix(np.array([1.0, 2.0]))
