@@ -15,7 +15,11 @@ Phases, each of which raises on failure (nothing is caught):
    circuit on the Sycamore layout (p1 = p2 = 0.4, seed 42), contracted to
    its open statevector with the ``Greedy`` path — and hold each kernel
    against its plain PyTorch version on the card at the program's own
-   shapes: every chain group through ``fused_chain``; every distinct
+   shapes: every chain group through ``fused_chain`` (planned once, the
+   form it takes printed, two launches bitwise equal, the error also
+   against the chain in float64); the chain kernel's grid form on a
+   synthetic chain whose carried value exceeds shared memory, and the
+   floor of one empty launch of each form; every distinct
    shape the forced ``fused`` rung launches (and a ragged shape) through
    ``fused_complex_dot``, the stem's result also against a float64
    product beside cuBLAS's; one float64 case each; time kernel, plain
@@ -23,8 +27,9 @@ Phases, each of which raises on failure (nothing is caught):
    events) beside the bound, ``fused_complex_dot``'s record weighted by
    the rung's launches;
 3. the main path: ``contract_tensor_network(tn, path, TorchBackend())``
-   once to warm up and three times timed, launch counts reset just before
-   each timed run and read just after it;
+   once to warm up and three times timed, launch counts (and the chain's
+   launches by form) reset just before each timed run and read just
+   after it;
 4. correctness: statevector norm, four amplitudes against complex128
    amplitude networks contracted natively on the card, and the whole
    20-qubit statevector against the complex128 numpy oracle;
@@ -206,6 +211,11 @@ def kernel_instances(log: str) -> list[tuple[str, int, int]]:
         if m and name:
             t = re.search(r"VariantI([fd])((?:Li\d+E)+)", name)
             label = name[:40]
+            c = re.search(r"chain_(resident|grid)I([fd])(?:Lb([01])E)?E", name)
+            if c:
+                label = f"{c.group(1)}<{'float' if c.group(2) == 'f' else 'double'}>"
+                if c.group(3) is not None:
+                    label += " full" if c.group(3) == "1" else " lean"
             if t:
                 ints = ",".join(re.findall(r"Li(\d+)E", t.group(2)))
                 label = f"{'float' if t.group(1) == 'f' else 'double'}<{ints}>"
@@ -277,18 +287,33 @@ def chain_slot_sizes(steps) -> dict[int, int]:
 def hold_chain(first_ops, link_ops, links, label: str, launches: int) -> dict:
     """One chain group through ``fused_chain`` against
     ``fused_chain_reference`` on the same operands, timed beside the bound
-    and the plain version; a row weighted by ``launches``."""
+    and the plain version; a row weighted by ``launches``. The chain is
+    planned once (``chain_plan``, as the path keeps it) and every timed
+    call only fills pointers and launches. Two launches must give the same
+    bits, and the kernel must stay within the float32 gate of the plain
+    version and of the chain computed in float64 from the same inputs."""
     import torch
 
     from tnc_tpu_torch.ops import cuda_complex
 
-    got = cuda_complex.fused_chain(first_ops, link_ops, links)
+    plan = cuda_complex.chain_plan(first_ops, link_ops, links)
+    got = cuda_complex.fused_chain(first_ops, link_ops, links, plan)
+    again = cuda_complex.fused_chain(first_ops, link_ops, links, plan)
     torch.cuda.synchronize()
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"fused_chain {label}: two launches on the same operands differ")
     want = cuda_complex.fused_chain_reference(first_ops, link_ops, links)
     err, scale = max_err(got, want)
     check(err <= F32_REL_TOL * scale,
           f"fused_chain {label}: max|err| {err} > {F32_REL_TOL} * {scale}")
-    ms, wall = time_ms(lambda: cuda_complex.fused_chain(first_ops, link_ops, links))
+    exact = cuda_complex.fused_chain_reference(
+        tuple(t.double() for t in first_ops),
+        [tuple(t.double() for t in pair) for pair in link_ops], links)
+    err64, scale64 = max_err([g.double() for g in got], exact)
+    plain64, _ = max_err([w.double() for w in want], exact)
+    check(err64 <= F32_REL_TOL * scale64,
+          f"fused_chain {label}: max|err| against float64 {err64} > {F32_REL_TOL} * {scale64}")
+    ms, wall = time_ms(lambda: cuda_complex.fused_chain(first_ops, link_ops, links, plan))
     plain, plain_wall = time_ms(
         lambda: cuda_complex.fused_chain_reference(first_ops, link_ops, links))
     ops = list(first_ops) + [t for pair in link_ops for t in pair]
@@ -309,17 +334,92 @@ def hold_chain(first_ops, link_ops, links, label: str, launches: int) -> dict:
         # the same chain on one slice's operands: what the per-slice loop
         # launches once per slice
         one = [t[0] if t.dim() == 3 else t for t in ops]
-        row_ms, _ = time_ms(lambda: cuda_complex.fused_chain(
-            tuple(one[:4]), [tuple(one[4 + 2 * i:6 + 2 * i]) for i in range(len(links))],
-            links))
-    print(f"  fused_chain {label}: err {err:.3e} (scale {scale:.3e}) "
-          f"device: kernel {ms:.5f} ms plain {plain:.5f} ms; wall per call: "
-          f"kernel {wall:.5f} ms plain {plain_wall:.5f} ms; bound {b_ms:.3e} ms "
-          f"({b_by})" + (f"; batch {rows}, one slice's chain {row_ms:.5f} ms"
-                         if row_ms is not None else ""), flush=True)
-    return {"label": label, "launches": launches, "batch": rows, "err": err, "ms": ms,
-            "plain_ms": plain, "wall_ms": wall, "plain_wall_ms": plain_wall,
+        one_ops = (tuple(one[:4]), [tuple(one[4 + 2 * i:6 + 2 * i]) for i in range(len(links))],
+                   links)
+        one_plan = cuda_complex.chain_plan(*one_ops)
+        row_ms, _ = time_ms(lambda: cuda_complex.fused_chain(*one_ops, one_plan))
+    forms = ",".join(plan.forms)
+    stages = [[int(first_ops[0].shape[-2]), int(first_ops[0].shape[-1]),
+               int(first_ops[2].shape[-1])]]
+    shape = (first_ops[0].shape[-1], first_ops[2].shape[-1])
+    for (cr, _), link in zip(link_ops, links):
+        k, f = link.carried_shape[link.k_axis], link.carried_shape[1 - link.k_axis]
+        x = int(cr.shape[-1])
+        stages.append([int(k), int(f), x] if link.carried_first else [int(k), x, int(f)])
+    shapes = [f"({k},{m},{n}) tm {sh.tm} tn {sh.tn} ks {sh.ks}"
+              for (k, m, n), sh in zip(stages, plan.stages)]
+    print(f"  fused_chain {label}: {forms} form, stages {'; '.join(shapes)}; err "
+          f"{err:.3e} (scale {scale:.3e}), against float64 {err64:.3e} (plain {plain64:.3e}); "
+          f"two launches bitwise equal; device: kernel {ms:.5f} ms plain {plain:.5f} ms; "
+          f"wall per call: kernel {wall:.5f} ms plain {plain_wall:.5f} ms; bound "
+          f"{b_ms:.3e} ms ({b_by})" + (f"; batch {rows}, one slice's chain {row_ms:.5f} ms"
+                                       if row_ms is not None else ""), flush=True)
+    return {"label": label, "launches": launches, "batch": rows, "form": forms,
+            "stages": stages, "err": err, "err_f64": err64, "plain_err_f64": plain64,
+            "ms": ms, "plain_ms": plain, "wall_ms": wall, "plain_wall_ms": plain_wall,
             "bound_ms": b_ms, "bound_by": b_by, "one_slice_ms": row_ms}
+
+
+def hold_chain_run(label_of, launches: int, rows: list):
+    """A hold for :func:`holding` of ``split_complex.run_chain_split``: the
+    chain the path is about to run, on its own operands, through
+    :func:`hold_chain`; its row appended to ``rows``, labelled
+    ``label_of(count of rows so far)``."""
+    from tnc_tpu_torch.ops.split_complex import chain_operands
+
+    def hold(steps, buffers, batched=None, *_):
+        ops = chain_operands(steps, buffers, set() if batched is None else batched)
+        rows.append(hold_chain(*ops, label_of(len(rows)), launches))
+
+    return hold
+
+
+def check_grid_chain(gen) -> dict:
+    """The chain kernel's grid form, which no path launches: a synthetic
+    chain whose carried value does not fit one block's shared memory — a
+    (16, 256, 256) head (65536 carried values, 512 KB in float32) and a
+    65536-long dot to a scalar, within ``chain_groups``' bounds — held
+    against the plain version and a float64 product, timed; then in
+    float64."""
+    import torch
+
+    from tnc_tpu_torch.ops import cuda_complex
+
+    def ops(dtype):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+        first = (rnd(16, 256), rnd(16, 256), rnd(16, 256), rnd(16, 256))
+        link = [(rnd(65536, 1), rnd(65536, 1))]
+        return first, link, [cuda_complex.ChainLink(True, (65536, 1), 0)]
+
+    first, link, links = ops(torch.float32)
+    plan = cuda_complex.chain_plan(first, link, links)
+    check(plan.forms == (cuda_complex.CHAIN_GRID,), f"synthetic chain took {plan.forms}")
+    row = hold_chain(first, link, links, "synthetic grid form", 0)
+    first, link, links = ops(torch.float64)
+    got = cuda_complex.fused_chain(first, link, links)
+    err, scale = max_err(got, cuda_complex.fused_chain_reference(first, link, links))
+    check(err <= F64_REL_TOL * scale,
+          f"fused_chain grid form float64: max|err| {err} > {F64_REL_TOL} * {scale}")
+    print(f"  fused_chain synthetic grid form float64: err {err:.3e} (scale {scale:.3e})",
+          flush=True)
+    return {**row, "float64_err": err}
+
+
+def launch_floors() -> dict:
+    """Device and wall ms of one empty launch of the chain kernel's block
+    size, ordinary and cooperative, on 1, 8 and 132 blocks."""
+    from tnc_tpu_torch.ops.cuda_complex import empty_chain_launch
+
+    out = {}
+    for form, coop in (("ordinary", False), ("cooperative", True)):
+        for grid in (1, 8, 132):
+            ms, wall = time_ms(lambda: empty_chain_launch(coop, grid), reps=50)
+            out[f"{form} {grid}"] = {"ms": ms, "wall_ms": wall}
+            print(f"  empty {form} launch, {grid} blocks of 256 threads: device {ms:.5f} ms, "
+                  f"wall per call {wall:.5f} ms", flush=True)
+    return out
 
 
 def check_chains(program, policy, gen) -> list[dict]:
@@ -341,7 +441,10 @@ def check_chains(program, policy, gen) -> list[dict]:
     steps = program.steps[s:e]
     buffers = random_buffers(program, chain_slot_sizes(steps), torch.float64, gen)
     ops64 = chain_operands(steps, buffers)
-    err, scale = max_err(fused_chain(*ops64), fused_chain_reference(*ops64))
+    got64 = fused_chain(*ops64)
+    check(all(torch.equal(g, a) for g, a in zip(got64, fused_chain(*ops64))),
+          f"fused_chain float64 {s}..{e}: two launches differ")
+    err, scale = max_err(got64, fused_chain_reference(*ops64))
     check(err <= F64_REL_TOL * scale,
           f"fused_chain float64 {s}..{e}: max|err| {err} > {F64_REL_TOL} * {scale}")
     print(f"  fused_chain float64 steps {s}..{e - 1}: err {err:.3e} (scale {scale:.3e})",
@@ -515,7 +618,7 @@ def run_counted(fn, label: str, reps: int = 3) -> dict:
     one."""
     import torch
 
-    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.cuda_complex import CHAIN_FORMS, LAUNCHES, reset_launches
     from tnc_tpu_torch.ops.split_complex import (
         FUSED_ROUTED,
         FUSED_TRANSPOSE_ROUTED,
@@ -538,13 +641,14 @@ def run_counted(fn, label: str, reps: int = 3) -> dict:
         walls.append(time.perf_counter() - t0)
         run = {
             "out": out, "walls": walls, "launches": dict(LAUNCHES),
-            "routed": dict(FUSED_ROUTED),
+            "chain_forms": dict(CHAIN_FORMS), "routed": dict(FUSED_ROUTED),
             "transpose_routed": dict(FUSED_TRANSPOSE_ROUTED),
             "peak_bytes": torch.cuda.max_memory_allocated(),
         }
         del out
         print(f"[{label}] wall {walls[-1]:.4f} s, max_memory_allocated "
-              f"{run['peak_bytes']} bytes, launches {run['launches']}, "
+              f"{run['peak_bytes']} bytes, launches {run['launches']}, fused_chain by form "
+              f"{run['chain_forms']}, "
               f"routed {run['routed']}, transpose routed "
               f"{run['transpose_routed']}", flush=True)
     return run
@@ -878,28 +982,30 @@ def timed_steps(backend, program, buffers, label: str, top: int = 8) -> dict:
 
 
 @contextlib.contextmanager
-def holding(name: str, hold):
-    """While active, every call the port makes to ``cuda_complex.<name>``
-    (the split-complex step glue looks the wrapper up at each call) first
-    goes to ``hold(*args)`` with the real wrapper in place, which holds the
-    kernel against its plain version on exactly those operands."""
-    from tnc_tpu_torch.ops import cuda_complex
+def holding(name: str, hold, module=None):
+    """While active, every call the port makes to ``<module>.<name>``
+    (default ``cuda_complex``; the split-complex step glue looks the
+    wrappers, and ``split_complex.run_chain_split``, up at each call) first
+    goes to ``hold(*args)`` with the real function in place, which holds
+    the kernel against its plain version on exactly those operands."""
+    if module is None:
+        from tnc_tpu_torch.ops import cuda_complex as module
 
-    real = getattr(cuda_complex, name)
+    real = getattr(module, name)
 
     def wrapper(*args):
-        setattr(cuda_complex, name, real)
+        setattr(module, name, real)
         try:
             hold(*args)
         finally:
-            setattr(cuda_complex, name, wrapper)
+            setattr(module, name, wrapper)
         return real(*args)
 
-    setattr(cuda_complex, name, wrapper)
+    setattr(module, name, wrapper)
     try:
         yield
     finally:
-        setattr(cuda_complex, name, real)
+        setattr(module, name, real)
 
 
 def build_sliced(cfg):
@@ -970,6 +1076,7 @@ def run_sliced(backend) -> dict:
     import torch
 
     from tnc_tpu_torch.contractionpath.slicing import sliced_flops, sliced_peak
+    from tnc_tpu_torch.ops import split_complex
     from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend, place_buffers
     from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
     from tnc_tpu_torch.ops.program import flat_leaf_tensors, step_flops
@@ -1001,14 +1108,10 @@ def run_sliced(backend) -> dict:
     print("[kernels] fused_chain against fused_chain_reference on slice 0's operands",
           flush=True)
     chain_rows = []
-    spans = iter(policy.chains)
-
-    def hold_chain_call(first_ops, link_ops, links):
-        s, e = next(spans)
-        chain_rows.append(hold_chain(first_ops, link_ops, links,
-                                     f"sliced steps {s}..{e - 1}", n))
-
-    with holding("fused_chain", hold_chain_call):
+    labels = [f"sliced steps {s}..{e - 1}" for s, e in policy.chains]
+    with holding("run_chain_split", hold_chain_run(
+            lambda i: labels[i] if i < len(labels) else f"sliced chain {i}", n, chain_rows),
+            split_complex):
         backend.execute_sliced(sp, arrays, slice_range=(0, 1))
     check(len(chain_rows) == len(policy.chains),
           f"slice 0 ran {len(chain_rows)} chains, the policy has {len(policy.chains)}")
@@ -1119,7 +1222,8 @@ def run_sliced(backend) -> dict:
         "chains": [list(c) for c in policy.chains], "fused_admitted": admitted,
         "fused_routed": routed, "plan_s": plan_s,
         "wall_s": statistics.median(main["walls"]), "wall_runs_s": main["walls"],
-        "peak_bytes": main["peak_bytes"], "launches": main["launches"], **prof,
+        "peak_bytes": main["peak_bytes"], "launches": main["launches"],
+        "chain_forms": main["chain_forms"], **prof,
         "per_slice_ms": prof["device_s"] / n * 1e3, "step_times": steps,
         "amplitude": [z.real, z.imag], "check_scope": scope,
         "complex128": [want_sum.real, want_sum.imag], "complex128_sum_abs": abs_sum,
@@ -1310,9 +1414,10 @@ def run_chunked_small(backend) -> dict:
     ``fused_chain`` launch is held against its plain version on the batched
     operands the executor builds; then a counted run, whose launches must
     be one per residual chain and batch."""
+    from tnc_tpu_torch.ops import split_complex
     from tnc_tpu_torch.ops.backends import NumpyBackend
     from tnc_tpu_torch.ops.chunked import chunk_plan, resolve_batch
-    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.cuda_complex import CHAIN_FORMS, LAUNCHES, reset_launches
     from tnc_tpu_torch.ops.hoist import hoist_sliced_program
     from tnc_tpu_torch.ops.sliced import build_sliced_program
     from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
@@ -1330,25 +1435,27 @@ def run_chunked_small(backend) -> dict:
               f"of sycamore{cfg[:3]} ({sl.num_slices} slices, batch {batch}, {chains} "
               f"residual chain(s))", flush=True)
         held = []
-        with holding("fused_chain", lambda f, lk, ln: held.append(hold_chain(
-                f, lk, ln, f"{name} launch {len(held)}", 1))):
+        with holding("run_chain_split", hold_chain_run(
+                lambda i: f"{name} launch {i}", 1, held), split_complex):
             contract_tensor_network_sliced(tn, path, sl, backend)
         check(len(held) == expect, f"{name}: {len(held)} chain calls, expected {expect}")
         check(all(r["batch"] == batch for r in held), f"{name}: a chain launch was not batched")
         reset_launches()
         got = scalar(contract_tensor_network_sliced(tn, path, sl, backend))
         launches[name] = LAUNCHES["fused_chain"]
+        forms = dict(CHAIN_FORMS)
         want = scalar(contract_tensor_network_sliced(tn, path, sl, NumpyBackend()))
         rel = abs(got - want) / abs(want)
         print(f"[check] {name} over {sl.num_slices} slices: {got!r} vs numpy complex128 "
-              f"{want!r}, relative {rel:.3e}; fused_chain launched {launches[name]} times",
-              flush=True)
+              f"{want!r}, relative {rel:.3e}; fused_chain launched {launches[name]} times, "
+              f"by form {forms}", flush=True)
         check(rel <= 1e-5, f"{name} off the host oracle by {rel}")
         check(launches[name] == expect,
               f"{name}: fused_chain launched {launches[name]} times, expected {expect}")
         rows += held
         records[name] = {"config": list(cfg), "slices": sl.num_slices, "batch": batch,
-                         "chains": chains, "relative": rel, "fused_chain_launches": launches[name]}
+                         "chains": chains, "relative": rel, "fused_chain_launches": launches[name],
+                         "fused_chain_forms": forms}
     return {"records": records, "chain_rows": rows, "launches": launches}
 
 
@@ -1402,6 +1509,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print("[kernels] fused_chain against fused_chain_reference", flush=True)
     chain_rows = check_chains(program, policy, gen)
+    print("[kernels] fused_chain grid form, on a synthetic chain beyond shared memory",
+          flush=True)
+    grid_row = check_grid_chain(gen)
+    print("[kernels] launch floors", flush=True)
+    floors = launch_floors()
     print("[kernels] fused_complex_dot against fused_complex_dot_reference", flush=True)
     dot_rec = check_dot(program, gen)
     torch.cuda.empty_cache()
@@ -1409,12 +1521,14 @@ def main() -> int:
     # 3. main path
     main = run_main_path(tn, path, backend, "main path")
     sv_leaf, walls, launches = main["out"], main["walls"], main["launches"]
+    main_forms = main["chain_forms"]
     del main
     check(launches["fused_chain"] == len(policy.chains),
           f"fused_chain launched {launches['fused_chain']} times for "
           f"{len(policy.chains)} chains")
     check(launches["fused_chain"] > 0, "main path launched no fused_chain")
     chain_launches = {"random28": launches["fused_chain"]}
+    chain_forms = {"random28": main_forms}
 
     # 4. correctness
     sv = np.asarray(sv_leaf.data.into_data())
@@ -1486,6 +1600,7 @@ def main() -> int:
     # 8. the sliced cell on the per-slice loop, unhoisted
     sliced = run_sliced(TorchBackend(sliced_strategy="loop", hoist=False))
     chain_launches["sycamore53_m10_sliced"] = sliced["chain_launches"]
+    chain_forms["sycamore53_m10_sliced"] = sliced["record"]["chain_forms"]
     dot_launches["sycamore53_m10_sliced fused rung"] = sliced["dot_launches"]
     torch.cuda.empty_cache()
 
@@ -1497,6 +1612,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     small = run_chunked_small(backend)
     chain_launches.update(small["launches"])
+    chain_forms.update({name: r["fused_chain_forms"] for name, r in small["records"].items()})
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -1543,6 +1659,9 @@ def main() -> int:
         "chunked_small": small["records"],
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
+        "fused_chain_forms_by_path": chain_forms,
+        "fused_chain_grid_form": grid_row,
+        "launch_floors": floors,
         "kernels_by_path": by_path,
         "shapes": {"fused_chain": chain_rows, "fused_complex_dot": dot_rows,
                    "fused_transpose_dot": transpose_rec["shapes"]},

@@ -335,3 +335,43 @@ def test_chunked_sliced_amplitude_on_the_card():
     assert cc.LAUNCHES["fused_chain"] == 2
     want = complex(np.asarray(NumpyBackend().execute_sliced(sp, arrays)).reshape(()))
     assert abs(got - want) <= 1e-5 * abs(want)
+
+
+def _chain_forms_case(stages, dtype, batch, grid):
+    from _torch_chain_cases import make_chain
+
+    first, link_ops, links = make_chain(stages, dtype, batch, device="cuda")
+    if grid:  # a block with too little shared memory for the carried value
+        plan = cc._ChainPlan(first, link_ops, links, smem=256,
+                             sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    else:
+        plan = cc.chain_plan(first, link_ops, links)
+    return first, link_ops, links, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("form", ["resident", "grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chain_forms_on_the_card(dtype, form, batch):
+    """Every chain shape the paths launch, and the synthetic chain beyond
+    shared memory, in the resident form (where the carried values fit) and
+    in the grid form (forced by a small shared-memory budget): against the
+    plain version, one launch each of the planned form, and two launches
+    bitwise equal."""
+    _card()
+    # the helper beside this file (pytest puts tests/ on the path)
+    from _torch_chain_cases import GRID_CHAIN, PATH_CHAINS
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    cases = list(PATH_CHAINS.values()) + ([GRID_CHAIN] if form == "grid" else [])
+    for stages in cases:
+        first, link_ops, links, plan = _chain_forms_case(stages, dtype, batch, form == "grid")
+        assert plan.forms == (form,)
+        cc.reset_launches()
+        got = cc.fused_chain(first, link_ops, links, plan)
+        again = cc.fused_chain(first, link_ops, links, plan)
+        torch.cuda.synchronize()
+        assert cc.LAUNCHES["fused_chain"] == 2 and cc.CHAIN_FORMS[form] == 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), stages
+        assert _max_rel_err(got, cc.fused_chain_reference(first, link_ops, links)) <= tol, stages

@@ -30,6 +30,8 @@ from tnc_tpu_torch.ops import cuda_complex as cc
 from tnc_tpu_torch.ops import program as port_prog
 from tnc_tpu_torch.ops import split_complex as port_sc
 
+from tests._torch_chain_cases import replay_chain
+
 ref_rc = importlib.import_module("tnc_tpu.builders.random_circuit")
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
@@ -235,38 +237,13 @@ def test_chain_link_shapes_match_reference():
 
 
 def _replay_table(plan, flat):
-    """Run the chain kernel's stage table in torch exactly as the kernel
-    reads it: operand pair ``p`` is ``flat[2p], flat[2p+1]``; negative
-    sources and destinations are the two scratch pairs and the output;
-    batch row ``z`` of an operand starts ``z`` batch strides in, and row
-    ``z`` of a stage's ``(M, N)`` result is written at ``z * M * N``."""
-    batch = plan.batch or 1
-    s_len = batch * max(plan.scratch_elems, 1)
-    scratch = torch.zeros(4 * s_len, dtype=flat[0].dtype)
-
-    def view(src, sk, sf, sb, z, rows, cols):
-        if src >= 0:
-            return [torch.as_strided(t, (rows, cols), (sk, sf), t.storage_offset() + z * sb)
-                    for t in flat[2 * src: 2 * src + 2]]
-        pair = -src - 1
-        return [torch.as_strided(scratch, (rows, cols), (sk, sf),
-                                 (2 * pair + j) * s_len + z * sb) for j in range(2)]
-
-    outs = None
-    for a_src, ask, asf, asb, b_src, bsk, bsf, bsb, k, m, n, dst in plan.table.tolist():
-        rows = []
-        for z in range(batch):
-            ar, ai = view(a_src, ask, asf, asb, z, k, m)
-            br, bi = view(b_src, bsk, bsf, bsb, z, k, n)
-            re, im = cc.fused_complex_dot_reference(ar, ai, br, bi)
-            rows.append((re, im))
-            if dst != -3:
-                at = (2 * (-dst - 1)) * s_len + z * m * n
-                scratch[at: at + m * n] = re.reshape(-1)
-                scratch[at + s_len: at + s_len + m * n] = im.reshape(-1)
-        if dst == -3:
-            outs = tuple(torch.stack([r[j] for r in rows]) for j in range(2))
-    return outs if plan.batch is not None else tuple(o[0] for o in outs)
+    """Run the chain plan's launches in torch exactly as the kernel runs
+    them (``tests/_torch_chain_cases.py``): operand pair ``p`` is
+    ``flat[2p], flat[2p+1]``; every launch's pointers come from its
+    recipes, its stages from the table rows (operands and results in
+    global memory, shared memory or both, each stage's thread shape and K
+    splits), its sums in the kernel's fold order."""
+    return replay_chain(plan, flat)
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -286,6 +263,7 @@ def test_chain_stage_table_replays_to_reference(program12, transposed):
             link_ops = [tuple(t.T.contiguous().T for t in pair) for pair in link_ops]
         plan = cc._ChainPlan(first_ops, link_ops, links)
         assert plan.n_stages == e - s
+        assert plan.forms == (cc.CHAIN_RESIDENT,)
         flat = list(first_ops) + [t for pair in link_ops for t in pair]
         got = _replay_table(plan, flat)
         want = cc.fused_chain_reference(first_ops, link_ops, links)

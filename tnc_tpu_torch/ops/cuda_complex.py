@@ -15,8 +15,11 @@ at first use and loaded through ``ctypes``:
   are fetched — the counterpart of ``fused_transpose_dot_kl``;
 - :func:`fused_chain` (``csrc/fused_chain.cu``) runs a whole chain of
   small consecutive steps (grouped by
-  :func:`tnc_tpu_torch.ops.program.chain_groups`) as one cooperative launch
-  — the counterpart of ``fused_chain_kl``.
+  :func:`tnc_tpu_torch.ops.program.chain_groups`) as one launch — the
+  counterpart of ``fused_chain_kl``: one block a batch row with the carried
+  value in shared memory where it fits, else a cooperative grid with the
+  carried value in L2 scratch; planned once per chain shape
+  (:func:`chain_plan`).
 
 ``fused_complex_dot`` and ``fused_chain`` also take a leading slice-batch
 axis (``(B, K, X)`` operands beside 2-D ones, which every batch row
@@ -28,8 +31,8 @@ The two single-product kernels share one pipelined tile engine
 three real products per complex multiply-add); this module chooses its
 launch configuration (:func:`gemm_config`) and each operand's copy mode
 (:func:`strided_copy_mode`, :func:`gather_copy_mode`), so that choice is
-tested on the CPU. The chain kernel keeps the small tile of
-``csrc/complex_tile.cuh``.
+tested on the CPU, as it chooses each chain stage's thread shape
+(:func:`chain_stage_shape`, :func:`chain_k_blocks`).
 
 Beside each kernel is its plain version (:func:`fused_complex_dot_reference`,
 :func:`fused_transpose_reference`, :func:`fused_chain_reference`). A
@@ -37,7 +40,8 @@ wrapper given CPU tensors runs the plain
 version: that is the CPU implementation. Given CUDA tensors it launches the
 kernel or raises; nothing here falls back from the kernel to the plain
 version. :data:`LAUNCHES` counts the kernel launches per kernel (plain
-versions are not counted), so a run can show it went through the kernels.
+versions are not counted), so a run can show it went through the kernels;
+:data:`CHAIN_FORMS` counts the chain's launches per form.
 
 The arithmetic is FP32 (or FP64) FMA on the CUDA cores; TF32 is never used.
 """
@@ -51,6 +55,7 @@ import os
 import shutil
 import subprocess
 import threading
+from array import array
 from pathlib import Path
 from typing import NamedTuple
 
@@ -59,9 +64,9 @@ MIN_FLOPS = 1 << 22  # below this a single step is launch-dominated
 #: budget of a fused chain, in float32 elements summed over every operand
 #: and intermediate the chain touches ((real, imag) pairs count double).
 #: Kept at the reference's value so :func:`~tnc_tpu_torch.ops.program.
-#: chain_groups` forms the same chains as the JAX package; the kernel keeps
-#: its carried value in global scratch (resident in L2), so the bound is
-#: not a shared-memory limit here.
+#: chain_groups` forms the same chains as the JAX package; a chain whose
+#: carried values do not fit one block's shared memory runs in the chain
+#: kernel's grid form, so the bound is not a shared-memory limit here.
 CHAIN_MAX_ELEMS = 1 << 20
 
 #: kernel launches per kernel since the last :func:`reset_launches`
@@ -75,7 +80,7 @@ _SOURCES = {
     "fused_chain": "fused_chain.cu",
     "fused_transpose_dot": "fused_transpose_dot.cu",
 }
-_HEADERS = ("complex_tile.cuh", "complex_gemm.cuh")
+_HEADERS = ("complex_gemm.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -89,17 +94,18 @@ BUILD_LOG: dict[str, str] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()
-_CHAIN_PLANS: dict[tuple, "_ChainPlan"] = {}
-_CHAIN_PLANS_MAX = 4096  # distinct chain shapes kept before the cache restarts
 # the transpose kernel's offset tables, by (digit sizes, strides, device)
 _OFFSET_TABLES: dict[tuple, object] = {}
 _OFFSET_TABLES_MAX = 256
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and the chain's count per form,
+    to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for form in CHAIN_FORMS:
+        CHAIN_FORMS[form] = 0
 
 
 def ineligible_reason(k: int, m: int, n: int) -> str | None:
@@ -237,12 +243,16 @@ def _library(name: str) -> ctypes.CDLL:
                 fn.restype = _I
         else:
             for fn in (lib.tnc_fused_chain_f32, lib.tnc_fused_chain_f64):
-                fn.argtypes = [_P, _P, _I, _I, _P, _LL, _P, _P, _P]
+                fn.argtypes = [_P, _I, _P, _P]
                 fn.restype = _I
-            lib.tnc_chain_max_stages.restype = _I
-            lib.tnc_chain_table_fields.restype = _I
-            if (lib.tnc_chain_table_fields(), lib.tnc_chain_max_stages()) != (
-                _CHAIN_FIELDS, CHAIN_STAGES_PER_LAUNCH
+            lib.tnc_chain_empty_launch.argtypes = [_I, _I, _P]
+            lib.tnc_chain_empty_launch.restype = _I
+            abi = (lib.tnc_chain_header_fields, lib.tnc_chain_table_fields,
+                   lib.tnc_chain_max_stages, lib.tnc_chain_max_ptrs)
+            for fn in abi:
+                fn.restype = _I
+            if tuple(fn() for fn in abi) != (
+                _CHAIN_HEADER, _CHAIN_FIELDS, CHAIN_STAGES_PER_LAUNCH, _CHAIN_MAX_PTRS
             ):
                 raise RuntimeError("fused_chain library and wrapper disagree")
         _LIBS[name] = lib
@@ -259,6 +269,15 @@ def _stream(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raw_stream(device) -> int:
+    """:func:`_stream` through PyTorch's raw-handle query where it has one,
+    which builds no ``Stream`` object (the chain's per-call path)."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(device.index) if raw is not None else _stream(device)
 
 
 def _check_parts(what: str, tensors, two_d: bool = True) -> None:
@@ -966,96 +985,376 @@ def fused_chain_reference(first_ops, link_ops, links):
     return _chain_compute(vals, links)
 
 
-# fields of one stage in the table the chain kernel reads, and the stages
-# one launch takes (kFields, kMaxStages in csrc/fused_chain.cu)
-_CHAIN_FIELDS = 12
-CHAIN_STAGES_PER_LAUNCH = 32
-_SCRATCH0, _SCRATCH1, _FINAL = -1, -2, -3
+# the chain kernel's table and block (csrc/fused_chain.cu: kHeader,
+# kFields, kMaxStages, kMaxPtrs, kThreads, kFold)
+_CHAIN_HEADER = 6
+_CHAIN_FIELDS = 28
+CHAIN_STAGES_PER_LAUNCH = 16
+_CHAIN_MAX_PTRS = 2 * (CHAIN_STAGES_PER_LAUNCH + 5)
+CHAIN_THREADS = 256
+CHAIN_FOLD = 16
+#: a global operand of at most this many elements, or the slow operand of a
+#: stage with several outputs a thread, is fetched into shared memory at the
+#: start of a resident launch, as far as the block's shared memory allows
+CHAIN_PREFETCH_ELEMS = 4096
+#: the chain kernel's two launch forms: one ordinary launch of one block a
+#: batch row, the chain resident in shared memory; one cooperative launch of
+#: a persistent grid, the carried value in L2 scratch
+CHAIN_RESIDENT, CHAIN_GRID = "resident", "grid"
+_FORM_CODE = {CHAIN_RESIDENT: 0, CHAIN_GRID: 1}
+
+#: ``fused_chain`` launches of each form since the last :func:`reset_launches`
+CHAIN_FORMS: dict[str, int] = {CHAIN_RESIDENT: 0, CHAIN_GRID: 0}
+
+
+class ChainStageShape(NamedTuple):
+    """How a block's threads cover one chain stage ``C (M, N) = Aᵀ B``
+    over ``K``: ``slow_b`` says which operand is slow (``B`` when true):
+    a thread owns ``tm`` consecutive outputs along its free index, while
+    consecutive threads take consecutive outputs along the other (fast)
+    operand's free index, ``tn`` of them a thread (strided, so a warp reads
+    each coalesced); ``ks`` threads split the contract index of every
+    output."""
+
+    slow_b: bool
+    tm: int
+    ks: int
+    tn: int = 1
+
+
+def chain_stage_shape(k: int, m: int, n: int) -> ChainStageShape:
+    """The thread shape of one ``(K, M, N)`` stage in the resident form: the
+    larger free extent is fast. A stage of at most ``CHAIN_THREADS // 2``
+    outputs splits K over as many threads as fill the block (a power of
+    two, at most K); a larger one gives each thread up to 8 outputs along
+    the slow index, as few as cover the outputs in one pass of the block.
+    Where 8 are not enough and K is long, a thread takes 2 fast columns
+    and 2 threads split K: the slow row each thread reads (the same for
+    every lane of a warp, so the costliest read of the stage) then feeds
+    twice the multiply-adds, and the block's threads stay busy.
+
+    >>> chain_stage_shape(256, 8, 256)      # the head of a chain to a scalar
+    ChainStageShape(slow_b=False, tm=8, ks=2, tn=2)
+    >>> chain_stage_shape(2048, 1, 1)       # its link: a 2048-long dot
+    ChainStageShape(slow_b=False, tm=1, ks=256, tn=1)
+    >>> chain_stage_shape(4, 8, 4), chain_stage_shape(16, 200, 1)
+    (ChainStageShape(slow_b=True, tm=1, ks=4, tn=1), ChainStageShape(slow_b=True, tm=1, ks=1, tn=1))
+    >>> chain_stage_shape(16, 8, 256)       # too short a K to split
+    ChainStageShape(slow_b=False, tm=8, ks=1, tn=1)
+    """
+    slow_b = m > n
+    s, f = (n, m) if slow_b else (m, n)
+    if m * n <= CHAIN_THREADS // 2:
+        cap = min(k, CHAIN_THREADS // (m * n))
+        ks = 1
+        while 2 * ks <= cap:
+            ks *= 2
+        return ChainStageShape(slow_b, 1, ks)
+    tm = 1
+    while tm < 8 and 2 * tm <= s and -(-s // tm) * f > CHAIN_THREADS:
+        tm *= 2
+    if tm == 8 and -(-s // 8) * -(-f // 2) >= CHAIN_THREADS // 2 and k >= 4 * CHAIN_FOLD:
+        return ChainStageShape(slow_b, 8, 2, 2)
+    return ChainStageShape(slow_b, tm, 1)
+
+
+def chain_k_blocks(k: int, ks: int, work: int, sms: int) -> int:
+    """Blocks that split a grid-form stage's contract index: 1 when its
+    ``work`` items (batch rows x tiles of outputs) fill ``sms`` SMs, else
+    as many as fill them, keeping at least 8 contract indices a thread.
+
+    >>> chain_k_blocks(65536, 256, 1, 132), chain_k_blocks(16, 1, 32, 132)
+    (32, 2)
+    >>> chain_k_blocks(2048, 1, 200, 132)
+    1
+    """
+    if work >= sms:
+        return 1
+    return max(1, min(sms // work, k // (8 * ks)))
+
+
+def _plane(n: int, itemsize: int) -> int:
+    """Elements of one part of a shared-memory or scratch region, rounded up
+    to whole 16-byte vectors."""
+    vec = 16 // itemsize
+    return -(-n // vec) * vec
+
+
+class _ChainLaunch(NamedTuple):
+    """One launch of a chain: its host table (and that table's address),
+    where each of its pointers comes from (``(base, byte offset)``: base
+    ``j`` is flat operand ``j``, the last base the call's one allocation),
+    its form and its stages' thread shapes."""
+
+    table: object
+    table_addr: int
+    recipe: tuple
+    form: str
+    shapes: tuple
 
 
 class _ChainPlan:
-    """The static stage table of one chain shape: built once, reused by
-    every call with the same operand shapes, strides, batch and links.
+    """The launches of one chain shape, planned once: built from a call's
+    operands (which it validates), reused by every call whose operands
+    have the same shapes, strides, dtype and device.
 
-    One row per stage: ``a_src, a_sk, a_sf, a_sb, b_src, b_sk, b_sf,
-    b_sb, K, M, N, c_dst``. A source is an operand pair (>= 0) or a
-    scratch pair (-1, -2); the destination a scratch pair or the output
-    (-3). ``sb`` is the element stride between batch rows (0 for a 2-D
-    operand: every row reads it). Every stage runs all ``batch`` rows and
-    writes row ``z`` of its ``(M, N)`` result at ``z * M * N``, so a
-    carried value's batch stride is its own size."""
+    Stage ``i`` computes ``(M_i, N_i)`` over ``K_i`` from operands that are
+    either a call operand pair (flat pair ``p``: the head's two, then one
+    per link), read through its strides and batch stride (0 for a 2-D
+    operand, which every batch row reads), or the previous stage's result,
+    regrouped by its link. Each stage gets its :func:`chain_stage_shape`.
+    Stages run in launches of at most ``CHAIN_STAGES_PER_LAUNCH``; a launch
+    whose carried values (``2 x M x N`` per value, two ping-pong buffers)
+    fit one block's shared memory is resident, else grid (with
+    :func:`chain_k_blocks` per stage). The call's one allocation holds the
+    output's two planes, then scratch: the grid form's ping-pong pairs and
+    K-split partials, and the value one launch hands the next.
 
-    __slots__ = ("table", "n_stages", "scratch_elems", "out_shape", "batch")
+    ``out_shape``: the shape of each returned part (default ``(rows,
+    cols)``, after the batch when there is one); any shape of as many
+    elements. ``sms``: SMs the grid form plans for; ``smem``: shared
+    memory of one block, in bytes."""
 
-    def __init__(self, first_ops, link_ops, links):
-        import numpy as np
+    __slots__ = ("launches", "n_stages", "out_shape", "alloc_shape", "batch",
+                 "dtype", "device", "stages")
 
-        fr, _, sr, _ = first_ops
-        k0, m0 = fr.shape[-2:]
-        n0 = sr.shape[-1]
+    def __init__(self, first_ops, link_ops, links, out_shape=None,
+                 sms: int = H100_SMS, smem: int = MAX_SMEM_BYTES):
+        if len(links) != len(link_ops):
+            raise ValueError("links and link_ops must pair up")
         flat = list(first_ops) + [t for pair in link_ops for t in pair]
+        _check_parts("fused_chain", flat)
+        for j in range(0, len(flat), 2):
+            _check_pair("fused_chain", flat[j], flat[j + 1])
+        fr, _, sr, _ = first_ops
+        if fr.shape[-2] != sr.shape[-2]:
+            raise ValueError("fused_chain: head contract dims differ")
         self.batch = _batch_of("fused_chain", flat)
-        rows = []
-        # head: operand pairs 0 (first) and 1 (second)
-        shape = (m0, n0)
-        scratch = m0 * n0
-        dst = _SCRATCH0 if links else _FINAL
-        rows.append([0, fr.stride(-2), fr.stride(-1), _batch_stride(fr),
-                     1, sr.stride(-2), sr.stride(-1), _batch_stride(sr),
-                     k0, m0, n0, dst])
+        self.dtype, self.device = fr.dtype, fr.device
+        isz = fr.element_size()
+        rows = 1 if self.batch is None else self.batch
+
+        def operand(pair, t):
+            return ("op", pair, t.stride(-2), t.stride(-1), _batch_stride(t))
+
+        # (a, b, K, M, N): an operand is ("op", pair, sk, sf, sb) or
+        # ("carried", sk, sf), the previous stage's (M, N) result
+        k0, m0 = fr.shape[-2:]
+        stages = [(operand(0, fr), operand(1, sr), k0, m0, sr.shape[-1])]
+        shape = (m0, sr.shape[-1])
         for i, ((cr, _), link) in enumerate(zip(link_ops, links)):
-            src = dst
-            dst = (_SCRATCH1 if src == _SCRATCH0 else _SCRATCH0)
-            if i == len(links) - 1:
-                dst = _FINAL
             r, c = link.carried_shape
             if r * c != shape[0] * shape[1]:
-                raise ValueError(
-                    f"fused_chain: link {i} regroups {shape} to {(r, c)}"
-                )
-            # the carried value is row-major (r, c); as a (K, F) operand
-            # it has strides (c, 1) when k is axis 0, (1, c) when axis 1
-            k = link.carried_shape[link.k_axis]
-            f = link.carried_shape[1 - link.k_axis]
-            z_sk, z_sf = (c, 1) if link.k_axis == 0 else (1, c)
+                raise ValueError(f"fused_chain: link {i} regroups {shape} to {(r, c)}")
+            # the carried value is row-major (r, c); as a (K, F) operand it
+            # has strides (c, 1) when k is axis 0, (1, c) when axis 1
+            k, f = link.carried_shape[link.k_axis], link.carried_shape[1 - link.k_axis]
             kc, x = cr.shape[-2:]
             if kc != k:
-                raise ValueError(
-                    f"fused_chain: link {i} contracts {k} against {kc}"
-                )
-            pair = 2 + i
-            carried = [src, z_sk, z_sf, r * c]
-            other = [pair, cr.stride(-2), cr.stride(-1), _batch_stride(cr)]
+                raise ValueError(f"fused_chain: link {i} contracts {k} against {kc}")
+            carried = ("carried",) + ((c, 1) if link.k_axis == 0 else (1, c))
             if link.carried_first:
-                rows.append(carried + other + [k, f, x, dst])
+                stages.append((carried, operand(2 + i, cr), k, f, x))
             else:
-                rows.append(other + carried + [k, x, f, dst])
+                stages.append((operand(2 + i, cr), carried, k, x, f))
             shape = link.out_shape(x)
-            if dst != _FINAL:
-                scratch = max(scratch, shape[0] * shape[1])
-        self.table = np.ascontiguousarray(rows, dtype=np.int64)
-        self.n_stages = len(rows)
-        self.scratch_elems = scratch if links else 0
-        self.out_shape = shape if self.batch is None else (self.batch,) + shape
+        n_out = rows * shape[0] * shape[1]
+        if out_shape is None:
+            out_shape = shape if self.batch is None else (self.batch,) + shape
+        if math.prod(out_shape) != n_out:
+            raise ValueError(f"fused_chain: out_shape {out_shape} for {n_out} elements")
+        self.out_shape = tuple(out_shape)
+        self.n_stages = len(stages)
+        shapes = [chain_stage_shape(k, m, n) for _, _, k, m, n in stages]
+
+        out_base = len(flat)  # the base of the call's allocation
+        scratch = [2 * n_out]  # next free element of the allocation
+
+        def region(n: int) -> tuple:
+            """A (re, im) scratch pair of n elements a part: its recipe."""
+            at, plane = scratch[0], _plane(n, isz)
+            scratch[0] += 2 * plane
+            return ((out_base, at * isz), (out_base, (at + plane) * isz))
+
+        launches = []
+        hand_in = None  # the scratch pair one launch hands the next
+        for s0 in range(0, len(stages), CHAIN_STAGES_PER_LAUNCH):
+            seg = stages[s0:s0 + CHAIN_STAGES_PER_LAUNCH]
+            seg_shapes = shapes[s0:s0 + CHAIN_STAGES_PER_LAUNCH]
+            last = s0 + len(seg) == len(stages)
+            m, n = seg[-1][3:5]
+            if last:
+                hand_out = ((out_base, 0), (out_base, n_out * isz))
+            else:
+                hand_out = region(rows * m * n)
+            launches.append(_plan_chain_launch(
+                seg, seg_shapes, rows, isz, hand_in, hand_out, region, sms, smem))
+            hand_in = hand_out
+        self.launches = tuple(launches)
+        #: each stage's thread shape, as its launch runs it
+        self.stages = [sh for lc in self.launches for sh in lc.shapes]
+        lead = -(-(scratch[0] - 2 * n_out) // max(n_out, 1))
+        self.alloc_shape = (2 + lead,) + self.out_shape
+
+    @property
+    def forms(self) -> tuple[str, ...]:
+        """The form of each launch."""
+        return tuple(lc.form for lc in self.launches)
+
+    def launch(self, flat):
+        """Launch the chain on the flat operands (``first_ops`` then every
+        link pair) of the shapes it was planned for; returns ``(re,
+        im)``."""
+        return self.launch_ptrs([t.data_ptr() for t in flat])
+
+    def launch_ptrs(self, bases):
+        """:meth:`launch` given each flat operand's address (its
+        ``data_ptr()``); the operands must stay alive until the launch is
+        queued, which it is on return."""
+        import torch
+
+        if self.device.index != torch.cuda.current_device():
+            with torch.cuda.device(self.device):
+                return self._launch(bases)
+        return self._launch(bases)
+
+    def _launch(self, bases):
+        import torch
+
+        buf = torch.empty(self.alloc_shape, dtype=self.dtype, device=self.device)
+        bases = list(bases)
+        bases.append(buf.data_ptr())
+        lib = _LIBS.get("fused_chain") or _library("fused_chain")
+        fn = lib.tnc_fused_chain_f32 if self.dtype == torch.float32 else lib.tnc_fused_chain_f64
+        stream = _raw_stream(self.device)
+        for lc in self.launches:
+            ptrs = array("Q", [bases[b] + off for b, off in lc.recipe])
+            _check(lib, fn(ptrs.buffer_info()[0], len(lc.recipe), lc.table_addr, stream),
+                   "fused_chain")
+            LAUNCHES["fused_chain"] += 1
+            CHAIN_FORMS[lc.form] += 1
+        return buf[0], buf[1]
 
 
-def _chain_plan(first_ops, link_ops, links) -> _ChainPlan:
-    flat = list(first_ops) + [t for pair in link_ops for t in pair]
-    key = (
-        first_ops[0].dtype,
-        tuple((tuple(t.shape), t.stride()) for t in flat[::2]),
-        tuple(link.key() for link in links),
-    )
-    plan = _CHAIN_PLANS.get(key)
-    if plan is None:
-        if len(_CHAIN_PLANS) >= _CHAIN_PLANS_MAX:
-            _CHAIN_PLANS.clear()
-        plan = _ChainPlan(first_ops, link_ops, links)
-        _CHAIN_PLANS[key] = plan
-    return plan
+def _plan_chain_launch(seg, shapes, rows, isz, hand_in, hand_out, region, sms, smem):
+    """The table of one launch of stages ``seg`` (their thread
+    :class:`ChainStageShape` s ``shapes``): ``hand_in`` is the recipe of the
+    scratch pair holding the carried value a previous launch left (``None``
+    for the first), ``hand_out`` where the last stage writes;
+    ``region(n)`` reserves a scratch pair of the call's allocation."""
+    import numpy as np
+
+    recipe: list = []
+    slots: dict = {}
+
+    def slot(key, rec) -> int:
+        if key not in slots:
+            slots[key] = len(recipe) // 2
+            recipe.extend(rec)
+        return slots[key]
+
+    def op_slot(pair) -> int:
+        return slot(("op", pair), ((2 * pair, 0), (2 * pair + 1, 0)))
+
+    # the carried values this launch keeps: stage i's result, i < last
+    carried = [m * n for _, _, _, m, n in seg[:-1]]
+    bufs = [max(carried[j::2], default=0) for j in (0, 1)]
+    # the reduction buffer: 2 planes of every split output of a thread
+    red = 2 * CHAIN_THREADS * max([sh.tm * sh.tn for sh in shapes if sh.ks > 1], default=0)
+    resident_elems = sum(2 * _plane(b, isz) for b in bufs) + red
+    form = CHAIN_RESIDENT if resident_elems * isz <= smem else CHAIN_GRID
+    if form == CHAIN_GRID:
+        # the grid form's blocks keep one reduction buffer of 2 values a
+        # thread: a stage splits K within a block only at one output a thread
+        shapes = [sh._replace(ks=1, tn=1) if sh.tn > 1 else sh for sh in shapes]
+    if form == CHAIN_RESIDENT:
+        # shared memory: the two carried buffers, the fetched operands, the
+        # reduction buffer
+        offs = []
+        at = 0
+        for b in bufs:
+            offs.append((at, at + _plane(b, isz)))
+            at += 2 * _plane(b, isz)
+        room = smem // isz - at - red
+    else:
+        pp = [region(rows * b) if b else None for b in bufs]
+        parts = 0  # elements a part of the K-split partials
+    rows_out = []
+    grid = rows
+    for i, ((a, b, k, m, n), sh) in enumerate(zip(seg, shapes)):
+        s_extent = n if sh.slow_b else m
+        kb = 1
+        if form == CHAIN_GRID:
+            groups = -(-s_extent // sh.tm) * -(-(m if sh.slow_b else n) // sh.tn)
+            tiles = -(-groups // (CHAIN_THREADS // sh.ks))
+            kb = chain_k_blocks(k, sh.ks, rows * tiles, sms)
+            grid = max(grid, rows * tiles * kb)
+        views = []
+        for side, (src, free) in enumerate(((a, m), (b, n))):
+            slow = side == int(sh.slow_b)
+            if src[0] == "op":
+                _, pair, sk, sf, sb = src
+                view = [op_slot(pair), sk, sf, sb, -1, -1]
+                elems = k * free
+                if form == CHAIN_RESIDENT and (
+                        elems <= CHAIN_PREFETCH_ELEMS or (slow and sh.tm > 1)) \
+                        and 2 * _plane(elems, isz) <= room:
+                    view[4:6] = [at, at + _plane(elems, isz)]
+                    at += 2 * _plane(elems, isz)
+                    room -= 2 * _plane(elems, isz)
+                    sk, sf = free, 1
+            else:
+                _, sk, sf = src
+                if i == 0:  # left in scratch by the previous launch
+                    view = [slot(("in",), hand_in), sk, sf, k * free, -1, -1]
+                elif form == CHAIN_RESIDENT:
+                    view = [-1, sk, sf, 0, *offs[(i - 1) % 2]]
+                else:
+                    view = [slot(("pp", (i - 1) % 2), pp[(i - 1) % 2]), sk, sf, k * free,
+                            -1, -1]
+            views.append((view, sk, sf, slow))
+        slow_view, s_sk, s_sf = next((v, sk, sf) for v, sk, sf, slow in views if slow)
+        use_vec = (form == CHAIN_RESIDENT and sh.tm > 1 and slow_view[4] >= 0
+                   and s_sf == 1 and s_sk == s_extent and s_extent % sh.tm == 0)
+        if i == len(seg) - 1:
+            c = [slot(("out",), hand_out), n, 1, m * n, -1, -1]
+        elif form == CHAIN_RESIDENT:
+            c = [-1, n, 1, 0, *offs[i % 2]]
+        else:
+            c = [slot(("pp", i % 2), pp[i % 2]), n, 1, m * n, -1, -1]
+        part = -1
+        if kb > 1:
+            parts = max(parts, kb * rows * m * n)
+            part = -2  # set below, once the partials' size is known
+        rows_out.append(views[0][0] + views[1][0] + c
+                        + [k, m, n, int(sh.slow_b), sh.tm, sh.ks, kb, int(use_vec), part,
+                           sh.tn])
+    if form == CHAIN_GRID and parts:
+        part_slot = slot(("part",), region(parts))
+        for r in rows_out:
+            if r[-2] == -2:
+                r[-2] = part_slot
+    if form == CHAIN_RESIDENT:
+        smem_bytes, red_off, grid = (at + red) * isz, at, rows
+    else:
+        smem_bytes, red_off = 2 * CHAIN_THREADS * isz, 0
+    header = [_FORM_CODE[form], len(seg), rows, grid, smem_bytes, red_off]
+    table = np.ascontiguousarray(header + [v for r in rows_out for v in r], dtype=np.int64)
+    if len(recipe) > _CHAIN_MAX_PTRS:
+        raise ValueError(f"fused_chain: a launch needs {len(recipe)} pointers")
+    return _ChainLaunch(table, table.ctypes.data, tuple(recipe), form, tuple(shapes))
 
 
-def fused_chain(first_ops, link_ops, links):
+def chain_plan(first_ops, link_ops, links, out_shape=None) -> _ChainPlan:
+    """The validated plan of a chain on these operands (see
+    :class:`_ChainPlan`), for the card the operands lie on: build it once
+    per chain shape and pass it to every :func:`fused_chain` call."""
+    dev = first_ops[0].device
+    sms = _sm_count(dev) if dev.type == "cuda" else H100_SMS
+    return _ChainPlan(first_ops, link_ops, links, out_shape, sms=sms)
+
+
+def fused_chain(first_ops, link_ops, links, plan: _ChainPlan | None = None):
     """Execute a whole chain of steps as ONE kernel launch.
 
     ``first_ops = (fr, fi, sr, si)``: the head step's two operands,
@@ -1071,38 +1370,29 @@ def fused_chain(first_ops, link_ops, links):
     ``fused_chain_kl``. Returns the chain's final ``(re, im)`` pair, of
     the operands' dtype.
 
+    ``plan``: the chain's :func:`chain_plan`, built once by the caller for
+    operands of these shapes, strides, dtype and device (not checked
+    again); without it the call plans (and validates) anew.
+
     CPU tensors run :func:`fused_chain_reference`. CUDA tensors launch the
-    cooperative chain kernel once (a chain of more than 32 stages takes
-    one launch per 32 stages).
+    chain kernel once, in the plan's form (a chain of more than
+    ``CHAIN_STAGES_PER_LAUNCH`` stages takes one launch per that many).
     """
+    if plan is None:
+        plan = chain_plan(first_ops, link_ops, links)
+    if first_ops[0].device.type == "cpu":
+        return fused_chain_reference(first_ops, link_ops, links)
+    return plan.launch(list(first_ops) + [t for pair in link_ops for t in pair])
+
+
+def empty_chain_launch(cooperative: bool, grid: int) -> None:
+    """One launch of an empty kernel of the chain kernel's block size on
+    ``grid`` blocks, ordinary or cooperative, on the current stream: the
+    floor under a launch of each chain form (not counted in
+    :data:`LAUNCHES`)."""
     import torch
 
-    if len(links) != len(link_ops):
-        raise ValueError("links and link_ops must pair up")
-    flat = list(first_ops) + [t for pair in link_ops for t in pair]
-    _check_parts("fused_chain", flat)
-    for j in range(0, len(flat), 2):
-        _check_pair("fused_chain", flat[j], flat[j + 1])
-    fr, _, sr, _ = first_ops
-    if fr.shape[-2] != sr.shape[-2]:
-        raise ValueError("fused_chain: head contract dims differ")
-    plan = _chain_plan(first_ops, link_ops, links)
-    if fr.device.type == "cpu":
-        return fused_chain_reference(first_ops, link_ops, links)
     lib = _library("fused_chain")
-    dtype, device = fr.dtype, fr.device
-    batch = 1 if plan.batch is None else plan.batch
-    fn = lib.tnc_fused_chain_f32 if dtype == torch.float32 else lib.tnc_fused_chain_f64
-    out_r = torch.empty(plan.out_shape, dtype=dtype, device=device)
-    out_i = torch.empty(plan.out_shape, dtype=dtype, device=device)
-    stride = batch * max(plan.scratch_elems, 1)
-    scratch = torch.empty((4 * stride,), dtype=dtype, device=device)
-    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
-    with torch.cuda.device(device):
-        rc = fn(
-            ptrs, plan.table.ctypes.data, plan.n_stages, batch, scratch.data_ptr(),
-            stride, out_r.data_ptr(), out_i.data_ptr(), _stream(device),
-        )
-    _check(lib, rc, "fused_chain")
-    LAUNCHES["fused_chain"] += -(-plan.n_stages // CHAIN_STAGES_PER_LAUNCH)
-    return out_r, out_i
+    rc = lib.tnc_chain_empty_launch(int(cooperative), int(grid),
+                                    _stream(torch.device("cuda")))
+    _check(lib, rc, "empty chain")

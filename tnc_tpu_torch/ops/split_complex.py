@@ -33,7 +33,7 @@ import functools
 import logging
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -416,12 +416,15 @@ class KernelPolicy:
     (:func:`tnc_tpu_torch.ops.cuda_complex.fused_chain`). Chained steps
     carry mode ``naive`` — the chain kernel's arithmetic.
     ``precision_modes[i]`` is step ``i``'s dot-precision rung (empty
-    tuple: none recorded).
+    tuple: none recorded). ``chain_runs`` keeps each chain's launch,
+    planned once per span and slice batch by :func:`run_chain_split` (not
+    part of the policy's identity).
     """
 
     modes: tuple[str, ...]
     chains: tuple[tuple[int, int], ...] = ()
     precision_modes: tuple[str, ...] = ()
+    chain_runs: dict = field(default_factory=dict, compare=False, repr=False)
 
     def signature(self) -> tuple:
         return (self.modes, self.chains, self.precision_modes)
@@ -587,6 +590,42 @@ def kernel_plan_summary(
     }
 
 
+def _chain_specs(steps):
+    """The operands of one chain group in the kernel's order, each as the
+    slot it is read from and its prep ``(slot, view, perm, dot, cfirst)``
+    (the head's two in product order, then one per link), and the
+    :class:`~tnc_tpu_torch.ops.cuda_complex.ChainLink` of every link."""
+    from tnc_tpu_torch.ops.cuda_complex import ChainLink
+
+    head = steps[0]
+    a = (head.lhs, head.a_view, head.a_perm, head.a_dot, head.a_cfirst)
+    b = (head.rhs, head.b_view, head.b_perm, head.b_dot, head.b_cfirst)
+    specs = [b, a] if head.swap else [a, b]
+    links = []
+    run_slot = head.lhs
+    for st in steps[1:]:
+        carried_a = st.lhs == run_slot
+        if carried_a:
+            specs.append((st.rhs, st.b_view, st.b_perm, st.b_dot, st.b_cfirst))
+            carried_dot, carried_cfirst = st.a_dot, st.a_cfirst
+        else:
+            specs.append((st.lhs, st.a_view, st.a_perm, st.a_dot, st.a_cfirst))
+            carried_dot, carried_cfirst = st.b_dot, st.b_cfirst
+        k = int(carried_dot[0]) if carried_cfirst else int(carried_dot[-1])
+        f = int(math.prod(carried_dot)) // max(k, 1)
+        carried_shape = (k, f) if carried_cfirst else (f, k)
+        k_axis = 0 if carried_cfirst else 1
+        carried_first = (not carried_a) if st.swap else carried_a
+        links.append(ChainLink(carried_first, carried_shape, k_axis))
+        run_slot = st.lhs
+    return specs, links
+
+
+def _prep_spec(spec, buffers, batched):
+    slot, view, perm, dot, cfirst = spec
+    return prep_kl(buffers[slot], view, perm, dot, cfirst, slot in batched)
+
+
 def chain_operands(steps, buffers, batched=frozenset()):
     """The operands of one chain group, ready for
     :func:`~tnc_tpu_torch.ops.cuda_complex.fused_chain`: ``(first_ops,
@@ -596,59 +635,108 @@ def chain_operands(steps, buffers, batched=frozenset()):
     ``batched`` (its buffer has a leading slice-batch axis); the carried
     value is described by a :class:`~tnc_tpu_torch.ops.cuda_complex.
     ChainLink`."""
-    from tnc_tpu_torch.ops.cuda_complex import ChainLink
-
-    head = steps[0]
-    a = prep_kl(buffers[head.lhs], head.a_view, head.a_perm, head.a_dot,
-                head.a_cfirst, head.lhs in batched)
-    b = prep_kl(buffers[head.rhs], head.b_view, head.b_perm, head.b_dot,
-                head.b_cfirst, head.rhs in batched)
-    first, second = (b, a) if head.swap else (a, b)
-    first_ops = (first[0], first[1], second[0], second[1])
-
-    link_ops = []
-    links = []
-    run_slot = head.lhs
-    for st in steps[1:]:
-        carried_a = st.lhs == run_slot
-        if carried_a:
-            link_ops.append(prep_kl(buffers[st.rhs], st.b_view, st.b_perm,
-                                    st.b_dot, st.b_cfirst, st.rhs in batched))
-            carried_dot, carried_cfirst = st.a_dot, st.a_cfirst
-        else:
-            link_ops.append(prep_kl(buffers[st.lhs], st.a_view, st.a_perm,
-                                    st.a_dot, st.a_cfirst, st.lhs in batched))
-            carried_dot, carried_cfirst = st.b_dot, st.b_cfirst
-        k = int(carried_dot[0]) if carried_cfirst else int(carried_dot[-1])
-        f = int(math.prod(carried_dot)) // max(k, 1)
-        carried_shape = (k, f) if carried_cfirst else (f, k)
-        k_axis = 0 if carried_cfirst else 1
-        carried_first = (not carried_a) if st.swap else carried_a
-        links.append(ChainLink(carried_first, carried_shape, k_axis))
-        run_slot = st.lhs
-    return first_ops, link_ops, links
+    specs, links = _chain_specs(steps)
+    ops = [_prep_spec(spec, buffers, batched) for spec in specs]
+    first_ops = (ops[0][0], ops[0][1], ops[1][0], ops[1][1])
+    return first_ops, [tuple(op) for op in ops[2:]], links
 
 
-def run_chain_split(steps, buffers, batched=None):
+class _ChainRun:
+    """One chain group on the card, planned once for a span and a slice
+    batch: the kernel's :class:`~tnc_tpu_torch.ops.cuda_complex._ChainPlan`
+    (its output in the last step's stored shape) and, for each operand part
+    the kernel reads, the buffer part it is a view of and the byte offset
+    there, or ``None`` where its prep copies (then redone each call).
+    ``layout`` is every source part's ``(shape, stride, dtype, device)`` and
+    ``batched`` whether its slot is batched, when planned; a call whose
+    buffers differ is planned anew."""
+
+    __slots__ = ("plan", "specs", "reads", "sources", "layout", "batched")
+
+    def __init__(self, steps, buffers, batched):
+        from tnc_tpu_torch.ops.cuda_complex import chain_plan
+
+        self.specs, links = _chain_specs(steps)
+        ops = [_prep_spec(spec, buffers, batched) for spec in self.specs]
+        first_ops = (ops[0][0], ops[0][1], ops[1][0], ops[1][1])
+        lead = next((tuple(op[0].shape[:1]) for op in ops if op[0].dim() == 3), ())
+        self.plan = chain_plan(first_ops, [tuple(op) for op in ops[2:]], links,
+                               out_shape=lead + tuple(steps[-1].out_store))
+        self.sources = tuple(sorted({spec[0] for spec in self.specs}))
+        self.layout = tuple((t.shape, t.stride(), t.dtype, t.device)
+                            for slot in self.sources for t in buffers[slot])
+        self.batched = tuple(slot in batched for slot in self.sources)
+        reads = []
+        for spec, op in zip(self.specs, ops):
+            parts = buffers[spec[0]]
+            view = all(t.untyped_storage().data_ptr() == src.untyped_storage().data_ptr()
+                       for t, src in zip(op, parts))
+            reads.append(tuple(t.data_ptr() - src.data_ptr() for t, src in zip(op, parts))
+                         if view else None)
+        self.reads = tuple(reads)
+
+    def matches(self, buffers, batched) -> bool:
+        """Whether ``buffers`` hold the source parts the run was planned for."""
+        at = 0
+        for slot, was in zip(self.sources, self.batched):
+            if (slot in batched) != was:
+                return False
+            for t in buffers[slot]:
+                if (t.shape, t.stride(), t.dtype, t.device) != self.layout[at]:
+                    return False
+                at += 1
+        return True
+
+    def __call__(self, buffers, batched):
+        """Launch the chain on ``buffers``; returns ``(re, im)``."""
+        ptrs = []
+        keep = []  # the copies stay alive until their launch is queued
+        for spec, read in zip(self.specs, self.reads):
+            if read is None:
+                op = _prep_spec(spec, buffers, batched)
+                keep.append(op)
+                ptrs.extend(t.data_ptr() for t in op)
+            else:
+                re, im = buffers[spec[0]]
+                ptrs.append(re.data_ptr() + read[0])
+                ptrs.append(im.data_ptr() + read[1])
+        return self.plan.launch_ptrs(ptrs)
+
+
+def run_chain_split(steps, buffers, batched=None, runs=None, key=None):
     """Execute one chain group as ONE :func:`~tnc_tpu_torch.ops.
-    cuda_complex.fused_chain` call, with the sequential loop's buffer
+    cuda_complex.fused_chain` launch, with the sequential loop's buffer
     bookkeeping (every consumed slot freed, the result in the last step's
     ``lhs`` slot, in its ``out_store`` shape — after a leading batch axis
     when any operand's slot is in the set ``batched``, which then gains
-    that slot)."""
-    from tnc_tpu_torch.ops.cuda_complex import fused_chain
+    that slot).
+
+    ``runs``: where CUDA launches are kept planned (a policy's
+    ``chain_runs``), under ``key`` (the span's start): a call then only
+    checks its buffers' layout and fills pointers. Without it, or on the
+    CPU, the call preps the operands and calls ``fused_chain``."""
+    from tnc_tpu_torch.ops import cuda_complex
 
     batched = set() if batched is None else batched
-    re, im = fused_chain(*chain_operands(steps, buffers, batched))
-    lead = tuple(re.shape[:1]) if re.dim() == 3 else ()
-    out_store = lead + tuple(steps[-1].out_store)
-    out = (re.reshape(out_store), im.reshape(out_store))
+    first = buffers[steps[0].lhs][0]
+    if runs is not None and first.device.type == "cuda":
+        run = runs.get(key)
+        if run is None or not run.matches(buffers, batched):
+            run = _ChainRun(steps, buffers, batched)
+            runs[key] = run
+        re, im = run(buffers, batched)
+        lead = () if run.plan.batch is None else (run.plan.batch,)
+    else:
+        re, im = cuda_complex.fused_chain(*chain_operands(steps, buffers, batched))
+        lead = tuple(re.shape[:1]) if re.dim() == 3 else ()
+        out_store = lead + tuple(steps[-1].out_store)
+        re, im = re.reshape(out_store), im.reshape(out_store)
     for st in steps:
         buffers[st.rhs] = None
-    buffers[steps[-1].lhs] = out
+    buffers[steps[-1].lhs] = (re, im)
     if lead:
         batched.add(steps[-1].lhs)
-    return out
+    return re, im
 
 
 def run_split_units(
@@ -674,7 +762,8 @@ def run_split_units(
 
     def run_unit(start: int, end: int) -> None:
         if start in chain_end:
-            run_chain_split(steps[start:end], buffers, batched)
+            run_chain_split(steps[start:end], buffers, batched,
+                            policy.chain_runs, start)
             return
         step = steps[start]
         a_b, b_b = step.lhs in batched, step.rhs in batched
