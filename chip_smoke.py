@@ -82,13 +82,35 @@ Phases, each of which raises on failure (nothing is caught):
    over 16, whose residuals keep chains, against the numpy oracle, each
    batched ``fused_chain`` launch held against its plain version (2
    launches each);
-10. one JSON line of path numbers (with each kernel's per-shape rows,
+10. the north star, BASELINE config #3: ``sycamore_circuit(53, 14,
+   default_rng(42))`` on the all-zeros bitstring, simplified, planned
+   afresh by the port's ``plan_northstar`` — ``Hyperoptimizer`` (128
+   trials, target 2^29) and ``slice_and_reconfigure`` with the
+   reference's defaults, its wall seconds, trial pool and planner
+   engines (native or Python) printed — held to its per-slice peak (at
+   most 2^29 elements) and to within 1.25x of the sliced flops of the
+   reference's plan; the default path's plan (prelude, residual chunks,
+   modes, chains, batch, modeled peak) and the transpose gate's count;
+   each chain of the first batch held against its plain version; the
+   first 64 of its 4096 slices (``NORTHSTAR_RUN``; all of them take ~11
+   minutes) through ``TorchBackend().execute_sliced`` (a warm-up batch,
+   three timed runs), the device-resident part, the prelude apart and a
+   profile of one batch; slices 0-15 one by one and the sum of the
+   slices run against complex128 on the card; the forced ``fused`` rung
+   on the first batch;
+11. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result when CUDA is unavailable or the
 ``tnc_tpu_torch`` package is not beside it.
+
+``python3 chip_smoke.py --northstar-full`` builds the kernels and runs
+phase 10 alone over all the north star's slices through
+``contract_tensor_network_sliced``, once timed, complex128 on the first
+256 slices (about a quarter of an hour on one H100), and ends with its
+JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -124,6 +146,22 @@ SLICED_SMALL = (20, 6, 7, 7)
 CHUNKED_SMALL = ((20, 6, 7, 7), (20, 8, 7, 17))
 SLICED_CHECK_S = 30.0  # complex128 of every slice if it takes at most this, else 32
 FUSED_RANGE = (0, 8)  # the slices the sliced cell's forced fused rung runs
+# the north star, BASELINE config #3: (qubits, depth, rng seed, hyper-optimizer
+# trials, log2 of the slicing target), planned by the port's Hyperoptimizer and
+# slice_and_reconfigure with the reference's defaults
+NORTHSTAR = (53, 14, 42, 128, 29)
+# sliced flops of the reference's plan of the same arguments, made with tnc_tpu on
+# an 8-core CPU (PERF.md); the plan's clock budgets depend on the host's speed, so
+# the port's plan is held to within NORTHSTAR_QUALITY of it, not to equality
+NORTHSTAR_REF_SLICED_FLOPS = 7.894e13
+NORTHSTAR_QUALITY = 1.25
+NORTHSTAR_PARITY = 16  # slices held one by one (the reference bench's parity_slices)
+NORTHSTAR_CHECK_S = 60.0  # complex128 of every slice if it takes at most this,
+NORTHSTAR_CHECK_FEW = 256  # else of this many
+# the slices phase 10 contracts, 8 batches of 8: all 4096 take ~11 min on the card,
+# more than this script's time allows; `python3 chip_smoke.py --northstar-full`
+# contracts them all
+NORTHSTAR_RUN = 64
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -609,10 +647,11 @@ def launch_weighted(rows) -> dict:
     }
 
 
-def run_counted(fn, label: str, reps: int = 3) -> dict:
-    """One warm-up and ``reps`` timed calls of ``fn()`` (a contraction from
-    host leaves to the host result). Launch and routing counts are reset
-    just before each timed call and read just after it. Returns the last
+def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
+    """One warm-up (``warmup()``, default ``fn()``) and ``reps`` timed calls
+    of ``fn()`` (a contraction from host leaves to the host result). Launch
+    and routing counts are reset just before each timed call and read just
+    after it. Returns the last
     result (``out``), the wall seconds of every timed call (``walls``), and
     the launch counts, routed steps and peak device memory of the last
     one."""
@@ -625,7 +664,7 @@ def run_counted(fn, label: str, reps: int = 3) -> dict:
         reset_routed,
     )
 
-    fn()
+    (warmup or fn)()
     walls = []
     run = {"out": None}
     for _ in range(reps):
@@ -1265,28 +1304,10 @@ def chunked_plan(backend, sp) -> dict:
     }
 
 
-def run_sliced_chunked(backend, cell) -> dict:
-    """The sliced cell on the default ``TorchBackend()``: the stem hoisted,
-    the residual chunked and batched over slices. Plan; the amplitude through
-    ``contract_tensor_network_sliced`` (one warm-up, three timed runs), the
-    device-resident part, the prelude timed apart and a profile of one
-    batch; the amplitude against phase 8's complex128 partials and the
-    loop's amplitude; the forced ``fused`` rung on the first batch
-    (``fused_complex_dot`` held against its plain version on the batched
-    operands the executor builds, launches and routed steps held to the
-    plan's gate, the sum against the default rung's)."""
-    import torch
-
-    from tnc_tpu_torch.ops.backends import place_buffers
-    from tnc_tpu_torch.ops.hoist import hoist_sliced_program, hoisted
-    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
-
-    tn, path, sl, sp = cell["tn"], cell["path"], cell["slicing"], cell["sp"]
-    arrays, refs = cell["arrays"], cell["refs"]
-    n = sl.num_slices
-    plan_rec = chunked_plan(backend, sp)
-    hp = hoist_sliced_program(sp)
-    print(f"[chunked plan] sycamore{SLICED[:3]}: prelude {plan_rec['prelude_steps']} steps "
+def print_chunked_plan(label: str, plan_rec: dict, backend) -> None:
+    """One line of :func:`chunked_plan`'s record, and a second where the
+    memory budget clamped the batch."""
+    print(f"[chunked plan] {label}: prelude {plan_rec['prelude_steps']} steps "
           f"({plan_rec['invariant_flops']:.4e} complex multiply-adds, once), residual "
           f"{plan_rec['residual_steps']} steps ({plan_rec['residual_flops']:.4e} a slice) over "
           f"{plan_rec['residual_inputs']} inputs; {plan_rec['chunks']} chunk(s) of at most "
@@ -1299,17 +1320,79 @@ def run_sliced_chunked(backend, cell) -> dict:
         print(f"[chunked plan] the memory budget clamped the slice batch "
               f"{plan_rec['batch_requested']} -> {plan_rec['batch']}", flush=True)
 
-    main = run_counted(lambda: contract_tensor_network_sliced(tn, path, sl, backend),
-                       "sliced chunked main path")
-    z = scalar(main["out"])
-    prof = profile_device_path(
-        lambda: backend.execute_sliced(sp, arrays, host=False), "sliced chunked", reps=2,
-        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, plan_rec["batch"]),
-                                                host=False))
-    # the prelude apart, on resident leaves
+
+def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -> dict:
+    """The forced ``fused`` rung on the first ``batch`` slices of the default
+    sliced path: every ``fused_complex_dot`` launch held against its plain
+    version on the operands the executor builds (prelude launches once,
+    residual launches batched over the slices), launches and routed steps
+    held to the plan's gate, and the sum held to the default rung's within
+    1e-5 x sum|ref_s| over those slices (``refs``: complex128 per slice)."""
+    import torch
+
+    from tnc_tpu_torch.ops.hoist import hoist_sliced_program
+
+    hp = hoist_sliced_program(sp)
+    lo, hi = 0, batch
+    admitted_pre, routed_pre = fused_gate_steps([ps.step for ps in hp.prelude_steps])
+    admitted_res, routed_res = fused_gate_steps(hp.residual.program.steps)
+    default_range = scalar(backend.execute_sliced(sp, arrays, slice_range=(lo, hi)))
+    print(f"[kernels] fused_complex_dot against fused_complex_dot_reference on the operands "
+          f"the chunked executor builds for slices {lo}-{hi - 1} of {label} (forced fused "
+          f"rung: {len(admitted_pre)} prelude launches, {len(admitted_res)} batched)",
+          flush=True)
+    dot_rows = []
+    labels = iter([f"{label} prelude step {i}" for i in admitted_pre]
+                  + [f"{label} residual step {i}" for i in admitted_res])
+    os.environ["TNC_TPU_COMPLEX_MULT"] = "fused"
+    try:
+        with holding("fused_complex_dot", lambda ar, ai, br, bi: dot_rows.append(
+                hold_dot(ar, ai, br, bi, 1, next(labels)))):
+            backend.execute_sliced(sp, arrays, slice_range=(lo, hi))
+        torch.cuda.empty_cache()
+        fused = run_counted(lambda: backend.execute_sliced(sp, arrays, slice_range=(lo, hi)),
+                            f"{label} fused rung", reps=1)
+    finally:
+        del os.environ["TNC_TPU_COMPLEX_MULT"]
+    want_launches = len(admitted_pre) + len(admitted_res)
+    check(len(dot_rows) == want_launches,
+          f"{label} fused rung called fused_complex_dot {len(dot_rows)} times, the gate "
+          f"admits {want_launches}")
+    check(fused["launches"]["fused_complex_dot"] == want_launches,
+          f"{label} fused rung launched fused_complex_dot "
+          f"{fused['launches']['fused_complex_dot']} times; the gate admits "
+          f"{len(admitted_pre)} prelude steps and {len(admitted_res)} residual steps a batch")
+    want_routed = collections.Counter(routed_pre)
+    for reason, count in routed_res.items():
+        want_routed[reason] += count * (hi - lo)
+    check(fused["routed"] == dict(want_routed),
+          f"{label} fused rung routed {fused['routed']}, the plan's gate says "
+          f"{dict(want_routed)}")
+    check(all(r["batch"] == hi - lo for r in dot_rows[len(admitted_pre):]),
+          f"a residual launch of {label}'s forced rung was not batched")
+    z_fused = scalar(fused["out"])
+    gate = 1e-5 * sum(abs(r) for r in refs[lo:hi])
+    print(f"[check] {label} fused rung on slices {lo}-{hi - 1}: {z_fused!r} vs default "
+          f"rung {default_range!r}, |diff| {abs(z_fused - default_range):.3e} (gate "
+          f"{gate:.3e})", flush=True)
+    check(abs(z_fused - default_range) <= gate,
+          f"{label} fused rung disagrees with the default rung")
+    return {"dot_rows": dot_rows, "record": {
+        "fused_range": [lo, hi], "fused_wall_s": fused["walls"][0],
+        "fused_launches": fused["launches"], "fused_routed": fused["routed"],
+        "fused_diff": abs(z_fused - default_range)}}
+
+
+def time_prelude(backend, sp, arrays, reps: int = 3) -> list[float]:
+    """Seconds of the hoisted prelude alone, on resident leaves."""
+    import torch
+
+    from tnc_tpu_torch.ops.backends import place_buffers
+    from tnc_tpu_torch.ops.hoist import hoisted
+
     full = place_buffers(arrays, backend.dtype, backend.split_complex, backend.device)
     prelude_s = []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -1319,6 +1402,35 @@ def run_sliced_chunked(backend, cell) -> dict:
         del cached
     del full
     torch.cuda.empty_cache()
+    return prelude_s
+
+
+def run_sliced_chunked(backend, cell) -> dict:
+    """The sliced cell on the default ``TorchBackend()``: the stem hoisted,
+    the residual chunked and batched over slices. Plan; the amplitude through
+    ``contract_tensor_network_sliced`` (one warm-up, three timed runs), the
+    device-resident part, the prelude timed apart and a profile of one
+    batch; the amplitude against phase 8's complex128 partials and the
+    loop's amplitude; the forced ``fused`` rung on the first batch
+    (``fused_complex_dot`` held against its plain version on the batched
+    operands the executor builds, launches and routed steps held to the
+    plan's gate, the sum against the default rung's)."""
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
+
+    tn, path, sl, sp = cell["tn"], cell["path"], cell["slicing"], cell["sp"]
+    arrays, refs = cell["arrays"], cell["refs"]
+    n = sl.num_slices
+    plan_rec = chunked_plan(backend, sp)
+    print_chunked_plan(f"sycamore{SLICED[:3]}", plan_rec, backend)
+
+    main = run_counted(lambda: contract_tensor_network_sliced(tn, path, sl, backend),
+                       "sliced chunked main path")
+    z = scalar(main["out"])
+    prof = profile_device_path(
+        lambda: backend.execute_sliced(sp, arrays, host=False), "sliced chunked", reps=2,
+        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, plan_rec["batch"]),
+                                                host=False))
+    prelude_s = time_prelude(backend, sp, arrays)
     batches = n // plan_rec["batch"]
     per_batch_ms = (prof["device_s"] - statistics.median(prelude_s)) / batches * 1e3
     print(f"[chunked] wall {statistics.median(main['walls']):.4f} s (runs "
@@ -1350,49 +1462,8 @@ def run_sliced_chunked(backend, cell) -> dict:
           f"chunked amplitude over {scope} off the loop's by {abs(got - loop_z)}")
 
     # the forced fused rung on the first batch
-    lo, hi = 0, plan_rec["batch"]
-    admitted_pre, routed_pre = fused_gate_steps([ps.step for ps in hp.prelude_steps])
-    admitted_res, routed_res = fused_gate_steps(hp.residual.program.steps)
-    default_range = scalar(backend.execute_sliced(sp, arrays, slice_range=(lo, hi)))
-    print(f"[kernels] fused_complex_dot against fused_complex_dot_reference on the operands "
-          f"the chunked executor builds for slices {lo}-{hi - 1} (forced fused rung: "
-          f"{len(admitted_pre)} prelude launches, {len(admitted_res)} batched)", flush=True)
-    dot_rows = []
-    labels = iter([f"prelude step {i}" for i in admitted_pre]
-                  + [f"residual step {i}" for i in admitted_res])
-    os.environ["TNC_TPU_COMPLEX_MULT"] = "fused"
-    try:
-        with holding("fused_complex_dot", lambda ar, ai, br, bi: dot_rows.append(
-                hold_dot(ar, ai, br, bi, 1, next(labels)))):
-            backend.execute_sliced(sp, arrays, slice_range=(lo, hi))
-        torch.cuda.empty_cache()
-        fused = run_counted(lambda: backend.execute_sliced(sp, arrays, slice_range=(lo, hi)),
-                            "sliced chunked fused rung", reps=1)
-    finally:
-        del os.environ["TNC_TPU_COMPLEX_MULT"]
-    want_launches = len(admitted_pre) + len(admitted_res)
-    check(len(dot_rows) == want_launches,
-          f"chunked fused rung called fused_complex_dot {len(dot_rows)} times, the gate "
-          f"admits {want_launches}")
-    check(fused["launches"]["fused_complex_dot"] == want_launches,
-          f"chunked fused rung launched fused_complex_dot "
-          f"{fused['launches']['fused_complex_dot']} times; the gate admits "
-          f"{len(admitted_pre)} prelude steps and {len(admitted_res)} residual steps a batch")
-    want_routed = collections.Counter(routed_pre)
-    for reason, count in routed_res.items():
-        want_routed[reason] += count * (hi - lo)
-    check(fused["routed"] == dict(want_routed),
-          f"chunked fused rung routed {fused['routed']}, the plan's gate says "
-          f"{dict(want_routed)}")
-    check(all(r["batch"] == hi - lo for r in dot_rows[len(admitted_pre):]),
-          "a residual launch of the forced rung was not batched")
-    z_fused = scalar(fused["out"])
-    gate = 1e-5 * sum(abs(r) for r in refs[lo:hi])
-    print(f"[check] sliced chunked fused rung on slices {lo}-{hi - 1}: {z_fused!r} vs default "
-          f"rung {default_range!r}, |diff| {abs(z_fused - default_range):.3e} (gate "
-          f"{gate:.3e})", flush=True)
-    check(abs(z_fused - default_range) <= gate,
-          "chunked fused rung disagrees with the default rung")
+    fused = check_fused_first_batch(backend, sp, arrays, plan_rec["batch"], refs,
+                                    "sliced chunked")
     record = {
         "plan": plan_rec, "wall_s": statistics.median(main["walls"]),
         "wall_runs_s": main["walls"], "peak_bytes": main["peak_bytes"],
@@ -1400,12 +1471,172 @@ def run_sliced_chunked(backend, cell) -> dict:
         "prelude_runs_s": prelude_s, "per_batch_ms": per_batch_ms,
         "per_slice_ms": per_batch_ms / plan_rec["batch"], "amplitude": [z.real, z.imag],
         "check_scope": scope, "complex128_diff": abs(got - want),
-        "loop_diff": abs(got - loop_z), "fused_range": [lo, hi],
-        "fused_wall_s": fused["walls"][0], "fused_launches": fused["launches"],
-        "fused_routed": fused["routed"], "fused_diff": abs(z_fused - default_range),
+        "loop_diff": abs(got - loop_z), **fused["record"],
     }
-    return {"record": record, "dot_rows": dot_rows,
-            "dot_launches": fused["launches"]["fused_complex_dot"]}
+    return {"record": record, "dot_rows": fused["dot_rows"],
+            "dot_launches": fused["record"]["fused_launches"]["fused_complex_dot"]}
+
+
+def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN) -> dict:
+    """The north star (``NORTHSTAR``, BASELINE config #3): one Sycamore-53
+    depth-14 amplitude planned afresh by the port's ``plan_northstar``
+    (``Hyperoptimizer`` and ``slice_and_reconfigure`` with the reference's
+    defaults) and contracted on the default ``TorchBackend()``. The plan,
+    held to its bound and to the reference's plan quality; the default
+    path's plan; each chain of the first batch held against its plain
+    version; the first ``run_slices`` slices (``None``: all, through
+    ``contract_tensor_network_sliced``; else ``TorchBackend.execute_sliced``
+    over that range) after a warm-up on the first batch, ``reps`` timed
+    runs, then the device-resident part once, the prelude apart and a
+    profile of one batch; slices 0-15 one by one and the sum of those
+    slices against complex128 on the card; the forced ``fused`` rung on the
+    first batch."""
+    import torch
+
+    from tnc_tpu_torch.benchmark.northstar import plan_northstar
+    from tnc_tpu_torch.ops import split_complex
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.hoist import hoist_sliced_program
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors, step_dims
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
+
+    qubits, depth, seed, ntrials, target = NORTHSTAR
+    plan = plan_northstar(qubits, depth, seed, ntrials, float(target))
+    rec = plan.record
+    tn, path, sl = plan.tn, plan.path, plan.slicing
+    n = sl.num_slices
+    limit = NORTHSTAR_QUALITY * NORTHSTAR_REF_SLICED_FLOPS
+    trials = (f"spawn pool of {rec['trials']['workers']} workers"
+              if rec["trials"]["mode"] == "pool"
+              else f"serial loop (pool error: {rec['trials']['pool_error']})")
+    print(f"[northstar plan] sycamore({qubits}, {depth}, rng {seed}): {rec['tensors_raw']} -> "
+          f"{rec['tensors']} tensors; Hyperoptimizer(ntrials={ntrials}, "
+          f"target_size=2^{target}) {rec['hyper_s']:.2f} s on the {trials} "
+          f"({rec['cpu_count']} host cores), slice_and_reconfigure {rec['slice_s']:.2f} s, "
+          f"plan {rec['plan_s']:.2f} s in all; planner engines: {rec['native']}; path flops "
+          f"{rec['path_flops']:.4e}, unsliced peak {rec['path_peak']:.4e}; {n} slices over "
+          f"legs {rec['sliced_legs']}, per-slice peak {rec['slice_peak']:.4e} elements; sliced "
+          f"flops {rec['sliced_total_flops']:.4e} (gate {limit:.4e} = {NORTHSTAR_QUALITY} x the "
+          f"reference's {NORTHSTAR_REF_SLICED_FLOPS:.4e}), hoisted {rec['hoisted_total_flops']:.4e}",
+          flush=True)
+    check(rec["slice_peak"] <= 2.0 ** target,
+          f"north-star per-slice peak {rec['slice_peak']} over 2^{target}")
+    check(rec["sliced_total_flops"] <= limit,
+          f"north-star sliced flops {rec['sliced_total_flops']} over {limit}")
+    sp = build_sliced_program(tn, path, sl)
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    plan_rec = chunked_plan(backend, sp)
+    batch = plan_rec["batch"]
+    batches = n // batch
+    chains = [(c, span) for c, spans in enumerate(plan_rec["chains"]) for span in spans]
+    t_admitted, t_routed = transpose_gate(sp.program)
+    # the residual's least traffic a slice: each step's operands read once and
+    # its output written once, as split-complex float32 (8 bytes an element)
+    res_bytes = sum(8.0 * (m * k + k * n + m * n) for m, k, n in (
+        step_dims(st) for st in hoist_sliced_program(sp).residual.program.steps))
+    batch_bound_ms = batch * res_bytes / PEAK_BYTES_PER_S * 1e3
+    print_chunked_plan(f"sycamore{NORTHSTAR[:3]}", plan_rec, backend)
+    print(f"[northstar plan] fused_transpose gate admits {t_admitted} steps (routes "
+          f"{t_routed}): no shape of this plan for fused_transpose_dot", flush=True)
+    check(t_admitted == 0, "the transpose gate admits a north-star step: hold it")
+
+    # each chain of the first batch, on the operands the executor builds
+    print(f"[kernels] fused_chain against fused_chain_reference on the batched operands of "
+          f"the first batch ({len(chains)} residual chains, {batches} batches)", flush=True)
+    chain_rows = []
+    with holding("run_chain_split", hold_chain_run(
+            lambda i: f"m14 chunk {chains[i][0]} steps {chains[i][1][0]}..{chains[i][1][1] - 1}"
+            if i < len(chains) else f"m14 chain {i}", batches, chain_rows), split_complex):
+        backend.execute_sliced(sp, arrays, slice_range=(0, batch))
+    check(len(chain_rows) == len(chains),
+          f"the first batch ran {len(chain_rows)} chains, the plan has {len(chains)}")
+    check(all(r["batch"] == batch for r in chain_rows), "a north-star chain was not batched")
+    torch.cuda.empty_cache()
+
+    # the amplitude over the run's slices
+    run_n = n if run_slices is None else run_slices
+    check(run_n % batch == 0, f"{run_n} slices are no whole number of batches of {batch}")
+    if run_n == n:
+        label, contract = "northstar all slices", (
+            lambda: contract_tensor_network_sliced(tn, path, sl, backend))
+    else:
+        label, contract = f"northstar slices 0-{run_n - 1}", (
+            lambda: backend.execute_sliced(sp, arrays, slice_range=(0, run_n)))
+    main = run_counted(contract, label, reps,
+                       warmup=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, batch)))
+    z = scalar(main["out"])
+    check(main["launches"]["fused_chain"] == len(chains) * (run_n // batch),
+          f"fused_chain launched {main['launches']['fused_chain']} times for "
+          f"{len(chains)} chains x {run_n // batch} batches")
+    prof = profile_device_path(
+        lambda: backend.execute_sliced(sp, arrays, slice_range=(0, run_n), host=False),
+        "northstar", reps=1,
+        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, batch), host=False))
+    prelude_s = time_prelude(backend, sp, arrays)
+    per_batch_ms = (prof["device_s"] - statistics.median(prelude_s)) / (run_n // batch) * 1e3
+    print(f"[northstar] {label}: wall {statistics.median(main['walls']):.4f} s (runs "
+          f"{[round(w, 4) for w in main['walls']]}), device-resident {prof['device_s']:.4f} s, "
+          f"prelude {statistics.median(prelude_s) * 1e3:.3f} ms (runs "
+          f"{[round(t * 1e3, 3) for t in prelude_s]}), {per_batch_ms:.3f} ms a batch of {batch} "
+          f"({run_n // batch} of the amplitude's {batches} batches), {per_batch_ms / batch:.3f} "
+          f"ms a slice (byte bound {batch_bound_ms:.3f} ms a batch: {res_bytes:.4e} bytes a "
+          f"slice); max_memory_allocated {main['peak_bytes']} bytes against the modeled "
+          f"{plan_rec['modeled_peak_bytes']}", flush=True)
+
+    # complex128 on the card, slice by slice: the parity slices one by one,
+    # then every slice run, or the first NORTHSTAR_CHECK_FEW if all would take long
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    refs, worst = [], 0.0
+    t0 = time.perf_counter()
+    want_n = run_n
+    while len(refs) < want_n:
+        s = len(refs)
+        refs.append(scalar(oracle.execute_sliced(sp, arrays, slice_range=(s, s + 1))))
+        if s == NORTHSTAR_PARITY - 1 and (time.perf_counter() - t0) / NORTHSTAR_PARITY * run_n \
+                > NORTHSTAR_CHECK_S:
+            want_n = min(run_n, NORTHSTAR_CHECK_FEW)
+    t_ref = time.perf_counter() - t0
+    scale = max(abs(r) for r in refs[:NORTHSTAR_PARITY])
+    for s in range(NORTHSTAR_PARITY):
+        got = scalar(backend.execute_sliced(sp, arrays, slice_range=(s, s + 1)))
+        worst = max(worst, abs(got - refs[s]))
+        check(abs(got - refs[s]) <= 1e-4 * scale,
+              f"north-star slice {s}: {got!r} off complex128 {refs[s]!r} by {abs(got - refs[s])}")
+    if want_n == run_n:
+        scope, got_sum = f"all {run_n} slices run", z
+    else:
+        scope = (f"the first {want_n} slices (complex128 of all {run_n} would take over "
+                 f"{NORTHSTAR_CHECK_S:g} s)")
+        got_sum = scalar(backend.execute_sliced(sp, arrays, slice_range=(0, want_n)))
+    want_sum, abs_sum = sum(refs), sum(abs(r) for r in refs)
+    print(f"[check] northstar slices 0-{NORTHSTAR_PARITY - 1} against complex128 on the card: "
+          f"max|diff| {worst:.3e} (gate 1e-4 x max|ref_s| = {1e-4 * scale:.3e}); {scope}: "
+          f"{got_sum!r} vs {want_sum!r}, |diff| {abs(got_sum - want_sum):.3e} (gate 1e-4 x "
+          f"sum|ref_s| = {1e-4 * abs_sum:.3e}); complex128 of {len(refs)} slices took "
+          f"{t_ref:.3f} s", flush=True)
+    check(abs(got_sum - want_sum) <= 1e-4 * abs_sum,
+          f"north-star amplitude over {scope} off complex128 by {abs(got_sum - want_sum)}")
+    torch.cuda.empty_cache()
+
+    # the forced fused rung on the first batch
+    fused = check_fused_first_batch(backend, sp, arrays, batch, refs, "northstar")
+    record = {
+        "plan": rec, "chunked_plan": plan_rec, "transpose_gate": [t_admitted, t_routed],
+        "wall_s": statistics.median(main["walls"]), "wall_runs_s": main["walls"],
+        "peak_bytes": main["peak_bytes"], "launches": main["launches"],
+        "chain_forms": main["chain_forms"], **prof, "run_slices": run_n,
+        "prelude_s": statistics.median(prelude_s), "prelude_runs_s": prelude_s,
+        "per_batch_ms": per_batch_ms, "per_slice_ms": per_batch_ms / batch,
+        "residual_bytes_per_slice": res_bytes, "batch_bound_ms": batch_bound_ms,
+        "amplitude": [z.real, z.imag], "check_scope": scope,
+        "complex128": [want_sum.real, want_sum.imag], "complex128_sum_abs": abs_sum,
+        "complex128_slices": len(refs), "complex128_s": t_ref,
+        "parity_max_diff": worst, **fused["record"],
+    }
+    return {"record": record, "chain_rows": chain_rows, "dot_rows": fused["dot_rows"],
+            "chain_launches": main["launches"]["fused_chain"],
+            "dot_launches": fused["record"]["fused_launches"]["fused_complex_dot"]}
 
 
 def run_chunked_small(backend) -> dict:
@@ -1496,6 +1727,14 @@ def main() -> int:
 
     backend = TorchBackend()  # turns TF32 off
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul left on")
+    if "--northstar-full" in sys.argv[1:]:
+        # the north star over all its slices, once: phase 10 alone
+        full = run_northstar(backend, reps=1, run_slices=None)
+        print(json.dumps({"sycamore53_m14_hyper_full": full["record"],
+                          "shapes": {"fused_chain": full["chain_rows"],
+                                     "fused_complex_dot": full["dot_rows"]}}), flush=True)
+        print(card_line(), flush=True)
+        return 0
 
     # 2. plan + kernels against their plain versions
     tn, permutor = build_config(QUBITS)
@@ -1613,6 +1852,14 @@ def main() -> int:
     small = run_chunked_small(backend)
     chain_launches.update(small["launches"])
     chain_forms.update({name: r["fused_chain_forms"] for name, r in small["records"].items()})
+    torch.cuda.empty_cache()
+
+    # 10. the north star: sycamore(53, 14) planned by the port's hyper-optimizer
+    # and slice_and_reconfigure, all its slices on the default path
+    northstar = run_northstar(backend)
+    chain_launches["sycamore53_m14_hyper"] = northstar["chain_launches"]
+    chain_forms["sycamore53_m14_hyper"] = northstar["record"]["chain_forms"]
+    dot_launches["sycamore53_m14_hyper fused rung"] = northstar["dot_launches"]
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -1621,16 +1868,20 @@ def main() -> int:
                         "sycamore53_m10_sliced": chain_record(sliced["chain_rows"]),
                         **{name: chain_record([r for r in small["chain_rows"]
                                                if r["label"].startswith(name)])
-                           for name in small["launches"]}},
+                           for name in small["launches"]},
+                        "sycamore53_m14_hyper": chain_record(northstar["chain_rows"])},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
                               "sycamore53_m10_chunked fused rung":
-                                  launch_weighted(chunked["dot_rows"])},
+                                  launch_weighted(chunked["dot_rows"]),
+                              "sycamore53_m14_hyper fused rung":
+                                  launch_weighted(northstar["dot_rows"])},
     }
-    chain_rows += sliced["chain_rows"] + small["chain_rows"]
+    chain_rows += sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
     chain_rec = {**chain_record(chain_rows), "launches": sum(chain_launches.values())}
-    dot_rows = dot_rec["shapes"] + sliced["dot_rows"] + chunked["dot_rows"]
+    dot_rows = (dot_rec["shapes"] + sliced["dot_rows"] + chunked["dot_rows"]
+                + northstar["dot_rows"])
     dot_rec = {**launch_weighted(dot_rows), "launches": sum(dot_launches.values()),
                "max_abs_err": max([r["err"] for r in dot_rows] + [dot_rec["ragged_err"]]),
                "float64_errors": dot_rec["float64_errors"]}
@@ -1657,6 +1908,7 @@ def main() -> int:
         "sycamore53_m10_sliced": sliced["record"],
         "sycamore53_m10_chunked": chunked["record"],
         "chunked_small": small["records"],
+        "sycamore53_m14_hyper": northstar["record"],
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
         "fused_chain_forms_by_path": chain_forms,

@@ -337,6 +337,33 @@ def test_chunked_sliced_amplitude_on_the_card():
     assert abs(got - want) <= 1e-5 * abs(want)
 
 
+@pytest.mark.cuda
+def test_northstar_small_on_the_card():
+    """The north-star slice at small size on the card: sycamore(20, 8, rng
+    7) planned by the port's ``Hyperoptimizer`` (small settings, budgets
+    off) and ``slice_and_reconfigure`` to 2^12 (16 slices), contracted on
+    the default ``TorchBackend()`` against the complex128 numpy oracle."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.benchmark.northstar import plan_northstar
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
+
+    plan = plan_northstar(
+        20, 8, 7, 4, 12.0,
+        hyper_options=dict(polish_rounds=1, polish_steps=400, reconfigure_budget=None,
+                           joint_sa_steps=300, joint_sa_rounds=1),
+        slice_options=dict(step_budget=None, final_budget=None))
+    assert plan.slicing.num_slices == 16
+    got = complex(contract_tensor_network_sliced(
+        plan.tn, plan.path, plan.slicing, TorchBackend()).data.into_data())
+    want = complex(contract_tensor_network_sliced(
+        plan.tn, plan.path, plan.slicing, NumpyBackend()).data.into_data())
+    assert np.isfinite(got.real) and np.isfinite(got.imag)
+    assert abs(got - want) <= 1e-5 * abs(want)
+
+
 def _chain_forms_case(stages, dtype, batch, grid):
     from _torch_chain_cases import make_chain
 

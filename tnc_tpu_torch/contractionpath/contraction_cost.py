@@ -1,7 +1,9 @@
 """Analytic cost models for contraction paths (the port's copy of
 ``tnc_tpu.contractionpath.contraction_cost``, trimmed to what the
-:class:`~tnc_tpu_torch.contractionpath.paths.greedy.Greedy` finder and
-the path result call).
+:class:`~tnc_tpu_torch.contractionpath.paths.greedy.Greedy` and
+:class:`~tnc_tpu_torch.contractionpath.paths.hyper.Hyperoptimizer`
+finders and the path result call; the calibrated objective waits for
+the port's calibrated cost model).
 
 Flops and peak memory are predicted *before* any kernel runs. All costs
 are floats — Sycamore-class networks overflow 64-bit integers.
@@ -12,6 +14,8 @@ are floats — Sycamore-class networks overflow 64-bit integers.
   dims
 - :func:`contract_size_tensors` — ``|out| + |a| + |b|`` elements
 - :func:`greedy_cost_fn` — the greedy finder's pair-scoring heuristics.
+- :class:`PathObjective` / :class:`FlopsObjective` — the path-level
+  ranking a trial-based finder minimizes.
 """
 
 from __future__ import annotations
@@ -157,3 +161,76 @@ def greedy_cost_fn(
         f"unknown greedy cost function {kind!r}; expected one of "
         f"{GREEDY_COST_KINDS}"
     )
+
+
+# ---------------------------------------------------------------------------
+# Pluggable path objectives
+
+
+class PathObjective:
+    """What a trial-based pathfinder minimizes, as a pluggable strategy.
+
+    Implementations supply :meth:`pair_cost` — the cost charged for one
+    pairwise contraction — and inherit path-level aggregation. The
+    *domain* of the returned numbers is the implementation's choice
+    (flop counts, predicted seconds); finders only compare candidates
+    under ONE objective, so any monotone scale works.
+    """
+
+    #: short name recorded in plan artifacts (plan cache, bench JSON)
+    name = "abstract"
+
+    def pair_cost(self, t1: LeafTensor, t2: LeafTensor) -> float:
+        raise NotImplementedError
+
+    def path_cost(
+        self, inputs: Sequence[Tensor], contract_path: ContractionPath
+    ) -> float:
+        """Total cost of a (possibly nested) replace path."""
+        cost, _ = _contract_path_custom_cost(
+            inputs, contract_path, self.pair_cost, contract_size_tensors
+        )
+        return cost
+
+    def ssa_path_cost(
+        self, inputs: Sequence[Tensor], ssa_pairs: Sequence[tuple[int, int]]
+    ) -> float:
+        """Total cost of a flat SSA pair path (the finders' native
+        candidate format)."""
+        from tnc_tpu_torch.contractionpath.contraction_path import (
+            ssa_replace_ordering,
+        )
+
+        return self.path_cost(
+            inputs,
+            ssa_replace_ordering(ContractionPath.simple(list(ssa_pairs))),
+        )
+
+    def sliced_path_cost(
+        self,
+        inputs: Sequence[LeafTensor],
+        replace_pairs: Sequence[tuple[int, int]],
+        slicing,
+    ) -> float:
+        """Cost of a flat path executed as a slice loop. The base
+        implementation charges the naive ``num_slices x per-slice`` flop
+        total (the historical slicing-aware score, valid for the flops
+        and size objectives alike since both rank by the same slicing
+        overhead)."""
+        from tnc_tpu_torch.contractionpath.slicing import sliced_flops
+
+        return sliced_flops(inputs, list(replace_pairs), slicing)
+
+
+class FlopsObjective(PathObjective):
+    """Minimize naive op counts — the historical default everywhere.
+
+    >>> a, b = LeafTensor([0, 1], [2, 3]), LeafTensor([1, 2], [3, 4])
+    >>> FlopsObjective().pair_cost(a, b)
+    24.0
+    """
+
+    name = "flops"
+
+    def pair_cost(self, t1: LeafTensor, t2: LeafTensor) -> float:
+        return contract_op_cost_tensors(t1, t2)

@@ -74,3 +74,23 @@ def ssa_replace_ordering(
         position[n + step] = new_t0
         toplevel.append((new_t0, new_t1))
     return ContractionPath(nested, toplevel)
+
+
+def replace_ssa_ordering(
+    replace: Sequence[tuple[int, int]], num_inputs: int
+) -> list[tuple[int, int]]:
+    """Replace-left → SSA pairs (inverse of :func:`ssa_replace_ordering`
+    for a flat path): slot ``a`` holds a fresh ssa id after each step
+    that writes it.
+
+    >>> replace_ssa_ordering([(0, 1), (3, 2), (0, 3)], 4)
+    [(0, 1), (3, 2), (4, 5)]
+    """
+    current = list(range(num_inputs))
+    out: list[tuple[int, int]] = []
+    nxt = num_inputs
+    for a, b in replace:
+        out.append((current[a], current[b]))
+        current[a] = nxt
+        nxt += 1
+    return out

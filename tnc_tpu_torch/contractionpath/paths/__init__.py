@@ -7,3 +7,9 @@ from tnc_tpu_torch.contractionpath.paths.base import (  # noqa: F401
     Pathfinder,
 )
 from tnc_tpu_torch.contractionpath.paths.greedy import Greedy, OptMethod  # noqa: F401
+from tnc_tpu_torch.contractionpath.paths.hyper import Hyperoptimizer  # noqa: F401
+from tnc_tpu_torch.contractionpath.paths.tree_refine import (  # noqa: F401
+    TreeAnnealing,
+    TreeReconfigure,
+    TreeTempering,
+)
