@@ -25,7 +25,9 @@ Phases, each of which raises on failure (nothing is caught):
    product beside cuBLAS's; one float64 case each; time kernel, plain
    version and library call (device and wall time per call, from CUDA
    events) beside the bound, ``fused_complex_dot``'s record weighted by
-   the rung's launches;
+   the rung's launches; every kernel row is also timed inside a CUDA
+   graph (its calls captured by the port's ``graphs.GraphSet`` and
+   replayed), whose output must have the eager launch's bits;
 3. the main path: ``contract_tensor_network(tn, path, TorchBackend())``
    once to warm up and three times timed, launch counts (and the chain's
    launches by form) reset just before each timed run and read just
@@ -50,7 +52,9 @@ Phases, each of which raises on failure (nothing is caught):
    and routed steps must equal the plan's gate), both against the norm in
    complex128 on the card; and ``peps(3, 3, 2, 16, 0)`` on the forced
    rung against the complex128 numpy oracle; the CUDA-event time of every
-   step of the PEPS norm (``run_steps_timed``);
+   step of the PEPS norm (``run_steps_timed``); the norm on the forced
+   rung through ``bind_resident``, three calls (eager; captured and
+   replayed; replayed), each the first's bits in a fresh tensor;
 8. the sliced cell on the per-slice loop, unhoisted
    (``TorchBackend(sliced_strategy="loop", hoist=False)``) — one amplitude
    of ``sycamore_circuit(53, 10, default_rng(42))`` on the all-zeros
@@ -59,7 +63,7 @@ Phases, each of which raises on failure (nothing is caught):
    plain version on the chain operands
    slice 0 builds; ``contract_tensor_network_sliced`` once to warm up and
    three times timed (``fused_chain`` launched once per chain and slice);
-   the device-resident part, a profile of four slices and the CUDA-event
+   the device-resident part, a profile of four eager slices and the CUDA-event
    time of every step of slice 0; slices 0-7 and the whole amplitude against
    complex128 on the card (the first 32 slices only if complex128 of all
    would take over 30 s); the forced ``fused`` rung on slices 0-7 (its
@@ -72,9 +76,11 @@ Phases, each of which raises on failure (nothing is caught):
    batched over 8 slices at a time. The plan (prelude and residual, chunks,
    modes, the batch requested and run, the modeled peak); the amplitude
    once to warm up and three times timed; the device-resident part, the
-   prelude timed apart and a profile of one batch; the amplitude against
+   prelude timed apart and a profile of one eager batch of the residual;
+   the amplitude against
    phase 8's complex128 partials and the loop's amplitude; the forced
-   ``fused`` rung on the first batch (each ``fused_complex_dot`` launch,
+   ``fused`` rung on the first two batches (each ``fused_complex_dot`` launch
+   of the first,
    batched over the slices, held against its plain version on the
    operands the executor builds; launches and routed steps against the
    plan's gate; the sum against the default rung's); then
@@ -97,7 +103,20 @@ Phases, each of which raises on failure (nothing is caught):
    three timed runs), the device-resident part, the prelude apart and a
    profile of one batch; slices 0-15 one by one and the sum of the
    slices run against complex128 on the card; the forced ``fused`` rung
-   on the first batch;
+   on the first two batches;
+   In phases 8-10 and the small amplitudes the timed runs are the
+   executors' default, which replays a CUDA graph of the loop's body for
+   every slice after the first, or one graph per chunk for every batch
+   after the first (the 4-slice amplitude is also run in batches of 2, so
+   that a batch replays); each cell also runs once eagerly
+   (``graphs=False``), and the two must agree bit for bit, in launch and
+   routing counts and within 1.05x in peak memory. Printed per cell
+   (``[graphs ...]``): ms per batch or slice of each from CUDA events
+   around every batch, the capture's host ms, graphs and replays; and
+   the busy share of one replayed batch (the second replay of a call of
+   three batches or slices, the first where a cell has two), run alone
+   under ``torch.profiler`` beside its ``fused_chain`` records and
+   launches, as one eager batch is profiled;
 11. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
@@ -229,6 +248,36 @@ def time_ms(fn, reps: int = 20, warmup: int = 2) -> tuple[float, float]:
     return start.elapsed_time(end) / reps, wall
 
 
+def graph_ms(fn, want, label: str, reps: int = 20) -> float:
+    """Device ms per call of ``fn()`` inside a CUDA graph: ``reps`` calls
+    captured as one graph by the port's ``graphs.GraphSet``, replayed once
+    to warm up and once between CUDA events. The replay's last output must
+    have the bits of ``want``, the same call run eagerly (``fn`` has run
+    eagerly before, as the executors run a unit before capturing it)."""
+    import torch
+
+    from tnc_tpu_torch.ops import graphs
+
+    def body():
+        out = None
+        for _ in range(reps):
+            out = fn()
+        return out
+
+    graph_set = graphs.GraphSet(graphs.graph_class("cuda"))
+    out = graph_set.capture(f"{label} x{reps}", body)
+    graph_set.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph_set.replay()
+    end.record()
+    end.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, want)),
+          f"{label}: the launch inside a CUDA graph differs from the eager launch")
+    return start.elapsed_time(end) / reps
+
+
 def kernel_instances(log: str) -> list[tuple[str, int, int]]:
     """``(label, registers, spill store bytes)`` of every kernel in a
     ``ptxas -v`` log, labelled by its template arguments: element type,
@@ -352,6 +401,8 @@ def hold_chain(first_ops, link_ops, links, label: str, launches: int) -> dict:
     check(err64 <= F32_REL_TOL * scale64,
           f"fused_chain {label}: max|err| against float64 {err64} > {F32_REL_TOL} * {scale64}")
     ms, wall = time_ms(lambda: cuda_complex.fused_chain(first_ops, link_ops, links, plan))
+    in_graph = graph_ms(lambda: cuda_complex.fused_chain(first_ops, link_ops, links, plan),
+                        got, f"fused_chain {label}")
     plain, plain_wall = time_ms(
         lambda: cuda_complex.fused_chain_reference(first_ops, link_ops, links))
     ops = list(first_ops) + [t for pair in link_ops for t in pair]
@@ -388,14 +439,16 @@ def hold_chain(first_ops, link_ops, links, label: str, launches: int) -> dict:
               for (k, m, n), sh in zip(stages, plan.stages)]
     print(f"  fused_chain {label}: {forms} form, stages {'; '.join(shapes)}; err "
           f"{err:.3e} (scale {scale:.3e}), against float64 {err64:.3e} (plain {plain64:.3e}); "
-          f"two launches bitwise equal; device: kernel {ms:.5f} ms plain {plain:.5f} ms; "
+          f"two launches bitwise equal, and a launch in a CUDA graph; device: kernel "
+          f"{ms:.5f} ms (in a graph {in_graph:.5f} ms) plain {plain:.5f} ms; "
           f"wall per call: kernel {wall:.5f} ms plain {plain_wall:.5f} ms; bound "
           f"{b_ms:.3e} ms ({b_by})" + (f"; batch {rows}, one slice's chain {row_ms:.5f} ms"
                                        if row_ms is not None else ""), flush=True)
     return {"label": label, "launches": launches, "batch": rows, "form": forms,
             "stages": stages, "err": err, "err_f64": err64, "plain_err_f64": plain64,
-            "ms": ms, "plain_ms": plain, "wall_ms": wall, "plain_wall_ms": plain_wall,
-            "bound_ms": b_ms, "bound_by": b_by, "one_slice_ms": row_ms}
+            "ms": ms, "graph_ms": in_graph, "plain_ms": plain, "wall_ms": wall,
+            "plain_wall_ms": plain_wall, "bound_ms": b_ms, "bound_by": b_by,
+            "one_slice_ms": row_ms}
 
 
 def hold_chain_run(label_of, launches: int, rows: list):
@@ -503,7 +556,8 @@ def chain_record(rows) -> dict:
     by_bytes = sum(r["launches"] for r in rows if r["bound_by"] == "bytes")
     return {
         "max_abs_err": max(r["err"] for r in rows),
-        "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+        "ms": mean("ms"), "graph_ms": mean("graph_ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
         "bound_by": "bytes" if 2 * by_bytes >= n else "operations",
         "library_ms": None,
     }
@@ -564,9 +618,12 @@ def hold_dot(ar, ai, br, bi, launches: int, label: str, f64: bool = False) -> di
         row["float64"] = against_float64(f"fused_complex_dot K={k} M={m} N={n}", got,
                                          want, exact, scale)
         del exact
-    del got, want
     macs = rows * k * m * n
     reps = 3 if 8.0 * macs > 1e13 else 10 if 8.0 * macs > 1e11 else 20
+    del want
+    in_graph = graph_ms(lambda: cuda_complex.fused_complex_dot(ar, ai, br, bi), got,
+                        f"fused_complex_dot {label}", reps)
+    del got
     ms, wall = time_ms(lambda: cuda_complex.fused_complex_dot(ar, ai, br, bi), reps, 1)
     plain, _ = time_ms(lambda: cuda_complex.fused_complex_dot_reference(ar, ai, br, bi),
                        reps, 1)
@@ -577,11 +634,13 @@ def hold_dot(ar, ai, br, bi, launches: int, label: str, f64: bool = False) -> di
     # outputs written once
     nbytes = 4.0 * 2 * (ar.numel() + br.numel() + rows * m * n)
     b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * macs, "float32")
-    row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    row.update(ms=ms, graph_ms=in_graph, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+               bound_by=b_by)
     batch = f" batch {rows} ({'both' if ar.dim() == br.dim() == 3 else 'one side'})" \
         if rows > 1 else ""
     print(f"  fused_complex_dot {label}{batch} K={k} M={m} N={n}: err {err:.3e} "
-          f"(scale {scale:.3e}) device: kernel {ms:.4f} ms plain {plain:.4f} ms "
+          f"(scale {scale:.3e}) device: kernel {ms:.4f} ms (in a CUDA graph {in_graph:.4f} "
+          f"ms, bitwise equal) plain {plain:.4f} ms "
           f"complex64 matmul {lib:.4f} ms; kernel wall per call {wall:.4f} ms; "
           f"bound {b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops per complex "
           f"multiply-add); kernel/plain {ms / plain:.3f}", flush=True)
@@ -641,7 +700,8 @@ def launch_weighted(rows) -> dict:
 
     by_bytes = sum(r["launches"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     return {
-        "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+        "ms": mean("ms"), "graph_ms": mean("graph_ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
         "bound_by": "bytes" if 2 * by_bytes > n * mean("bound_ms") else "operations",
         "library_ms": mean("library_ms"),
     }
@@ -657,6 +717,7 @@ def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
     one."""
     import torch
 
+    from tnc_tpu_torch.ops import graphs
     from tnc_tpu_torch.ops.cuda_complex import CHAIN_FORMS, LAUNCHES, reset_launches
     from tnc_tpu_torch.ops.split_complex import (
         FUSED_ROUTED,
@@ -665,7 +726,7 @@ def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
     )
 
     (warmup or fn)()
-    walls = []
+    walls, replay_ms = [], []
     run = {"out": None}
     for _ in range(reps):
         run["out"] = None
@@ -674,23 +735,104 @@ def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         reset_routed()
+        graphs.reset_stats()
+        graphs.BATCH_EVENTS = []
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        events, graphs.BATCH_EVENTS = graphs.BATCH_EVENTS, None
+        batch_ms: dict = {}
+        for kind, start, end in events:
+            batch_ms.setdefault(kind, []).append(start.elapsed_time(end))
+        if "replay" in batch_ms:
+            replay_ms.append(statistics.mean(batch_ms["replay"]))
         run = {
             "out": out, "walls": walls, "launches": dict(LAUNCHES),
             "chain_forms": dict(CHAIN_FORMS), "routed": dict(FUSED_ROUTED),
             "transpose_routed": dict(FUSED_TRANSPOSE_ROUTED),
             "peak_bytes": torch.cuda.max_memory_allocated(),
+            "graphs": dict(graphs.STATS), "batch_ms": batch_ms,
+            "replay_ms_runs": replay_ms,
         }
         del out
+        kinds = ", ".join(f"{kind} {len(ms)} x {statistics.mean(ms):.3f} ms"
+                          for kind, ms in batch_ms.items())
         print(f"[{label}] wall {walls[-1]:.4f} s, max_memory_allocated "
               f"{run['peak_bytes']} bytes, launches {run['launches']}, fused_chain by form "
               f"{run['chain_forms']}, "
               f"routed {run['routed']}, transpose routed "
-              f"{run['transpose_routed']}", flush=True)
+              f"{run['transpose_routed']}; CUDA graphs {run['graphs']['graphs']} captured in "
+              f"{run['graphs']['capture_ms']:.3f} ms, {run['graphs']['replays']} replays"
+              + (f"; batches (CUDA events): {kinds}" if kinds else ""), flush=True)
     return run
+
+
+def values(result) -> np.ndarray:
+    """A contraction's result as a complex128 numpy array (exact for a
+    complex64 result): a leaf tensor's data, an array, or a device (real,
+    imag) pair."""
+    import torch
+
+    if hasattr(result, "legs"):
+        result = result.data.into_data()
+    elif isinstance(result, tuple):
+        result = torch.complex(*result).cpu().numpy()
+    return np.asarray(result).astype(np.complex128)
+
+
+def compare_graphed(label: str, graphed: dict, eager: dict, units: int, batches: int,
+                    replay: dict | None = None) -> dict:
+    """A cell's graphed runs (:func:`run_counted`, the executors' default)
+    against its eager run (``graphs=False``) in this script: the same bits
+    and the same launch and routing counts; ``units`` graphs captured (one
+    per chunk, or the loop's body) and replayed for each of ``batches - 1``
+    batches (or slices); the graphed peak within 1.05x of the eager one.
+    Prints and returns ms per batch of each (CUDA events around each
+    batch), the capture, and ``replay``, the profile of one replayed batch
+    (:func:`profile_replay`)."""
+    same_bits = values(graphed["out"]).tobytes() == values(eager["out"]).tobytes()
+    keys = ("launches", "chain_forms", "routed", "transpose_routed")
+    check(same_bits, f"{label}: the graphed result differs from the eager run's bits")
+    for key in keys:
+        check(graphed[key] == eager[key],
+              f"{label}: graphed {key} {graphed[key]} differ from the eager run's {eager[key]}")
+    stats = graphed["graphs"]
+    want = (units, units * (batches - 1)) if batches > 1 else (0, 0)
+    check((stats["graphs"], stats["replays"]) == want,
+          f"{label}: {stats['graphs']} graphs, {stats['replays']} replays; expected {want}")
+    ratio = graphed["peak_bytes"] / eager["peak_bytes"]
+    check(ratio <= 1.05, f"{label}: graphed peak {graphed['peak_bytes']} over 1.05x the "
+                         f"eager peak {eager['peak_bytes']}")
+    eager_ms = statistics.mean(eager["batch_ms"]["eager"])
+    first_ms = graphed["batch_ms"]["eager"][0]
+    capture_batch_ms = graphed["batch_ms"].get("capture", [None])[0]
+    replay_ms = (statistics.median(graphed["replay_ms_runs"])
+                 if graphed["replay_ms_runs"] else None)
+    record = {
+        "units": units, "batches": batches, "graphs": stats["graphs"],
+        "replays": stats["replays"], "capture_ms": stats["capture_ms"],
+        "eager_wall_s": eager["walls"][0], "graphed_wall_s": statistics.median(graphed["walls"]),
+        "graphed_wall_runs_s": graphed["walls"], "eager_batch_ms": eager_ms,
+        "graphed_first_batch_ms": first_ms, "graphed_capture_batch_ms": capture_batch_ms,
+        "graphed_replay_batch_ms": replay_ms,
+        "graphed_replay_batch_ms_runs": graphed["replay_ms_runs"],
+        "replay_profile": replay,
+        "eager_peak_bytes": eager["peak_bytes"], "graphed_peak_bytes": graphed["peak_bytes"],
+        "peak_ratio": ratio, "bitwise_equal": same_bits, "counts_equal": True,
+    }
+    print(f"[graphs {label}] eager: wall {eager['walls'][0]:.4f} s, {eager_ms:.3f} ms a batch "
+          f"({len(eager['batch_ms']['eager'])} batches); graphed: wall "
+          f"{statistics.median(graphed['walls']):.4f} s (runs "
+          f"{[round(w, 4) for w in graphed['walls']]}), first batch (eager) {first_ms:.3f} ms"
+          + (f", capture batch {capture_batch_ms:.3f} ms" if capture_batch_ms else "")
+          + (f", {replay_ms:.3f} ms a replayed batch (runs "
+             f"{[round(r, 3) for r in graphed['replay_ms_runs']]})" if replay_ms else "")
+          + f"; {stats['graphs']} graphs captured in {stats['capture_ms']:.3f} ms, "
+          f"{stats['replays']} replays; max_memory_allocated eager "
+          f"{eager['peak_bytes']} graphed {graphed['peak_bytes']} ({ratio:.4f}x); bits equal, "
+          f"launch and routing counts equal", flush=True)
+    return record
 
 
 def run_main_path(tn, path, backend, label: str, reps: int = 3) -> dict:
@@ -749,6 +891,66 @@ def profile_device_path(run, label: str, reps: int = 3, profiled=None) -> dict:
         print(f"  {dev / 1e3:10.3f} ms  x{count:<5d} {key[:90]}", flush=True)
     return {"device_s": statistics.median(times), "device_runs_s": times,
             "profiled_s": prof_wall, "device_busy_s": busy_s}
+
+
+def profile_replay(fn, label: str, nth: int) -> dict:
+    """One call of ``fn()``, a graphed executor's run, in which the
+    ``nth`` replay of its graphs (1: the capture batch's) runs alone under
+    ``torch.profiler``, the card synchronized just before and just after
+    it: the replay's wall (host clock), the device time of the kernel
+    records the profiler took in it and their share of the wall (the
+    replayed batch's busy share, the profiler's own host cost included)
+    and of the trace's device span (first record's start to last record's
+    end: the idle time inside the replay), with the ``fused_chain`` kernel
+    records beside the launches the replay counts (the profiler is known
+    to drop records of the ctypes kernels: fewer records than launches
+    would make the shares read low)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tnc_tpu_torch.ops import graphs
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES
+
+    real = graphs.GraphSet.replay
+    seen, record = [], {}
+
+    def replay(self):
+        seen.append(1)
+        if len(seen) != nth:
+            return real(self)
+        chains = LAUNCHES["fused_chain"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            real(self)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+        busy_s = sum(ev.self_device_time_total for ev in kernels) / 1e6
+        ranges = [ev.time_range for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        span_s = (max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e6
+        record.update(
+            replay=nth, wall_ms=wall * 1e3, device_busy_ms=busy_s * 1e3,
+            busy=busy_s / wall, device_span_ms=span_s * 1e3, busy_in_span=busy_s / span_s,
+            kernel_records=sum(ev.count for ev in kernels),
+            chain_records=sum(ev.count for ev in kernels if "chain_" in ev.key),
+            chain_launches=LAUNCHES["fused_chain"] - chains)
+
+    graphs.GraphSet.replay = replay
+    try:
+        out = fn()
+    finally:
+        graphs.GraphSet.replay = real
+    del out
+    check(bool(record), f"{label}: the run made no replay {nth}")
+    print(f"[profile {label}, replay {nth}] wall {record['wall_ms']:.3f} ms, device busy "
+          f"{record['device_busy_ms']:.3f} ms ({record['busy']:.4f} of it; "
+          f"{record['busy_in_span']:.4f} of the trace's device span "
+          f"{record['device_span_ms']:.3f} ms), {record['kernel_records']} kernel records, fused_chain records "
+          f"{record['chain_records']} of {record['chain_launches']} launches", flush=True)
+    return record
 
 
 def build_peps(args):
@@ -846,6 +1048,9 @@ def check_transpose(program, gen) -> dict:
             f64 = against_float64(f"fused_transpose_dot K={k} M={m} N={n}", got, want,
                                   exact, scale)
             del exact
+        reps = 10 if 8.0 * k * m * n > 1e11 else 20
+        in_graph = graph_ms(lambda: fused_transpose_dot(*ops, first, second), got,
+                            f"fused_transpose_dot {first.key()} x {second.key()}", reps)
         del got
         a_c, b_c = torch.complex(ops[0], ops[1]), torch.complex(ops[2], ops[3])
         spec = einsum_spec(first, second)
@@ -854,7 +1059,6 @@ def check_transpose(program, gen) -> dict:
         check(lib_err <= F32_REL_TOL * 2 * scale,
               f"einsum {spec} disagrees with the plain version by {lib_err}")
         del want
-        reps = 10 if 8.0 * k * m * n > 1e11 else 20
         ms, wall = time_ms(lambda: fused_transpose_dot(*ops, first, second), reps, 1)
         plain, _ = time_ms(lambda: fused_transpose_reference(*ops, first, second), reps, 1)
         lib, _ = time_ms(lambda: torch.einsum(spec, a_c, b_c), reps, 1)
@@ -863,12 +1067,14 @@ def check_transpose(program, gen) -> dict:
         b_ms, b_by = bound_ms(nbytes, COMPLEX_MAC_FLOPS * k * m * n, "float32")
         modes = (gather_copy_mode(ops[0], ops[1], first), gather_copy_mode(ops[2], ops[3], second))
         rows.append({"k": k, "m": m, "n": n, "launches": len(steps), "steps": steps,
-                     "modes": modes, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "modes": modes, "ms": ms, "graph_ms": in_graph, "plain_ms": plain,
+                     "library_ms": lib,
                      "bound_ms": b_ms, "bound_by": b_by})
         print(f"  fused_transpose_dot steps {steps} {first.view} k{first.k_axes} x "
               f"{second.view} k{second.k_axes} (K={k} M={m} N={n}, copy modes "
               f"{modes}): err {err:.3e} (scale {scale:.3e}) device: kernel {ms:.4f} "
-              f"ms plain {plain:.4f} ms einsum {lib:.4f} ms; kernel wall per call "
+              f"ms (in a CUDA graph {in_graph:.4f} ms, bitwise equal) plain {plain:.4f} ms "
+              f"einsum {lib:.4f} ms; kernel wall per call "
               f"{wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {COMPLEX_MAC_FLOPS:g} flops "
               f"per complex multiply-add); kernel/plain {ms / plain:.3f}", flush=True)
         del ops
@@ -932,6 +1138,8 @@ def run_peps(backend) -> dict:
     check(ft["transpose_routed"] == routed,
           f"routed {ft['transpose_routed']}, the plan's gate says {routed}")
     torch.cuda.empty_cache()
+    bound = run_bound(backend, program, tn, admitted)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     z128 = scalar(contract_tensor_network(
         tn, path, TorchBackend(dtype="complex128", split_complex=False)))
@@ -965,7 +1173,69 @@ def run_peps(backend) -> dict:
         "fused_transpose_launches": ft["launches"]["fused_transpose_dot"],
         "norm": [z.real, z.imag], "norm_fused_transpose": [z_ft.real, z_ft.imag],
         "norm_complex128": [z128.real, z128.imag], "complex128_wall_s": t128,
+        "bind_resident": bound,
     }
+
+
+def run_bound(backend, program, tn, admitted: int) -> dict:
+    """The PEPS norm through ``TorchBackend.bind_resident`` under the forced
+    ``fused_transpose`` rung, three calls: eager, captured and replayed,
+    replayed. Each call timed (host wall, synchronised) and counted; every
+    call gives the first call's bits in a fresh tensor, launches
+    ``fused_transpose_dot`` at each of the ``admitted`` steps (inside the
+    graph from the second call on), and peaks within 1.05x of the first."""
+    import torch
+
+    from tnc_tpu_torch.ops import graphs
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    os.environ["TNC_TPU_COMPLEX_MULT"] = "fused_transpose"
+    try:
+        bound = backend.bind_resident(program, arrays)
+        calls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            graphs.reset_stats()
+            t0 = time.perf_counter()
+            out = bound()
+            torch.cuda.synchronize()
+            calls.append({"wall_s": time.perf_counter() - t0, "out": out,
+                          "launches": LAUNCHES["fused_transpose_dot"],
+                          "graphs": dict(graphs.STATS),
+                          "peak_bytes": torch.cuda.max_memory_allocated()})
+    finally:
+        del os.environ["TNC_TPU_COMPLEX_MULT"]
+    first = calls[0]["out"]
+    for i, call in enumerate(calls):
+        check(call["launches"] == admitted,
+              f"bind_resident call {i}: {call['launches']} fused_transpose_dot launches, "
+              f"not {admitted}")
+        check(call["peak_bytes"] <= 1.05 * calls[0]["peak_bytes"],
+              f"bind_resident call {i} peaked at {call['peak_bytes']} bytes, over 1.05x "
+              f"the eager call's {calls[0]['peak_bytes']}")
+        if i:
+            check(all(torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+                      for a, b in zip(call["out"], calls[i - 1]["out"])),
+                  f"bind_resident call {i}: not the previous call's bits in a fresh tensor")
+    check([(c["graphs"]["graphs"], c["graphs"]["replays"]) for c in calls]
+          == [(0, 0), (1, 1), (0, 1)],
+          f"bind_resident graphs and replays by call: {[c['graphs'] for c in calls]}")
+    del bound
+    z = complex(torch.complex(*first).cpu().numpy().reshape(()))
+    record = {"walls_s": [c["wall_s"] for c in calls],
+              "capture_ms": calls[1]["graphs"]["capture_ms"],
+              "peak_bytes": [c["peak_bytes"] for c in calls],
+              "launches": [c["launches"] for c in calls], "norm": [z.real, z.imag]}
+    print(f"[graphs peps{PEPS} bind_resident, forced fused_transpose rung] calls: eager "
+          f"{calls[0]['wall_s']:.4f} s, captured and replayed {calls[1]['wall_s']:.4f} s "
+          f"(capture {record['capture_ms']:.3f} ms), replayed {calls[2]['wall_s']:.4f} s; "
+          f"{admitted} fused_transpose_dot launches a call; max_memory_allocated "
+          f"{record['peak_bytes']}; every call the first's bits in a fresh tensor", flush=True)
+    return record
 
 
 def device_buffers(backend, tn):
@@ -1117,6 +1387,7 @@ def run_sliced(backend) -> dict:
     from tnc_tpu_torch.contractionpath.slicing import sliced_flops, sliced_peak
     from tnc_tpu_torch.ops import split_complex
     from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend, place_buffers
+    from tnc_tpu_torch.ops.chunked import slice_index_rows
     from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
     from tnc_tpu_torch.ops.program import flat_leaf_tensors, step_flops
     from tnc_tpu_torch.ops.sliced import build_sliced_program
@@ -1163,11 +1434,20 @@ def run_sliced(backend) -> dict:
     check(main["launches"]["fused_chain"] == len(policy.chains) * n,
           f"fused_chain launched {main['launches']['fused_chain']} times for "
           f"{len(policy.chains)} chains x {n} slices")
+    eager = run_counted(lambda: backend.execute_sliced(sp, arrays, graphs=False),
+                        "sliced main path, eager", reps=1, warmup=lambda: None)
     prof = profile_device_path(
         lambda: backend.execute_sliced(sp, arrays, host=False), "sliced", reps=2,
-        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, 4), host=False))
+        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, 4), host=False,
+                                                graphs=False))
+    replay = profile_replay(
+        lambda: backend.execute_sliced(sp, arrays, slice_range=(0, 3), host=False),
+        "sliced", 2)
+    graphed = compare_graphed("sycamore53_m10 loop", main, eager, 1, n, replay)
+    del eager
     full = place_buffers(arrays, backend.dtype, backend.split_complex, backend.device)
-    steps = timed_steps(backend, sp.program, lambda: backend.slice_buffers(sp, full, 0),
+    row = torch.from_numpy(slice_index_rows(sp.slicing, 0, 1)).to(backend.device)
+    steps = timed_steps(backend, sp.program, lambda: backend.slice_buffers(sp, full, row),
                         "sliced slice 0")
     del full
     torch.cuda.empty_cache()
@@ -1263,7 +1543,7 @@ def run_sliced(backend) -> dict:
         "wall_s": statistics.median(main["walls"]), "wall_runs_s": main["walls"],
         "peak_bytes": main["peak_bytes"], "launches": main["launches"],
         "chain_forms": main["chain_forms"], **prof,
-        "per_slice_ms": prof["device_s"] / n * 1e3, "step_times": steps,
+        "per_slice_ms": prof["device_s"] / n * 1e3, "graphs": graphed, "step_times": steps,
         "amplitude": [z.real, z.imag], "check_scope": scope,
         "complex128": [want_sum.real, want_sum.imag], "complex128_sum_abs": abs_sum,
         "complex128_s": t128, "slices_0_7_max_diff": worst8,
@@ -1322,23 +1602,27 @@ def print_chunked_plan(label: str, plan_rec: dict, backend) -> None:
 
 
 def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -> dict:
-    """The forced ``fused`` rung on the first ``batch`` slices of the default
-    sliced path: every ``fused_complex_dot`` launch held against its plain
-    version on the operands the executor builds (prelude launches once,
-    residual launches batched over the slices), launches and routed steps
-    held to the plan's gate, and the sum held to the default rung's within
-    1e-5 x sum|ref_s| over those slices (``refs``: complex128 per slice)."""
+    """The forced ``fused`` rung on the default sliced path: every
+    ``fused_complex_dot`` launch of the first ``batch`` slices held against
+    its plain version on the operands the executor builds (prelude launches
+    once, residual launches batched over the slices); then the first two
+    batches counted, graphed (the second batch replays the chunks' graphs,
+    so the kernel runs inside a CUDA graph) and eagerly: the same bits and
+    counts, launches and routed steps held to the plan's gate, and the sum
+    held to the default rung's within 1e-5 x sum|ref_s| over those slices
+    (``refs``: complex128 per slice)."""
     import torch
 
+    from tnc_tpu_torch.ops.chunked import chunk_plan
     from tnc_tpu_torch.ops.hoist import hoist_sliced_program
 
     hp = hoist_sliced_program(sp)
-    lo, hi = 0, batch
+    lo, hi = 0, 2 * batch
     admitted_pre, routed_pre = fused_gate_steps([ps.step for ps in hp.prelude_steps])
     admitted_res, routed_res = fused_gate_steps(hp.residual.program.steps)
     default_range = scalar(backend.execute_sliced(sp, arrays, slice_range=(lo, hi)))
     print(f"[kernels] fused_complex_dot against fused_complex_dot_reference on the operands "
-          f"the chunked executor builds for slices {lo}-{hi - 1} of {label} (forced fused "
+          f"the chunked executor builds for slices 0-{batch - 1} of {label} (forced fused "
           f"rung: {len(admitted_pre)} prelude launches, {len(admitted_res)} batched)",
           flush=True)
     dot_rows = []
@@ -1348,16 +1632,24 @@ def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -
     try:
         with holding("fused_complex_dot", lambda ar, ai, br, bi: dot_rows.append(
                 hold_dot(ar, ai, br, bi, 1, next(labels)))):
-            backend.execute_sliced(sp, arrays, slice_range=(lo, hi))
+            backend.execute_sliced(sp, arrays, slice_range=(0, batch))
         torch.cuda.empty_cache()
         fused = run_counted(lambda: backend.execute_sliced(sp, arrays, slice_range=(lo, hi)),
                             f"{label} fused rung", reps=1)
+        eager = run_counted(
+            lambda: backend.execute_sliced(sp, arrays, slice_range=(lo, hi), graphs=False),
+            f"{label} fused rung, eager", reps=1, warmup=lambda: None)
     finally:
         del os.environ["TNC_TPU_COMPLEX_MULT"]
+    chunks = chunk_plan(hp.residual, batch, backend.chunk_steps, backend.split_complex,
+                        backend.precision)
+    graphed = compare_graphed(f"{label} fused rung", fused, eager, len(chunks), 2)
+    del eager
     want_launches = len(admitted_pre) + len(admitted_res)
     check(len(dot_rows) == want_launches,
           f"{label} fused rung called fused_complex_dot {len(dot_rows)} times, the gate "
           f"admits {want_launches}")
+    want_launches = len(admitted_pre) + 2 * len(admitted_res)
     check(fused["launches"]["fused_complex_dot"] == want_launches,
           f"{label} fused rung launched fused_complex_dot "
           f"{fused['launches']['fused_complex_dot']} times; the gate admits "
@@ -1368,7 +1660,7 @@ def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -
     check(fused["routed"] == dict(want_routed),
           f"{label} fused rung routed {fused['routed']}, the plan's gate says "
           f"{dict(want_routed)}")
-    check(all(r["batch"] == hi - lo for r in dot_rows[len(admitted_pre):]),
+    check(all(r["batch"] == batch for r in dot_rows[len(admitted_pre):]),
           f"a residual launch of {label}'s forced rung was not batched")
     z_fused = scalar(fused["out"])
     gate = 1e-5 * sum(abs(r) for r in refs[lo:hi])
@@ -1380,7 +1672,7 @@ def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -
     return {"dot_rows": dot_rows, "record": {
         "fused_range": [lo, hi], "fused_wall_s": fused["walls"][0],
         "fused_launches": fused["launches"], "fused_routed": fused["routed"],
-        "fused_diff": abs(z_fused - default_range)}}
+        "fused_diff": abs(z_fused - default_range), "fused_graphs": graphed}}
 
 
 def time_prelude(backend, sp, arrays, reps: int = 3) -> list[float]:
@@ -1405,13 +1697,34 @@ def time_prelude(backend, sp, arrays, reps: int = 3) -> list[float]:
     return prelude_s
 
 
+def residual_batch(backend, sp, arrays, batch: int):
+    """A callable running the default path's residual on slices 0 to
+    ``batch - 1`` eagerly (one batch, ``graphs=False``), over resident
+    leaves and the prelude's cached values computed here once: one batch
+    of the slice loop and nothing else, for a profile."""
+    import torch
+
+    from tnc_tpu_torch.ops.backends import place_buffers
+    from tnc_tpu_torch.ops.chunked import run_sliced_chunked_placed
+    from tnc_tpu_torch.ops.hoist import hoisted
+
+    full = place_buffers(arrays, backend.dtype, backend.split_complex, backend.device)
+    with torch.inference_mode():
+        residual, cached = hoisted(sp, full, backend.split_complex, backend.precision)
+    del full
+    return lambda: run_sliced_chunked_placed(
+        residual, cached, batch=backend.slice_batch, chunk_steps=backend.chunk_steps,
+        split_complex=backend.split_complex, precision=backend.precision,
+        dtype=backend.dtype, device=backend.device, slice_range=(0, batch), graphs=False)
+
+
 def run_sliced_chunked(backend, cell) -> dict:
     """The sliced cell on the default ``TorchBackend()``: the stem hoisted,
     the residual chunked and batched over slices. Plan; the amplitude through
     ``contract_tensor_network_sliced`` (one warm-up, three timed runs), the
     device-resident part, the prelude timed apart and a profile of one
     batch; the amplitude against phase 8's complex128 partials and the
-    loop's amplitude; the forced ``fused`` rung on the first batch
+    loop's amplitude; the forced ``fused`` rung on the first two batches
     (``fused_complex_dot`` held against its plain version on the batched
     operands the executor builds, launches and routed steps held to the
     plan's gate, the sum against the default rung's)."""
@@ -1426,12 +1739,19 @@ def run_sliced_chunked(backend, cell) -> dict:
     main = run_counted(lambda: contract_tensor_network_sliced(tn, path, sl, backend),
                        "sliced chunked main path")
     z = scalar(main["out"])
+    eager = run_counted(lambda: backend.execute_sliced(sp, arrays, graphs=False),
+                        "sliced chunked main path, eager", reps=1, warmup=lambda: None)
     prof = profile_device_path(
         lambda: backend.execute_sliced(sp, arrays, host=False), "sliced chunked", reps=2,
-        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, plan_rec["batch"]),
-                                                host=False))
+        profiled=residual_batch(backend, sp, arrays, plan_rec["batch"]))
     prelude_s = time_prelude(backend, sp, arrays)
     batches = n // plan_rec["batch"]
+    replay = profile_replay(
+        lambda: backend.execute_sliced(sp, arrays, slice_range=(0, 3 * plan_rec["batch"]),
+                                       host=False), "sliced chunked", 2)
+    graphed = compare_graphed("sycamore53_m10 chunked", main, eager, plan_rec["chunks"],
+                              batches, replay)
+    del eager
     per_batch_ms = (prof["device_s"] - statistics.median(prelude_s)) / batches * 1e3
     print(f"[chunked] wall {statistics.median(main['walls']):.4f} s (runs "
           f"{[round(w, 4) for w in main['walls']]}), device-resident {prof['device_s']:.4f} s, "
@@ -1461,7 +1781,7 @@ def run_sliced_chunked(backend, cell) -> dict:
     check(abs(got - loop_z) <= 1e-5 * abs_sum,
           f"chunked amplitude over {scope} off the loop's by {abs(got - loop_z)}")
 
-    # the forced fused rung on the first batch
+    # the forced fused rung on the first two batches
     fused = check_fused_first_batch(backend, sp, arrays, plan_rec["batch"], refs,
                                     "sliced chunked")
     record = {
@@ -1469,7 +1789,8 @@ def run_sliced_chunked(backend, cell) -> dict:
         "wall_runs_s": main["walls"], "peak_bytes": main["peak_bytes"],
         "launches": main["launches"], **prof, "prelude_s": statistics.median(prelude_s),
         "prelude_runs_s": prelude_s, "per_batch_ms": per_batch_ms,
-        "per_slice_ms": per_batch_ms / plan_rec["batch"], "amplitude": [z.real, z.imag],
+        "per_slice_ms": per_batch_ms / plan_rec["batch"], "graphs": graphed,
+        "amplitude": [z.real, z.imag],
         "check_scope": scope, "complex128_diff": abs(got - want),
         "loop_diff": abs(got - loop_z), **fused["record"],
     }
@@ -1490,7 +1811,7 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
     runs, then the device-resident part once, the prelude apart and a
     profile of one batch; slices 0-15 one by one and the sum of those
     slices against complex128 on the card; the forced ``fused`` rung on the
-    first batch."""
+    first two batches."""
     import torch
 
     from tnc_tpu_torch.benchmark.northstar import plan_northstar
@@ -1569,12 +1890,35 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
     check(main["launches"]["fused_chain"] == len(chains) * (run_n // batch),
           f"fused_chain launched {main['launches']['fused_chain']} times for "
           f"{len(chains)} chains x {run_n // batch} batches")
+    # the same slices eagerly, once, beside the graphed runs (not over all
+    # 4096 slices: that would take another eleven minutes)
+    eager = None if run_n == n else run_counted(
+        lambda: backend.execute_sliced(sp, arrays, slice_range=(0, run_n), graphs=False),
+        f"{label}, eager", reps=1, warmup=lambda: None)
     prof = profile_device_path(
         lambda: backend.execute_sliced(sp, arrays, slice_range=(0, run_n), host=False),
-        "northstar", reps=1,
-        profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, batch), host=False))
+        "northstar", reps=1, profiled=residual_batch(backend, sp, arrays, batch))
     prelude_s = time_prelude(backend, sp, arrays)
     per_batch_ms = (prof["device_s"] - statistics.median(prelude_s)) / (run_n // batch) * 1e3
+    replay = profile_replay(
+        lambda: backend.execute_sliced(sp, arrays, slice_range=(0, 3 * batch), host=False),
+        "northstar", 2)
+    if eager is None:
+        stats = main["graphs"]
+        check((stats["graphs"], stats["replays"])
+              == (plan_rec["chunks"], plan_rec["chunks"] * (run_n // batch - 1)),
+              f"{label}: {stats['graphs']} graphs and {stats['replays']} replays")
+        graphed = {"graphs": stats["graphs"], "replays": stats["replays"],
+                   "capture_ms": stats["capture_ms"],
+                   "graphed_replay_batch_ms": statistics.mean(main["batch_ms"]["replay"]),
+                   "replay_profile": replay}
+        print(f"[graphs {label}] {stats['graphs']} graphs captured in "
+              f"{stats['capture_ms']:.3f} ms, {stats['replays']} replays, "
+              f"{graphed['graphed_replay_batch_ms']:.3f} ms a replayed batch", flush=True)
+    else:
+        graphed = compare_graphed(f"sycamore53_m14 {label}", main, eager, plan_rec["chunks"],
+                                  run_n // batch, replay)
+    del eager
     print(f"[northstar] {label}: wall {statistics.median(main['walls']):.4f} s (runs "
           f"{[round(w, 4) for w in main['walls']]}), device-resident {prof['device_s']:.4f} s, "
           f"prelude {statistics.median(prelude_s) * 1e3:.3f} ms (runs "
@@ -1619,7 +1963,7 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
           f"north-star amplitude over {scope} off complex128 by {abs(got_sum - want_sum)}")
     torch.cuda.empty_cache()
 
-    # the forced fused rung on the first batch
+    # the forced fused rung on the first two batches
     fused = check_fused_first_batch(backend, sp, arrays, batch, refs, "northstar")
     record = {
         "plan": rec, "chunked_plan": plan_rec, "transpose_gate": [t_admitted, t_routed],
@@ -1628,7 +1972,7 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
         "chain_forms": main["chain_forms"], **prof, "run_slices": run_n,
         "prelude_s": statistics.median(prelude_s), "prelude_runs_s": prelude_s,
         "per_batch_ms": per_batch_ms, "per_slice_ms": per_batch_ms / batch,
-        "residual_bytes_per_slice": res_bytes, "batch_bound_ms": batch_bound_ms,
+        "graphs": graphed, "residual_bytes_per_slice": res_bytes, "batch_bound_ms": batch_bound_ms,
         "amplitude": [z.real, z.imag], "check_scope": scope,
         "complex128": [want_sum.real, want_sum.imag], "complex128_sum_abs": abs_sum,
         "complex128_slices": len(refs), "complex128_s": t_ref,
@@ -1642,14 +1986,17 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
 def run_chunked_small(backend) -> dict:
     """The two small Sycamore amplitudes (``CHUNKED_SMALL``) on the default
     sliced path, against the complex128 numpy oracle. Each batched
-    ``fused_chain`` launch is held against its plain version on the batched
-    operands the executor builds; then a counted run, whose launches must
-    be one per residual chain and batch."""
+    ``fused_chain`` launch of an eager run is held against its plain
+    version on the batched operands the executor builds; then counted runs,
+    graphed (the default: every batch after the first replays the chunks'
+    graphs) against eager, whose launches must be one per residual chain
+    and batch. The 4-slice amplitude runs in one batch of 4, so it is also
+    run in batches of 2, where the second batch replays."""
     from tnc_tpu_torch.ops import split_complex
-    from tnc_tpu_torch.ops.backends import NumpyBackend
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
     from tnc_tpu_torch.ops.chunked import chunk_plan, resolve_batch
-    from tnc_tpu_torch.ops.cuda_complex import CHAIN_FORMS, LAUNCHES, reset_launches
     from tnc_tpu_torch.ops.hoist import hoist_sliced_program
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
     from tnc_tpu_torch.ops.sliced import build_sliced_program
     from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
 
@@ -1657,36 +2004,58 @@ def run_chunked_small(backend) -> dict:
     for cfg in CHUNKED_SMALL:
         name = f"sycamore{cfg[0]}_m{cfg[1]}_t{cfg[3]} chunked"
         tn, path, sl = build_sliced(cfg)
-        residual = hoist_sliced_program(build_sliced_program(tn, path, sl)).residual
-        batch = resolve_batch(residual, backend.slice_batch, device=backend.device)[0]
-        chains = sum(len(cp.policy.chains) for cp in chunk_plan(
-            residual, batch, backend.chunk_steps, True, backend.precision))
-        expect = chains * (sl.num_slices // batch)
-        print(f"[kernels] fused_chain against fused_chain_reference on the batched operands "
-              f"of sycamore{cfg[:3]} ({sl.num_slices} slices, batch {batch}, {chains} "
-              f"residual chain(s))", flush=True)
-        held = []
-        with holding("run_chain_split", hold_chain_run(
-                lambda i: f"{name} launch {i}", 1, held), split_complex):
-            contract_tensor_network_sliced(tn, path, sl, backend)
-        check(len(held) == expect, f"{name}: {len(held)} chain calls, expected {expect}")
-        check(all(r["batch"] == batch for r in held), f"{name}: a chain launch was not batched")
-        reset_launches()
-        got = scalar(contract_tensor_network_sliced(tn, path, sl, backend))
-        launches[name] = LAUNCHES["fused_chain"]
-        forms = dict(CHAIN_FORMS)
+        sp = build_sliced_program(tn, path, sl)
+        arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+        residual = hoist_sliced_program(sp).residual
         want = scalar(contract_tensor_network_sliced(tn, path, sl, NumpyBackend()))
-        rel = abs(got - want) / abs(want)
-        print(f"[check] {name} over {sl.num_slices} slices: {got!r} vs numpy complex128 "
-              f"{want!r}, relative {rel:.3e}; fused_chain launched {launches[name]} times, "
-              f"by form {forms}", flush=True)
-        check(rel <= 1e-5, f"{name} off the host oracle by {rel}")
-        check(launches[name] == expect,
-              f"{name}: fused_chain launched {launches[name]} times, expected {expect}")
-        rows += held
-        records[name] = {"config": list(cfg), "slices": sl.num_slices, "batch": batch,
-                         "chains": chains, "relative": rel, "fused_chain_launches": launches[name],
-                         "fused_chain_forms": forms}
+        cells = {}  # requested slice batch -> (batch run, chunks, residual chains)
+        for slice_batch in (backend.slice_batch, 2):
+            batch = resolve_batch(residual, slice_batch, device=backend.device)[0]
+            if any(batch == cell[0] for cell in cells.values()):
+                continue  # already run in batches of this size
+            plans = chunk_plan(residual, batch, backend.chunk_steps, True, backend.precision)
+            cells[slice_batch] = (batch, len(plans),
+                                  sum(len(cp.policy.chains) for cp in plans))
+        for slice_batch, (batch, chunks, chains) in cells.items():
+            run_backend = (backend if slice_batch == backend.slice_batch
+                           else TorchBackend(slice_batch=slice_batch))
+            label = name if slice_batch == backend.slice_batch else f"{name}, batch {batch}"
+            batches = sl.num_slices // batch
+            expect = chains * batches
+            if slice_batch == backend.slice_batch:
+                print(f"[kernels] fused_chain against fused_chain_reference on the batched "
+                      f"operands of sycamore{cfg[:3]} ({sl.num_slices} slices, batch {batch}, "
+                      f"{chains} residual chain(s))", flush=True)
+                held = []
+                with holding("run_chain_split", hold_chain_run(
+                        lambda i: f"{name} launch {i}", 1, held), split_complex):
+                    run_backend.execute_sliced(sp, arrays, graphs=False)
+                check(len(held) == expect, f"{name}: {len(held)} chain calls, expected {expect}")
+                check(all(r["batch"] == batch for r in held),
+                      f"{name}: a chain launch was not batched")
+                rows += held
+            graphed = run_counted(
+                lambda: contract_tensor_network_sliced(tn, path, sl, run_backend), label)
+            eager = run_counted(lambda: run_backend.execute_sliced(sp, arrays, graphs=False),
+                                f"{label}, eager", reps=1, warmup=lambda: None)
+            replay = None if batches == 1 else profile_replay(
+                lambda: run_backend.execute_sliced(sp, arrays, host=False), label,
+                min(2, batches - 1))
+            compared = compare_graphed(label, graphed, eager, chunks, batches, replay)
+            got = scalar(graphed["out"])
+            launches[label] = graphed["launches"]["fused_chain"]
+            forms = graphed["chain_forms"]
+            rel = abs(got - want) / abs(want)
+            print(f"[check] {label} over {sl.num_slices} slices: {got!r} vs numpy complex128 "
+                  f"{want!r}, relative {rel:.3e}; fused_chain launched {launches[label]} "
+                  f"times, by form {forms}", flush=True)
+            check(rel <= 1e-5, f"{label} off the host oracle by {rel}")
+            check(launches[label] == expect,
+                  f"{label}: fused_chain launched {launches[label]} times, expected {expect}")
+            records[label] = {"config": list(cfg), "slices": sl.num_slices, "batch": batch,
+                              "chains": chains, "relative": rel,
+                              "fused_chain_launches": launches[label],
+                              "fused_chain_forms": forms, "graphs": compared}
     return {"records": records, "chain_rows": rows, "launches": launches}
 
 
@@ -1867,8 +2236,8 @@ def main() -> int:
         "fused_chain": {"random28": chain_record(chain_rows),
                         "sycamore53_m10_sliced": chain_record(sliced["chain_rows"]),
                         **{name: chain_record([r for r in small["chain_rows"]
-                                               if r["label"].startswith(name)])
-                           for name in small["launches"]},
+                                               if r["label"].startswith(f"{name} launch")])
+                           for name in small["launches"] if "batch" not in name},
                         "sycamore53_m14_hyper": chain_record(northstar["chain_rows"])},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
@@ -1877,6 +2246,8 @@ def main() -> int:
                                   launch_weighted(chunked["dot_rows"]),
                               "sycamore53_m14_hyper fused rung":
                                   launch_weighted(northstar["dot_rows"])},
+        "fused_transpose_dot": {"peps44_b32 fused_transpose rung":
+                                launch_weighted(transpose_rec["shapes"])},
     }
     chain_rows += sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
     chain_rec = {**chain_record(chain_rows), "launches": sum(chain_launches.values())}

@@ -402,3 +402,248 @@ def test_chain_forms_on_the_card(dtype, form, batch):
         assert cc.LAUNCHES["fused_chain"] == 2 and cc.CHAIN_FORMS[form] == 2
         assert all(torch.equal(a, b) for a, b in zip(got, again)), stages
         assert _max_rel_err(got, cc.fused_chain_reference(first, link_ops, links)) <= tol, stages
+
+
+# -- CUDA graphs -------------------------------------------------------------------
+
+
+def _sliced_case(q, m, seed, target):
+    """``(sp, arrays)`` of a Sycamore amplitude: simplified, ``Greedy``
+    path, ``find_slicing`` to 2^target elements."""
+    import numpy as np
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.contractionpath.slicing import find_slicing
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+    from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+
+    tn, _ = sycamore_circuit(q, m, np.random.default_rng(seed)).into_amplitude_network("0" * q)
+    tn = simplify_network(tn)
+    path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+    sp = build_sliced_program(tn, path, find_slicing(tn.tensors, path.toplevel, 2.0 ** target))
+    return sp, [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+
+
+def _counted(fn):
+    """``fn()``'s result, synchronised, with the host counters it left."""
+    from tnc_tpu_torch.ops import split_complex
+
+    cc.reset_launches()
+    split_complex.reset_routed()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (dict(cc.LAUNCHES), dict(cc.CHAIN_FORMS), dict(split_complex.FUSED_ROUTED))
+
+
+# (configuration, strategy, slice batch, graphs captured, replays): the two
+# sycamore20 amplitudes whose residuals keep chains, chunked with at least
+# two batches, and the per-slice loop
+GRAPHED_CELLS = {
+    "m6-chunked-b2": ((20, 6, 7, 7), "chunked", 2, 1, 1),
+    "m8_t17-chunked-b8": ((20, 8, 7, 17), "chunked", 8, 1, 1),
+    "m8_t17-chunked-b2": ((20, 8, 7, 17), "chunked", 2, 1, 7),
+    "m6-loop": ((20, 6, 7, 7), "loop", 8, 1, 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(GRAPHED_CELLS))
+def test_graphed_sliced_equals_eager_on_the_card(cell):
+    """The sliced executors replaying one CUDA graph per chunk (or of the
+    loop's body) give the eager run's bits and counts, with the expected
+    graphs and replays, and agree with the complex128 numpy oracle."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.ops import graphs
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+
+    cfg, strategy, batch, captured, replays = GRAPHED_CELLS[cell]
+    sp, arrays = _sliced_case(*cfg)
+    backend = TorchBackend(sliced_strategy=strategy, slice_batch=batch,
+                           hoist=strategy == "chunked")
+    eager, eager_counts = _counted(
+        lambda: backend.execute_sliced(sp, arrays, host=False, graphs=False))
+    graphs.reset_stats()
+    got, counts = _counted(lambda: backend.execute_sliced(sp, arrays, host=False))
+    assert (graphs.STATS["graphs"], graphs.STATS["replays"]) == (captured, replays)
+    assert counts == eager_counts
+    assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    want = complex(np.asarray(NumpyBackend().execute_sliced(sp, arrays)).reshape(()))
+    z = complex(torch.complex(*got).cpu().numpy().reshape(()))
+    assert abs(z - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.cuda
+def test_graphed_bind_resident_peps_on_the_card(monkeypatch):
+    """``bind_resident`` on a PEPS norm under the forced ``fused_transpose``
+    rung: the first call eager, the second captured and replayed, the rest
+    replayed; every call the same bits, a fresh tensor, and the eager
+    call's launches (the transpose kernel inside the graph)."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.builders.peps import peps
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.ops import graphs
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.program import build_program, flat_leaf_tensors
+    from tnc_tpu_torch.tensornetwork.approximate import attach_random_data, unit_scale
+
+    monkeypatch.setenv("TNC_TPU_COMPLEX_MULT", "fused_transpose")
+    tn = peps(3, 3, 2, 16, 0)
+    attach_random_data(tn, np.random.default_rng(42), scale=unit_scale(tn))
+    program = build_program(tn, Greedy(OptMethod.GREEDY).find_path(tn).replace_path())
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    bound = TorchBackend().bind_resident(program, arrays)
+    graphs.reset_stats()
+    outs = [_counted(bound) for _ in range(4)]
+    assert outs[0][1][0]["fused_transpose_dot"] == 2
+    assert all(counts == outs[0][1] for _, counts in outs)
+    assert len(bound.graph_set.units) == 1 and graphs.STATS["replays"] == 3
+    for (a, _), (b, _) in zip(outs, outs[1:]):
+        assert all(torch.equal(x, y) and x.data_ptr() != y.data_ptr() for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["resident", "grid"])
+def test_chain_forms_in_a_graph_on_the_card(form):
+    """Every chain shape the paths launch (and the synthetic chain beyond
+    shared memory, in the grid form) captured in a CUDA graph and replayed
+    after its operands were refilled in place: the eager launch's bits on
+    the new operands."""
+    _card()
+    from _torch_chain_cases import GRID_CHAIN, PATH_CHAINS, make_chain
+
+    from tnc_tpu_torch.ops import graphs
+
+    cases = list(PATH_CHAINS.values()) + ([GRID_CHAIN] if form == "grid" else [])
+    for stages in cases:
+        first, link_ops, links, plan = _chain_forms_case(stages, torch.float32, 3,
+                                                         form == "grid")
+        flat = list(first) + [t for pair in link_ops for t in pair]
+        cc.fused_chain(first, link_ops, links, plan)  # eager first, as the executors do
+        graph_set = graphs.GraphSet(graphs.graph_class("cuda"))
+        out = graph_set.capture(f"chain {stages}",
+                                lambda: cc.fused_chain(first, link_ops, links, plan))
+        new_first, new_links, _ = make_chain(stages, torch.float32, 3, seed=9, device="cuda")
+        for t, v in zip(flat, list(new_first) + [x for pair in new_links for x in pair]):
+            t.copy_(v)
+        cc.reset_launches()
+        graph_set.replay()
+        want = cc.fused_chain(first, link_ops, links, plan)
+        torch.cuda.synchronize()
+        assert cc.LAUNCHES["fused_chain"] == 2 * len(plan.forms)
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), stages
+
+
+def _hbm_scale_program():
+    """The reference device tier's memory-scale network
+    (``tests/test_tpu_hardware.py``, ``_hbm_scale_program``) built with the
+    port's builders: a simplified 32-qubit depth-10 random circuit on the
+    Sycamore layout (p1 = p2 = 0.5, rng 4) closed on zeros, ``Greedy``;
+    its split-complex model peaks near 2^29 bytes."""
+    import numpy as np
+
+    from tnc_tpu_torch.builders.connectivity import ConnectivityLayout
+    from tnc_tpu_torch.builders.random_circuit import random_circuit
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.ops.program import build_program
+    from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+
+    tn = simplify_network(random_circuit(32, 10, 0.5, 0.5, np.random.default_rng(4),
+                                         ConnectivityLayout.SYCAMORE, bitstring="0" * 32))
+    return tn, build_program(tn, Greedy(OptMethod.GREEDY).find_path(tn).replace_path())
+
+
+@pytest.mark.cuda
+def test_measured_peak_within_the_budget_model():
+    """The whole program on the card peaks at most 1.5x the budget model's
+    prediction (``torch.cuda.max_memory_allocated`` against
+    ``program_peak_bytes``)."""
+    _card()
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.budget import program_peak_bytes
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+
+    tn, program = _hbm_scale_program()
+    est = program_peak_bytes(program, split_complex=True, batch=1)
+    assert est.peak_bytes > 1 << 28, "network too small to be meaningful"
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    backend = TorchBackend()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = backend.execute_on_device(program, arrays)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    print(f"max_memory_allocated {peak} bytes, modeled {est.peak_bytes} "
+          f"({peak / est.peak_bytes:.4f}x)")
+    assert peak <= 1.5 * est.peak_bytes, (peak, est.peak_bytes)
+
+
+@pytest.mark.cuda
+def test_budget_clamp_prevents_oom_scale_batches():
+    """An oversized slice batch is clamped to one that fits the card."""
+    _card()
+    from tnc_tpu_torch.ops.budget import clamp_slice_batch, fits_hbm
+
+    _, program = _hbm_scale_program()
+    clamped = clamp_slice_batch(program, 4096, device="cuda")
+    assert clamped < 4096
+    assert fits_hbm(program, batch=clamped, device="cuda")
+
+
+@pytest.mark.cuda
+def test_naive_rung_kahan_parity_on_the_card(monkeypatch):
+    """The naive 4-dot complex product and the Kahan-compensated slice sum
+    at FP32, chunked (batches of 4, chunks of 16) and graphed, against
+    complex128 on a ``slice_and_reconfigure`` plan of a 14-qubit circuit."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.builders.connectivity import ConnectivityLayout
+    from tnc_tpu_torch.builders.random_circuit import random_circuit
+    from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.contractionpath.slicing import slice_and_reconfigure
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+    from tnc_tpu_torch.ops.sliced import build_sliced_program, execute_sliced_numpy
+
+    tn = random_circuit(14, 8, 0.5, 0.4, np.random.default_rng(11), ConnectivityLayout.LINE,
+                        bitstring="0" * 14)
+    result = Greedy(OptMethod.GREEDY).find_path(tn)
+    for divisor in (16.0, 8.0, 4.0, 2.0):
+        try:
+            pairs, slicing = slice_and_reconfigure(
+                list(tn.tensors), result.ssa_path.toplevel, max(result.size / divisor, 2.0))
+            break
+        except ValueError:
+            continue
+    assert slicing.num_slices >= 4
+    sp = build_sliced_program(tn, ContractionPath.simple(pairs), slicing)
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    want = execute_sliced_numpy(sp, arrays)
+    monkeypatch.setenv("TNC_TPU_COMPLEX_MULT", "naive")
+    got = np.asarray(TorchBackend(precision="float32", slice_batch=4, chunk_steps=16)
+                     .execute_sliced(sp, arrays))
+    denom = max(float(np.max(np.abs(want))), 1e-30)
+    assert float(np.max(np.abs(got - want))) / denom <= 1e-5
+
+
+@pytest.mark.cuda
+def test_capture_with_a_host_sync_raises():
+    """A unit that waits on the card inside its capture raises and names
+    the unit; the card goes on working."""
+    _card()
+    from tnc_tpu_torch.ops import graphs
+
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(graphs.CaptureError, match="capture of the syncing unit failed"):
+        graphs.GraphSet(graphs.graph_class("cuda")).capture("the syncing unit",
+                                                            lambda: float(x.sum()))
+    assert float((x * 2).sum()) == 8.0

@@ -49,6 +49,7 @@ from tnc_tpu_torch.builders import connectivity
 from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
 from tnc_tpu_torch.contractionpath import slicing
 from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend, run_steps_timed
+from tnc_tpu_torch.ops.chunked import slice_index_rows
 from tnc_tpu_torch.ops.program import step_flops
 from tnc_tpu_torch.ops.sliced import build_sliced_program, execute_sliced_numpy, kahan_add
 from tnc_tpu_torch.tensornetwork.contraction import (
@@ -404,7 +405,8 @@ def test_run_steps_timed_records(monkeypatch):
     sp = port["sp"]
     backend = TorchBackend(device="cpu", split_complex=True)
     policy = backend.kernel_policy(sp.program)
-    buffers = backend.slice_buffers(sp, backend._device_buffers(port["arrays"]), 0)
+    row = torch.from_numpy(slice_index_rows(sp.slicing, 0, 1))
+    buffers = backend.slice_buffers(sp, backend._device_buffers(port["arrays"]), row)
     out, records = run_steps_timed(sp.program, list(buffers), policy)
     want = port_split.run_steps_split(sp.program, list(buffers), policy=policy)
     assert all(torch.equal(a, b) for a, b in zip(out, want))
@@ -428,7 +430,8 @@ def test_run_steps_timed_bytes_follow_the_buffers(monkeypatch):
     sp = port["sp"]
     backend = TorchBackend(device="cpu", split_complex=True)
     policy = backend.kernel_policy(sp.program)
-    buffers = backend.slice_buffers(sp, backend._device_buffers(port["arrays"]), 0)
+    row = torch.from_numpy(slice_index_rows(sp.slicing, 0, 1))
+    buffers = backend.slice_buffers(sp, backend._device_buffers(port["arrays"]), row)
     wide = [None if b is None else tuple(x.double() for x in b) for b in buffers]
     _, narrow_records = run_steps_timed(sp.program, list(buffers), policy)
     _, wide_records = run_steps_timed(sp.program, list(wide), policy)

@@ -380,6 +380,7 @@ class TorchBackend(Backend):
         host: bool = True,
         hoist: bool | None = None,
         slice_range: tuple[int, int] | None = None,
+        graphs: bool = True,
     ):
         """Sum a sliced program over its slices on the device.
 
@@ -401,6 +402,13 @@ class TorchBackend(Backend):
         (:meth:`execute_on_device` with ``host=False``). ``host=False``
         returns the stored-shape result on the device, a (real, imag)
         pair in split mode.
+
+        ``graphs`` (on the card): the unit each batch or slice runs is
+        captured once as a CUDA graph and replayed for every later one
+        (one graph per chunk, or one of the per-slice body;
+        :mod:`tnc_tpu_torch.ops.graphs`), the first batch or slice and the
+        prelude running eagerly; ``False`` runs everything eagerly, with
+        the same bits.
         """
         from tnc_tpu_torch.ops.sliced import slice_bounds
 
@@ -420,7 +428,7 @@ class TorchBackend(Backend):
                 sp, full, batch=self.slice_batch, chunk_steps=self.chunk_steps,
                 split_complex=self.split_complex, precision=self.precision,
                 dtype=self.dtype, device=self.device, max_slices=max_slices,
-                hoist=hoist, slice_range=slice_range,
+                hoist=hoist, slice_range=slice_range, graphs=graphs,
             )
         else:
             lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
@@ -431,7 +439,7 @@ class TorchBackend(Backend):
 
                 with torch.inference_mode():
                     sp, full = hoisted(sp, full, self.split_complex, self.precision)
-            result = self._run_sliced(sp, full, lo, hi)
+            result = self._run_sliced(sp, full, lo, hi, graphs)
         if not host:
             return result
         if self.split_complex:
@@ -440,59 +448,83 @@ class TorchBackend(Backend):
             return combine_array(*result).reshape(sp.program.result_shape)
         return result.cpu().numpy().reshape(sp.program.result_shape)
 
-    def slice_buffers(self, sp, full: list[Any], s: int) -> list[Any]:
-        """The buffer list of slice ``s`` over resident leaves ``full``
+    def slice_buffers(self, sp, full: list[Any], row) -> list[Any]:
+        """The buffer list of one slice over resident leaves ``full``
         (placed by :meth:`_device_buffers`): a leaf with sliced axes gives
-        a dense copy of its slice, any other leaf itself. The list is the
+        a dense copy of its slice, gathered at ``row`` (the slice's
+        ``(1, n_sliced_legs)`` index tensor on the device,
+        :func:`~tnc_tpu_torch.ops.chunked.slice_index_rows`), any other
+        leaf itself. The indices are read on the device, so a captured
+        run follows what ``row`` holds at each replay. The list is the
         slice's own, to be consumed by one run of the program."""
-        from tnc_tpu_torch.ops.sliced import _slice_indices, index_buffer
-
-        indices = _slice_indices(sp.slicing, s)
+        from tnc_tpu_torch.ops.chunked import gather_slices
 
         def pin(buf, info):
             if not info:
                 return buf
             if self.split_complex:
-                return tuple(index_buffer(p, info, indices).contiguous() for p in buf)
-            return index_buffer(buf, info, indices).contiguous()
+                return tuple(p[0] for p in gather_slices(buf, info, row))
+            return gather_slices(buf, info, row)[0]
 
         return [pin(buf, info) for buf, info in zip(full, sp.slot_slices)]
 
-    def _run_sliced(self, sp, full: list[Any], lo: int, hi: int):
+    def _run_sliced(self, sp, full: list[Any], lo: int, hi: int, graphs: bool = True):
         """Kahan sum of slices ``[lo, hi)`` over resident leaves ``full``
-        (never consumed); stored shape."""
+        (never consumed); stored shape. Each slice is one run of a body
+        that pins its slice (:meth:`slice_buffers` at a static one-row
+        index on the device), runs the program under the backend's policy
+        and takes the Kahan step into static accumulators; ``graphs`` (on the card): slice ``lo`` runs it
+        eagerly, slices ``lo + 1`` to ``hi - 1`` replay its CUDA graph."""
         import torch
 
-        from tnc_tpu_torch.ops.sliced import kahan_add
+        from tnc_tpu_torch.ops.chunked import slice_index_rows
+        from tnc_tpu_torch.ops.graphs import run_batches
+        from tnc_tpu_torch.ops.sliced import kahan_step
         from tnc_tpu_torch.ops.split_complex import run_steps_split
 
         policy = self.kernel_policy(sp.program)
         like = full[0][0] if self.split_complex else full[0]
         shape = sp.program.stored_result_shape
+        hi = max(lo, hi)
         with torch.inference_mode():
+            rows_all = torch.from_numpy(slice_index_rows(sp.slicing, lo, hi)).to(self.device)
+            row = torch.empty_like(rows_all[:1])
             # a (sum, compensation) pair per part: real and imaginary in split mode
             acc = [
                 (torch.zeros(shape, dtype=like.dtype, device=self.device),
                  torch.zeros(shape, dtype=like.dtype, device=self.device))
                 for _ in range(2 if self.split_complex else 1)
             ]
-            for s in range(lo, hi):
-                buffers = self.slice_buffers(sp, full, s)
+
+            def body() -> None:
+                buffers = self.slice_buffers(sp, full, row)
                 if self.split_complex:
-                    contrib = run_steps_split(sp.program, buffers, self.precision, policy=policy)
+                    contrib = run_steps_split(sp.program, buffers, self.precision,
+                                              policy=policy)
                 else:
                     contrib = (_run_steps(sp.program, buffers),)
-                acc = [kahan_add(sc[0], sc[1], x) for sc, x in zip(acc, contrib)]
+                for (s, c), x in zip(acc, contrib):
+                    kahan_step(s, c, x)
+
+            run_batches(self.device, [("the slice body", body)], hi - lo,
+                        lambda i: row.copy_(rows_all[i:i + 1]), graphs)
             total = tuple(s + c for s, c in acc)
         return total if self.split_complex else total[0]
 
-    def bind_resident(self, program: ContractionProgram, arrays: Sequence[Any]):
+    def bind_resident(self, program: ContractionProgram, arrays: Sequence[Any],
+                      graphs: bool = True):
         """Place ``arrays`` on the device once and return a callable that
         runs the program on those resident inputs and returns the
         device-resident result (stored shape). The inputs are never
-        consumed, so the callable can be called any number of times."""
+        consumed, so the callable can be called any number of times.
+        ``graphs`` (on the card): the first call runs eagerly, the second
+        captures the program as one CUDA graph and replays it, every later
+        call replays; each returns a fresh copy of the output
+        (:class:`~tnc_tpu_torch.ops.graphs.BoundProgram`)."""
+        from tnc_tpu_torch.ops.graphs import BoundProgram
+
         buffers = self._device_buffers(arrays)
-        return lambda: self._run(program, list(buffers))
+        return BoundProgram(lambda: self._run(program, list(buffers)), self.device, graphs)
 
 
 _BACKENDS: dict[str, Backend] = {}

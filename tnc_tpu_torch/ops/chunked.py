@@ -21,11 +21,15 @@ Memory: a batch keeps B copies of each live batched intermediate, so B is
 clamped to the device's memory (:mod:`tnc_tpu_torch.ops.budget`) and
 then to the largest divisor of the slice count at or under it.
 
-PyTorch runs eagerly, so nothing is compiled per chunk: a plan (the
-chunks, their policies, which slots carry the batch axis and which
-sliced leaves each chunk gathers) is built once per program and cached.
-Capturing each chunk as a CUDA graph, the counterpart of the reference's
-per-chunk ``jax.jit``, is later work.
+A plan (the chunks, their policies, which slots carry the batch axis and
+which sliced leaves each chunk gathers) is built once per program and
+cached. On the card each chunk is then captured as a CUDA graph for the
+call's batch shape, the counterpart of the reference's per-chunk
+``jax.jit`` (:mod:`tnc_tpu_torch.ops.graphs`): the first batch runs
+eagerly, every later batch replays the chunks' graphs. A batch's slice
+indices go into a static device buffer before it runs, and the last
+chunk folds in the batch sum and the Kahan step, written into static
+accumulators in place. The graphs live for the call.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import Any, Sequence
 import numpy as np
 
 from tnc_tpu_torch.ops.program import ContractionProgram, PairStep
-from tnc_tpu_torch.ops.sliced import SlicedProgram, kahan_add
+from tnc_tpu_torch.ops.sliced import SlicedProgram, kahan_step
 
 
 @dataclass(frozen=True)
@@ -253,18 +257,21 @@ def run_sliced_chunked_placed(
     max_slices: int | None = None,
     hoist: bool = False,
     slice_range: tuple[int, int] | None = None,
+    graphs: bool = True,
 ):
     """Chunked slice-batched execution over already-placed device buffers
     (:func:`~tnc_tpu_torch.ops.backends.place_buffers`, never consumed);
     returns the accumulated result in stored shape, on the device (a
     (real, imag) pair in split mode).
 
-    ``hoist=True`` computes the slice-invariant stem once and runs the
-    chunked slice loop over the residual program only. ``batch`` is
-    clamped to the device's memory and then to the largest divisor of the
-    summed slice count at or under it. ``max_slices`` keeps the first
+    ``hoist=True`` computes the slice-invariant stem once (eagerly) and
+    runs the chunked slice loop over the residual program only. ``batch``
+    is clamped to the device's memory and then to the largest divisor of
+    the summed slice count at or under it. ``max_slices`` keeps the first
     slices; ``slice_range=(lo, hi)`` sums the shard ``[lo, hi)``; the two
-    exclude each other."""
+    exclude each other. ``graphs`` (on the card): replay one CUDA graph
+    per chunk for every batch after the first; ``False`` runs every batch
+    eagerly, with the same bits."""
     import torch
 
     with torch.inference_mode():
@@ -273,7 +280,7 @@ def run_sliced_chunked_placed(
 
             sp, device_full = hoisted(sp, device_full, split_complex, precision)
         return _run_chunked(sp, list(device_full), batch, chunk_steps, split_complex,
-                            precision, dtype, device, max_slices, slice_range)
+                            precision, dtype, device, max_slices, slice_range, graphs)
 
 
 def resolve_batch(
@@ -316,10 +323,11 @@ def resolve_batch(
 
 
 def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
-                 dtype, device, max_slices, slice_range):
+                 dtype, device, max_slices, slice_range, graphs=True):
     import torch
 
     from tnc_tpu_torch.ops.backends import _run_steps
+    from tnc_tpu_torch.ops.graphs import run_batches
     from tnc_tpu_torch.ops.split_complex import run_split_units
 
     if sp.slicing.num_slices <= 1:
@@ -352,14 +360,18 @@ def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
 
     res_batched = result_slot in plans[-1].batched_out
     parts = [p.dtype for p in device_full[0]] if split_complex else [first.dtype]
-    # a (sum, compensation) pair per part: real and imaginary in split mode
+    # static state every batch reads or updates in place: the batch's slice
+    # indices, and a (sum, compensation) pair per part (real and imaginary
+    # in split mode)
+    rows = torch.empty_like(rows_all[:batch])
     acc = [(torch.zeros(stored_shape, dtype=dt, device=first.device),
             torch.zeros(stored_shape, dtype=dt, device=first.device)) for dt in parts]
-    for start in range(0, num - lo, batch):
-        rows = rows_all[start:start + batch]
-        b = int(rows.shape[0])
-        buffers = list(device_full)
-        for cp in plans:
+    buffers: list = []
+
+    def chunk(ci: int, cp: ChunkPlan):
+        def run() -> None:
+            if ci == 0:  # every batch starts from the resident leaves
+                buffers[:] = device_full
             for slot in cp.leaf_in:
                 buffers[slot] = gather_slices(device_full[slot], sp.slot_slices[slot], rows)
             batched = set(cp.batched_in)
@@ -370,14 +382,21 @@ def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
                                 batched=batched)
             else:
                 _run_chunk(cp.chunk, buffers, batched)
-        out = buffers[result_slot]
-        del buffers
-        out = out if split_complex else (out,)
-        # the batch sum in the working precision, then one Kahan step a
-        # batch: the batches' partial sums cancel far below each term
-        contrib = [(x.sum(0) if res_batched else x * b).reshape(stored_shape)
-                   for x in out]
-        acc = [kahan_add(s, c, x) for (s, c), x in zip(acc, contrib)]
+            if ci == len(plans) - 1:
+                out = buffers[result_slot]
+                buffers[result_slot] = None
+                # the batch sum in the working precision, then one Kahan
+                # step a batch: the batches' partial sums cancel far below
+                # each term
+                for (s, c), x in zip(acc, out if split_complex else (out,)):
+                    kahan_step(s, c, (x.sum(0) if res_batched else x * batch)
+                               .reshape(stored_shape))
+
+        return run
+
+    run_batches(first.device, [(f"chunk {ci}", chunk(ci, cp)) for ci, cp in enumerate(plans)],
+                (num - lo) // batch,
+                lambda i: rows.copy_(rows_all[i * batch:(i + 1) * batch]), graphs)
     total = tuple(s + c for s, c in acc)
     return total if split_complex else total[0]
 
@@ -395,6 +414,7 @@ def execute_sliced_batched(
     host: bool = True,
     hoist: bool = False,
     slice_range: tuple[int, int] | None = None,
+    graphs: bool = True,
 ):
     """Run a sliced program as chunked, slice-batched steps on ``device``.
 
@@ -415,6 +435,7 @@ def execute_sliced_batched(
         sp, device_full, batch=batch, chunk_steps=chunk_steps,
         split_complex=split_complex, precision=precision, dtype=dtype,
         device=device, max_slices=max_slices, hoist=hoist, slice_range=slice_range,
+        graphs=graphs,
     )
     if not host:
         return acc

@@ -97,6 +97,8 @@ _LIB_LOCK = threading.Lock()
 # the transpose kernel's offset tables, by (digit sizes, strides, device)
 _OFFSET_TABLES: dict[tuple, object] = {}
 _OFFSET_TABLES_MAX = 256
+# the keys of tables a CUDA graph capture has read: never evicted
+_CAPTURED_TABLES: set[tuple] = set()
 
 
 def reset_launches() -> None:
@@ -750,12 +752,23 @@ def _digit_offsets(sizes, strides, device, dtype: str = "int64"):
     given sizes (most significant first) and element strides: the table
     one side (contract or free) of an operand is read through, of
     ``dtype`` (``int32`` or ``int64``). Built once per (sizes, strides,
-    device, dtype) and kept in :data:`_OFFSET_TABLES`."""
+    device, dtype) and kept in :data:`_OFFSET_TABLES`; a table read under
+    a CUDA graph capture is never evicted, since the graph reads it by
+    address at every replay, and one first needed under a capture is
+    refused (it would hold its values only after a replay: an executor
+    runs each unit eagerly before capturing it)."""
     import torch
 
     key = (tuple(sizes), tuple(strides), device, dtype)
+    capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
     off = _OFFSET_TABLES.get(key)
-    if off is None:
+    if off is not None:
+        if capturing:
+            _CAPTURED_TABLES.add(key)
+    else:
+        if capturing:
+            raise RuntimeError("fused_transpose_dot: an offset table was first "
+                               "needed inside a CUDA graph capture")
         idx = torch.arange(math.prod(sizes), device=device, dtype=torch.int64)
         off = torch.zeros_like(idx)
         for size, stride in zip(reversed(sizes), reversed(strides)):
@@ -763,7 +776,8 @@ def _digit_offsets(sizes, strides, device, dtype: str = "int64"):
             idx = idx.div(size, rounding_mode="floor")
         off = off.to(getattr(torch, dtype))
         if len(_OFFSET_TABLES) >= _OFFSET_TABLES_MAX:
-            _OFFSET_TABLES.clear()
+            for stale in set(_OFFSET_TABLES) - _CAPTURED_TABLES:
+                del _OFFSET_TABLES[stale]
         _OFFSET_TABLES[key] = off
     return off
 

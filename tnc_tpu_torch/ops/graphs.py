@@ -1,0 +1,242 @@
+"""CUDA graphs of the port's executors: the counterpart of the reference's
+compile step (``jax.jit`` of each chunk in ``tnc_tpu.ops.chunked``, of the
+slice loop in ``tnc_tpu.ops.sliced`` and of a bound program in
+``JaxBackend.bind_resident``).
+
+A unit of work that an executor runs many times within one call (a chunk
+of the chunked executor, the per-slice body of the loop, a bound program)
+is captured once as a ``torch.cuda.CUDAGraph`` and replayed: the host
+issues one graph launch where it issued every step, copy and kernel.
+
+- :class:`GraphSet` holds the graphs of one call: one per unit, captured
+  in the order they run into one memory pool (the first graph's), and
+  replayed in that order, so an intermediate one unit hands the next
+  stays at the address both were captured with. It keeps each unit's
+  output alive as long as the graphs live.
+- :func:`run_batches` is the batch loop the sliced executors share: the
+  first batch eagerly (it builds the kernels, plans the chains' calls and
+  makes the kernels' one-time attribute calls, none of which a capture
+  may do), then every unit captured once and replayed for each later
+  batch. A batch's inputs go into static buffers before it runs
+  (``prepare``); a body reads nothing else that changes between batches.
+- :class:`BoundProgram` is ``TorchBackend.bind_resident``'s callable: the
+  first call eager, the second captures and replays, every later call
+  replays; each call returns a fresh copy of the output.
+
+Counters. The kernel wrappers and the step glue count on the host as a
+unit is issued (``cuda_complex.LAUNCHES``, ``CHAIN_FORMS``,
+``split_complex.FUSED_ROUTED``, ``FUSED_TRANSPOSE_ROUTED``): under a graph
+they would count at capture only. A capture records what it added and
+takes it back; each replay adds it again. :data:`STATS` counts the graphs
+captured, their capture time and their replays.
+
+Graphs exist only on the card (:func:`graph_class`); on the CPU the
+executors run every batch eagerly, which is the CPU implementation. A
+capture that fails raises :class:`CaptureError` naming the unit; nothing
+falls back to running it eagerly.
+"""
+
+from __future__ import annotations
+
+import time
+
+#: graphs captured, host milliseconds spent capturing them, and graph
+#: replays since :func:`reset_stats`
+STATS: dict = {"graphs": 0, "capture_ms": 0.0, "replays": 0}
+
+#: when a list, :func:`run_batches` appends ``(kind, start, end)`` for every
+#: batch it runs on the card: ``kind`` is ``"eager"``, ``"capture"`` (the
+#: batch whose units were captured, then replayed) or ``"replay"``, and
+#: ``start`` / ``end`` are CUDA events recorded on the current stream
+#: before the batch's inputs are filled and after its last unit. ``None``:
+#: nothing is recorded.
+BATCH_EVENTS: list | None = None
+
+
+class CaptureError(RuntimeError):
+    """A unit could not be captured as a CUDA graph."""
+
+
+def reset_stats() -> None:
+    """Set every count of :data:`STATS` to 0."""
+    STATS.update(graphs=0, capture_ms=0.0, replays=0)
+
+
+def _counters() -> tuple[dict, ...]:
+    from tnc_tpu_torch.ops import cuda_complex, split_complex
+
+    return (cuda_complex.LAUNCHES, cuda_complex.CHAIN_FORMS,
+            split_complex.FUSED_ROUTED, split_complex.FUSED_TRANSPOSE_ROUTED)
+
+
+def _snapshot() -> tuple[dict, ...]:
+    return tuple(dict(c) for c in _counters())
+
+
+def _set_counters(values: tuple[dict, ...]) -> None:
+    """Every counter set, in place, to ``values`` (a :func:`_snapshot`)."""
+    for counter, value in zip(_counters(), values):
+        counter.clear()
+        counter.update(value)
+
+
+def _added(before: tuple[dict, ...]) -> tuple[dict, ...]:
+    """What each counter gained since ``before``."""
+    out = []
+    for counter, old in zip(_counters(), before):
+        out.append({key: n - old.get(key, 0) for key, n in counter.items()
+                    if n != old.get(key, 0)})
+    return tuple(out)
+
+
+def _add(added: tuple[dict, ...]) -> None:
+    """Every counter gains ``added`` (an :func:`_added`)."""
+    for counter, gained in zip(_counters(), added):
+        for key, n in gained.items():
+            counter[key] = counter.get(key, 0) + n
+
+
+class _CudaGraph:
+    """One ``torch.cuda.CUDAGraph``, captured through ``torch.cuda.graph``
+    (on its side stream) into the pool it is given."""
+
+    def __init__(self):
+        import torch
+
+        self.graph = torch.cuda.CUDAGraph()
+
+    def capture(self, fn, pool):
+        import torch
+
+        with torch.cuda.graph(self.graph, pool=pool):
+            return fn()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def pool(self):
+        return self.graph.pool()
+
+
+def graph_class(device):
+    """The graph type of units whose tensors lie on ``device``: CUDA graphs
+    on the card, ``None`` elsewhere (the executors then run eagerly)."""
+    import torch
+
+    return _CudaGraph if torch.device(device).type == "cuda" else None
+
+
+class GraphSet:
+    """The graphs of one call, captured in the order they run into one
+    memory pool and replayed in that order. ``kind`` is the graph type
+    (:func:`graph_class`). The set keeps every unit's output alive until
+    it is dropped."""
+
+    def __init__(self, kind):
+        self.kind = kind
+        self.units: list = []  # (graph, the counts its capture added)
+        self.keep: list = []
+        self.pool = None
+
+    def capture(self, name: str, fn):
+        """Capture ``fn()`` as one graph and return its output (the static
+        tensors every replay writes). The capture runs the unit's Python,
+        which counts its launches on the host, but no kernel: the counts it
+        added are taken back and recorded for :meth:`replay`."""
+        before = _snapshot()
+        graph = self.kind()
+        t0 = time.perf_counter()
+        try:
+            out = graph.capture(fn, self.pool)
+        except Exception as e:
+            _set_counters(before)
+            raise CaptureError(f"CUDA graph capture of {name} failed: {e}") from e
+        STATS["capture_ms"] += (time.perf_counter() - t0) * 1e3
+        STATS["graphs"] += 1
+        added = _added(before)
+        _set_counters(before)
+        if self.pool is None:
+            self.pool = graph.pool()
+        self.units.append((graph, added))
+        self.keep.append(out)
+        return out
+
+    def replay(self) -> None:
+        """Replay every graph in capture order; the counters gain what each
+        capture recorded."""
+        for graph, added in self.units:
+            graph.replay()
+            _add(added)
+        STATS["replays"] += len(self.units)
+
+
+def _mark(device):
+    if BATCH_EVENTS is None or device.type != "cuda":
+        return None
+    import torch
+
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def run_batches(device, units, batches: int, prepare, graphs: bool = True) -> None:
+    """Run ``units`` (``(name, fn)`` pairs: one batch's work, in order) for
+    each of ``batches`` batches, ``prepare(i)`` first filling batch ``i``'s
+    static inputs (run eagerly, never captured).
+
+    With ``graphs`` on a device that has them (:func:`graph_class`), batch
+    0 runs eagerly; then each unit is captured once and the set is
+    replayed for batches 1 to ``batches - 1``. The graphs and
+    their pool are released on return. Otherwise every batch runs
+    eagerly."""
+    import torch
+
+    device = torch.device(device)
+    kind = graph_class(device) if graphs else None
+    graph_set = None
+    for i in range(batches):
+        start = _mark(device)
+        prepare(i)
+        if kind is None or i == 0:
+            tag = "eager"
+            for _, fn in units:
+                fn()
+        else:
+            tag = "replay"
+            if graph_set is None:
+                tag = "capture"
+                graph_set = GraphSet(kind)
+                for name, fn in units:
+                    graph_set.capture(name, fn)
+            graph_set.replay()
+        if start is not None:
+            BATCH_EVENTS.append((tag, start, _mark(device)))
+
+
+class BoundProgram:
+    """A program bound to resident inputs (``TorchBackend.bind_resident``):
+    ``run()`` runs it once and returns its output. With graphs on a device
+    that has them, the first call runs eagerly, the second captures one
+    graph and replays it, and every later call replays; each of those
+    calls returns a fresh copy of the output, which the next replay
+    overwrites. The graph lives as long as this callable."""
+
+    def __init__(self, run, device, graphs: bool = True):
+        self.run = run
+        self.kind = graph_class(device) if graphs else None
+        self.calls = 0
+        self.graph_set: GraphSet | None = None
+        self.out = None
+
+    def __call__(self):
+        self.calls += 1
+        if self.kind is None or self.calls == 1:
+            return self.run()
+        if self.graph_set is None:
+            self.graph_set = GraphSet(self.kind)
+            self.out = self.graph_set.capture("the bound program", self.run)
+        self.graph_set.replay()
+        if isinstance(self.out, tuple):
+            return tuple(t.clone() for t in self.out)
+        return self.out.clone()

@@ -111,6 +111,26 @@ def kahan_add(s, c, x):
     return t, y - (t - s)
 
 
+def kahan_step(s, c, x) -> None:
+    """:func:`kahan_add` written into the tensors ``s`` and ``c`` in place,
+    so the same bits: a captured executor accumulates into static tensors
+    this way.
+
+    >>> import torch
+    >>> s, c = torch.ones(()), torch.zeros(())
+    >>> for _ in range(100):
+    ...     kahan_step(s, c, torch.tensor(1e-8))
+    >>> want = (torch.ones(()), torch.zeros(()))
+    >>> for _ in range(100):
+    ...     want = kahan_add(*want, torch.tensor(1e-8))
+    >>> bool(s == want[0]) and bool(c == want[1])
+    True
+    """
+    t, comp = kahan_add(s, c, x)
+    c.copy_(comp)
+    s.copy_(t)
+
+
 def index_buffer(arr, info, indices):
     """Pin ``arr``'s sliced axes to the given slice ``indices`` — a numpy
     array or a torch tensor, by basic indexing (a view of ``arr``).

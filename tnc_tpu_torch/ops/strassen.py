@@ -124,20 +124,35 @@ def strassen_dot_kl(a, b):
     x12, x22 = a[..., k2:, :m2], a[..., k2:, m2:]
     b11, b12 = b[..., :k2, :n2], b[..., :k2, n2:]
     b21, b22 = b[..., k2:, :n2], b[..., k2:, n2:]
-    p1 = dot(x11 + x22, b11 + b22)  # (X11+X22)(Y11+Y22)
-    p2 = dot(x21 + x22, b11)        # (X21+X22)Y11
-    p3 = dot(x11, b12 - b22)        # X11(Y12-Y22)
-    p4 = dot(x22, b21 - b11)        # X22(Y21-Y11)
-    p5 = dot(x11 + x12, b22)        # (X11+X12)Y22
-    p6 = dot(x21 - x11, b11 + b12)  # (X21-X11)(Y11+Y12)
-    p7 = dot(x12 - x22, b21 + b22)  # (X12-X22)(Y21+Y22)
-    c11 = p1 + p4 - p5 + p7
-    c12 = p3 + p5
-    c21 = p2 + p4
-    c22 = p1 - p2 + p3 + p6
-    top = torch.cat([c11, c12], dim=-1)
-    bot = torch.cat([c21, c22], dim=-1)
-    return torch.cat([top, bot], dim=-2)
+    out = torch.empty(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (m, n),
+                      dtype=a.dtype, device=a.device)
+    c11, c12 = out[..., :m2, :n2], out[..., :m2, n2:]
+    c21, c22 = out[..., m2:, :n2], out[..., m2:, n2:]
+    # each product is added into the quadrants it feeds as soon as it is
+    # made and then freed, so one quadrant-sized product is alive at a time
+    # beside the output; every quadrant still sums its products left to
+    # right: c11 = p1 + p4 - p5 + p7, c12 = p3 + p5, c21 = p2 + p4,
+    # c22 = p1 - p2 + p3 + p6
+    p = dot(x11 + x22, b11 + b22)  # p1 = (X11+X22)(Y11+Y22)
+    c11.copy_(p)
+    c22.copy_(p)
+    p = dot(x21 + x22, b11)  # p2 = (X21+X22)Y11
+    c21.copy_(p)
+    c22 -= p
+    p = dot(x11, b12 - b22)  # p3 = X11(Y12-Y22)
+    c12.copy_(p)
+    c22 += p
+    p = dot(x22, b21 - b11)  # p4 = X22(Y21-Y11)
+    c11 += p
+    c21 += p
+    p = dot(x11 + x12, b22)  # p5 = (X11+X12)Y22
+    c11 -= p
+    c12 += p
+    p = dot(x21 - x11, b11 + b12)  # p6 = (X21-X11)(Y11+Y12)
+    c22 += p
+    p = dot(x12 - x22, b21 + b22)  # p7 = (X12-X22)(Y21+Y22)
+    c11 += p
+    return out
 
 
 def gauss_strassen_dot_kl(ar, ai, br, bi):
@@ -156,6 +171,8 @@ def gauss_strassen_dot_kl(ar, ai, br, bi):
     True
     """
     k1 = strassen_dot_kl(ar + ai, br)
-    k2 = strassen_dot_kl(ar, bi - br)
+    im = strassen_dot_kl(ar, bi - br)
+    im += k1  # k1 + k2: the sum commutes, so the bits are the same
     k3 = strassen_dot_kl(ai, br + bi)
-    return k1 - k3, k1 + k2
+    k1 -= k3  # k1 - k3, in k1's buffer
+    return k1, im
