@@ -117,7 +117,29 @@ Phases, each of which raises on failure (nothing is caught):
    three batches or slices, the first where a cell has two), run alone
    under ``torch.profiler`` beside its ``fused_chain`` records and
    launches, as one eager batch is profiled;
-11. one JSON line of path numbers (with each kernel's per-shape rows,
+11. the calibrated kernel ladder: with ``obs.configure(enabled=True,
+   step_time=True)`` and a fresh registry, random28 and peps44_b32 run once
+   each through ``contract_tensor_network(..., TorchBackend())`` on the
+   default policy (planned before any sample exists; one untraced warm-up
+   first), every launch unit synchronised inside its step span; the
+   device model fitted to the card's ``torch`` samples
+   (``fit_device_model``: flops/s, bytes/s, launch seconds, terms) and the
+   worst-predicted steps; step timing and tracing off, the registry kept,
+   a fresh ``TorchBackend()`` plans both cells through ``kernel_policy``,
+   whose rungs (chains and chained steps, strassen, fused_transpose, gauss,
+   ``high``) and chain ceiling are printed beside the no-model policy's;
+   every chain the calibrated policy forms held against its plain version;
+   each cell under it, one warm-up and three timed runs, ``fused_chain``
+   launches held to the policy's chains and ``fused_transpose_dot``
+   launches plus routed steps to its ``fused_transpose`` steps, results
+   held to phase 3's statevector (the forced rung's tolerance), the four
+   complex128 amplitudes of phase 4 and phase 7's norms, wall and
+   device-resident times beside phases 3 and 7; then ``gauss`` against one
+   Strassen level on square FP32 split products at n = 1024 to 8192 and at
+   the PEPS cell's Strassen stems, each measured saving beside
+   ``_strassen_saving_s`` under the fitted model, and the smallest n at
+   which Strassen wins (no constant changes); the registry is then reset;
+12. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -129,7 +151,10 @@ It exits non-zero without a result when CUDA is unavailable or the
 phase 10 alone over all the north star's slices through
 ``contract_tensor_network_sliced``, once timed, complex128 on the first
 256 slices (about a quarter of an hour on one H100), and ends with its
-JSON record and the card line.
+JSON record and the card line. ``python3 chip_smoke.py --calibrated`` builds
+the kernels and runs phase 11 alone (its references made first: the default
+policy's statevector and PEPS norm, the amplitudes and the norm in
+complex128), and ends with its JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -181,6 +206,8 @@ NORTHSTAR_CHECK_FEW = 256  # else of this many
 # more than this script's time allows; `python3 chip_smoke.py --northstar-full`
 # contracts them all
 NORTHSTAR_RUN = 64
+# the square FP32 split products the Strassen crossover is timed at (phase 11)
+STRASSEN_SIZES = (1024, 2048, 4096, 8192)
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -893,7 +920,7 @@ def profile_device_path(run, label: str, reps: int = 3, profiled=None) -> dict:
             "profiled_s": prof_wall, "device_busy_s": busy_s}
 
 
-def profile_replay(fn, label: str, nth: int) -> dict:
+def profile_replay(fn, label: str, nth: int, attempts: int = 3) -> dict:
     """One call of ``fn()``, a graphed executor's run, in which the
     ``nth`` replay of its graphs (1: the capture batch's) runs alone under
     ``torch.profiler``, the card synchronized just before and just after
@@ -904,7 +931,13 @@ def profile_replay(fn, label: str, nth: int) -> dict:
     end: the idle time inside the replay), with the ``fused_chain`` kernel
     records beside the launches the replay counts (the profiler is known
     to drop records of the ctypes kernels: fewer records than launches
-    would make the shares read low)."""
+    would make the shares read low).
+
+    The profiler can hand back no device record at all for a short replay
+    (seen once on the H100 for a replay of a few ms). ``fn()`` is then
+    called again, up to ``attempts`` calls; if none of them gives a device
+    record, the shares are ``None`` (not measured) and the record says so.
+    The measurement is only reported: no check reads it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -928,23 +961,41 @@ def profile_replay(fn, label: str, nth: int) -> dict:
             wall = time.perf_counter() - t0
         kernels = [ev for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-        busy_s = sum(ev.self_device_time_total for ev in kernels) / 1e6
         ranges = [ev.time_range for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        record.update(replay=nth, wall_ms=wall * 1e3, device_records=len(ranges),
+                      chain_launches=LAUNCHES["fused_chain"] - chains)
+        if not ranges:
+            return
+        busy_s = sum(ev.self_device_time_total for ev in kernels) / 1e6
         span_s = (max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e6
         record.update(
-            replay=nth, wall_ms=wall * 1e3, device_busy_ms=busy_s * 1e3,
-            busy=busy_s / wall, device_span_ms=span_s * 1e3, busy_in_span=busy_s / span_s,
+            device_busy_ms=busy_s * 1e3, busy=busy_s / wall, device_span_ms=span_s * 1e3,
+            busy_in_span=busy_s / span_s,
             kernel_records=sum(ev.count for ev in kernels),
-            chain_records=sum(ev.count for ev in kernels if "chain_" in ev.key),
-            chain_launches=LAUNCHES["fused_chain"] - chains)
+            chain_records=sum(ev.count for ev in kernels if "chain_" in ev.key))
 
     graphs.GraphSet.replay = replay
     try:
-        out = fn()
+        for attempt in range(1, attempts + 1):
+            seen.clear()
+            record.clear()
+            out = fn()
+            del out
+            if record.get("device_records", 1):
+                break
+            print(f"[profile {label}, replay {nth}] call {attempt}: the profiler took no "
+                  f"device record", flush=True)
     finally:
         graphs.GraphSet.replay = real
-    del out
     check(bool(record), f"{label}: the run made no replay {nth}")
+    record["calls"] = attempt
+    if not record["device_records"]:
+        record.update(device_busy_ms=None, busy=None, device_span_ms=None,
+                      busy_in_span=None, kernel_records=0, chain_records=0)
+        print(f"[profile {label}, replay {nth}] wall {record['wall_ms']:.3f} ms; busy share "
+              f"not measured: the profiler took no device record in {attempt} calls",
+              flush=True)
+        return record
     print(f"[profile {label}, replay {nth}] wall {record['wall_ms']:.3f} ms, device busy "
           f"{record['device_busy_ms']:.3f} ms ({record['busy']:.4f} of it; "
           f"{record['busy_in_span']:.4f} of the trace's device span "
@@ -2059,6 +2110,335 @@ def run_chunked_small(backend) -> dict:
     return {"records": records, "chain_rows": rows, "launches": launches}
 
 
+def event_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Device ms per call of ``fn()``: CUDA events around ``reps`` calls
+    after ``warmup`` calls (products large enough that the host stays ahead
+    of the card)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rung_counts(policy, forms: dict | None = None) -> dict:
+    """A policy's rungs: chains and chained steps (and, from a run, its
+    chain launches by form), then steps by mode and ``high`` rungs."""
+    modes = collections.Counter(
+        m for i, m in enumerate(policy.modes) if i not in policy.chained_steps())
+    out = {"chains": len(policy.chains), "chained_steps": len(policy.chained_steps()),
+           **{mode: modes.get(mode, 0) for mode in ("strassen", "fused_transpose", "gauss")},
+           "high": list(policy.precision_modes).count("high")}
+    if forms is not None:
+        out["chain_launches_by_form"] = forms
+    return out
+
+
+def calibrated_refs(backend) -> dict:
+    """What the calibrated phase holds its results to when it runs alone
+    (``--calibrated``): the default policy's statevector and PEPS norm,
+    four amplitudes and the norm in complex128 on the card, as phases 3, 4
+    and 7 make them."""
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    tn, permutor = build_config(QUBITS)
+    leaf = contract_tensor_network(tn, plan(tn), backend)
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    amps = []
+    for bits in np.random.default_rng(7).integers(0, 2, size=(4, QUBITS)):
+        bitstring = "".join(str(int(b)) for b in bits)
+        amp_tn, _ = build_config(QUBITS, bitstring)
+        amps.append((bits, complex(contract_tensor_network(amp_tn, plan(amp_tn), oracle)
+                                   .data.into_data())))
+    peps_tn = build_peps(PEPS)
+    peps_path = plan(peps_tn)
+    z = scalar(contract_tensor_network(peps_tn, peps_path, backend))
+    z128 = scalar(contract_tensor_network(peps_tn, peps_path, oracle))
+    return {"sv": np.asarray(leaf.data.into_data()),
+            "qubit_of": {leg: q for q, leg in enumerate(permutor.target_leg_order)},
+            "amplitudes": amps, "peps_norm": z, "peps_norm_complex128": z128,
+            "main_walls": [], "main_device_s": None, "peps_wall_s": None,
+            "peps_device_s": None}
+
+
+def device_times(run, reps: int = 3) -> list[float]:
+    """Wall seconds of ``reps`` synchronised calls of ``run()`` (a
+    contraction's device-resident part)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    return times
+
+
+def strassen_crossover(model, peps_program, gen) -> dict:
+    """The H100's Strassen crossover: ``gauss`` (``apply_step_split``)
+    against one Strassen level (its ``strassen`` branch, run whatever the
+    step's eligibility) on square FP32 split products at
+    :data:`STRASSEN_SIZES` and at the PEPS cell's Strassen stems, device ms
+    from CUDA events; each measured saving printed beside
+    ``_strassen_saving_s`` under the fitted model. Every constant stays as
+    it is."""
+    import torch
+
+    from tnc_tpu_torch.ops.program import build_program, step_dims
+    from tnc_tpu_torch.ops.split_complex import (
+        _step_operands,
+        _strassen_saving_s,
+        _strassen_step_eligible,
+        apply_step_split,
+    )
+    from tnc_tpu_torch.ops.strassen import gauss_strassen_dot_kl
+
+    def strassen(apair, bpair, st):
+        # apply_step_split's strassen branch without its eligibility gate
+        ar, ai, br, bi = _step_operands(apair, bpair, st)
+        re, im = (gauss_strassen_dot_kl(br, bi, ar, ai) if st.swap
+                  else gauss_strassen_dot_kl(ar, ai, br, bi))
+        return re.reshape(st.out_store), im.reshape(st.out_store)
+    from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
+    from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+
+    cases = []
+    for n in STRASSEN_SIZES:
+        tn = CompositeTensor([LeafTensor([0, 1], [n, n]), LeafTensor([1, 2], [n, n])])
+        cases.append((f"square n={n}", n, build_program(tn, ContractionPath.simple([(0, 1)]))
+                      .steps[0]))
+    for i, st in enumerate(peps_program.steps):
+        if _strassen_step_eligible(st):
+            cases.append((f"peps step {i}", None, st))
+    rows = []
+    for label, n, st in cases:
+        m, k, nn = step_dims(st)
+
+        def pair(view):
+            return tuple(torch.randn(math.prod(view), generator=gen, device="cuda")
+                         for _ in range(2))
+
+        a, b = pair(st.a_view), pair(st.b_view)
+        reps = 5 if m * k * nn <= 2 ** 39 else 2
+        ms = {"gauss": event_ms(lambda: apply_step_split(a, b, st, mode="gauss"), reps),
+              "strassen": event_ms(lambda: strassen(a, b, st), reps)}
+        got = strassen(a, b, st)
+        want = apply_step_split(a, b, st, mode="gauss")
+        err, scale = max_err(got, want)
+        del got, want, a, b
+        torch.cuda.empty_cache()
+        check(err <= 1e-3 * scale, f"strassen {label}: max|err| {err} > 1e-3 * {scale}")
+        predicted = _strassen_saving_s(model, m, k, nn) * 1e3
+        eligible = _strassen_step_eligible(st)
+        row = {"label": label, "n": n, "m": m, "k": k, "n_out": nn, "eligible": eligible,
+               "gauss_ms": ms["gauss"], "strassen_ms": ms["strassen"],
+               "saving_ms": ms["gauss"] - ms["strassen"], "predicted_saving_ms": predicted,
+               "err": err, "scale": scale}
+        rows.append(row)
+        print(f"  strassen {label} (m {m}, k {k}, n {nn}; eligible {eligible}): gauss "
+              f"{ms['gauss']:.4f} ms, one Strassen level {ms['strassen']:.4f} ms, saving "
+              f"{row['saving_ms']:.4f} ms measured, {predicted:.4f} ms under the fitted model; "
+              f"max|err| against gauss {err:.3e} (scale {scale:.3e})", flush=True)
+    square = [r for r in rows if r["n"] is not None]
+    wins = [r["n"] for r in square if r["saving_ms"] > 0]
+    # the crossover: the smallest n from which one level wins at every
+    # larger size timed
+    crossover = next((r["n"] for i, r in enumerate(square)
+                      if all(s["saving_ms"] > 0 for s in square[i:])), None)
+    print(f"[strassen] one Strassen level wins at square n = {wins}; the smallest n from "
+          f"which it wins at every larger size timed: {crossover} (the port keeps the "
+          f"reference's 2^11 floor)", flush=True)
+    return {"rows": rows, "wins_n": wins, "crossover_n": crossover}
+
+
+def run_calibrated(refs: dict, gen) -> dict:
+    """The calibrated kernel ladder on the card: a step-timed calibration
+    pass of random28 and peps44_b32 on the default policy, the device
+    model fitted to its ``torch`` step spans, both cells planned and run
+    under the calibrated policy (launches held to the policy, every chain
+    it launches held against its plain version, results against the
+    default policy's and complex128's), and the Strassen crossover."""
+    import torch
+
+    from tnc_tpu_torch import obs
+    from tnc_tpu_torch.obs.calibrate import (
+        CalibratedCostModel,
+        aggregate_samples,
+        calibration_report,
+        fit_device_model,
+        format_calibration_table,
+        step_samples,
+    )
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.program import build_program
+    from tnc_tpu_torch.ops.split_complex import chain_flop_ceiling, plan_kernels
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    tn, _ = build_config(QUBITS)
+    path = plan(tn)
+    program = build_program(tn, path)
+    peps_tn = build_peps(PEPS)
+    peps_path = plan(peps_tn)
+    peps_program = build_program(peps_tn, peps_path)
+    cells = (("random28", tn, path, program), ("peps44_b32", peps_tn, peps_path, peps_program))
+
+    # 1. the calibration pass, on the default (no-model) policy: planned
+    # before any sample exists, one untraced warm-up, then one traced run
+    # of each cell, every launch unit synchronised inside its span
+    obs.configure(enabled=False, step_time=False)
+    obs.reset()
+    calib = TorchBackend()
+    for _, cell_tn, cell_path, cell_program in cells:
+        calib.kernel_policy(cell_program)
+        contract_tensor_network(cell_tn, cell_path, calib)
+    obs.configure(enabled=True, step_time=True)
+    obs.reset()
+    t0 = time.perf_counter()
+    for _, cell_tn, cell_path, _ in cells:
+        contract_tensor_network(cell_tn, cell_path, calib)
+    calib_s = time.perf_counter() - t0
+    obs.configure(enabled=False, step_time=False)  # the registry stays
+    samples = step_samples()
+    torch_samples = [s for s in samples if s.source == "torch"]
+    units = sum(calib.kernel_policy(p).dispatch_count() for *_, p in cells)
+    print(f"[calibrated] calibration pass: {len(torch_samples)} torch step samples "
+          f"({units} launch units in the two cells), {calib_s:.3f} s", flush=True)
+    check(len(torch_samples) == units,
+          f"{len(torch_samples)} torch step spans for {units} launch units")
+
+    # 2. the H100's device model
+    model = fit_device_model([s for s in aggregate_samples(samples) if s.source == "torch"])
+    check(model is not None, "no device model could be fitted to the card's step spans")
+    report = calibration_report(top=8)
+    print(f"[calibrated] device model: flops_per_s {model.flops_per_s:.6e} (complex "
+          f"multiply-adds/s), bytes_per_s {model.bytes_per_s}, dispatch_s "
+          f"{model.dispatch_s:.6e}, terms {model.terms}, n_samples {model.n_samples}",
+          flush=True)
+    for line in format_calibration_table(report).splitlines():
+        print(f"  {line}", flush=True)
+
+    # 3. the calibrated policy, planned by a fresh backend from the registry
+    cost_model = CalibratedCostModel.from_registry()
+    backend = TorchBackend()
+    ceiling = chain_flop_ceiling(cost_model)
+    print(f"[calibrated] chain ceiling {ceiling:.6e} (2*k*m*n units; no model "
+          f"{chain_flop_ceiling(None):.6e})", flush=True)
+    policies = {}
+    for name, _, _, cell_program in cells:
+        policy = backend.kernel_policy(cell_program)
+        check(policy.signature() == plan_kernels(cell_program, cost_model=cost_model)
+              .signature(), f"{name}: kernel_policy is not the calibrated plan")
+        policies[name] = policy
+        default = plan_kernels(cell_program)
+        print(f"[calibrated {name}] policy: calibrated {rung_counts(policy)}; no model "
+              f"{rung_counts(default)}; chains {list(policy.chains)}", flush=True)
+
+    # 4. both cells under the calibrated policy
+    chain_rows, records = [], {}
+    for name, cell_tn, cell_path, cell_program in cells:
+        policy = policies[name]
+        if policy.chains:
+            print(f"[kernels] fused_chain on the calibrated {name} policy's chains", flush=True)
+            rows = check_chains(cell_program, policy, gen)
+            for row in rows:
+                row["label"] = f"{name} calibrated {row['label']}"
+            chain_rows += rows
+        torch.cuda.empty_cache()
+        run = run_main_path(cell_tn, cell_path, backend, f"{name} calibrated")
+        check(run["launches"]["fused_chain"] == len(policy.chains),
+              f"{name} calibrated: fused_chain launched {run['launches']['fused_chain']} "
+              f"times for {len(policy.chains)} chains")
+        promoted = policy.modes.count("fused_transpose")
+        routed = sum(run["transpose_routed"].values())
+        check(run["launches"]["fused_transpose_dot"] + routed == promoted,
+              f"{name} calibrated: {run['launches']['fused_transpose_dot']} fused_transpose_dot "
+              f"launches and {routed} routed steps for {promoted} promoted steps")
+        out = run.pop("out")
+        dev = device_times(device_run(cell_tn, cell_path, backend))
+        records[name] = {
+            "policy": rung_counts(policy, dict(run["chain_forms"])),
+            "no_model_policy": rung_counts(plan_kernels(cell_program)),
+            "chains": [list(c) for c in policy.chains],
+            "wall_s": statistics.median(run["walls"]), "wall_runs_s": run["walls"],
+            "device_s": statistics.median(dev), "device_runs_s": dev,
+            "peak_bytes": run["peak_bytes"], "launches": run["launches"],
+            "transpose_routed": run["transpose_routed"]}
+        if name == "random28":
+            sv = np.asarray(out.data.into_data())
+            check(sv.shape == (2,) * QUBITS and np.all(np.isfinite(sv)),
+                  f"calibrated statevector has shape {sv.shape} or non-finite values")
+            scale = float(np.max(np.abs(refs["sv"])))
+            diff = float(np.max(np.abs(sv - refs["sv"])))
+            check(np.allclose(sv, refs["sv"], rtol=1e-4, atol=1e-4 * scale),
+                  "random28 calibrated disagrees with the default policy")
+            norm = float(np.vdot(sv.reshape(-1), sv.reshape(-1)).real)
+            check(abs(norm - 1.0) <= 1e-4, f"calibrated norm {norm} not within 1e-4 of 1")
+            worst = 0.0
+            for bits, ref in refs["amplitudes"]:
+                got = complex(sv[tuple(int(bits[refs["qubit_of"][leg]]) for leg in out.legs)])
+                tol = 1e-4 * max(abs(ref), 2.0 ** -14)
+                check(abs(got - ref) <= tol, f"calibrated amplitude off by {abs(got - ref)}")
+                worst = max(worst, abs(got - ref) / tol)
+            records[name].update(max_diff_default=diff, norm=norm, amplitude_worst_of_tol=worst)
+            print(f"[check] random28 calibrated: max|diff| vs the default policy {diff:.3e} "
+                  f"(scale {scale:.3e}), norm {norm:.8f}, four amplitudes against complex128 "
+                  f"within {worst:.3f} of their tolerance", flush=True)
+            before = (f"phase 3 wall {statistics.median(refs['main_walls']):.4f} s, "
+                      f"device-resident {refs['main_device_s']:.4f} s; "
+                      if refs["main_walls"] else "")
+            del sv
+        else:
+            z = scalar(out)
+            rel128 = abs(z - refs["peps_norm_complex128"]) / abs(refs["peps_norm_complex128"])
+            rel = abs(z - refs["peps_norm"]) / abs(refs["peps_norm"])
+            check(rel128 <= 1e-4, f"peps calibrated off complex128 by {rel128}")
+            check(rel <= 1e-4, f"peps calibrated off the default policy by {rel}")
+            records[name].update(norm=[z.real, z.imag], rel_complex128=rel128,
+                                 rel_default=rel)
+            print(f"[check] peps{PEPS} calibrated {z!r}: relative {rel128:.3e} to complex128, "
+                  f"{rel:.3e} to the default policy", flush=True)
+            before = (f"phase 7 wall {refs['peps_wall_s']:.4f} s, device-resident "
+                      f"{refs['peps_device_s']:.4f} s; " if refs["peps_wall_s"] else "")
+        del out
+        print(f"[calibrated {name}] {before}calibrated wall {records[name]['wall_s']:.4f} s "
+              f"(runs {[round(w, 4) for w in run['walls']]}), device-resident "
+              f"{records[name]['device_s']:.4f} s (runs {[round(t, 4) for t in dev]}); "
+              f"fused_chain by form {run['chain_forms']}", flush=True)
+        torch.cuda.empty_cache()
+
+    # 5. the Strassen crossover on this card
+    print("[strassen] gauss against one Strassen level, FP32 split products", flush=True)
+    strassen = strassen_crossover(cost_model, peps_program, gen)
+    obs.configure(enabled=False, step_time=False)
+    obs.reset()  # no later call plans from these samples
+    record = {
+        "samples": len(torch_samples), "calibration_s": calib_s,
+        "model": {"flops_per_s": model.flops_per_s, "bytes_per_s": model.bytes_per_s,
+                  "dispatch_s": model.dispatch_s, "terms": list(model.terms),
+                  "n_samples": model.n_samples},
+        "report": {k: v for k, v in report.items() if k != "worst_steps"},
+        "worst_steps": report["worst_steps"], "chain_ceiling": ceiling,
+        "cells": records, "strassen": strassen,
+    }
+    return {"record": record, "chain_rows": chain_rows,
+            "chain_launches": {f"{n} calibrated": r["launches"]["fused_chain"]
+                               for n, r in records.items()},
+            "transpose_launches": sum(r["launches"]["fused_transpose_dot"]
+                                      for r in records.values())}
+
+
 def main() -> int:
     try:
         import torch
@@ -2104,6 +2484,14 @@ def main() -> int:
                                      "fused_complex_dot": full["dot_rows"]}}), flush=True)
         print(card_line(), flush=True)
         return 0
+    if "--calibrated" in sys.argv[1:]:
+        # the calibrated kernel ladder alone: phase 11, its references made here
+        cal = run_calibrated(calibrated_refs(backend),
+                             torch.Generator(device="cuda").manual_seed(SEED))
+        print(json.dumps({"calibrated": cal["record"],
+                          "shapes": {"fused_chain": cal["chain_rows"]}}), flush=True)
+        print(card_line(), flush=True)
+        return 0
 
     # 2. plan + kernels against their plain versions
     tn, permutor = build_config(QUBITS)
@@ -2147,6 +2535,7 @@ def main() -> int:
     check(abs(norm - 1.0) <= 1e-4, f"norm {norm} not within 1e-4 of 1")
     qubit_of = {leg: q for q, leg in enumerate(permutor.target_leg_order)}
     oracle = TorchBackend(dtype="complex128", split_complex=False)
+    amplitudes = []
     for bits in np.random.default_rng(7).integers(0, 2, size=(4, QUBITS)):
         bitstring = "".join(str(int(b)) for b in bits)
         amp_tn, _ = build_config(QUBITS, bitstring)
@@ -2158,6 +2547,7 @@ def main() -> int:
               f"complex128 {ref:.6e} |diff| {abs(got - ref):.3e} (tol {tol:.3e})",
               flush=True)
         check(abs(got - ref) <= tol, f"amplitude {bitstring} off by {abs(got - ref)}")
+        amplitudes.append((bits, ref))
     small_tn, _ = build_config(SMALL_QUBITS)
     small_path = plan(small_tn)
     got = contract_tensor_network(small_tn, small_path, backend).data.into_data()
@@ -2188,7 +2578,7 @@ def main() -> int:
           flush=True)
     check(np.allclose(fused_sv, sv, rtol=1e-4, atol=1e-4 * scale),
           "fused rung disagrees with the main path")
-    del fused_leaf, fused_sv, sv
+    del fused_leaf, fused_sv
 
     # 6. where the main path's time goes
     prof = profile_device_path(device_run(tn, path, backend), "random28")
@@ -2229,16 +2619,37 @@ def main() -> int:
     chain_launches["sycamore53_m14_hyper"] = northstar["chain_launches"]
     chain_forms["sycamore53_m14_hyper"] = northstar["record"]["chain_forms"]
     dot_launches["sycamore53_m14_hyper fused rung"] = northstar["dot_launches"]
+    torch.cuda.empty_cache()
+
+    # 11. the calibrated kernel ladder: a device model fitted to the card's
+    # step spans, random28 and peps44_b32 planned and run under it, and the
+    # card's Strassen crossover
+    calibrated = run_calibrated(
+        {"sv": sv, "qubit_of": qubit_of, "amplitudes": amplitudes,
+         "peps_norm": complex(*peps_rec["norm"]),
+         "peps_norm_complex128": complex(*peps_rec["norm_complex128"]),
+         "main_walls": walls, "main_device_s": prof["device_s"],
+         "peps_wall_s": peps_rec["wall_s"], "peps_device_s": peps_rec["device_s"]}, gen)
+    del sv
+    chain_launches.update(calibrated["chain_launches"])
+    transpose_rec["launches"] += calibrated["transpose_launches"]
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
+    calibrated_chains = {}
+    for name in ("random28", "peps44_b32"):
+        rows = [r for r in calibrated["chain_rows"]
+                if r["label"].startswith(f"{name} calibrated")]
+        if rows:
+            calibrated_chains[f"{name} calibrated"] = chain_record(rows)
     by_path = {
         "fused_chain": {"random28": chain_record(chain_rows),
                         "sycamore53_m10_sliced": chain_record(sliced["chain_rows"]),
                         **{name: chain_record([r for r in small["chain_rows"]
                                                if r["label"].startswith(f"{name} launch")])
                            for name in small["launches"] if "batch" not in name},
-                        "sycamore53_m14_hyper": chain_record(northstar["chain_rows"])},
+                        "sycamore53_m14_hyper": chain_record(northstar["chain_rows"]),
+                        **calibrated_chains},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -2249,7 +2660,8 @@ def main() -> int:
         "fused_transpose_dot": {"peps44_b32 fused_transpose rung":
                                 launch_weighted(transpose_rec["shapes"])},
     }
-    chain_rows += sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
+    chain_rows += (sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
+                   + calibrated["chain_rows"])
     chain_rec = {**chain_record(chain_rows), "launches": sum(chain_launches.values())}
     dot_rows = (dot_rec["shapes"] + sliced["dot_rows"] + chunked["dot_rows"]
                 + northstar["dot_rows"])
@@ -2280,6 +2692,7 @@ def main() -> int:
         "sycamore53_m10_chunked": chunked["record"],
         "chunked_small": small["records"],
         "sycamore53_m14_hyper": northstar["record"],
+        "calibrated": calibrated["record"],
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
         "fused_chain_forms_by_path": chain_forms,

@@ -2,8 +2,7 @@
 ``tnc_tpu.contractionpath.contraction_cost``, trimmed to what the
 :class:`~tnc_tpu_torch.contractionpath.paths.greedy.Greedy` and
 :class:`~tnc_tpu_torch.contractionpath.paths.hyper.Hyperoptimizer`
-finders and the path result call; the calibrated objective waits for
-the port's calibrated cost model).
+finders, the slicing scorers and the path result call).
 
 Flops and peak memory are predicted *before* any kernel runs. All costs
 are floats — Sycamore-class networks overflow 64-bit integers.
@@ -12,10 +11,17 @@ are floats — Sycamore-class networks overflow 64-bit integers.
   ``((s-1)*2 + s*6) * |out|`` where ``s = |shared|``
 - :func:`contract_op_cost_tensors` — naive op count = product of the union
   dims
-- :func:`contract_size_tensors` — ``|out| + |a| + |b|`` elements
+- :func:`contract_size_tensors` — ``|out| + |a| + |b|`` elements;
+  ``_bytes`` variant multiplies by 16 (complex128)
 - :func:`greedy_cost_fn` — the greedy finder's pair-scoring heuristics.
-- :class:`PathObjective` / :class:`FlopsObjective` — the path-level
-  ranking a trial-based finder minimizes.
+- :class:`PathObjective` / :class:`FlopsObjective` /
+  :class:`SizeObjective` — the path-level ranking a trial-based finder
+  minimizes;
+- :class:`CalibratedObjective` — the same interface priced in **predicted
+  seconds** under a fitted
+  :class:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel` (per-step
+  flops / bytes / launch-constant pricing);
+- :func:`resolve_objective` — a ``minimize`` argument as an objective.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import Callable, Sequence
 
 from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
 from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor, Tensor
+
+COMPLEX_BYTES = 16.0
 
 CostFn = Callable[[LeafTensor, LeafTensor], float]
 
@@ -61,6 +69,10 @@ def contract_size_tensors(t1: LeafTensor, t2: LeafTensor) -> float:
     26.0
     """
     return (t1 ^ t2).size() + t1.size() + t2.size()
+
+
+def contract_size_tensors_bytes(t1: LeafTensor, t2: LeafTensor) -> float:
+    return contract_size_tensors(t1, t2) * COMPLEX_BYTES
 
 
 def _as_external_leaf(t: Tensor) -> LeafTensor:
@@ -234,3 +246,95 @@ class FlopsObjective(PathObjective):
 
     def pair_cost(self, t1: LeafTensor, t2: LeafTensor) -> float:
         return contract_op_cost_tensors(t1, t2)
+
+
+class SizeObjective(PathObjective):
+    """Minimize the peak intermediate size (elements). ``path_cost``
+    returns the peak, not a sum — candidates still compare correctly
+    because every finder only ranks under one objective at a time."""
+
+    name = "size"
+
+    def pair_cost(self, t1: LeafTensor, t2: LeafTensor) -> float:
+        return contract_size_tensors(t1, t2)
+
+    def path_cost(
+        self, inputs: Sequence[Tensor], contract_path: ContractionPath
+    ) -> float:
+        _, mem = _contract_path_custom_cost(
+            inputs, contract_path, self.pair_cost, contract_size_tensors
+        )
+        return mem
+
+
+class CalibratedObjective(PathObjective):
+    """Predicted **seconds** under a fitted device model — the
+    plan→measure→replan loop's objective.
+
+    Each pairwise contraction is priced as one launched step:
+    ``flops / flops_per_s + bytes / bytes_per_s + dispatch_s`` (the
+    per-step constant raw flop counts are blind to, cf.
+    :meth:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel.
+    dispatch_equivalent_flops`). A path of many tiny steps therefore
+    loses to a path of few large ones even at equal flops, and sliced
+    plans are priced with the hoisted ``prelude + num_slices x residual``
+    seconds formula.
+
+    >>> from tnc_tpu_torch.obs.calibrate import CalibratedCostModel
+    >>> m = CalibratedCostModel(flops_per_s=1e9, dispatch_s=1e-3)
+    >>> obj = CalibratedObjective(m)
+    >>> a, b = LeafTensor([0, 1], [2, 3]), LeafTensor([1, 2], [3, 4])
+    >>> round(obj.pair_cost(a, b), 9)   # 24 flops + one launch
+    0.001000024
+    """
+
+    name = "calibrated"
+
+    def __init__(self, cost_model, bytes_per_elem: float = COMPLEX_BYTES):
+        if cost_model is None:
+            raise ValueError("CalibratedObjective requires a cost model")
+        self.cost_model = cost_model
+        self.bytes_per_elem = float(bytes_per_elem)
+
+    def pair_cost(self, t1: LeafTensor, t2: LeafTensor) -> float:
+        flops = contract_op_cost_tensors(t1, t2)
+        nbytes = contract_size_tensors(t1, t2) * self.bytes_per_elem
+        return self.cost_model.op_seconds(flops, nbytes)
+
+    def sliced_path_cost(
+        self,
+        inputs: Sequence[LeafTensor],
+        replace_pairs: Sequence[tuple[int, int]],
+        slicing,
+    ) -> float:
+        from tnc_tpu_torch.contractionpath.slicing import (
+            StemAccountant,
+            _make_replayer,
+        )
+
+        pairs = list(replace_pairs)
+        acct = StemAccountant(inputs, pairs, cost_model=self.cost_model)
+        removed = set(slicing.legs)
+        per_slice = _make_replayer(inputs, pairs).flops(removed)
+        return acct.hoisted_cost(removed, per_slice, slicing.num_slices)
+
+
+def resolve_objective(minimize) -> PathObjective:
+    """Normalize a ``minimize`` argument — an objective instance, or the
+    legacy strings ``"flops"`` / ``"size"`` — to a :class:`PathObjective`.
+
+    >>> resolve_objective("flops").name
+    'flops'
+    >>> resolve_objective(SizeObjective()).name
+    'size'
+    """
+    if isinstance(minimize, PathObjective):
+        return minimize
+    if minimize in (None, "flops"):
+        return FlopsObjective()
+    if minimize == "size":
+        return SizeObjective()
+    raise ValueError(
+        f"unknown objective {minimize!r}; expected 'flops', 'size', or a "
+        "PathObjective instance"
+    )

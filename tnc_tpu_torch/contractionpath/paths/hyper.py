@@ -80,10 +80,11 @@ class Hyperoptimizer(Pathfinder):
     ) -> None:
         """``objective``: a :class:`~tnc_tpu_torch.contractionpath.
         contraction_cost.PathObjective` that overrides ``minimize`` for
-        candidate ranking and final selection — the reference's
-        ``CalibratedObjective`` (not in the port yet) ranks every trial,
-        refinement result and polish snapshot by *predicted seconds*.
-        Tree-internal
+        candidate ranking and final selection — a
+        ``CalibratedObjective`` ranks every trial, refinement result and
+        polish snapshot by *predicted seconds* (and, with
+        ``target_size``, prices sliced candidates with the hoist-aware
+        seconds formula, launch overhead included). Tree-internal
         moves (reconfigure/anneal) keep minimizing ``minimize`` — the
         search heuristics stay in the cheap flop domain; the objective
         decides which resulting tree wins.
@@ -237,6 +238,7 @@ class Hyperoptimizer(Pathfinder):
             return score
 
         use_joint = self.target_size is not None and self.joint_slicing
+        cost_model = getattr(self.objective, "cost_model", None)
         # trial key -> (greedy sliced cost, greedy slice legs)
         rank_cache: dict[tuple, tuple[float, tuple[int, ...]]] = {}
         # trial key -> (refined cost, refined ssa pairs, Slicing | None)
@@ -245,7 +247,8 @@ class Hyperoptimizer(Pathfinder):
         def trial_sliced_rank(candidate: list[tuple[int, int]]) -> float:
             """Joint mode, stage 1: EVERY trial carries a greedily
             maintained slice set under the budget and is ranked by its
-            hoisted sliced cost — the incremental evaluator prices a trial in O(deltas)
+            hoisted sliced cost (seconds under a calibrated objective)
+            — the incremental evaluator prices a trial in O(deltas)
             where the classic pipeline paid a full
             slice-and-reconfigure per finalist."""
             key = tuple(candidate)
@@ -260,7 +263,7 @@ class Hyperoptimizer(Pathfinder):
             replace = ssa_replace_ordering(
                 ContractionPath.simple(list(candidate))
             ).toplevel
-            ev = SlicedCostEvaluator(inputs, replace)
+            ev = SlicedCostEvaluator(inputs, replace, cost_model=cost_model)
             try:
                 greedy_slice_to_target(ev, self.target_size)
                 entry = (ev.cost(), tuple(sorted(ev.removed)))
@@ -305,6 +308,7 @@ class Hyperoptimizer(Pathfinder):
                     sa_rounds=self.joint_sa_rounds,
                     seed=self.seed,
                     temps=self.polish_temps,
+                    cost_model=cost_model,
                 )
                 legacy_floor = math.inf
                 try:
@@ -316,6 +320,7 @@ class Hyperoptimizer(Pathfinder):
                         step_budget=None,
                         final_rounds=2,
                         final_budget=None,
+                        cost_model=cost_model,
                     )
                 except ValueError:
                     replace2 = None
@@ -328,6 +333,7 @@ class Hyperoptimizer(Pathfinder):
                         inputs,
                         list(replace2),
                         removed=s2.legs,
+                        cost_model=cost_model,
                     )
                     floor_cost = ev2.cost()
                     # the score the POST-PASS pipeline would have given

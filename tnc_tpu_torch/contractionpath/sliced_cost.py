@@ -17,7 +17,9 @@ search loop:
 - :class:`SlicedCostEvaluator` — given a contraction tree (or flat
   replace path) and a candidate slice-leg set, maintains per-step
   "does this leg touch me" masks and answers per-slice flops, the
-  hoist split, the sliced peak, and the hoist-aware total with
+  hoist split, the sliced peak, and the hoist-aware total (raw flops,
+  or predicted seconds under a
+  :class:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel`) with
   O(affected-steps) delta updates when a leg is added/removed or a
   subtree move is applied. Exact against the
   :func:`~tnc_tpu_torch.contractionpath.slicing.sliced_flops` /
@@ -76,7 +78,9 @@ class SlicedCostEvaluator:
         inputs: Sequence[LeafTensor],
         replace_path: Sequence[tuple[int, int]] | None = None,
         removed: Sequence[int] = (),
+        cost_model=None,
     ):
+        self._cost_model = cost_model
         self._removed: set[int] = set()
         self._slot_of: dict[int, int] = {}  # tree node id -> slot
         self._contrib: dict[int, frozenset[int]] = {}  # tree mode only
@@ -123,13 +127,14 @@ class SlicedCostEvaluator:
         cls,
         tree: ContractionTree,
         removed: Sequence[int] = (),
+        cost_model=None,
         dims: dict[int, int] | None = None,
     ) -> "SlicedCostEvaluator":
         """Tree-backed evaluator: steps keyed by internal node, kept in
         sync through structural moves via :meth:`sync_nodes` /
         :meth:`sync_splice`. ``dims`` overrides ``tree.dims`` (pass the
         full dims when the tree's copy has sliced legs set to 1)."""
-        ev = cls((), None, ())
+        ev = cls((), None, (), cost_model)
         ev.dims = dict(dims if dims is not None else tree.dims)
         for i in range(tree.num_leaves):
             legs = tree.nodes[i].legs
@@ -384,10 +389,28 @@ class SlicedCostEvaluator:
         return inv + float(self.num_slices) * residual
 
     def cost(self) -> float:
-        """The scoring key: the hoisted flops (the reference can price the
-        same split in predicted seconds under a calibrated cost model,
-        which the port does not have yet)."""
-        return self.hoisted_total()
+        """The scoring key: hoisted flops, or predicted seconds under
+        the ``cost_model`` (identical formula to
+        :meth:`StemAccountant.hoisted_cost`, residual launches
+        included)."""
+        inv, residual = self.hoist_split()
+        if self._cost_model is None:
+            return inv + float(self.num_slices) * residual
+        n = n_var = 0
+        for slot in range(len(self._active)):
+            if self._active[slot]:
+                n += 1
+                if self._vcount[slot] > 0:
+                    n_var += 1
+        if n_var == 0 or n_var == n:  # no-op hoist: all steps loop
+            n_var = n
+        return self._cost_model.sliced_cost(
+            inv,
+            residual,
+            self.num_slices,
+            steps_per_slice=max(float(n_var), 1.0),
+            prelude_steps=max(float(n - n_var), 1.0),
+        )
 
     def peak_step_legs(self, frac: float = 0.99) -> list[int]:
         """Sliceable legs participating in the near-peak steps (the
@@ -679,6 +702,7 @@ def joint_slice_search(
     ssa_path: Sequence[tuple[int, int]],
     target_size: float,
     seed_slices: Sequence[int] | None = None,
+    cost_model=None,
     sa_steps: int = 600,
     sa_rounds: int = 2,
     subtree_size: int = 12,
@@ -697,7 +721,8 @@ def joint_slice_search(
     the result never scores worse than its greedy seed.
 
     Returns ``(ssa_pairs, slicing, cost)`` with ``cost`` in the
-    evaluator's domain (hoisted flops). Deterministic for a fixed seed (work-bounded, no
+    evaluator's domain (hoisted flops, or seconds under
+    ``cost_model``). Deterministic for a fixed seed (work-bounded, no
     wall-clock deadlines). Raises ``ValueError`` when the target is
     unreachable."""
     from tnc_tpu_torch.contractionpath.slicing import Slicing
@@ -705,7 +730,8 @@ def joint_slice_search(
     tree = ContractionTree.from_ssa_path(inputs, list(ssa_path))
     full_dims = dict(tree.dims)
     tree.dims = dict(tree.dims)  # private copy: sliced legs become dim 1
-    ev = SlicedCostEvaluator.from_tree(tree, dims=full_dims)
+    ev = SlicedCostEvaluator.from_tree(tree, cost_model=cost_model,
+                                       dims=full_dims)
     if seed_slices:
         for leg in seed_slices:
             if ev.sliceable(leg):

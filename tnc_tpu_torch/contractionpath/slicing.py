@@ -176,17 +176,25 @@ class StemAccountant:
     steps never touch a removed leg, so their cost is independent of R.
     ``invariant_flops(R)`` is then an O(steps) mask-and-sum per query —
     cheap enough for the planner's per-candidate scoring loops, on top
-    of the (native) replayer's total-flops query. (The reference can also
-    price the split in predicted seconds under a calibrated cost model,
-    which the port does not have yet.)
+    of the (native) replayer's total-flops query.
+
+    ``cost_model`` (a :class:`tnc_tpu_torch.obs.calibrate.
+    CalibratedCostModel` fitted from measured step spans) switches
+    :meth:`hoisted_cost` from raw flop counts to predicted *seconds* —
+    including the per-slice launch overhead raw op counts are blind to, so
+    candidate scoring stops treating ever-deeper slicing as free (the plan
+    → measure → replan loop).
     """
 
     def __init__(
         self,
         inputs: Sequence[LeafTensor],
         replace_path: Sequence[tuple[int, int]],
+        cost_model=None,
     ):
         import numpy as np
+
+        self._cost_model = cost_model
 
         tensors = [t.copy() for t in inputs]
         contrib: list[frozenset[int]] = [
@@ -256,8 +264,27 @@ class StemAccountant:
         per-slice total ``per_slice_flops`` for the same removal set
         (split per :meth:`hoist_split`, so a removal set the hoist pass
         would no-op on is charged the full per-slice cost every slice).
+        With a calibrated ``cost_model`` the same split is priced in
+        predicted seconds (residual launches included) instead of raw
+        flops — both are valid scoring keys (monotone in the work), so
+        callers compare candidates without caring which one is active.
         """
         inv, residual = self.hoist_split(removed, per_slice_flops)
+        if self._cost_model is not None:
+            # the fitted launch overhead is per STEP: a slice runs every
+            # variant step, the prelude every invariant one
+            variant = self._variant_mask(removed)
+            n = len(self._costs)
+            n_var = 0 if variant is None else int(variant.sum())
+            if n_var == 0 or n_var == n:  # no-op hoist: all steps loop
+                n_var = n
+            return self._cost_model.sliced_cost(
+                inv,
+                residual,
+                num_slices,
+                steps_per_slice=max(float(n_var), 1.0),
+                prelude_steps=max(float(n - n_var), 1.0),
+            )
         return inv + float(num_slices) * residual
 
 
@@ -399,6 +426,7 @@ def slice_and_reconfigure(
     final_budget: float | None = 45.0,
     max_slices: int = 1 << 26,
     max_leg_candidates: int = 48,
+    cost_model=None,
     seed_slices: "Sequence[int] | Slicing | None" = None,
 ) -> tuple[list[tuple[int, int]], Slicing]:
     """Interleaved slicing + subtree reconfiguration (cotengra's
@@ -420,6 +448,11 @@ def slice_and_reconfigure(
 
     Returns (replace_path, slicing); the path is valid for the unsliced
     network (slicing only pins index values, it never reorders legs).
+
+    ``cost_model`` (a measured
+    :class:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel`) switches leg
+    scoring from hoisted flop counts to predicted seconds, charging each
+    extra slice its real launch overhead.
 
     ``seed_slices`` (legs, or a :class:`Slicing`) warm-starts the
     removal set — the joint hyper search hands its winning slice set
@@ -513,7 +546,7 @@ def slice_and_reconfigure(
         # flops component is invariant + num_slices * residual, which
         # prefers legs that keep a large hoistable stem over legs that
         # drag the whole program into the per-slice loop
-        acct = StemAccountant(inputs, replace)
+        acct = StemAccountant(inputs, replace, cost_model=cost_model)
         best_leg = -1
         best_key: tuple[float, float] | None = None
         for leg in candidates[:max_leg_candidates]:

@@ -81,37 +81,71 @@ def run_steps_timed(
     program: ContractionProgram,
     buffers: list[Any],
     policy=None,
+    sync: bool = False,
+    precision=None,
 ) -> tuple[Any, list[dict]]:
-    """Run a split-complex program through :func:`~tnc_tpu_torch.ops.
-    split_complex.run_steps_split`, timing each launch unit: one record
-    per step, and one per fused chain (whose record sums its steps'
-    flops). Returns ``(result, records)``; the result in stored shape.
+    """Run a program one launch unit at a time, timing each: one record per
+    step, and one per fused chain (whose record sums its steps' flops).
+    Returns ``(result, records)``; the result in stored shape. Buffers are
+    (real, imag) pairs, run through :func:`~tnc_tpu_torch.ops.split_complex.
+    run_steps_split` under ``policy``, or native complex tensors or numpy
+    arrays, run step by step (``policy`` then ignored).
 
     A record holds ``label`` (``step[i] MxK·KxN``, or ``step[s..e] chain
     xN``), ``mode`` (the arithmetic that ran: ``chain``, or what
-    :func:`~tnc_tpu_torch.ops.split_complex.resolved_step_mode` gives),
-    the predicted ``flops`` (complex multiply-adds), ``bytes_in`` and
-    ``bytes_out`` at the buffers' bytes per complex element (operands
-    read, their prep pass, the result written; a chain reads its
-    operands and writes its last result), ``ms`` and ``host_ms``.
-    ``host_ms`` is the host's time to issue the unit. On a CUDA buffer
-    ``ms`` is the time between CUDA events recorded on the current stream
-    before and after the unit — device time when the stream is ahead of
-    the host (a caller that queues ``torch.cuda._sleep`` first makes it
+    :func:`~tnc_tpu_torch.ops.split_complex.resolved_step_mode` gives;
+    ``naive`` for native complex), the predicted ``flops`` (complex
+    multiply-adds), ``bytes_in`` and ``bytes_out`` at the buffers' bytes per
+    complex element (operands read, their prep pass, the result written; a
+    chain reads its operands and writes its last result), ``ms`` and
+    ``host_ms``. ``host_ms`` is the host's time to issue the unit. On a CUDA
+    buffer ``ms`` is the time between CUDA events recorded on the current
+    stream before and after the unit — device time when the stream is ahead
+    of the host (a caller that queues ``torch.cuda._sleep`` first makes it
     so), else the host's issue time shows in it — read after one
-    synchronise at the end; on the CPU it is wall time, as ``host_ms``.
+    synchronise at the end; on the host it is wall time, as ``host_ms``.
+
+    While :func:`tnc_tpu_torch.obs.enabled`, each unit also runs inside one
+    ``obs`` span named by the record's label and carrying the reference's
+    arguments: ``executor`` (``"numpy"`` for numpy arrays, else
+    ``"torch"``), ``flops``, ``bytes_in``, ``bytes_out``, ``bucket``,
+    ``mode``, ``precision``, ``flops_effective`` and, for a chain,
+    ``steps``. These are the samples :mod:`tnc_tpu_torch.obs.calibrate`
+    fits. ``sync`` closes each span after ``torch.cuda.synchronize()`` on a
+    CUDA buffer, so its time is the host's wall for issuing the unit plus
+    the device's for running it (the reference's ``block_until_ready``
+    span); a record's ``ms`` and ``host_ms`` are taken before that
+    synchronise.
     """
+    import functools
     import math
     import time
 
-    import torch
-
+    from tnc_tpu_torch import obs
     from tnc_tpu_torch.ops.program import step_elems, step_flops, step_label
-    from tnc_tpu_torch.ops.split_complex import resolved_step_mode, run_steps_split
+    from tnc_tpu_torch.ops.split_complex import (
+        effective_step_flops,
+        fused_transpose_runtime_ineligible_reason,
+        resolved_step_mode,
+        run_steps_split,
+        step_bucket,
+    )
 
-    first = next(b for b in buffers if b is not None)[0]
-    on_cuda = first.device.type == "cuda"
-    complex_bytes = 2 * first.element_size()
+    first = next(b for b in buffers if b is not None)
+    split = isinstance(first, tuple)
+    part = first[0] if split else first
+    if isinstance(part, np.ndarray):
+        executor, on_cuda = "numpy", False
+        complex_bytes = float(part.itemsize)
+    else:
+        import torch
+
+        executor, on_cuda = "torch", part.device.type == "cuda"
+        complex_bytes = float(part.element_size())
+    if split:
+        complex_bytes *= 2
+    else:
+        policy = None
     steps = program.steps
     chains = set(policy.chains) if policy is not None else set()
 
@@ -125,7 +159,9 @@ def run_steps_timed(
     def operand_elems(view, perm, ops) -> float:
         return (3.0 if perm is not None or ops else 1.0) * float(math.prod(view))
 
-    def record_of(start: int, end: int) -> dict:
+    def record_of(start: int, end: int) -> tuple[dict, dict]:
+        """The unit's record and its span's other arguments."""
+        rung = (policy.precision_mode(start) if policy is not None else "") or "default"
         if (start, end) in chains:
             group = steps[start:end]
             head = group[0]
@@ -138,28 +174,59 @@ def run_steps_timed(
                 else:
                     elems_in += operand_elems(st.a_view, st.a_perm, st.a_ops)
                 run_slot = st.lhs
-            return {"label": f"step[{start}..{end - 1}] chain x{len(group)}",
-                    "mode": "chain", "flops": sum(step_flops(st) for st in group),
-                    "bytes_in": elems_in * complex_bytes,
-                    "bytes_out": step_elems(group[-1])[1] * complex_bytes}
+            flops = sum(step_flops(st) for st in group)
+            return ({"label": f"step[{start}..{end - 1}] chain x{len(group)}",
+                     "mode": "chain", "flops": flops,
+                     "bytes_in": elems_in * complex_bytes,
+                     "bytes_out": step_elems(group[-1])[1] * complex_bytes},
+                    # the calibrated chain ceiling can pull medium-bucket
+                    # steps into a chain: the heaviest member's bucket
+                    {"bucket": step_bucket(max(group, key=step_flops)),
+                     "precision": rung, "flops_effective": flops,
+                     "steps": len(group)})
         step = steps[start]
-        resolved = resolved_step_mode(step, policy.modes[start] if policy is not None else None)
+        if not split:
+            resolved = "naive"
+        else:
+            resolved = resolved_step_mode(
+                step, policy.modes[start] if policy is not None else None)
+            if resolved == "fused_transpose" and fused_transpose_runtime_ineligible_reason(
+                    buffers[step.lhs], buffers[step.rhs], step) is not None:
+                resolved = "naive"  # the kernel's runtime gate routes it
         elems_in, elems_out = step_elems(step, mode=resolved)
-        return {"label": step_label(start, step), "mode": resolved,
-                "flops": step_flops(step), "bytes_in": elems_in * complex_bytes,
-                "bytes_out": elems_out * complex_bytes}
+        return ({"label": step_label(start, step), "mode": resolved,
+                 "flops": step_flops(step), "bytes_in": elems_in * complex_bytes,
+                 "bytes_out": elems_out * complex_bytes},
+                {"bucket": step_bucket(step), "precision": rung,
+                 "flops_effective": effective_step_flops(step, resolved)})
 
     pending = []
 
     def on_unit(start: int, end: int, run) -> None:
-        record = record_of(start, end)
-        h0, t0 = time.perf_counter(), mark()
-        run()
-        pending.append((record, t0, mark(), time.perf_counter() - h0))
+        record, extra = record_of(start, end)
+        with obs.span(record["label"], executor=executor, flops=record["flops"],
+                      bytes_in=record["bytes_in"], bytes_out=record["bytes_out"],
+                      mode=record["mode"], **extra):
+            h0, t0 = time.perf_counter(), mark()
+            run()
+            t1, host_s = mark(), time.perf_counter() - h0
+            if sync and on_cuda:
+                torch.cuda.synchronize(part.device)
+        pending.append((record, t0, t1, host_s))
 
-    out = run_steps_split(program, buffers, policy=policy, on_unit=on_unit)
+    if split:
+        out = run_steps_split(program, buffers, precision, policy=policy, on_unit=on_unit)
+    else:
+        def run_one(i: int) -> None:
+            step = steps[i]
+            buffers[step.lhs] = apply_step(buffers[step.lhs], buffers[step.rhs], step)
+            buffers[step.rhs] = None  # free eagerly
+
+        for i in range(len(steps)):
+            on_unit(i, i + 1, functools.partial(run_one, i))
+        out = buffers[program.result_slot]
     if on_cuda:
-        torch.cuda.synchronize(first.device)
+        torch.cuda.synchronize(part.device)
     records = []
     for record, t0, t1, host_s in pending:
         record["ms"] = t0.elapsed_time(t1) if on_cuda else (t1 - t0) * 1e3
@@ -210,9 +277,23 @@ class NumpyBackend(Backend):
 
     name = "numpy"
 
-    def execute(self, program: ContractionProgram, arrays: Sequence[Any]) -> np.ndarray:
+    def execute(
+        self,
+        program: ContractionProgram,
+        arrays: Sequence[Any],
+        step_spans: bool | None = None,
+    ) -> np.ndarray:
+        """``step_spans``: per-step timing spans (:func:`run_steps_timed`,
+        tagged ``executor="numpy"``). Default (``None``) — on whenever
+        tracing is on (the oracle is synchronous, so the timing is exact and
+        costs no sync); ``False`` turns them off."""
+        from tnc_tpu_torch import obs
+
         buffers = [np.asarray(a, dtype=np.complex128) for a in arrays]
-        out = _run_steps(program, buffers)
+        if obs.enabled() and (step_spans is None or step_spans):
+            out, _ = run_steps_timed(program, buffers)
+        else:
+            out = _run_steps(program, buffers)
         return np.asarray(out).reshape(program.result_shape)
 
     def execute_sliced(
@@ -323,10 +404,15 @@ class TorchBackend(Backend):
 
     def kernel_policy(self, program: ContractionProgram):
         """The kernel promotion ladder for ``program`` (split mode only;
-        ``None`` otherwise), planned once per (program, env override) and
-        cached."""
+        ``None`` otherwise), planned once per (program, env override) from
+        the cost model fitted to the step spans the registry holds
+        (:meth:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel.
+        from_registry`; ``None`` — the no-model ladder — when no fit is
+        possible) and cached, so the policy does not change between calls
+        as new step samples arrive. A fault in the fit raises."""
         if not self.split_complex:
             return None
+        from tnc_tpu_torch.obs.calibrate import CalibratedCostModel
         from tnc_tpu_torch.ops.split_complex import (
             complex_mult_key,
             dot_precision_key,
@@ -336,7 +422,7 @@ class TorchBackend(Backend):
         key = (program.signature(), complex_mult_key(), dot_precision_key())
         policy = self._policy_cache.get(key)
         if policy is None:
-            policy = plan_kernels(program)
+            policy = plan_kernels(program, cost_model=CalibratedCostModel.from_registry())
             self._policy_cache[key] = policy
         return policy
 
@@ -344,6 +430,24 @@ class TorchBackend(Backend):
         return place_buffers(arrays, self.dtype, self.split_complex, self.device)
 
     def _run(self, program: ContractionProgram, buffers: list[Any]):
+        """Run ``program`` on ``buffers`` under :meth:`kernel_policy`. With
+        tracing and ``TNC_TPU_STEP_TIME`` on, one launch unit at a time
+        through :func:`run_steps_timed` with ``sync``, each unit's span a
+        measured sample for the calibration fit."""
+        import torch
+
+        from tnc_tpu_torch import obs
+
+        if obs.enabled() and obs.step_timing_enabled():
+            with torch.inference_mode():
+                out, _ = run_steps_timed(
+                    program, buffers, self.kernel_policy(program), sync=True,
+                    precision=self.precision,
+                )
+            return out
+        return self._run_untimed(program, buffers)
+
+    def _run_untimed(self, program: ContractionProgram, buffers: list[Any]):
         import torch
 
         with torch.inference_mode():
@@ -392,9 +496,10 @@ class TorchBackend(Backend):
         :func:`~tnc_tpu_torch.ops.chunked.run_sliced_chunked_placed`; under
         ``"loop"`` one at a time: each slice pins the sliced axes of the
         leaves that carry them (a dense copy of the slice), runs every step
-        under :meth:`kernel_policy` — one policy, planned once, for all
-        slices — and is added to the sum with Kahan compensation, on the
-        real and imaginary parts apart in split mode.
+        under the no-model ladder — one policy, planned once a call for
+        all slices, as the reference's loop plans it — and is added to the
+        sum with Kahan compensation, on the real and imaginary parts apart
+        in split mode.
 
         ``max_slices`` caps the sum to the first slices (at least one);
         ``slice_range=(lo, hi)`` sums the shard ``[lo, hi)``; the two
@@ -480,9 +585,10 @@ class TorchBackend(Backend):
         from tnc_tpu_torch.ops.chunked import slice_index_rows
         from tnc_tpu_torch.ops.graphs import run_batches
         from tnc_tpu_torch.ops.sliced import kahan_step
-        from tnc_tpu_torch.ops.split_complex import run_steps_split
+        from tnc_tpu_torch.ops.split_complex import plan_kernels, run_steps_split
 
-        policy = self.kernel_policy(sp.program)
+        # the no-model ladder, as the reference's slice loop plans it
+        policy = plan_kernels(sp.program) if self.split_complex else None
         like = full[0][0] if self.split_complex else full[0]
         shape = sp.program.stored_result_shape
         hi = max(lo, hi)
@@ -524,7 +630,8 @@ class TorchBackend(Backend):
         from tnc_tpu_torch.ops.graphs import BoundProgram
 
         buffers = self._device_buffers(arrays)
-        return BoundProgram(lambda: self._run(program, list(buffers)), self.device, graphs)
+        return BoundProgram(lambda: self._run_untimed(program, list(buffers)),
+                            self.device, graphs)
 
 
 _BACKENDS: dict[str, Backend] = {}

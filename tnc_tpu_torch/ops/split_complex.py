@@ -19,9 +19,12 @@ applies the macro permutation while fetching tiles (``fused_transpose``
 — :func:`~tnc_tpu_torch.ops.cuda_complex.fused_transpose_dot`), one
 Strassen level (``strassen``), and chains of small steps that run as one
 launch of :func:`~tnc_tpu_torch.ops.cuda_complex.fused_chain`. The policy
-is planned exactly as the reference plans it with no fitted cost model,
-so both packages make the same choice for every step; the two fused
-rungs run only when ``TNC_TPU_COMPLEX_MULT`` forces them.
+is planned exactly as the reference plans it (:func:`plan_kernel_steps`),
+with no cost model or with one fitted to measured step times
+(:mod:`tnc_tpu_torch.obs.calibrate`), so both packages make the same
+choice for every step under the same model. ``fused`` runs only when
+``TNC_TPU_COMPLEX_MULT`` forces it; ``fused_transpose`` also where a fitted
+bandwidth term says it pays.
 
 Products outside the hand kernels are ``torch.matmul`` in full FP32:
 :class:`~tnc_tpu_torch.ops.backends.TorchBackend` turns TF32 off.
@@ -57,6 +60,11 @@ EFFECTIVE_FLOP_FACTOR = {
 #: them onto bf16 MXU passes; on the GPU every rung runs full FP32 (TF32
 #: stays off), so in this port the rung is carried but changes nothing.
 DOT_PRECISION_MODES = ("highest", "high")
+
+#: the reference's documented per-dot relative error of its ``high`` rung;
+#: :func:`plan_precision_modes` promotes only when the run's parity budget
+#: clears it with 2× headroom (the port runs the rung in FP32 all the same).
+HIGH_PRECISION_STEP_REL = 2.0 ** -18
 
 #: steps routed away from the fused kernel by their shape, per reason —
 #: the port of the reference's ``ops.fused_fallback{reason}`` counter.
@@ -267,8 +275,9 @@ def auto_step_mode(step) -> str | None:
     :class:`KernelPolicy` plan (the hoisted prelude, whose stem GEMMs are
     exactly the Strassen regime): ``strassen`` when the step clears the
     crossover and no forcing override is set; ``None`` defers to the env
-    default. Eligibility-gated only, as in the reference (the port has no
-    fitted cost model); ``TNC_TPU_COMPLEX_MULT=gauss`` disables it."""
+    default. Eligibility-gated only, as in the reference: it never consults
+    a fitted cost model (:func:`_strassen_saving_s`);
+    ``TNC_TPU_COMPLEX_MULT=gauss`` disables it."""
     if complex_mult_forced() is not None:
         return None
     if _strassen_step_eligible(step):
@@ -442,61 +451,200 @@ class KernelPolicy:
         return len(self.modes) - len(self.chained_steps()) + len(self.chains)
 
 
-def plan_precision_modes(steps, force: str | None = None) -> tuple[str, ...]:
-    """Per-step dot-precision rungs: the ``TNC_TPU_DOT_PRECISION``
-    override (or ``force``) pins every step; with no fitted cost model
-    the reference promotes nothing, so unforced this is ``()``."""
+def _chain_pays(cost_model, steps) -> bool:
+    """Is fusing this run of steps into one launch a predicted win? Saves
+    ``len(steps) - 1`` launch overheads; costs the naive-vs-gauss flop
+    difference (the chain kernel runs 4 dots where the default ladder would
+    run 3). With no fitted model the grouping pass's own size bound (steps
+    under the fused kernel's flop floor) already selects launch-dominated
+    steps — accept."""
+    if cost_model is None:
+        return True
+    from tnc_tpu_torch.ops.program import step_flops
+
+    flops = sum(step_flops(st) for st in steps)
+    # complex k*m*n units → real-multiply units: naive 8x, gauss 6x, so
+    # fusing costs 2 extra units per k*m*n; each saved launch is worth its
+    # flop-equivalent under the fitted model
+    extra_flops = 2.0 * flops
+    saved_flops = (
+        len(steps) - 1
+    ) * cost_model.dispatch_equivalent_flops()
+    return saved_flops > extra_flops
+
+
+def _strassen_saving_s(cost_model, m: int, k: int, n: int) -> float:
+    """Predicted seconds one Strassen level saves over gauss on an eligible
+    step (negative = loses): the saved multiplies (0.75 → 21/32 of naive)
+    against the 15 extra quadrant-sized elementwise passes per real GEMM
+    (bandwidth). With no fitted model the margin is ``+inf`` — eligibility
+    alone decides."""
+    if cost_model is None:
+        return float("inf")
+    from tnc_tpu_torch.ops.strassen import GAUSS_STRASSEN_FLOP_FACTOR
+
+    naive_real_flops = 8.0 * m * k * n
+    saved_s = (
+        0.75 - GAUSS_STRASSEN_FLOP_FACTOR
+    ) * naive_real_flops / cost_model.flops_per_s
+    if not cost_model.bytes_per_s:
+        return saved_s
+    # ~15 add/sub passes over (m/2, k/2)+(k/2, n/2) quadrants, 3 Gauss
+    # products, f32 in + out
+    quad_bytes = 4.0 * ((m * k + k * n) / 4.0) * 2.0
+    extra_s = 3.0 * 15.0 * quad_bytes / cost_model.bytes_per_s
+    return saved_s - extra_s
+
+
+def _fused_transpose_saving_s(cost_model, step) -> float:
+    """Predicted seconds the fused transpose-dot saves over the default
+    prep+gauss path on one eligible step (negative = loses): the deleted
+    transposed copy (read + write of every permuted operand's (real, imag)
+    pair — :func:`tnc_tpu_torch.ops.program.step_prep_elems`) against the
+    naive-vs-gauss flop difference (the kernel runs 4 dots where gauss runs
+    3). A missing model, or one without a bandwidth term, means NO
+    promotion (``-inf``): the rung's whole case is bandwidth —
+    ``TNC_TPU_COMPLEX_MULT=fused_transpose`` is the A/B path."""
+    if cost_model is None or not cost_model.bytes_per_s:
+        return float("-inf")
+    from tnc_tpu_torch.ops.program import step_flops, step_prep_elems
+
+    prep = step_prep_elems(step)
+    if prep <= 0.0:
+        return float("-inf")  # no transpose pass to save
+    # f32 split pairs: 8 bytes per complex element, the device width
+    saved_s = prep * 8.0 / cost_model.bytes_per_s
+    # naive 8 vs gauss 6 real-multiply units per k*m*n (same convention as
+    # _chain_pays); the fitted flops_per_s is per k*m*n unit
+    extra_s = 2.0 * step_flops(step) / cost_model.flops_per_s
+    return saved_s - extra_s
+
+
+def chain_flop_ceiling(cost_model) -> float:
+    """Chain-candidate step-size ceiling in the fused kernel's ``2*k*m*n``
+    units, priced in calibrated seconds: a step is worth chaining while its
+    compute time is within ~one launch overhead (:meth:`~tnc_tpu_torch.obs.
+    calibrate.CalibratedCostModel.dispatch_equivalent_flops`), so the
+    ceiling rises above the static ``MIN_FLOPS`` small-step bucket exactly
+    when the fitted overhead says bigger steps are still launch-bound.
+    Never *below* ``MIN_FLOPS``: the static bound is the no-model floor."""
+    from tnc_tpu_torch.ops.cuda_complex import MIN_FLOPS
+
+    if cost_model is None:
+        return float(MIN_FLOPS)
+    return max(float(MIN_FLOPS), 2.0 * cost_model.dispatch_equivalent_flops())
+
+
+def plan_precision_modes(
+    steps,
+    cost_model=None,
+    force: str | None = None,
+    parity_budget: float = 1e-5,
+) -> tuple[str, ...]:
+    """Per-step dot-precision rungs for :func:`plan_kernel_steps`.
+
+    ``force`` (default: the ``TNC_TPU_DOT_PRECISION`` override via
+    :func:`dot_precision_forced`) pins every step. Unforced, the ladder
+    promotes a step to ``high`` only when ALL of:
+
+    - a fitted cost model with a bandwidth term exists and predicts the
+      step *compute*-dominated (flop time > byte time);
+    - the step is in the ``stem`` bucket;
+    - the ``parity_budget`` (the run's amplitude-parity target, 1e-5 by
+      default) clears the documented ``high`` rung
+      (:data:`HIGH_PRECISION_STEP_REL`) with 2× headroom.
+
+    Returns ``()`` (no rungs) when nothing promotes. The rung is the
+    reference's decision; in the port every rung runs FP32, so a ``high``
+    step changes the policy's key, not its numbers.
+    """
     steps = tuple(steps)
     if force is None:
         force = dot_precision_forced()
     if force is not None:
         return (force,) * len(steps)
-    return ()
+    if cost_model is None or not cost_model.bytes_per_s:
+        return ()
+    if parity_budget < 2.0 * HIGH_PRECISION_STEP_REL:
+        return ()
+    from tnc_tpu_torch.ops.program import step_elems, step_flops
+
+    out = []
+    for st in steps:
+        promote = False
+        if step_bucket(st) == "stem":
+            flop_s = step_flops(st) / cost_model.flops_per_s
+            elems_in, elems_out = step_elems(st)
+            byte_s = (elems_in + elems_out) * 8.0 / cost_model.bytes_per_s
+            promote = flop_s > byte_s
+        out.append("high" if promote else "")
+    if not any(out):
+        return ()
+    return tuple(out)
 
 
 def plan_kernels(
     program: ContractionProgram,
     cost_model=None,
     force: str | None = None,
+    chain_max_flops: float | None = None,
 ) -> KernelPolicy:
     """The kernel promotion ladder for one program — thin wrapper over
-    :func:`plan_kernel_steps`."""
-    return plan_kernel_steps(program.steps, cost_model, force)
+    :func:`plan_kernel_steps` (the chunked executor plans per chunk with the
+    same rules)."""
+    return plan_kernel_steps(
+        program.steps, cost_model, force, chain_max_flops
+    )
 
 
 def plan_kernel_steps(
     steps,
     cost_model=None,
     force: str | None = None,
+    chain_max_flops: float | None = None,
     precision_force: str | None = None,
+    parity_budget: float = 1e-5,
 ) -> KernelPolicy:
-    """Plan modes and chains over a bare step sequence, as the reference's
-    ``plan_kernel_steps`` plans them with no fitted cost model (the port
-    has no calibration layer; ``cost_model`` must be ``None``).
+    """Plan modes, chains and precision rungs over a bare step sequence, as
+    the reference's ``plan_kernel_steps`` plans them (chain spans and modes
+    indexed relative to ``steps[0]``).
 
     ``force`` (default: the ``TNC_TPU_COMPLEX_MULT`` override) pins the
     decision: ``naive``/``gauss``/``fused``/``fused_transpose`` uniformly
     (the fused rungs route steps their gates reject to naive dots,
-    counted); ``strassen`` promotes
-    every step over the crossover (others run gauss); ``chain`` fuses
-    every groupable run (others run gauss). Unforced:
+    counted); ``strassen`` promotes every step over the crossover (others
+    run gauss); ``chain`` fuses every groupable run (others run gauss).
+    Unforced, the ladder is driven by ``cost_model`` (a
+    :class:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel` or ``None``):
 
-    - runs of consecutive steps under ``MIN_FLOPS`` that
-      :func:`~tnc_tpu_torch.ops.program.chain_groups` groups → one
+    - runs of consecutive steps under :func:`chain_flop_ceiling`
+      (``MIN_FLOPS`` without a model, rising with the fitted launch
+      overhead) whose fusion saves more launch overhead than the
+      naive-vs-gauss flop difference costs (:func:`_chain_pays`) → one
       **chain** launch each;
-    - steps whose matricized shape clears the Strassen crossover →
-      **strassen**;
-    - everything else → **gauss**.
+    - transpose-carrying steps the fused transpose-dot's gate admits where
+      the deleted transposed copy beats the extra naive dot
+      (:func:`_fused_transpose_saving_s`, which needs a fitted bandwidth
+      term) → **fused_transpose**;
+    - steps whose matricized shape clears the Strassen crossover where the
+      multiply saving beats the extra passes (:func:`_strassen_saving_s`,
+      ``+inf`` without a model) → **strassen** (the larger predicted saving
+      wins where both rungs pay);
+    - everything else → **gauss**;
+    - compute-bound stem steps also get the ``high`` dot-precision rung
+      under the parity budget (:func:`plan_precision_modes`), never stacked
+      on a Strassen step unless forced.
     """
-    from tnc_tpu_torch.ops.program import chain_groups
+    from tnc_tpu_torch.ops.program import chain_groups, step_dims
+    from tnc_tpu_torch.ops.strassen import strassen_eligible
 
-    if cost_model is not None:
-        raise NotImplementedError("the port plans without a fitted cost model")
     steps = tuple(steps)
     n = len(steps)
     if force is None:
         force = complex_mult_forced()
-    pmodes = plan_precision_modes(steps, precision_force)
+    pmodes = plan_precision_modes(
+        steps, cost_model, precision_force, parity_budget
+    )
     if force in ("naive", "gauss", "fused", "fused_transpose"):
         return KernelPolicy((force,) * n, (), pmodes)
     if force == "strassen":
@@ -504,18 +652,60 @@ def plan_kernel_steps(
             "strassen" if _strassen_step_eligible(st) else "gauss"
             for st in steps
         )
+        if pmodes and dot_precision_forced() is None and precision_force is None:
+            # see the auto branch below: no auto `high` on strassen
+            pmodes = tuple(
+                "" if modes[i] == "strassen" else p
+                for i, p in enumerate(pmodes)
+            )
+            if not any(pmodes):
+                pmodes = ()
         return KernelPolicy(modes, (), pmodes)
 
-    chains = chain_groups(steps)
+    if chain_max_flops is None and force != "chain":
+        chain_max_flops = chain_flop_ceiling(cost_model)
+    chains = chain_groups(steps, max_flops=chain_max_flops)
+    if force != "chain":  # auto: keep only the chains the model likes
+        chains = tuple(
+            (s, e) for s, e in chains if _chain_pays(cost_model, steps[s:e])
+        )
     chained = {i for s, e in chains for i in range(s, e)}
     modes = []
     for i, st in enumerate(steps):
         if i in chained:
             modes.append("naive")  # the chain kernel's arithmetic
-        elif force != "chain" and _strassen_step_eligible(st):
+            continue
+        if force == "chain":
+            modes.append("gauss")
+            continue
+        m, k, nn = step_dims(st)
+        strassen_gain = (
+            _strassen_saving_s(cost_model, m, k, nn)
+            if strassen_eligible(m, k, nn)
+            else float("-inf")
+        )
+        transpose_gain = (
+            _fused_transpose_saving_s(cost_model, st)
+            if fused_transpose_step_eligible(st)
+            else float("-inf")
+        )
+        if strassen_gain <= 0.0 and transpose_gain <= 0.0:
+            modes.append("gauss")
+        elif strassen_gain >= transpose_gain:
             modes.append("strassen")
         else:
-            modes.append("gauss")
+            modes.append("fused_transpose")
+    if pmodes and dot_precision_forced() is None and precision_force is None:
+        # never STACK the auto `high` rung on a Strassen step: the budget
+        # check models the plain-dot rung only, and Strassen's extra add/sub
+        # passes amplify the error past it. A forced TNC_TPU_DOT_PRECISION
+        # is the explicit A/B and stays global.
+        pmodes = tuple(
+            "" if modes[i] == "strassen" else p
+            for i, p in enumerate(pmodes)
+        )
+        if not any(pmodes):
+            pmodes = ()
     return KernelPolicy(tuple(modes), chains, pmodes)
 
 
