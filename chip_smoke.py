@@ -139,7 +139,29 @@ Phases, each of which raises on failure (nothing is caught):
    the PEPS cell's Strassen stems, each measured saving beside
    ``_strassen_saving_s`` under the fitted model, and the smallest n at
    which Strassen wins (no constant changes); the registry is then reset;
-12. one JSON line of path numbers (with each kernel's per-shape rows,
+12. the batched amplitude sweep (``sycamore53_m8_sweep``): 8 bitstrings
+   (all zeros and 7 rows of ``default_rng(7)``) of the raw
+   ``sycamore_circuit(53, 8, default_rng(42))`` amplitude network through
+   ``amplitude_sweep`` — one ``TorchBackend().execute_batched``, the bras
+   a leading batch axis of every buffer they reach: each distinct
+   ``fused_chain`` launch held against its plain version (the chains on
+   the bra batch batched, the others once), one warm-up and three timed
+   runs (wall, the CUDA-event span of ``execute_batched``, peak, launches
+   by form held to the policy's chains), each amplitude against
+   complex128 on the card within 1e-4 max|ref| and against the bitstrings
+   run alone within 1e-5 max|alone|; the same bitstrings through
+   ``bind_template`` / ``BoundProgram.amplitudes`` (the sweep's program:
+   bitwise equal), two through the sliced serving branch
+   (``target_size=2**26``); the forced ``fused`` rung on the sweep (each
+   distinct batched ``fused_complex_dot`` launch held against its plain
+   version, launches and routed steps against the plan's gate); and at 20
+   qubits (``sycamore_circuit(20, 8, rng 42)``) ``marginal_sweep`` of 16
+   patterns against the complex128 statevector on the card (its chains
+   held against the plain version), ``amplitude_sweep`` of the same
+   patterns on the same route, and ``ChainSampler(...).sample(64,
+   seed=0)`` against the complex128 sampler (conditionals within 1e-5;
+   samples equal except where a uniform lies within 1e-4 of a threshold);
+13. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -155,6 +177,8 @@ JSON record and the card line. ``python3 chip_smoke.py --calibrated`` builds
 the kernels and runs phase 11 alone (its references made first: the default
 policy's statevector and PEPS norm, the amplitudes and the norm in
 complex128), and ends with its JSON record and the card line.
+``python3 chip_smoke.py --sweep`` builds the kernels and runs phase 12
+alone, and ends with its JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -208,6 +232,23 @@ NORTHSTAR_CHECK_FEW = 256  # else of this many
 NORTHSTAR_RUN = 64
 # the square FP32 split products the Strassen crossover is timed at (phase 11)
 STRASSEN_SIZES = (1024, 2048, 4096, 8192)
+# the batched sweep (phase 12): a Sycamore amplitude network (qubits, depth, rng
+# seed) closed on SWEEP_BATCH bitstrings at once, the all-zeros one and rows of
+# default_rng(SWEEP_BITS_SEED); two of them also through the sliced serving
+# branch, planned to 2^SWEEP_SLICED_TARGET elements
+SWEEP = (53, 8, 42)
+SWEEP_BATCH = 8
+SWEEP_BITS_SEED = 7
+SWEEP_SLICED_TARGET = 26
+SWEEP_SLICED_ROWS = 2
+# the queries (phase 12): marginal sweeps and chain sampling at the width at
+# which Greedy plans the sandwich networks (at 30 qubits and more their peak
+# passes 2^38); the marginal patterns fix the first QUERY_FIXED qubits
+QUERY = (20, 8, 42)
+QUERY_FIXED = 10
+QUERY_PATTERNS = 16
+QUERY_SAMPLES = 64
+SAMPLE_NEAR = 1e-4  # a uniform this close to a threshold may fall either way
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -478,16 +519,27 @@ def hold_chain(first_ops, link_ops, links, label: str, launches: int) -> dict:
             "one_slice_ms": row_ms}
 
 
-def hold_chain_run(label_of, launches: int, rows: list):
+def hold_chain_run(label_of, launches: int, rows: list, seen: dict | None = None):
     """A hold for :func:`holding` of ``split_complex.run_chain_split``: the
     chain the path is about to run, on its own operands, through
     :func:`hold_chain`; its row appended to ``rows``, labelled
-    ``label_of(count of rows so far)``."""
+    ``label_of(count of rows so far)``. With a ``seen`` dict, each distinct
+    chain (its operands' shapes, links and batch) is held once and a
+    repeat adds ``launches`` to its row."""
     from tnc_tpu_torch.ops.split_complex import chain_operands
 
     def hold(steps, buffers, batched=None, *_):
-        ops = chain_operands(steps, buffers, set() if batched is None else batched)
-        rows.append(hold_chain(*ops, label_of(len(rows)), launches))
+        first, link_ops, links = chain_operands(steps, buffers,
+                                                set() if batched is None else batched)
+        if seen is not None:
+            key = (tuple(tuple(t.shape) for t in first),
+                   tuple(tuple(t.shape) for pair in link_ops for t in pair),
+                   tuple(link.key() for link in links))
+            if key in seen:
+                rows[seen[key]]["launches"] += launches
+                return
+            seen[key] = len(rows)
+        rows.append(hold_chain(first, link_ops, links, label_of(len(rows)), launches))
 
     return hold
 
@@ -2439,6 +2491,457 @@ def run_calibrated(refs: dict, gen) -> dict:
                                       for r in records.values())}
 
 
+def sweep_bits(seed: int = SWEEP_BITS_SEED) -> list[str]:
+    rows = np.random.default_rng(seed).integers(
+        0, 2, (SWEEP_BATCH - 1, SWEEP[0]))
+    return ["0" * SWEEP[0]] + ["".join(str(int(b)) for b in r) for r in rows]
+
+
+def sycamore(cfg):
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+
+    qubits, depth, seed = cfg
+    return sycamore_circuit(qubits, depth, np.random.default_rng(seed))
+
+
+def hold_dot_distinct(label: str, rows: list, seen: dict):
+    """A hold for :func:`holding` of ``cuda_complex.fused_complex_dot`` that
+    holds each distinct operand shape once through :func:`hold_dot`, its
+    row weighed by the launches at that shape."""
+    def hold(ar, ai, br, bi):
+        key = (tuple(ar.shape), tuple(br.shape))
+        if key in seen:
+            rows[seen[key]]["launches"] += 1
+            return
+        seen[key] = len(rows)
+        rows.append(hold_dot(ar, ai, br, bi, 1, f"{label} {len(rows)}"))
+
+    return hold
+
+
+def timed_batched(backend, spans: list):
+    """``backend`` with its ``execute_batched`` timed by CUDA events around
+    each call (seconds appended to ``spans``)."""
+    import torch
+
+    real = backend.execute_batched
+
+    def run(program, arrays, batched):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(program, arrays, batched)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end) / 1e3)
+        return out
+
+    backend.execute_batched = run
+    return backend
+
+
+def sweep_rows(label, bits, amps, program, arrays, bras):
+    """Each row of a sweep against complex128 on the card
+    (``TorchBackend(dtype="complex128", split_complex=False).execute`` of
+    that bitstring alone), within 1e-4 max|ref|, and against the bitstring
+    run alone through ``TorchBackend().execute``, within 1e-5 max|alone|;
+    each row's absolute and relative gaps printed. Returns ``(refs, alone,
+    max|amp - ref|, |amp - alone| per row, bitwise equal per row)``."""
+    import torch
+
+    from tnc_tpu_torch.ops.backends import TorchBackend
+
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    single = TorchBackend()
+    refs, alone = [], []
+    t0 = time.perf_counter()
+    for i in range(len(bits)):
+        per = [a[i] if s in bras else a for s, a in enumerate(arrays)]
+        refs.append(complex(np.asarray(oracle.execute(program, per)).reshape(())))
+        alone.append(complex(np.asarray(single.execute(program, per)).reshape(())))
+    oracle_s = time.perf_counter() - t0
+    refs, alone = np.array(refs), np.array(alone)
+    scale = float(np.max(np.abs(refs)))
+    err = float(np.max(np.abs(amps - refs)))
+    row_err = np.abs(amps - alone)
+    bitwise = [amps[i].tobytes() == alone[i].tobytes() for i in range(len(bits))]
+    for i, b in enumerate(bits):
+        print(f"[check] {label} {b[:12]}...: {amps[i]:.6e} complex128 {refs[i]:.6e} alone "
+              f"{alone[i]:.6e} (bitwise {bitwise[i]}); |batched - alone| {row_err[i]:.3e}, "
+              f"over |alone| {row_err[i] / abs(alone[i]):.3e}", flush=True)
+    print(f"[check] {label}: max|amp - complex128| {err:.3e} (gate 1e-4 x {scale:.3e}); "
+          f"max|batched - alone| {float(np.max(row_err)):.3e} (gate 1e-5 x "
+          f"{float(np.max(np.abs(alone))):.3e}), over |alone| "
+          f"{float(np.max(row_err / np.abs(alone))):.3e}; "
+          f"{sum(bitwise)} of {len(bits)} rows bitwise equal to their run alone; complex128 "
+          f"and alone runs {oracle_s:.2f} s", flush=True)
+    check(err <= 1e-4 * scale, f"{label}: an amplitude is off complex128 by {err}")
+    # both are float32 evaluations whose rounding scales with the batch's
+    # amplitudes, not with one small amplitude's modulus
+    alone_scale = float(np.max(np.abs(alone)))
+    check(np.all(row_err <= 1e-5 * alone_scale),
+          f"{label}: a batched row is off its run alone by {float(np.max(row_err))} "
+          f"(gate 1e-5 x {alone_scale})")
+    del oracle, single
+    torch.cuda.empty_cache()
+    return refs, alone, err, row_err, bitwise
+
+
+def run_sweep() -> dict:
+    """Phase 12: the batched amplitude sweep and the query path.
+
+    (a) ``amplitude_sweep`` of ``SWEEP_BATCH`` bitstrings of the raw
+    ``sycamore_circuit(53, 8)`` amplitude network through one
+    ``TorchBackend().execute_batched``: every distinct ``fused_chain``
+    launch held against its plain version (batched chains on the bra
+    batch, the others once), one warm-up and three timed runs (wall,
+    CUDA-event span of ``execute_batched``, peak, launches by form held to
+    the policy's chains); each amplitude against complex128 on the card
+    (``TorchBackend(dtype="complex128", split_complex=False).execute`` per
+    bitstring) within 1e-4 max|ref| and against the same bitstrings run
+    alone through ``TorchBackend().execute`` within 1e-5 max|alone|
+    (:func:`sweep_rows`), then the same on a second batch of bitstrings.
+    (b) the same bitstrings through ``bind_template`` /
+    ``BoundProgram.amplitudes`` (the same program: bitwise equal to (a)),
+    then ``SWEEP_SLICED_ROWS`` of them through the sliced branch under
+    ``target_size=2**SWEEP_SLICED_TARGET`` against (a)'s complex128.
+    (c) the forced ``fused`` rung on the sweep: each distinct
+    ``fused_complex_dot`` launch held against its plain version, launches
+    and routed steps against the plan's gate, the amplitudes against (a).
+    (d) at 20 qubits: ``marginal_sweep`` over ``QUERY_PATTERNS`` patterns
+    (the first ``QUERY_FIXED`` qubits fixed) against marginals summed from
+    the complex128 statevector on the card, ``amplitude_sweep`` of the same
+    patterns on the same route and bits; ``ChainSampler(...).sample(64,
+    seed=0)`` on ``TorchBackend()`` (a first pass holds each distinct chain
+    of its 20 structures against its plain version, and its launches must
+    equal the timed pass's), each step's conditionals against
+    complex128 on the card within 1e-5, the samples against the complex128
+    sampler's, equal except where a uniform lies within ``SAMPLE_NEAR`` of
+    its threshold."""
+    import torch
+
+    from tnc_tpu_torch.ops import cuda_complex, split_complex
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.batched import thread_batch
+    from tnc_tpu_torch.ops.program import step_dims, step_flops
+    from tnc_tpu_torch.serve import rebind
+    from tnc_tpu_torch.serve.rebind import bind_template, plan_signature
+    from tnc_tpu_torch.tensornetwork.sweep import _sweep_program, amplitude_sweep
+
+    qubits, depth, seed = SWEEP
+    label = f"sycamore{qubits}_m{depth}_sweep"
+    bits = sweep_bits()
+    t0 = time.perf_counter()
+    program, arrays, bras = _sweep_program(sycamore(SWEEP), bits, None)
+    plan_s = time.perf_counter() - t0
+    spans: list = []
+    backend = timed_batched(TorchBackend(), spans)
+    policy = backend.kernel_policy(program)
+    flags, feasible = thread_batch(program, bras)
+    batched_chains = [(s, e) for s, e in policy.chains if any(any(f) for f in flags[s:e])]
+    largest = max(math.prod(st.out_store) for st, f in zip(program.steps, flags) if any(f))
+    print(f"[{label}] {len(program.steps)} steps, {sum(step_flops(st) for st in program.steps):.4e} "
+          f"multiply-adds a bitstring, planned in {plan_s:.3f} s; batch {len(bits)} on "
+          f"{len(bras)} bra slots, thread_batch feasible {feasible} (ignored by "
+          f"TorchBackend); {len(policy.chains)} chains, {len(batched_chains)} batched; "
+          f"largest batched intermediate 2^{math.log2(largest):.1f} elements a row",
+          flush=True)
+
+    # (a) the sweep: the kernels held on the path's own operands, then timed
+    chain_rows: list = []
+    print(f"[kernels] fused_chain against fused_chain_reference on the operands of "
+          f"{label} (each distinct chain once)", flush=True)
+    with holding("run_chain_split", hold_chain_run(lambda i: f"{label} chain {i}", 1,
+                                                   chain_rows, {}), split_complex):
+        amplitude_sweep(sycamore(SWEEP), bits, backend=backend)
+    check(sum(r["launches"] for r in chain_rows) == len(policy.chains),
+          f"{label}: {sum(r['launches'] for r in chain_rows)} chain calls for "
+          f"{len(policy.chains)} chains")
+    check(sum(r["launches"] for r in chain_rows if r["batch"] == len(bits))
+          == len(batched_chains), f"{label}: batched chain launches differ from the plan")
+    torch.cuda.empty_cache()
+    spans.clear()
+    run = run_counted(lambda: amplitude_sweep(sycamore(SWEEP), bits, backend=backend), label)
+    device_s = spans[1:]  # the warm-up's span first
+    amps = np.asarray(run["out"])
+    check(amps.shape == (len(bits),) and np.all(np.isfinite(amps)),
+          f"{label}: amplitudes of shape {amps.shape} or non-finite")
+    check(run["launches"]["fused_chain"] == len(policy.chains),
+          f"{label}: fused_chain launched {run['launches']['fused_chain']} times for "
+          f"{len(policy.chains)} chains")
+    print(f"[{label}] wall {[round(w, 4) for w in run['walls']]} s, execute_batched CUDA-event "
+          f"span {[round(d, 4) for d in device_s]} s, max_memory_allocated "
+          f"{run['peak_bytes']} bytes; fused_chain {run['launches']['fused_chain']} launches "
+          f"by form {run['chain_forms']}, dispatch TorchBackend.execute_batched (split "
+          f"complex)", flush=True)
+
+    refs, alone, err, row_err, bitwise = sweep_rows(label, bits, amps, program, arrays, bras)
+    scale = float(np.max(np.abs(refs)))
+    # the per-row gaps on a second batch of bitstrings, through the same path
+    bits2 = sweep_bits(SWEEP_BITS_SEED + 1)
+    program2, arrays2, bras2 = _sweep_program(sycamore(SWEEP), bits2, None)
+    amps2 = amplitude_sweep(sycamore(SWEEP), bits2, backend=backend)
+    gaps2 = sweep_rows(f"{label} seed {SWEEP_BITS_SEED + 1}", bits2, amps2, program2, arrays2,
+                       bras2)
+    del program2, arrays2
+    torch.cuda.empty_cache()
+
+    # (b) the serving path: the same program, so the same bits; then sliced
+    rebind.reset_dispatch()
+    t0 = time.perf_counter()
+    bound = bind_template(sycamore(SWEEP).into_amplitude_template("0" * qubits))
+    bind_s = time.perf_counter() - t0
+    check(plan_signature(bound) == program.signature_digest() and bound.bra_slots == tuple(bras),
+          f"{label}: bind_template planned another program than the sweep")
+    served = bound.amplitudes(bits, backend)
+    check(rebind.DISPATCH == {"batched": 1}, f"{label}: dispatch {rebind.DISPATCH}")
+    served_bitwise = served.tobytes() == amps.tobytes()
+    print(f"[{label} serve] bind_template {bind_s:.3f} s, the sweep's program; "
+          f"BoundProgram.amplitudes dispatch {rebind.DISPATCH}; bitwise equal to the sweep "
+          f"{served_bitwise}", flush=True)
+    check(served_bitwise, f"{label}: BoundProgram.amplitudes differs from the sweep's bits")
+    rebind.reset_dispatch()
+    t0 = time.perf_counter()
+    sliced = bind_template(sycamore(SWEEP).into_amplitude_template("0" * qubits),
+                           target_size=2.0 ** SWEEP_SLICED_TARGET)
+    sliced_plan_s = time.perf_counter() - t0
+    check(sliced.sliced is not None, f"{label}: target 2^{SWEEP_SLICED_TARGET} did not slice")
+    t0 = time.perf_counter()
+    got = sliced.amplitudes(bits[:SWEEP_SLICED_ROWS], TorchBackend())
+    sliced_s = time.perf_counter() - t0
+    want = refs[:SWEEP_SLICED_ROWS]
+    sliced_err = float(np.max(np.abs(got - want)))
+    sliced_scale = float(np.max(np.abs(want)))
+    n_slices = sliced.sliced.slicing.num_slices
+    print(f"[{label} serve, sliced] target 2^{SWEEP_SLICED_TARGET}: "
+          f"{sliced.sliced.slicing.num_slices} slices planned in {sliced_plan_s:.3f} s; "
+          f"{SWEEP_SLICED_ROWS} bitstrings in {sliced_s:.3f} s, dispatch {rebind.DISPATCH}; "
+          f"max|amp - complex128| {sliced_err:.3e} (gate 1e-4 x {sliced_scale:.3e})",
+          flush=True)
+    check(rebind.DISPATCH == {"sliced": 1}, f"{label}: sliced dispatch {rebind.DISPATCH}")
+    check(sliced_err <= 1e-4 * sliced_scale, f"{label}: the sliced branch is off by "
+                                             f"{sliced_err}")
+    del bound, sliced
+    torch.cuda.empty_cache()
+
+    # (c) the forced fused rung on the sweep
+    admitted, routed = fused_gate(program)
+    dot_rows: list = []
+    os.environ["TNC_TPU_COMPLEX_MULT"] = "fused"
+    try:
+        print(f"[kernels] fused_complex_dot against fused_complex_dot_reference on the "
+              f"operands of {label}'s forced fused rung (each distinct shape once; the gate "
+              f"admits {len(admitted)} steps, routes {routed})", flush=True)
+        with holding("fused_complex_dot", hold_dot_distinct(f"{label} fused rung", dot_rows,
+                                                            {})):
+            amplitude_sweep(sycamore(SWEEP), bits, backend=backend)
+        torch.cuda.empty_cache()
+        fused = run_counted(lambda: amplitude_sweep(sycamore(SWEEP), bits, backend=backend),
+                            f"{label} fused rung", reps=1, warmup=lambda: None)
+    finally:
+        del os.environ["TNC_TPU_COMPLEX_MULT"]
+    fused_amps = np.asarray(fused["out"])
+    fused_err = float(np.max(np.abs(fused_amps - refs)))
+    want_routed = collections.Counter()
+    for i, st in enumerate(program.steps):
+        if i not in admitted:
+            m, k, n = step_dims(st)
+            if st.swap:
+                m, n = n, m
+            reason = ("layout" if not (st.a_cfirst and st.b_cfirst)
+                      else cuda_complex.ineligible_reason(k, m, n))
+            # a batched step is counted once per row it stands for
+            want_routed[reason] += len(bits) if any(flags[i]) else 1
+    print(f"[check] {label} fused rung: fused_complex_dot {fused['launches']['fused_complex_dot']}"
+          f" launches, routed {fused['routed']}; max|amp - complex128| {fused_err:.3e}, "
+          f"|fused - default| {float(np.max(np.abs(fused_amps - amps))):.3e}", flush=True)
+    check(sum(r["launches"] for r in dot_rows) == len(admitted)
+          == fused["launches"]["fused_complex_dot"],
+          f"{label} fused rung: {fused['launches']['fused_complex_dot']} launches, "
+          f"{sum(r['launches'] for r in dot_rows)} held, the gate admits {len(admitted)}")
+    check(fused["routed"] == dict(want_routed),
+          f"{label} fused rung routed {fused['routed']}, the gate says {dict(want_routed)}")
+    on_bras = sum(1 for i in admitted if any(flags[i]))
+    check(sum(r["launches"] for r in dot_rows if r["batch"] == len(bits)) == on_bras,
+          f"{label}'s forced rung: the batched fused_complex_dot launches differ from the "
+          f"{on_bras} admitted steps the bras reach")
+    check(fused_err <= 1e-4 * scale, f"{label} fused rung is off complex128 by {fused_err}")
+    torch.cuda.empty_cache()
+
+    query = run_queries()
+    record = {
+        "config": list(SWEEP), "bitstrings": bits, "steps": len(program.steps),
+        "multiply_adds_per_bitstring": sum(step_flops(st) for st in program.steps),
+        "plan_s": plan_s, "chains": len(policy.chains), "batched_chains": len(batched_chains),
+        "largest_batched_elems": largest, "thread_batch_feasible": feasible,
+        "wall_s": statistics.median(run["walls"]), "wall_runs_s": run["walls"],
+        "device_s": statistics.median(device_s), "device_runs_s": device_s,
+        "peak_bytes": run["peak_bytes"], "launches": run["launches"],
+        "chain_forms": run["chain_forms"],
+        "amplitudes": [[float(a.real), float(a.imag)] for a in amps],
+        "complex128": [[float(a.real), float(a.imag)] for a in refs], "max_abs_err": err,
+        "rows_bitwise_alone": sum(bitwise), "max_abs_err_alone": float(np.max(row_err)),
+        "max_rel_err_alone": float(np.max(row_err / np.abs(alone))),
+        "second_batch": {"seed": SWEEP_BITS_SEED + 1, "max_abs_err": gaps2[2],
+                         "rows_bitwise_alone": sum(gaps2[4]),
+                         "max_abs_err_alone": float(np.max(gaps2[3])),
+                         "max_rel_err_alone": float(np.max(gaps2[3] / np.abs(gaps2[1]))),
+                         "alone_scale": float(np.max(np.abs(gaps2[1])))},
+        "serve_bitwise": served_bitwise, "bind_s": bind_s,
+        "sliced": {"target_log2": SWEEP_SLICED_TARGET,
+                   "slices": n_slices, "plan_s": sliced_plan_s, "rows": SWEEP_SLICED_ROWS,
+                   "wall_s": sliced_s, "max_abs_err": sliced_err},
+        "fused_rung": {"launches": fused["launches"], "routed": fused["routed"],
+                       "wall_s": fused["walls"][0], "max_abs_err": fused_err},
+        "queries": query["record"],
+    }
+    return {"record": record, "chain_rows": chain_rows + query["chain_rows"],
+            "dot_rows": dot_rows, "chain_launches": run["launches"]["fused_chain"],
+            "query_chain_launches": query["chain_launches"],
+            "dot_launches": fused["launches"]["fused_complex_dot"], "label": label}
+
+
+def run_queries() -> dict:
+    """Phase 12 (d): the marginal sweep and chain sampling at 20 qubits
+    (:func:`run_sweep`)."""
+    import torch
+
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.ops import split_complex
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.queries import ChainSampler, marginal_sweep
+    from tnc_tpu_torch.serve import rebind
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+    from tnc_tpu_torch.tensornetwork.sweep import amplitude_sweep
+
+    qubits, depth, seed = QUERY
+    label = f"sycamore{qubits}_m{depth}"
+    backend = TorchBackend()
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    # the complex128 statevector on the card, in qubit order
+    tn, permutor = sycamore(QUERY).into_statevector_network()
+    path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+    sv = permutor.apply(contract_tensor_network(tn, path, oracle)).data.into_data()
+    probs = np.abs(np.asarray(sv).reshape((2,) * qubits)) ** 2
+    del sv
+    norm = float(probs.sum())
+    check(abs(norm - 1.0) <= 1e-10, f"{label} statevector norm {norm}")
+
+    # marginals
+    rows = np.random.default_rng(5).integers(0, 2, (QUERY_PATTERNS, QUERY_FIXED))
+    patterns = ["".join(str(int(b)) for b in r) + "*" * (qubits - QUERY_FIXED) for r in rows]
+    want = np.array([probs[tuple(int(c) for c in p[:QUERY_FIXED])].sum() for p in patterns])
+    chain_rows: list = []
+    rebind.reset_dispatch()
+    print(f"[kernels] fused_chain against fused_chain_reference on the operands of "
+          f"{label}'s marginal sweep (each distinct chain once)", flush=True)
+    with holding("run_chain_split", hold_chain_run(lambda i: f"{label} marginals chain {i}",
+                                                   1, chain_rows, {}), split_complex):
+        marginal_sweep(sycamore(QUERY), patterns, backend=backend)
+    torch.cuda.empty_cache()
+    rebind.reset_dispatch()
+    run = run_counted(lambda: marginal_sweep(sycamore(QUERY), patterns, backend=backend),
+                      f"{label} marginal_sweep", reps=1, warmup=lambda: None)
+    got = np.asarray(run["out"])
+    route = dict(rebind.DISPATCH)
+    rebind.reset_dispatch()
+    via_sweep = amplitude_sweep(sycamore(QUERY), patterns, backend=backend)
+    same_route = dict(rebind.DISPATCH) == route
+    m_err = float(np.max(np.abs(got - want)))
+    m_scale = float(np.max(want))
+    print(f"[check] {label} marginal_sweep of {QUERY_PATTERNS} patterns "
+          f"({'?' * QUERY_FIXED + '*' * (qubits - QUERY_FIXED)}): max|p - statevector| "
+          f"{m_err:.3e} (gate 1e-4 x {m_scale:.3e}); dispatch {route}; amplitude_sweep of the "
+          f"same patterns: dispatch {dict(rebind.DISPATCH)}, bitwise equal "
+          f"{via_sweep.tobytes() == got.tobytes()}", flush=True)
+    check(m_err <= 1e-4 * m_scale, f"{label}: a marginal is off by {m_err}")
+    check(route == {"batched": 1} and same_route,
+          f"{label}: marginal_sweep took {route}, amplitude_sweep {dict(rebind.DISPATCH)}")
+    check(np.allclose(via_sweep, got, rtol=0, atol=1e-5 * m_scale),
+          f"{label}: amplitude_sweep's marginals differ from marginal_sweep's")
+    torch.cuda.empty_cache()
+
+    # chain sampling, FP32 against complex128. A first pass plans the 20
+    # structures and holds each distinct chain of the sandwich structures
+    # (`?`*k + `o` + `*`*(19-k)) against its plain version; the same draws
+    # are then timed, with each step's prefixes and conditionals kept.
+    sampler = ChainSampler(sycamore(QUERY), backend=backend)
+    sampler_rows: list = []
+    print(f"[kernels] fused_chain against fused_chain_reference on the operands of "
+          f"{label}'s ChainSampler (each distinct chain once)", flush=True)
+    with holding("run_chain_split", hold_chain_run(lambda i: f"{label} sampler chain {i}",
+                                                   1, sampler_rows, {}), split_complex):
+        sampler.sample(QUERY_SAMPLES, seed=0)
+    torch.cuda.empty_cache()
+    steps: list = []
+    real = sampler.conditionals
+
+    def conditionals(prefixes, backend=None):
+        out = real(prefixes, backend)
+        steps.append((list(prefixes), out))
+        return out
+
+    sampler.conditionals = conditionals
+    rebind.reset_dispatch()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    samples = sampler.sample(QUERY_SAMPLES, seed=0)
+    sample_s = time.perf_counter() - t0
+    sample_launches = LAUNCHES["fused_chain"]
+    sample_peak = torch.cuda.max_memory_allocated()
+    sample_route = dict(rebind.DISPATCH)
+    check(len(steps) == qubits, f"{label}: the sampler walked {len(steps)} steps")
+    check(sum(r["launches"] for r in sampler_rows) == sample_launches,
+          f"{label}: {sum(r['launches'] for r in sampler_rows)} chain calls held for the "
+          f"sampler's {sample_launches} launches")
+    cond_err = 0.0
+    for prefixes, p32 in steps:
+        p128 = ChainSampler.conditionals(sampler, prefixes, oracle)
+        cond_err = max(cond_err, float(np.max(np.abs(p32 - p128))))
+    t0 = time.perf_counter()
+    samples128 = ChainSampler(sycamore(QUERY), backend=oracle).sample(QUERY_SAMPLES, seed=0)
+    sample128_s = time.perf_counter() - t0
+    # replay the draws: one uniform vector a position, sample-major
+    rng = np.random.default_rng(0)
+    near = 0
+    near_at: set = set()
+    for k, (prefixes, p32) in enumerate(steps):
+        draws = rng.random(QUERY_SAMPLES)
+        index = {p: i for i, p in enumerate(prefixes)}
+        for i, s in enumerate(samples):
+            if abs(draws[i] - p32[index[s[:k]]][1]) <= SAMPLE_NEAR:
+                near += 1
+                near_at.add((i, k))
+    differ = [i for i in range(QUERY_SAMPLES) if samples[i] != samples128[i]]
+    explained = all(
+        (i, next(k for k in range(qubits) if samples[i][k] != samples128[i][k])) in near_at
+        for i in differ)
+    print(f"[check] {label} ChainSampler.sample({QUERY_SAMPLES}, seed=0): {sample_s:.3f} s, "
+          f"{sum(len(p) for p, _ in steps)} conditionals over {len(steps)} steps, dispatch "
+          f"{sample_route}, fused_chain {sample_launches} launches, max_memory_allocated "
+          f"{sample_peak} bytes; conditionals against complex128 max|diff| {cond_err:.3e} "
+          f"(gate 1e-5); complex128 sampler {sample128_s:.3f} s; {len(differ)} of "
+          f"{QUERY_SAMPLES} samples differ, {near} uniforms within {SAMPLE_NEAR} of a "
+          f"threshold; {len(sampler_rows)} distinct chains held", flush=True)
+    check(cond_err <= 1e-5, f"{label}: a conditional is off complex128 by {cond_err}")
+    check(explained, f"{label}: a sample differs from complex128's away from a threshold")
+    return {"chain_rows": chain_rows + sampler_rows,
+            "chain_launches": {f"{label} marginal_sweep": run["launches"]["fused_chain"],
+                               f"{label} sample": sample_launches},
+            "record": {
+                "config": list(QUERY), "patterns": QUERY_PATTERNS, "fixed": QUERY_FIXED,
+                "marginal_wall_s": run["walls"][0], "marginal_peak_bytes": run["peak_bytes"],
+                "marginal_max_abs_err": m_err, "marginal_scale": m_scale,
+                "marginal_dispatch": route, "marginal_launches": run["launches"],
+                "sample_wall_s": sample_s, "sample_peak_bytes": sample_peak,
+                "sample_dispatch": sample_route, "sample_launches": sample_launches,
+                "conditionals": sum(len(p) for p, _ in steps),
+                "conditional_max_abs_err": cond_err, "samples_differ": len(differ),
+                "near_threshold": near, "complex128_sample_wall_s": sample128_s}}
+
+
 def main() -> int:
     try:
         import torch
@@ -2490,6 +2993,15 @@ def main() -> int:
                              torch.Generator(device="cuda").manual_seed(SEED))
         print(json.dumps({"calibrated": cal["record"],
                           "shapes": {"fused_chain": cal["chain_rows"]}}), flush=True)
+        print(card_line(), flush=True)
+        return 0
+
+    if "--sweep" in sys.argv[1:]:
+        # the batched sweep and the query path alone: phase 12
+        sweep = run_sweep()
+        print(json.dumps({sweep["label"]: sweep["record"],
+                          "shapes": {"fused_chain": sweep["chain_rows"],
+                                     "fused_complex_dot": sweep["dot_rows"]}}), flush=True)
         print(card_line(), flush=True)
         return 0
 
@@ -2633,6 +3145,15 @@ def main() -> int:
     del sv
     chain_launches.update(calibrated["chain_launches"])
     transpose_rec["launches"] += calibrated["transpose_launches"]
+    torch.cuda.empty_cache()
+
+    # 12. the batched amplitude sweep of sycamore(53, 8), its serving path and
+    # forced fused rung, and the marginal and sampling queries at 20 qubits
+    sweep = run_sweep()
+    chain_launches[sweep["label"]] = sweep["chain_launches"]
+    chain_launches.update(sweep["query_chain_launches"])
+    chain_forms[sweep["label"]] = sweep["record"]["chain_forms"]
+    dot_launches[f"{sweep['label']} fused rung"] = sweep["dot_launches"]
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -2642,6 +3163,17 @@ def main() -> int:
                 if r["label"].startswith(f"{name} calibrated")]
         if rows:
             calibrated_chains[f"{name} calibrated"] = chain_record(rows)
+    # the sweep's chains apart by kind: batched on the bras, unbatched, the queries'
+    sweep_kinds = {
+        f"{sweep['label']} batched": lambda r: r["label"].startswith(sweep["label"])
+        and r["batch"] > 1,
+        f"{sweep['label']} unbatched": lambda r: r["label"].startswith(sweep["label"])
+        and r["batch"] == 1,
+        "sycamore20_m8 marginals": lambda r: r["label"].startswith("sycamore20_m8 marginals"),
+        "sycamore20_m8 sampler": lambda r: r["label"].startswith("sycamore20_m8 sampler"),
+    }
+    sweep_chains = {name: chain_record(rows) for name, keep in sweep_kinds.items()
+                    if (rows := [r for r in sweep["chain_rows"] if keep(r)])}
     by_path = {
         "fused_chain": {"random28": chain_record(chain_rows),
                         "sycamore53_m10_sliced": chain_record(sliced["chain_rows"]),
@@ -2649,22 +3181,25 @@ def main() -> int:
                                                if r["label"].startswith(f"{name} launch")])
                            for name in small["launches"] if "batch" not in name},
                         "sycamore53_m14_hyper": chain_record(northstar["chain_rows"]),
-                        **calibrated_chains},
+                        **calibrated_chains,
+                        **sweep_chains},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
                               "sycamore53_m10_chunked fused rung":
                                   launch_weighted(chunked["dot_rows"]),
                               "sycamore53_m14_hyper fused rung":
-                                  launch_weighted(northstar["dot_rows"])},
+                                  launch_weighted(northstar["dot_rows"]),
+                              f"{sweep['label']} fused rung":
+                                  launch_weighted(sweep["dot_rows"])},
         "fused_transpose_dot": {"peps44_b32 fused_transpose rung":
                                 launch_weighted(transpose_rec["shapes"])},
     }
     chain_rows += (sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
-                   + calibrated["chain_rows"])
+                   + calibrated["chain_rows"] + sweep["chain_rows"])
     chain_rec = {**chain_record(chain_rows), "launches": sum(chain_launches.values())}
     dot_rows = (dot_rec["shapes"] + sliced["dot_rows"] + chunked["dot_rows"]
-                + northstar["dot_rows"])
+                + northstar["dot_rows"] + sweep["dot_rows"])
     dot_rec = {**launch_weighted(dot_rows), "launches": sum(dot_launches.values()),
                "max_abs_err": max([r["err"] for r in dot_rows] + [dot_rec["ragged_err"]]),
                "float64_errors": dot_rec["float64_errors"]}
@@ -2693,6 +3228,7 @@ def main() -> int:
         "chunked_small": small["records"],
         "sycamore53_m14_hyper": northstar["record"],
         "calibrated": calibrated["record"],
+        sweep["label"]: sweep["record"],
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
         "fused_chain_forms_by_path": chain_forms,

@@ -647,3 +647,84 @@ def test_capture_with_a_host_sync_raises():
         graphs.GraphSet(graphs.graph_class("cuda")).capture("the syncing unit",
                                                             lambda: float(x.sum()))
     assert float((x * 2).sum()) == 8.0
+
+
+@pytest.mark.cuda
+def test_batched_sweep_on_the_card():
+    """Eight amplitudes of ``sycamore_circuit(20, 8)`` through one
+    ``amplitude_sweep`` on the card: within 1e-4 of max|ref| of complex128 per
+    bitstring on the card, one ``fused_chain`` launch per chain of the
+    policy (the chains on the bras batched), and ``BoundProgram.amplitudes``
+    of the same bitstrings bitwise equal."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.serve import bind_template
+    from tnc_tpu_torch.tensornetwork.sweep import _sweep_program, amplitude_sweep
+
+    rows = np.random.default_rng(7).integers(0, 2, (7, 20))
+    bits = ["0" * 20] + ["".join(str(int(b)) for b in r) for r in rows]
+    program, arrays, bras = _sweep_program(
+        sycamore_circuit(20, 8, np.random.default_rng(42)), bits, None)
+    backend = TorchBackend()
+    chains = len(backend.kernel_policy(program).chains)
+    assert chains > 0
+    cc.reset_launches()
+    got = amplitude_sweep(sycamore_circuit(20, 8, np.random.default_rng(42)), bits,
+                          backend=backend)
+    assert cc.LAUNCHES["fused_chain"] == chains
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    want = np.array([
+        complex(np.asarray(oracle.execute(
+            program, [a[i] if s in bras else a for s, a in enumerate(arrays)])).reshape(()))
+        for i in range(len(bits))])
+    assert float(np.max(np.abs(got - want))) <= 1e-4 * float(np.max(np.abs(want)))
+    bound = bind_template(sycamore_circuit(20, 8, np.random.default_rng(42))
+                          .into_amplitude_template("0" * 20))
+    assert bound.amplitudes(bits, backend).tobytes() == got.tobytes()
+
+
+@pytest.mark.cuda
+def test_chain_sampler_on_the_card():
+    """``ChainSampler(sycamore_circuit(20, 8)).sample(32, seed=0)`` on the
+    card: each step's conditionals within 1e-5 of complex128 on the card,
+    the samples those of the complex128 sampler unless a uniform lies within
+    1e-4 of its threshold."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.queries import ChainSampler
+
+    def circuit():
+        return sycamore_circuit(20, 8, np.random.default_rng(42))
+
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    sampler = ChainSampler(circuit(), backend=TorchBackend())
+    steps = []
+    real = sampler.conditionals
+
+    def conditionals(prefixes, backend=None):
+        out = real(prefixes, backend)
+        steps.append((list(prefixes), out))
+        return out
+
+    sampler.conditionals = conditionals
+    got = sampler.sample(32, seed=0)
+    assert len(steps) == 20
+    near = set()
+    rng = np.random.default_rng(0)
+    for k, (prefixes, p32) in enumerate(steps):
+        p128 = ChainSampler.conditionals(sampler, prefixes, oracle)
+        assert float(np.max(np.abs(p32 - p128))) <= 1e-5
+        draws = rng.random(32)
+        index = {p: i for i, p in enumerate(prefixes)}
+        near |= {(i, k) for i, s in enumerate(got)
+                 if abs(draws[i] - p32[index[s[:k]]][1]) <= 1e-4}
+    want = ChainSampler(circuit(), backend=oracle).sample(32, seed=0)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            assert (i, next(k for k in range(20) if a[k] != b[k])) in near

@@ -1,20 +1,28 @@
 """Quantum-circuit → tensor-network builder (the port's copy of
-``tnc_tpu.builders.circuit_builder``, trimmed to the amplitude and
-statevector finalizers):
+``tnc_tpu.builders.circuit_builder``, without the expectation-value
+finalizer):
 
 - ``allocate_register(n)`` pushes |0⟩ kets, one edge each.
 - ``append_gate(data, qubits)`` creates a tensor whose legs are the *new*
   output edges first, then the old input edges (``edges = new ++ old``) —
   matching the gate storage layout ``(out…, in…)``.
-- Two finalizers: ``into_amplitude_network(bitstring)`` (``0``/``1``/``*``
-  wildcards → open legs) and ``into_statevector_network()`` (all
-  wildcards).
+- Finalizers: ``into_amplitude_network(bitstring)`` (``0``/``1``/``*``
+  wildcards → open legs), ``into_statevector_network()`` (all
+  wildcards), and the rebindable ones the serving and query layers plan
+  once per structure: ``into_amplitude_template(mask)`` (placeholder
+  bras) and ``into_sandwich_template(spec)`` (circuit ++ adjoint mirror,
+  each qubit determined, traced, open or an observable slot). A
+  template's rebindable leaves are the trailing leaves of its network,
+  in qubit order.
+- ``copy()`` gives an independent, un-finalized circuit, so one logical
+  circuit can be finalized into several networks.
 - A :class:`Permutor` restores natural qubit order after contraction,
   since the contraction can emit the open legs in any order.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
@@ -139,11 +147,35 @@ class Permutor:
 
 
 # The computational-basis one-hot values of the ⟨0|/⟨1| (equivalently
-# |0⟩/|1⟩ — they are real) kets and bras.
+# |0⟩/|1⟩ — they are real) kets and bras: the one table the builder's
+# leaves, the serving layer's rebound bras (:mod:`tnc_tpu_torch.serve.
+# rebind`) and the sweep's stacked bras (:mod:`tnc_tpu_torch.tensornetwork.
+# sweep`) all read.
 BASIS_STATES: dict[str, np.ndarray] = {
     "0": np.array([1.0 + 0.0j, 0.0 + 0.0j]),
     "1": np.array([0.0 + 0.0j, 1.0 + 0.0j]),
 }
+
+# Single-qubit Pauli matrices in the gate storage layout ``[out, in]``.
+PAULI_MATRICES: dict[str, np.ndarray] = {
+    "i": np.eye(2, dtype=np.complex128),
+    "x": np.array([[0, 1], [1, 0]], dtype=np.complex128),
+    "y": np.array([[0, -1j], [1j, 0]], dtype=np.complex128),
+    "z": np.array([[1, 0], [0, -1]], dtype=np.complex128),
+}
+
+
+def observable_leaf_data(matrix: np.ndarray) -> TensorData:
+    """Leaf data for an observable ``O`` inserted between a sandwich
+    network's ket and adjoint layers (legs ``[edge, edge + offset]``).
+
+    The contraction computes ``sum_{a,b} psi_a T[a, b] conj(psi)_b``
+    for leaf data ``T`` — that is ⟨ψ|Tᵀ|ψ⟩ — so the leaf stores the
+    TRANSPOSE of the operator to make the network value ⟨ψ|O|ψ⟩.
+    """
+    return TensorData.matrix(
+        np.asarray(matrix, dtype=np.complex128).T.copy()
+    )
 
 def _ket0() -> TensorData:
     return TensorData.matrix(BASIS_STATES["0"].copy())
@@ -179,6 +211,22 @@ class Circuit:
 
     def num_qubits(self) -> int:
         return len(self.open_edges)
+
+    def copy(self) -> "Circuit":
+        """An independent, un-finalized copy of this circuit: leaf data is
+        shared (finalizers only append tensors), the tensor list and the
+        edge bookkeeping are fresh. The chain-rule sampler
+        (:mod:`tnc_tpu_torch.queries.sampling`) finalizes one copy per
+        prefix length."""
+        if self._finalized:
+            raise RuntimeError(
+                "Circuit was already converted to a network; nothing to copy"
+            )
+        dup = Circuit()
+        dup.open_edges = list(self.open_edges)
+        dup.next_edge = self.next_edge
+        dup.tensor_network = self.tensor_network.copy()
+        return dup
 
     def allocate_register(self, size: int) -> QuantumRegister:
         """Allocate ``size`` qubits initialized to |0⟩."""
@@ -236,5 +284,228 @@ class Circuit:
             self.tensor_network.push_tensor(bra)
         return self.tensor_network, Permutor(final_legs)
 
+    def into_amplitude_template(
+        self, mask: str | Iterable | None = None
+    ) -> "AmplitudeTemplate":
+        """Close the circuit with *symbolic* bra placeholders — the
+        serving finalizer (:mod:`tnc_tpu_torch.serve`).
+
+        ``mask`` says only which positions are *determined* (get a bra
+        leaf, its value bound per request) and which are *open* (``*``);
+        any determined character (``0``/``1``) is a placeholder, so the
+        structure, path and program do not depend on it. Placeholder
+        bras materialize as ⟨0|, so the template's network stays
+        directly executable. The bra leaves are the trailing
+        ``len(determined)`` leaves of the network, in qubit order.
+        """
+        if mask is None:
+            mask = "0" * self.num_qubits()
+        mask = normalize_bitstring(mask, self.num_qubits())
+        network, permutor = self.into_amplitude_network(mask)
+        determined = tuple(i for i, c in enumerate(mask) if c != "*")
+        return AmplitudeTemplate(
+            network=network,
+            permutor=permutor,
+            num_qubits=len(mask),
+            determined=determined,
+            mask="".join("*" if c == "*" else "?" for c in mask),
+        )
+
     def into_statevector_network(self) -> tuple[CompositeTensor, Permutor]:
         return self.into_amplitude_network("*" * self.num_qubits())
+
+    @staticmethod
+    def _tensor_adjoint(tensor: LeafTensor, leg_offset: int) -> LeafTensor:
+        """Adjoint with legs half-swapped and offset
+        (``circuit_builder.rs:278-297``)."""
+        half = len(tensor.legs) // 2
+        legs = [l + leg_offset for l in tensor.legs[half:] + tensor.legs[:half]]
+        bond_dims = tensor.bond_dims[half:] + tensor.bond_dims[:half]
+        return LeafTensor(legs, bond_dims, tensor.data.adjoint())
+
+    def _mirror_adjoint(self) -> int:
+        """Finalize and append the adjoint mirror of every circuit
+        tensor; returns the leg ``offset`` such that qubit ``q``'s
+        adjoint-layer open leg is ``self.open_edges[q] + offset``."""
+        self._finalize()
+        offset = self.next_edge
+        adjoints = [
+            self._tensor_adjoint(t, offset) for t in self.tensor_network.tensors
+        ]
+        self.tensor_network.push_tensors(adjoints)
+        return offset
+
+    def into_sandwich_template(
+        self, spec: str | Iterable
+    ) -> "SandwichTemplate":
+        """Close the circuit ++ adjoint mirror *sandwich* with one
+        closure per qubit — the query finalizer
+        (:mod:`tnc_tpu_torch.queries`). ``spec`` gives one character per
+        qubit:
+
+        - ``?`` — **determined**: placeholder ⟨b| bras on BOTH layers,
+          rebound per request;
+        - ``*`` — **marginalized**: the ket-layer leg traced against its
+          adjoint-layer mirror (an identity leaf);
+        - ``o`` — **open**: both legs stay open (a ``(2, 2)`` density
+          block whose diagonal is the pair of marginal probabilities);
+        - ``p`` — **observable placeholder**: one rebindable 2×2 leaf
+          between the layers (identity until rebound; stored as
+          :func:`observable_leaf_data` stores it).
+
+        The rebindable leaves are the TRAILING leaves of the network, in
+        qubit order — for each ``?`` qubit the ket-layer bra then the
+        adjoint-layer bra, one leaf per ``p`` qubit. ``?`` and ``p``
+        cannot be mixed in one template.
+        """
+        spec = "".join(spec)
+        if len(spec) != self.num_qubits():
+            raise ValueError(
+                f"sandwich spec length {len(spec)} != qubit count "
+                f"{self.num_qubits()}"
+            )
+        for pos, c in enumerate(spec):
+            if c not in "?*op":
+                raise ValueError(
+                    f"invalid sandwich spec character {c!r} at position "
+                    f"{pos} (only '?', '*', 'o' and 'p' are allowed)"
+                )
+        if "?" in spec and "p" in spec:
+            raise ValueError(
+                "a sandwich template is either bra-rebindable ('?') or "
+                "observable-rebindable ('p'), not both"
+            )
+        offset = self._mirror_adjoint()
+        open_legs: list[EdgeIndex] = []
+        determined: list[int] = []
+        rebind: list[LeafTensor] = []
+        for q, (c, edge) in enumerate(zip(spec, self.open_edges)):
+            if c == "*":
+                trace = LeafTensor.from_const([edge, edge + offset], 2)
+                trace.data = observable_leaf_data(PAULI_MATRICES["i"])
+                self.tensor_network.push_tensor(trace)
+            elif c == "o":
+                open_legs.extend((edge, edge + offset))
+            elif c == "?":
+                for leg in (edge, edge + offset):
+                    bra = LeafTensor.from_const([leg], 2)
+                    bra.data = _ket0()
+                    rebind.append(bra)
+                determined.extend((q, q))
+            else:  # 'p'
+                op = LeafTensor.from_const([edge, edge + offset], 2)
+                op.data = observable_leaf_data(PAULI_MATRICES["i"])
+                rebind.append(op)
+                determined.append(q)
+        self.tensor_network.push_tensors(rebind)
+        return SandwichTemplate(
+            network=self.tensor_network,
+            permutor=Permutor(open_legs),
+            num_qubits=len(spec),
+            determined=tuple(determined),
+            spec=spec,
+        )
+
+
+@dataclass(frozen=True)
+class AmplitudeTemplate:
+    """A circuit closed with symbolic bras (``into_amplitude_template``).
+
+    ``network`` is a normal amplitude network whose trailing
+    ``len(determined)`` leaves are placeholder bras (one per determined
+    qubit, in qubit order); ``determined`` are the qubit positions that
+    carry a bra, the rest are open legs. A request bitstring supplies
+    one ``0``/``1`` per determined position and ``*`` at every open one.
+    """
+
+    network: CompositeTensor
+    permutor: Permutor
+    num_qubits: int
+    determined: tuple[int, ...]
+    mask: str  # '?' per determined position, '*' per open one
+
+    @property
+    def open_positions(self) -> frozenset[int]:
+        """Positions with no bra (computed once per template)."""
+        cached = getattr(self, "_open_positions", None)
+        if cached is None:
+            cached = frozenset(range(self.num_qubits)) - frozenset(
+                self.determined
+            )
+            object.__setattr__(self, "_open_positions", cached)
+        return cached
+
+    def normalize_request(self, bitstring: str | Iterable) -> str:
+        """Validate a request against the template and return it as a
+        canonical full-length ``str`` (a one-shot iterable is consumed
+        here once)."""
+        bits = normalize_bitstring(bitstring, self.num_qubits)
+        open_set = self.open_positions
+        for pos, c in enumerate(bits):
+            if pos in open_set and c != "*":
+                raise ValueError(
+                    f"position {pos} is an open leg in this template; "
+                    f"request must use '*' there, got {c!r}"
+                )
+            if pos not in open_set and c == "*":
+                raise ValueError(
+                    f"position {pos} is determined in this template; "
+                    "request must supply '0' or '1' there"
+                )
+        return bits
+
+    def request_bits(self, bitstring: str | Iterable) -> str:
+        """The determined positions' bits of a validated request (a
+        ``len(self.determined)``-char ``0``/``1`` string, qubit order)."""
+        bits = self.normalize_request(bitstring)
+        return "".join(bits[p] for p in self.determined)
+
+
+@dataclass(frozen=True)
+class SandwichTemplate:
+    """A circuit ++ adjoint sandwich closed with rebindable leaves
+    (:meth:`Circuit.into_sandwich_template`).
+
+    The trailing ``len(determined)`` leaves of ``network`` are the
+    rebindable slots, as in :class:`AmplitudeTemplate`, so
+    :func:`tnc_tpu_torch.serve.rebind.bind_template` plans and binds it
+    unchanged. ``determined[i]`` is the qubit slot ``i`` serves: a ``?``
+    qubit has TWO consecutive slots (ket-layer bra, then its mirror), a
+    ``p`` qubit one observable slot.
+    """
+
+    network: CompositeTensor
+    permutor: Permutor
+    num_qubits: int
+    determined: tuple[int, ...]  # one qubit index per rebindable slot
+    spec: str  # per-qubit '?', '*', 'o' or 'p'
+
+    @property
+    def bra_qubits(self) -> tuple[int, ...]:
+        """The determined ('?') qubit positions, in qubit order."""
+        return tuple(q for q, c in enumerate(self.spec) if c == "?")
+
+    @property
+    def observable_qubits(self) -> tuple[int, ...]:
+        """The observable-placeholder ('p') positions, in qubit order."""
+        return tuple(q for q, c in enumerate(self.spec) if c == "p")
+
+    def request_bits(self, bits: str | Iterable) -> str:
+        """Per-slot bra bits for a request that fixes each determined
+        qubit: one ``0``/``1`` per ``?`` qubit, in qubit order, doubled
+        per slot (both layers carry the same one-hot value — the bras
+        are real). The :class:`~tnc_tpu_torch.serve.rebind.BoundProgram`
+        dispatch contract.
+
+        >>> c = Circuit(); _ = c.allocate_register(3)
+        >>> c.into_sandwich_template("??*").request_bits("01")
+        '0011'
+        """
+        bits = normalize_bitstring(bits, len(self.bra_qubits))
+        for pos, c in enumerate(bits):
+            if c == "*":
+                raise ValueError(
+                    f"sandwich request bit {pos} must be '0' or '1' "
+                    "(wildcards are fixed by the template spec)"
+                )
+        return "".join(c + c for c in bits)

@@ -15,7 +15,10 @@ oracle loops on the host; :class:`TorchBackend` keeps the full leaves on
 the device and, by default, runs the reference's default sliced path —
 the slice-invariant stem once (:mod:`tnc_tpu_torch.ops.hoist`), then the
 residual in chunks batched over slices (:mod:`tnc_tpu_torch.ops.chunked`)
-— or, with ``sliced_strategy="loop"``, one slice at a time.
+— or, with ``sliced_strategy="loop"``, one slice at a time. Both run a
+program over a leading batch axis carried by some slots
+(:meth:`~TorchBackend.execute_batched`; the amplitude sweeps and the
+serving layer's bra batches).
 """
 
 from __future__ import annotations
@@ -272,6 +275,16 @@ def _complex_dtype(dtype):
     raise ValueError(f"unsupported dtype {dtype!r}: complex64 or complex128")
 
 
+def _batched_slots(batched: Sequence[int]) -> list[int]:
+    batched = list(batched)
+    if not batched:
+        raise ValueError(
+            "execute_batched needs at least one batched slot; "
+            "use execute() for unbatched programs"
+        )
+    return batched
+
+
 class NumpyBackend(Backend):
     """The host oracle: every step a complex128 numpy matmul."""
 
@@ -295,6 +308,35 @@ class NumpyBackend(Backend):
         else:
             out = _run_steps(program, buffers)
         return np.asarray(out).reshape(program.result_shape)
+
+    def execute_batched(
+        self,
+        program: ContractionProgram,
+        arrays: Sequence[Any],
+        batched: Sequence[int],
+    ) -> np.ndarray:
+        """Host counterpart of :meth:`TorchBackend.execute_batched`: the
+        slots in ``batched`` carry a leading ``(B, ...)`` axis, every
+        other slot is shared. The batch leg is threaded through the step
+        list (:mod:`tnc_tpu_torch.ops.batched`) so each touched step runs
+        as one stacked matmul — per-entry results bit-compare to B
+        sequential :meth:`execute` calls. As in the reference, a program
+        whose batched operand meets a staged prep plan runs the
+        sequential loop instead. Returns ``(B,) + result_shape``.
+        ``batched`` must name at least one slot."""
+        from tnc_tpu_torch.ops.batched import run_steps_batched, stacked_rows, thread_batch
+
+        batched = _batched_slots(batched)
+        b = int(np.asarray(arrays[batched[0]]).shape[0])
+        flags, threadable = thread_batch(program, batched)
+        if threadable:
+            buffers = [np.asarray(a, dtype=np.complex128) for a in arrays]
+            out = run_steps_batched(program, buffers, flags)
+            return np.asarray(out).reshape((b,) + tuple(program.result_shape))
+        return stacked_rows(
+            lambda per: self.execute(program, per),
+            list(arrays), batched, b, program.result_shape,
+        )
 
     def execute_sliced(
         self,
@@ -475,6 +517,48 @@ class TorchBackend(Backend):
         ``program.result_legs`` order."""
         buffers = self._device_buffers(arrays)
         return self._run(program, buffers)
+
+    def execute_batched(
+        self,
+        program: ContractionProgram,
+        arrays: Sequence[Any],
+        batched: Sequence[int],
+    ) -> np.ndarray:
+        """Run ``program`` once over a leading batch axis carried by the
+        slots in ``batched`` (their arrays are stacked ``(B, ...)``; every
+        other slot is shared) — B network evaluations in one pass, the
+        counterpart of the reference's ``vmap``-ed program. Returns ``(B,)
+        + result_shape``.
+
+        The batch leg is written out as a leading axis of every buffer a
+        batched slot reaches; an unbatched operand of a batched step is
+        broadcast, never copied per row, and a step (or chain) the axis
+        never reaches runs once. In split mode the steps run under
+        :meth:`kernel_policy` (:func:`~tnc_tpu_torch.ops.split_complex.
+        run_split_units` with the batched slots): a chain that touches a
+        batched slot is one batched ``fused_chain`` launch, a forced
+        ``fused`` step one batched ``fused_complex_dot`` launch. Natively,
+        :func:`~tnc_tpu_torch.ops.batched.run_steps_batched`. Unlike
+        :meth:`NumpyBackend.execute_batched`, nothing falls back to a
+        per-row loop: the staged prep plans that make the reference's
+        threading infeasible are not run by this executor."""
+        import torch
+
+        batched = _batched_slots(batched)
+        buffers = self._device_buffers(arrays)
+        with torch.inference_mode():
+            if self.split_complex:
+                from tnc_tpu_torch.ops.split_complex import combine_array, run_split_units
+
+                run_split_units(program.steps, buffers, self.precision,
+                                self.kernel_policy(program), batched=set(batched))
+                out = combine_array(*buffers[program.result_slot])
+            else:
+                from tnc_tpu_torch.ops.batched import run_steps_batched, thread_batch
+
+                flags, _ = thread_batch(program, batched)
+                out = run_steps_batched(program, buffers, flags).cpu().numpy()
+        return out.reshape((-1,) + tuple(program.result_shape))
 
     def execute_sliced(
         self,

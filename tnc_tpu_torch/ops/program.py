@@ -810,6 +810,14 @@ class ContractionProgram:
         share a key."""
         return (self.num_inputs, self.steps, self.result_slot, self.result_shape)
 
+    def signature_digest(self) -> str:
+        """Stable hex digest of :meth:`signature`
+        (:func:`~tnc_tpu_torch.utils.digest.stable_digest`): the identity
+        the serving layer compares across bindings and processes."""
+        from tnc_tpu_torch.utils.digest import stable_digest
+
+        return stable_digest(self.signature())
+
 
 def build_program(tn: CompositeTensor, contract_path: ContractionPath) -> ContractionProgram:
     """Compile a (possibly nested) replace-left path over ``tn`` into a flat

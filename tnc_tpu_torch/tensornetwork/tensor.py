@@ -247,6 +247,9 @@ class CompositeTensor:
     def push_tensor(self, tensor: Tensor) -> None:
         self.tensors.append(tensor)
 
+    def push_tensors(self, tensors: Iterable[Tensor]) -> None:
+        self.tensors.extend(tensors)
+
     def kind(self) -> TensorType:
         return TensorType.COMPOSITE
 
