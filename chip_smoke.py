@@ -161,7 +161,34 @@ Phases, each of which raises on failure (nothing is caught):
    patterns on the same route, and ``ChainSampler(...).sample(64,
    seed=0)`` against the complex128 sampler (conditionals within 1e-5;
    samples equal except where a uniform lies within 1e-4 of a threshold);
-13. one JSON line of path numbers (with each kernel's per-shape rows,
+13. gradients and the approximate tier: BASELINE config #4,
+   ``qaoa_circuit(30, 2, default_rng(42))`` on a line — its ⟨Z…Z⟩ through
+   ``pauli_expectation(..., backend=TorchBackend())`` (each distinct
+   ``fused_chain`` held against its plain version; one warm-up, three
+   timed runs) within 1e-5 absolute and 1e-3 relative of the complex128
+   numpy value; the MaxCut
+   energy's ``pauli_expectation_value_and_grad`` over every gate leaf in
+   complex64, timed beside its forward alone and profiled once for the
+   card's busy share, its value against
+   ``pauli_sum_expectation``, its cotangents by the linearity oracle in
+   complex128 on the card on 8 seeded leaves, d/dγ of round 1 against a
+   central difference; ``sliced_contraction_value_and_grad`` of the
+   amplitude "0"x53 of ``sycamore_circuit(53, 8, default_rng(42))`` (raw
+   network, ``Greedy``, ``find_slicing`` to 2^26) over 8 seeded leaves,
+   timed beside the sliced forward and one slice's forward-with-grad, its
+   value against the complex128 slices, its cotangents by the linearity
+   oracle against the unsliced complex128 forward, its peak within 1.5x of
+   one slice's; ``amplitude_sweep_value_and_grad`` of 16 bitstrings of
+   ``sycamore_circuit(20, 8, default_rng(42))`` by the product rule in
+   complex128; and the boundary-MPS sweep on the card
+   (``backend="torch"``): the QAOA ⟨Z…Z⟩ up ``ChiLadder(chi_cap=64)`` in
+   complex128 (must converge) and complex64, ``peps(6, 6, 2, 2, 1)`` in
+   complex128 up to its exact chi 512 (against the numpy host sweep), and
+   ``peps(8, 8, 2, 2, 1)`` in complex64 up to chi 256, every rung's err at
+   least its distance from the exact value, each rung's seconds (its
+   ``approx.sweep`` span, tracing on) beside ``rung_seconds`` under phase
+   11's fitted model, and one 8x8 rung profiled for the card's busy share;
+14. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -179,6 +206,9 @@ policy's statevector and PEPS norm, the amplitudes and the norm in
 complex128), and ends with its JSON record and the card line.
 ``python3 chip_smoke.py --sweep`` builds the kernels and runs phase 12
 alone, and ends with its JSON record and the card line.
+``python3 chip_smoke.py --grad`` builds the kernels and runs phase 13 alone
+(its rungs then have no fitted model to be priced by), and ends with its
+JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -249,6 +279,30 @@ QUERY_FIXED = 10
 QUERY_PATTERNS = 16
 QUERY_SAMPLES = 64
 SAMPLE_NEAR = 1e-4  # a uniform this close to a threshold may fall either way
+
+# phase 13: BASELINE config #4 (bench.py:1349-1397), qaoa_circuit(30, 2,
+# default_rng(42)) on a line, its <Z...Z> and MaxCut energy with gradients
+QAOA = (30, 2, 42)
+GRAD_SLOTS = 8  # seeded leaves each gradient is held to the linearity oracle on
+GRAD_SEED = 11
+GRAD_EPS = 1e-4  # the central difference of d/dgamma
+# the sliced gradient at real size: phase 12's sweep circuit, raw network,
+# Greedy, find_slicing to 2^26 (128 slices), unless the gradient would pass
+# GRAD_SLICED_BUDGET_S at the fitted rate below three times over: then 2^27
+GRAD_SLICED = (53, 8, 42, 26)
+GRAD_SLICED_FALLBACK = 27
+GRAD_SLICED_BUDGET_S = 60.0
+FITTED_MADDS_PER_S = 9.8e12  # phase 11's fitted complex multiply-adds/s (PERF.md)
+GRAD_SWEEP = (20, 8, 42)  # phase 12's query circuit
+GRAD_SWEEP_BITS = 16
+# the approximate tier: the QAOA <Z...Z> ladder, then PEPS sandwiches
+# peps(L, L, 2, 2, 1) with data from default_rng(3) at unit_scale (the
+# default per-leaf scale puts the 8x8 value near 1e-43, under float32's
+# normal range), (L, chis, dtype)
+APPROX_QAOA_CAP = 64
+APPROX_PEPS = ((6, (16, 32, 64, 128, 256, 512), "complex128"),
+               (8, (16, 32, 64, 128, 256), "complex64"))
+APPROX_PROFILE_CHI = 64  # the 8x8 rung profiled for the card's busy share
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -791,9 +845,10 @@ def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
     of ``fn()`` (a contraction from host leaves to the host result). Launch
     and routing counts are reset just before each timed call and read just
     after it. Returns the last
-    result (``out``), the wall seconds of every timed call (``walls``), and
-    the launch counts, routed steps and peak device memory of the last
-    one."""
+    result (``out``), the wall seconds of every timed call (``walls``) and
+    its elapsed seconds between CUDA events recorded just before and just
+    after it (``elapsed``: the card's clock, host gaps included), and the
+    launch counts, routed steps and peak device memory of the last one."""
     import torch
 
     from tnc_tpu_torch.ops import graphs
@@ -805,7 +860,7 @@ def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
     )
 
     (warmup or fn)()
-    walls, replay_ms = [], []
+    walls, elapsed, replay_ms = [], [], []
     run = {"out": None}
     for _ in range(reps):
         run["out"] = None
@@ -816,10 +871,15 @@ def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
         reset_routed()
         graphs.reset_stats()
         graphs.BATCH_EVENTS = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         out = fn()
+        end.record()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        elapsed.append(start.elapsed_time(end) / 1e3)
         events, graphs.BATCH_EVENTS = graphs.BATCH_EVENTS, None
         batch_ms: dict = {}
         for kind, start, end in events:
@@ -827,7 +887,7 @@ def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
         if "replay" in batch_ms:
             replay_ms.append(statistics.mean(batch_ms["replay"]))
         run = {
-            "out": out, "walls": walls, "launches": dict(LAUNCHES),
+            "out": out, "walls": walls, "elapsed": elapsed, "launches": dict(LAUNCHES),
             "chain_forms": dict(CHAIN_FORMS), "routed": dict(FUSED_ROUTED),
             "transpose_routed": dict(FUSED_TRANSPOSE_ROUTED),
             "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -837,7 +897,8 @@ def run_counted(fn, label: str, reps: int = 3, warmup=None) -> dict:
         del out
         kinds = ", ".join(f"{kind} {len(ms)} x {statistics.mean(ms):.3f} ms"
                           for kind, ms in batch_ms.items())
-        print(f"[{label}] wall {walls[-1]:.4f} s, max_memory_allocated "
+        print(f"[{label}] wall {walls[-1]:.4f} s, elapsed (CUDA events) {elapsed[-1]:.4f} s, "
+              f"max_memory_allocated "
               f"{run['peak_bytes']} bytes, launches {run['launches']}, fused_chain by form "
               f"{run['chain_forms']}, "
               f"routed {run['routed']}, transpose routed "
@@ -2942,6 +3003,592 @@ def run_queries() -> dict:
                 "near_threshold": near, "complex128_sample_wall_s": sample128_s}}
 
 
+def median_run(run: dict) -> dict:
+    """The medians of a :func:`run_counted` record's wall and elapsed
+    seconds, beside its peak bytes."""
+    return {"wall_s": statistics.median(run["walls"]),
+            "elapsed_s": statistics.median(run["elapsed"]), "peak_bytes": run["peak_bytes"]}
+
+
+def seeded_leaf(shape, rng) -> np.ndarray:
+    """A seeded complex128 direction shaped like a leaf."""
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+def maxcut_terms(qubits: int) -> list:
+    """The MaxCut energy's Pauli terms on a line, ``E = Σ_edges 0.5·(1 -
+    ⟨Z_u Z_v⟩) = 0.5·(qubits - 1) + Σ (-0.5)·⟨Z_u Z_v⟩``: the terms of the
+    second sum."""
+    return [(-0.5, "i" * u + "zz" + "i" * (qubits - u - 2)) for u in range(qubits - 1)]
+
+
+def grad_qaoa() -> dict:
+    """Phase 13 (a): BASELINE config #4 at full width.
+
+    ⟨Z…Z⟩ of ``qaoa_circuit(30, 2, default_rng(42))`` through
+    ``pauli_expectation(..., backend=TorchBackend())`` (split complex; its
+    chains through ``fused_chain``, each distinct chain held against its
+    plain version first), one warm-up and three timed runs, held within
+    1e-5 absolute (the observable's norm is 1) and 1e-3 relative of the
+    complex128 ``NumpyBackend`` value. Then the MaxCut energy:
+    ``pauli_expectation_value_and_grad`` of its 29 terms on the card in
+    complex64 over every gate leaf of both layers (timed beside the same
+    forward alone, natively, and profiled once for the card's busy share), its value
+    within 1e-5·29 of ``pauli_sum_expectation`` on the split path; the
+    linearity oracle in complex128 on the card on ``GRAD_SLOTS`` seeded
+    leaves; and d/dγ of round 1 by the chain rule over its rz leaves in
+    both layers against a central difference of the complex128 energy."""
+    import torch
+
+    from tnc_tpu_torch.builders.qaoa_circuit import qaoa_circuit
+    from tnc_tpu_torch.ops import split_complex
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors, step_flops
+    from tnc_tpu_torch.queries import (
+        bind_expectation,
+        expectation,
+        pauli_expectation,
+        pauli_expectation_value_and_grad,
+        pauli_sum_expectation,
+    )
+    from tnc_tpu_torch.tensornetwork.tensordata import TensorData
+
+    qubits, rounds, seed = QAOA
+    label = f"qaoa{qubits}_p{rounds}"
+    zz = "z" * qubits
+
+    def circuit():
+        return qaoa_circuit(qubits, rounds, np.random.default_rng(seed))
+
+    t0 = time.perf_counter()
+    ref = pauli_expectation(circuit(), zz, backend=NumpyBackend())
+    ref_s = time.perf_counter() - t0
+    backend = TorchBackend()
+    bound = bind_expectation(circuit())
+    program = bound.bound.program
+    policy = backend.kernel_policy(program)
+    print(f"[{label}] <Z...Z> sandwich: {len(program.steps)} steps, "
+          f"{sum(step_flops(st) for st in program.steps):.4e} multiply-adds, largest "
+          f"intermediate {max(math.prod(st.out_store) for st in program.steps)} elements, "
+          f"{len(policy.chains)} chains; complex128 NumpyBackend {ref.real:.10e} in "
+          f"{ref_s:.3f} s", flush=True)
+    check(policy.chains, f"{label}: the policy forms no chain")
+
+    chain_rows: list = []
+    print(f"[kernels] fused_chain against fused_chain_reference on the operands of {label}'s "
+          f"<Z...Z> (each distinct chain once)", flush=True)
+    with holding("run_chain_split", hold_chain_run(lambda i: f"{label} chain {i}", 1,
+                                                   chain_rows, {}), split_complex):
+        pauli_expectation(circuit(), zz, backend=backend)
+    check(sum(r["launches"] for r in chain_rows) == len(policy.chains),
+          f"{label}: {sum(r['launches'] for r in chain_rows)} chain calls held for "
+          f"{len(policy.chains)} chains")
+    expectation.reset_dispatch()
+    run = run_counted(lambda: pauli_expectation(circuit(), zz, backend=backend), label)
+    check(set(expectation.DISPATCH) == {"batched"}, f"{label}: dispatch {expectation.DISPATCH}")
+    got = complex(run["out"])
+    err = abs(got - ref)
+    check(run["launches"]["fused_chain"] == len(policy.chains),
+          f"{label}: fused_chain launched {run['launches']['fused_chain']} times for "
+          f"{len(policy.chains)} chains")
+    print(f"[check] {label} <Z...Z> {got.real:.10e} (complex128 {ref.real:.10e}): |diff| "
+          f"{err:.3e} (gate 1e-5), relative {err / abs(ref):.3e} (gate 1e-3); dispatch "
+          f"{expectation.DISPATCH}", flush=True)
+    check(err <= 1e-5, f"{label}: <Z...Z> off complex128 by {err}")
+    check(err <= 1e-3 * abs(ref), f"{label}: <Z...Z> off complex128 by {err / abs(ref)} "
+          f"relative")
+    torch.cuda.empty_cache()
+
+    # the MaxCut energy and its gradient
+    terms = maxcut_terms(qubits)
+    const = 0.5 * len(terms)
+    grad_run = run_counted(lambda: pauli_expectation_value_and_grad(circuit(), terms),
+                           f"{label} energy value_and_grad")
+    value, vals, grads = grad_run["out"]
+    grad = median_run(grad_run)
+    forward = median_run(run_counted(lambda: pauli_sum_expectation(
+        circuit(), terms, backend=TorchBackend(split_complex=False)),
+        f"{label} energy forward alone (native complex64)"))
+    profiled = profile_device_path(
+        lambda: pauli_expectation_value_and_grad(circuit(), terms),
+        f"{label} energy value_and_grad", reps=1)
+    busy = profiled["device_busy_s"] / profiled["profiled_s"]
+    split_value = pauli_sum_expectation(circuit(), terms, backend=backend).real
+    print(f"[check] {label} MaxCut energy {const + value:.10f} ({len(terms)} terms); split "
+          f"path {const + split_value:.10f}, |diff| {abs(value - split_value):.3e} (gate "
+          f"1e-5 x {len(terms)}); gradient over {len(grads)} gate leaves; wall gradient / "
+          f"forward {grad['wall_s'] / forward['wall_s']:.3f}, elapsed (CUDA events) "
+          f"{grad['elapsed_s'] / forward['elapsed_s']:.3f}; the card busy {busy:.4f} of the "
+          f"profiled gradient ({sum(step_flops(st) for st in program.steps):.3e} "
+          f"multiply-adds a term)", flush=True)
+    check(abs(value - split_value) <= 1e-5 * len(terms),
+          f"{label}: the gradient's value {value} differs from pauli_sum_expectation's "
+          f"{split_value}")
+    check(all(np.all(np.isfinite(g)) for g in grads), f"{label}: a non-finite cotangent")
+
+    # the linearity oracle in complex128 on the card
+    template = circuit().into_sandwich_template("p" * qubits)
+    leaves = flat_leaf_tensors(template.network)
+    n_circuit = len(circuit().tensor_network.tensors)
+    wrt = [s for s in range(2 * n_circuit) if len(leaves[s].legs) > 1]
+    check(len(wrt) == len(grads), f"{label}: {len(grads)} cotangents for {len(wrt)} leaves")
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    arrays = bound.bound.arrays
+    base = list(arrays)
+    f128 = bound.pauli_sum(terms, oracle)[0].real
+    rng = np.random.default_rng(GRAD_SEED)
+    lin = []
+    for k in sorted(rng.choice(len(wrt), GRAD_SLOTS, replace=False)):
+        s = wrt[k]
+        d = seeded_leaf(grads[k].shape, rng)
+        arrays[s] = d
+        f_d = bound.pauli_sum(terms, oracle)[0].real
+        arrays[s] = base[s]
+        pred = float(np.sum(grads[k] * d).real)
+        lin.append({"slot": s, "grad": pred, "f": f_d, "err": abs(pred - f_d)})
+    tol = 1e-4 * max(abs(f128), 1.0)
+    lin_err = max(r["err"] for r in lin)
+    print(f"[check] {label} linearity oracle on {GRAD_SLOTS} slots {[r['slot'] for r in lin]}: "
+          f"max|Re(sum g*D) - f(leaf := D)| {lin_err:.3e} (gate {tol:.3e}); f complex128 "
+          f"{f128:.10f}, complex64 {value:.10f}", flush=True)
+    check(lin_err <= tol, f"{label}: a cotangent fails the linearity oracle by {lin_err}")
+
+    # d/dgamma of round 1: its rz(2 gamma) leaves in both layers
+    gamma = float(np.random.default_rng(seed).uniform(0, 2 * np.pi))
+    edges = qubits - 1
+    rz_slots = [2 * qubits + 3 * e + 1 for e in range(edges)]
+    adj_slots = [n_circuit + s for s in rz_slots]
+
+    def rz(g):
+        return TensorData.gate("rz", (2.0 * g,)).into_data()
+
+    def rz_adj(g):
+        return TensorData.gate("rz", (2.0 * g,)).adjoint().into_data()
+
+    check(all(np.array_equal(base[s], rz(gamma)) for s in rz_slots)
+          and all(np.array_equal(base[s], rz_adj(gamma)) for s in adj_slots),
+          f"{label}: the round-1 rz slots do not hold rz(2 gamma)")
+    d_g = np.diag([-1j * np.exp(-1j * gamma), 1j * np.exp(1j * gamma)])
+    slot_of = {s: i for i, s in enumerate(wrt)}
+    dgamma = sum(float(np.sum(grads[slot_of[s]] * d_g).real) for s in rz_slots) + sum(
+        float(np.sum(grads[slot_of[s]] * np.conj(d_g).T).real) for s in adj_slots)
+
+    def energy(g):
+        for s in rz_slots:
+            arrays[s] = rz(g)
+        for s in adj_slots:
+            arrays[s] = rz_adj(g)
+        return bound.pauli_sum(terms, oracle)[0].real
+
+    fd = (energy(gamma + GRAD_EPS) - energy(gamma - GRAD_EPS)) / (2 * GRAD_EPS)
+    arrays[:] = base
+    tol_g = 1e-4 * max(abs(dgamma), 1.0)
+    print(f"[check] {label} dE/dgamma (round 1, {2 * edges} rz leaves) {dgamma:.10f}, central "
+          f"difference of complex128 (eps {GRAD_EPS}) {fd:.10f}, |diff| {abs(dgamma - fd):.3e} "
+          f"(gate {tol_g:.3e})", flush=True)
+    check(abs(dgamma - fd) <= tol_g, f"{label}: dE/dgamma off the central difference")
+    del oracle
+    torch.cuda.empty_cache()
+    record = {
+        "config": list(QAOA), "steps": len(program.steps), "chains": len(policy.chains),
+        "zz": [got.real, got.imag], "zz_complex128": [ref.real, ref.imag], "zz_abs_err": err,
+        "zz_rel_err": err / abs(ref), "zz_wall_s": statistics.median(run["walls"]),
+        "zz_launches": run["launches"], "zz_peak_bytes": run["peak_bytes"],
+        "energy": const + value, "energy_split": const + split_value,
+        "grad_leaves": len(grads), "grad_wall_s": grad["wall_s"],
+        "grad_elapsed_s": grad["elapsed_s"], "grad_peak_bytes": grad["peak_bytes"],
+        "grad_busy_share": busy, "grad_profiled_s": profiled["profiled_s"],
+        "forward_wall_s": forward["wall_s"], "forward_elapsed_s": forward["elapsed_s"],
+        "forward_peak_bytes": forward["peak_bytes"],
+        "linearity_max_err": lin_err, "linearity_tol": tol, "dgamma": dgamma,
+        "dgamma_central_difference": fd,
+    }
+    return {"record": record, "chain_rows": chain_rows, "zz_complex128": ref.real,
+            "chain_launches": run["launches"]["fused_chain"], "label": label}
+
+
+def saved_bytes(program, elem_bytes: int = 8) -> int:
+    """Bytes autograd keeps for a program: the prepared operands of every
+    step (each product saves both), at ``elem_bytes`` an element."""
+    return elem_bytes * sum(math.prod(st.a_view) + math.prod(st.b_view) for st in program.steps)
+
+
+def grad_sliced() -> dict:
+    """Phase 13 (b): the sliced gradient at real size.
+
+    The raw amplitude network "0"x53 of ``sycamore_circuit(53, 8,
+    default_rng(42))``, ``Greedy``, ``find_slicing`` to 2^26 (2^27 if the
+    gradient would pass ``GRAD_SLICED_BUDGET_S`` at three times phase 11's
+    fitted rate, ``FITTED_MADDS_PER_S``). ``sliced_contraction_value_and_grad`` on the card in
+    complex64 over ``GRAD_SLOTS`` seeded gate leaves, timed beside the
+    sliced forward alone (the native loop) and one slice's
+    forward-with-grad run alone; its value within 1e-4·Σ_s|ref_s| of the
+    complex128 slices on the card; each cotangent by the linearity oracle
+    against the unsliced complex128 forward on the card; its peak within
+    1.5x of one slice's forward-with-grad peak."""
+    import torch
+
+    from tnc_tpu_torch.contractionpath.slicing import find_slicing
+    from tnc_tpu_torch.ops.autodiff import grad_of, leaf_tensors
+    from tnc_tpu_torch.ops.autodiff import sliced_contraction_value_and_grad
+    from tnc_tpu_torch.ops.backends import TorchBackend, _run_steps, resolve_device
+    from tnc_tpu_torch.ops.program import build_program, flat_leaf_tensors, step_flops
+    from tnc_tpu_torch.ops.sliced import _slice_indices, build_sliced_program, index_buffer
+
+    qubits, depth, seed, target = GRAD_SLICED
+    label = f"sycamore{qubits}_m{depth}_grad"
+    tn, _ = sycamore((qubits, depth, seed)).into_amplitude_network("0" * qubits)
+    path = plan(tn)
+    program = build_program(tn, path)
+
+    def sliced_plan(log2):
+        slicing = find_slicing(tn.tensors, path.toplevel, float(2 ** log2))
+        sp = build_sliced_program(tn, path, slicing)
+        madds = sum(step_flops(st) for st in sp.program.steps) * slicing.num_slices
+        return slicing, sp, madds
+
+    slicing, sp, madds = sliced_plan(target)
+    predicted = 3 * madds / FITTED_MADDS_PER_S
+    fallback = predicted > GRAD_SLICED_BUDGET_S
+    if fallback:
+        print(f"[{label}] 2^{target}: {slicing.num_slices} slices, {madds:.4e} multiply-adds, "
+              f"{predicted:.1f} s predicted for the gradient: over {GRAD_SLICED_BUDGET_S} s, "
+              f"so 2^{GRAD_SLICED_FALLBACK}", flush=True)
+        target = GRAD_SLICED_FALLBACK
+        slicing, sp, madds = sliced_plan(target)
+        predicted = 3 * madds / FITTED_MADDS_PER_S
+    num = slicing.num_slices
+    print(f"[{label}] raw network, Greedy: {len(program.steps)} steps; find_slicing to "
+          f"2^{target}: {num} slices, {madds:.4e} sliced multiply-adds, gradient predicted "
+          f"{predicted:.2f} s (3 x at {FITTED_MADDS_PER_S:.2e}/s); autograd keeps "
+          f"{saved_bytes(sp.program)} bytes a slice, {saved_bytes(program)} unsliced "
+          f"(complex64 prepared operands of every step)", flush=True)
+    leaves = flat_leaf_tensors(tn)
+    host = [leaf.data.into_data() for leaf in leaves]
+    rng = np.random.default_rng(GRAD_SEED)
+    gates = [s for s, leaf in enumerate(leaves) if len(leaf.legs) > 1]
+    wrt = sorted(int(s) for s in rng.choice(gates, GRAD_SLOTS, replace=False))
+    device = resolve_device()
+
+    # the sliced forward alone: the native loop, the runner the gradient runs
+    loop = TorchBackend(split_complex=False, sliced_strategy="loop", hoist=False)
+    forward = median_run(run_counted(lambda: loop.execute_sliced(sp, host, graphs=False),
+                                     f"{label} sliced forward alone (eager)", reps=1))
+
+    # one slice's forward-with-grad, alone
+    def one_slice():
+        arrays = leaf_tensors(host, wrt, "complex64", device)
+        idx = _slice_indices(sp.slicing, 0)
+        with torch.enable_grad():
+            c = _run_steps(sp.program, [index_buffer(a, info, idx)
+                                        for a, info in zip(arrays, sp.slot_slices)])
+            return grad_of(c, [arrays[s] for s in wrt], grad_outputs=torch.ones_like(c))
+
+    one = median_run(run_counted(one_slice, f"{label} one slice's forward-with-grad", reps=1))
+    one_wall, one_peak = one["wall_s"], one["peak_bytes"]
+    grad_run = run_counted(lambda: sliced_contraction_value_and_grad(tn, path, slicing, wrt=wrt),
+                           f"{label} value_and_grad", reps=1, warmup=lambda: None)
+    value, grads = grad_run["out"]
+    grad_wall, grad_elapsed, grad_peak = (grad_run["walls"][0], grad_run["elapsed"][0],
+                                          grad_run["peak_bytes"])
+    got = complex(np.asarray(value).reshape(()))
+    print(f"[{label}] sliced_contraction_value_and_grad over {len(wrt)} leaves {wrt}: wall "
+          f"{grad_wall:.4f} s, elapsed (CUDA events) {grad_elapsed:.4f} s, max_memory_allocated "
+          f"{grad_peak} bytes; sliced forward alone wall {forward['wall_s']:.4f} s, peak "
+          f"{forward['peak_bytes']} bytes (gradient / forward wall "
+          f"{grad_wall / forward['wall_s']:.3f}); one slice's forward-with-grad alone wall "
+          f"{one_wall:.4f} s, peak {one_peak} bytes (gradient peak / it "
+          f"{grad_peak / one_peak:.4f}, gate 1.5)", flush=True)
+    check(grad_peak <= 1.5 * one_peak,
+          f"{label}: the gradient's peak {grad_peak} passes 1.5 x one slice's {one_peak}")
+
+    # complex128 of every slice on the card
+    oracle = TorchBackend(dtype="complex128", split_complex=False, sliced_strategy="loop",
+                          hoist=False)
+    t0 = time.perf_counter()
+    refs = np.array([complex(np.asarray(oracle.execute_sliced(sp, host, slice_range=(s, s + 1)))
+                             .reshape(())) for s in range(num)])
+    refs_s = time.perf_counter() - t0
+    ref = complex(refs.sum())
+    scale = float(np.abs(refs).sum())
+    err = abs(got - ref)
+    print(f"[check] {label} amplitude {got:.6e} complex128 {ref:.6e}: |diff| {err:.3e} (gate "
+          f"1e-4 x sum|slice| {scale:.3e}); complex128 slices in {refs_s:.2f} s", flush=True)
+    check(err <= 1e-4 * scale, f"{label}: the sliced amplitude is off complex128 by {err}")
+
+    # the linearity oracle against the unsliced complex128 forward
+    unsliced = TorchBackend(dtype="complex128", split_complex=False)
+    t0 = time.perf_counter()
+    lin = []
+    for s, g in zip(wrt, grads):
+        d = seeded_leaf(g.shape, rng)
+        d *= np.linalg.norm(host[s]) / np.linalg.norm(d)  # the leaf's own norm
+        per = list(host)
+        per[s] = d
+        f_d = complex(np.asarray(unsliced.execute(program, per)).reshape(())).real
+        pred = float(np.sum(g * d).real)
+        lin.append({"slot": s, "grad": pred, "f": f_d, "err": abs(pred - f_d)})
+    lin_s = time.perf_counter() - t0
+    tol = 1e-4 * max(max(abs(r["f"]) for r in lin), scale)
+    lin_err = max(r["err"] for r in lin)
+    print(f"[check] {label} linearity oracle on {len(wrt)} slots (D of each leaf's norm): "
+          f"max|Re(sum g*D) - f(leaf := D)| {lin_err:.3e} (gate 1e-4 x max(|f|, sum|slice|) "
+          f"{tol:.3e}), relative to |f| {max(r['err'] / abs(r['f']) for r in lin):.3e}; "
+          f"unsliced complex128 forwards in {lin_s:.2f} s", flush=True)
+    check(lin_err <= tol, f"{label}: a cotangent fails the linearity oracle by {lin_err}")
+    del oracle, unsliced
+    torch.cuda.empty_cache()
+    return {"record": {
+        "config": list(GRAD_SLICED[:3]), "target_log2": target, "fallback": fallback,
+        "slices": num, "sliced_multiply_adds": madds, "predicted_s": predicted,
+        "saved_bytes_slice": saved_bytes(sp.program), "saved_bytes_unsliced": saved_bytes(program),
+        "wrt": wrt, "grad_wall_s": grad_wall, "grad_elapsed_s": grad_elapsed,
+        "grad_peak_bytes": grad_peak, "forward_wall_s": forward["wall_s"],
+        "forward_elapsed_s": forward["elapsed_s"], "forward_peak_bytes": forward["peak_bytes"],
+        "one_slice_wall_s": one_wall, "one_slice_peak_bytes": one_peak,
+        "amplitude": [got.real, got.imag], "complex128": [ref.real, ref.imag],
+        "abs_err": err, "sum_abs_slices": scale, "linearity_max_err": lin_err,
+        "linearity_tol": tol}}
+
+
+def grad_sweep() -> dict:
+    """Phase 13 (c): ``amplitude_sweep_value_and_grad`` on
+    ``sycamore_circuit(20, 8, default_rng(42))`` with ``GRAD_SWEEP_BITS``
+    seeded bitstrings on the card in complex64, timed beside the forward
+    sweep alone (natively); the amplitudes within 1e-4 max|ref| of
+    complex128 on the card, and on ``GRAD_SLOTS`` seeded leaves the product
+    rule ``Re(Σ g·D) = Σ_b 2·Re(conj(a_b)·a_b[s := D])`` in complex128, to
+    1e-4 of the sum of the terms' moduli."""
+    import torch
+
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.tensornetwork.sweep import (
+        _sweep_program,
+        amplitude_sweep,
+        amplitude_sweep_value_and_grad,
+    )
+
+    qubits, depth, seed = GRAD_SWEEP
+    label = f"sycamore{qubits}_m{depth}_sweep_grad"
+    rng = np.random.default_rng(GRAD_SEED)
+    bits = ["".join(str(int(b)) for b in row)
+            for row in rng.integers(0, 2, (GRAD_SWEEP_BITS, qubits))]
+    grad_run = run_counted(lambda: amplitude_sweep_value_and_grad(sycamore(GRAD_SWEEP), bits),
+                           f"{label} value_and_grad")
+    amps, grads = grad_run["out"]
+    grad = median_run(grad_run)
+    forward = median_run(run_counted(lambda: amplitude_sweep(
+        sycamore(GRAD_SWEEP), bits, backend=TorchBackend(split_complex=False)),
+        f"{label} forward alone (native complex64)"))
+    program, arrays, bras = _sweep_program(sycamore(GRAD_SWEEP), bits, None)
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    ref = oracle.execute_batched(program, arrays, bras).reshape(len(bits))
+    amp_err = float(np.max(np.abs(amps - ref)))
+    amp_scale = float(np.max(np.abs(ref)))
+    bra_set = set(bras)
+    wrt = [s for s in range(len(arrays)) if s not in bra_set]
+    check(len(wrt) == len(grads), f"{label}: {len(grads)} cotangents for {len(wrt)} leaves")
+    rows = []
+    for k in sorted(rng.choice(len(wrt), GRAD_SLOTS, replace=False)):
+        s = wrt[k]
+        d = seeded_leaf(grads[k].shape, rng)
+        per = list(arrays)
+        per[s] = d
+        a_d = oracle.execute_batched(program, per, bras).reshape(len(bits))
+        want = float(np.sum(2 * (np.conj(ref) * a_d).real))
+        pred = float(np.sum(grads[k] * d).real)
+        rows.append({"slot": s, "err": abs(pred - want),
+                     "scale": float(np.sum(2 * np.abs(ref) * np.abs(a_d)))})
+    worst = max(r["err"] / r["scale"] for r in rows)
+    print(f"[check] {label}: {len(bits)} amplitudes, max|amp - complex128| {amp_err:.3e} (gate "
+          f"1e-4 x {amp_scale:.3e}); product rule on {GRAD_SLOTS} slots "
+          f"{[r['slot'] for r in rows]}: max |Re(sum g*D) - sum_b 2 Re(conj(a_b) a_b[s:=D])| "
+          f"over sum_b 2|a_b||a_b[s:=D]| {worst:.3e} (gate 1e-4); wall gradient / forward "
+          f"{grad['wall_s'] / forward['wall_s']:.3f}, elapsed (CUDA events) "
+          f"{grad['elapsed_s'] / forward['elapsed_s']:.3f}", flush=True)
+    check(amp_err <= 1e-4 * amp_scale, f"{label}: amplitudes off complex128 by {amp_err}")
+    check(worst <= 1e-4, f"{label}: a cotangent fails the product rule by {worst} relative")
+    del oracle
+    torch.cuda.empty_cache()
+    return {"record": {
+        "config": list(GRAD_SWEEP), "bitstrings": len(bits), "leaves": len(grads),
+        "grad_wall_s": grad["wall_s"], "grad_elapsed_s": grad["elapsed_s"],
+        "grad_peak_bytes": grad["peak_bytes"], "forward_wall_s": forward["wall_s"],
+        "forward_elapsed_s": forward["elapsed_s"], "forward_peak_bytes": forward["peak_bytes"],
+        "amp_max_abs_err": amp_err, "product_rule_max_rel_err": worst}}
+
+
+def traced_ladder(ladder, prog, label: str, **kw):
+    """``ladder.run(prog, **kw)`` once through :func:`run_counted`, with the
+    port's tracing on: the ladder's result and run record, and each rung's
+    seconds from its ``approx.sweep`` span (host clock; the span closes once
+    the value is on the host, and each ``approx.row`` inside it after a
+    synchronise). Each rung's ``approx.row`` spans are held to the rung's
+    ``sweep_cost`` rows at the sweep dtype's element width."""
+    from tnc_tpu_torch import obs
+    from tnc_tpu_torch.tensornetwork.approximate import elem_bytes
+
+    was = obs.enabled()
+    obs.configure(enabled=True)
+    obs.reset()
+    try:
+        run = run_counted(lambda: ladder.run(prog, **kw), label, reps=1, warmup=lambda: None)
+        records = obs.get_registry().span_records()
+    finally:
+        obs.configure(enabled=was)
+        obs.reset()
+    res = run["out"]
+    sweeps = [r for r in records if r.name == "approx.sweep"]
+    check(len(sweeps) == len(res.rungs),
+          f"{label}: {len(sweeps)} approx.sweep spans for {len(res.rungs)} rungs")
+    itemsize = elem_bytes(kw.get("backend", "torch"), kw.get("dtype", "complex64"))
+    for rung in res.rungs:
+        rows = [r for r in records if r.name == "approx.row" and r.args["chi"] == rung.chi]
+        cost = prog.sweep_cost(rung.chi, itemsize)
+        check([(r.args["flops"], r.args["bytes"]) for r in rows]
+              == [(f, b) for f, b, _ in cost.rows[:-1]],
+              f"{label}: chi {rung.chi}'s approx.row spans differ from its sweep_cost rows")
+    return res, run, [r.dur_ns / 1e9 for r in sweeps]
+
+
+def ladder_rows(label, res, times, ref=None) -> list:
+    """Print and return one row per rung: chi, weight, err, seconds (its
+    ``approx.sweep`` span), predicted ``rung_seconds`` and, with ``ref``,
+    the distance to it."""
+    rows = []
+    for rung, sec in zip(res.rungs, times):
+        row = {"chi": rung.chi, "value": [rung.value.real, rung.value.imag],
+               "weight": rung.weight, "err": rung.err, "s": sec,
+               "predicted_s": rung.predicted_s}
+        if ref is not None:
+            row["distance"] = abs(rung.value - ref)
+        rows.append(row)
+        pred = ("not predicted (no fitted model)" if rung.predicted_s is None
+                else f"{rung.predicted_s:.4f} s")
+        dist = "" if ref is None else f", |value - exact| {row['distance']:.3e}"
+        print(f"  [{label}] chi {rung.chi}: value {rung.value:.10e}, weight {rung.weight:.3e}, "
+              f"err {rung.err:.3e}{dist}; {sec:.4f} s (approx.sweep span), rung_seconds {pred}",
+              flush=True)
+    return rows
+
+
+def run_approx(cost_model, qaoa_ref: float) -> dict:
+    """Phase 13 (d): the approximate tier on the card, ``backend="torch"``.
+
+    The QAOA ⟨Z…Z⟩ grid (``ApproxProgram.sandwich_from_circuit(...)
+    .rebind_pauli``) up ``ChiLadder(chi_cap=64)`` at ``rtol=1e-6,
+    scale=1.0`` in complex128 (it must converge; every rung's err at least
+    its distance from (a)'s complex128 value), then in complex64 up to the
+    chi at which complex128 converged (its floating-point floor, 1e-4 x
+    max(|v|, scale), lies above that tolerance: reported, not converged). ``peps(6, 6, 2, 2, 1)`` (leaves at
+    ``unit_scale``) in complex128 up
+    (16 ... 512): the chi-512 rung truncation-free and within 1e-10 of the
+    host's numpy sweep at chi 512, every lower rung's err at least its
+    distance from it. ``peps(8, 8, 2, 2, 1)`` in complex64 up (16 ... 256),
+    and its chi-``APPROX_PROFILE_CHI`` rung once under ``torch.profiler``
+    for the card's busy share. Each ladder runs through
+    :func:`traced_ladder`; every rung printed with its seconds and
+    ``rung_seconds`` under phase 11's fitted model."""
+    import torch
+
+    from tnc_tpu_torch.approx import ApproxProgram, ChiLadder, exact_chi_bound
+    from tnc_tpu_torch.builders.peps import peps
+    from tnc_tpu_torch.builders.qaoa_circuit import qaoa_circuit
+    from tnc_tpu_torch.tensornetwork.approximate import (
+        EXACT_WEIGHT,
+        attach_random_data,
+        unit_scale,
+    )
+
+    qubits, rounds, seed = QAOA
+    label = f"qaoa{qubits}_p{rounds} approx"
+    prog = ApproxProgram.sandwich_from_circuit(
+        qaoa_circuit(qubits, rounds, np.random.default_rng(seed))).rebind_pauli("z" * qubits)
+    print(f"[{label}] grid {len(prog.grid)} x {len(prog.grid[0])}, exact chi bound "
+          f"{exact_chi_bound(prog)}", flush=True)
+    record: dict = {}
+    cap = APPROX_QAOA_CAP
+    for dtype in ("complex128", "complex64"):
+        res, run, times = traced_ladder(
+            ChiLadder(chi_cap=cap), prog, f"{label} {dtype} ladder", rtol=1e-6,
+            scale=1.0, backend="torch", dtype=dtype, cost_model=cost_model)
+        wall = run["walls"][0]
+        rows = ladder_rows(f"{label} {dtype}", res, times, qaoa_ref)
+        print(f"[check] {label} {dtype}: converged {res.converged} at chi {res.chi_used}, value "
+              f"{res.value.real:.10e} (complex128 exact {qaoa_ref:.10e}), err {res.err:.3e}; "
+              f"{len(res.rungs)} rungs in {wall:.3f} s", flush=True)
+        check(all(r["err"] >= r["distance"] for r in rows),
+              f"{label} {dtype}: a rung's err is below its distance from the exact value")
+        if dtype == "complex128":
+            check(res.converged, f"{label}: the complex128 ladder did not converge")
+            cap = res.chi_used  # past it the complex64 rungs are truncation-free too
+        record[f"qaoa_{dtype}"] = {"converged": res.converged, "chi_used": res.chi_used,
+                                   "value": res.value.real, "err": res.err, "wall_s": wall,
+                                   "elapsed_s": run["elapsed"][0],
+                                   "peak_bytes": run["peak_bytes"], "rungs": rows}
+        torch.cuda.empty_cache()
+
+    for length, chis, dtype in APPROX_PEPS:
+        name = f"peps{length}{length}_b2 approx"
+        tn = peps(length, length, 2, 2, 1)
+        tn = attach_random_data(tn, np.random.default_rng(3), scale=unit_scale(tn))
+        prog = ApproxProgram.from_peps_sandwich(tn, length, length, 1)
+        # a tolerance no rung meets, so that every rung runs
+        res, run, times = traced_ladder(
+            ChiLadder(chis=chis), prog, f"{name} ladder", rtol=1e-12, backend="torch",
+            dtype=dtype, cost_model=cost_model)
+        wall = run["walls"][0]
+        print(f"[{name}] grid {length} x {length}, exact chi bound {exact_chi_bound(prog)}, "
+              f"{dtype}, {len(res.rungs)} rungs in {wall:.3f} s", flush=True)
+        entry = {"dtype": dtype, "exact_chi_bound": exact_chi_bound(prog), "wall_s": wall,
+                 "elapsed_s": run["elapsed"][0], "peak_bytes": run["peak_bytes"]}
+        if dtype == "complex128":
+            top = res.rungs[-1]
+            rows = ladder_rows(name, res, times, top.value)
+            t0 = time.perf_counter()
+            host, host_w = prog.contract(top.chi, backend="numpy")
+            host_s = time.perf_counter() - t0
+            rel = abs(top.value - host) / abs(host)
+            print(f"[check] {name}: chi {top.chi} weight {top.weight:.3e} (exact at "
+                  f"<= {EXACT_WEIGHT}); against the numpy host sweep at chi {top.chi} "
+                  f"({host_s:.2f} s, weight {host_w:.3e}): relative {rel:.3e} (gate 1e-10)",
+                  flush=True)
+            check(top.weight <= EXACT_WEIGHT, f"{name}: the chi-{top.chi} rung truncated")
+            check(rel <= 1e-10, f"{name}: the card's chi-{top.chi} rung is off the host by {rel}")
+            check(all(r["err"] >= r["distance"] for r in rows[:-1]),
+                  f"{name}: a rung's err is below its distance from the exact rung")
+            entry.update(host_s=host_s, host_rel_err=rel)
+        else:
+            rows = ladder_rows(name, res, times)
+            check(all(np.isfinite(r["value"][0]) for r in rows), f"{name}: a non-finite rung")
+            profiled = profile_device_path(
+                lambda: prog.contract(APPROX_PROFILE_CHI, dtype=dtype),
+                f"{name} chi {APPROX_PROFILE_CHI}", reps=1)
+            entry["profile"] = {"chi": APPROX_PROFILE_CHI, **profiled,
+                                "busy_share": profiled["device_busy_s"] / profiled["profiled_s"]}
+        entry["rungs"] = rows
+        record[name] = entry
+        torch.cuda.empty_cache()
+    return {"record": record}
+
+
+def run_grad(cost_model=None) -> dict:
+    """Phase 13: gradients and the approximate tier (:func:`grad_qaoa`,
+    :func:`grad_sliced`, :func:`grad_sweep`, :func:`run_approx`)."""
+    t0 = time.perf_counter()
+    qaoa = grad_qaoa()
+    sliced = grad_sliced()
+    sweep = grad_sweep()
+    approx = run_approx(cost_model, qaoa["zz_complex128"])
+    seconds = time.perf_counter() - t0
+    print(f"[grad] phase 13 in {seconds:.1f} s", flush=True)
+    return {"record": {"qaoa": qaoa["record"], "sliced": sliced["record"],
+                       "sweep": sweep["record"], "approx": approx["record"],
+                       "seconds": seconds},
+            "chain_rows": qaoa["chain_rows"], "label": qaoa["label"],
+            "chain_launches": qaoa["chain_launches"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2993,6 +3640,14 @@ def main() -> int:
                              torch.Generator(device="cuda").manual_seed(SEED))
         print(json.dumps({"calibrated": cal["record"],
                           "shapes": {"fused_chain": cal["chain_rows"]}}), flush=True)
+        print(card_line(), flush=True)
+        return 0
+
+    if "--grad" in sys.argv[1:]:
+        # gradients and the approximate tier alone: phase 13, no fitted model
+        grad = run_grad()
+        print(json.dumps({"grad": grad["record"],
+                          "shapes": {"fused_chain": grad["chain_rows"]}}), flush=True)
         print(card_line(), flush=True)
         return 0
 
@@ -3154,6 +3809,17 @@ def main() -> int:
     chain_launches.update(sweep["query_chain_launches"])
     chain_forms[sweep["label"]] = sweep["record"]["chain_forms"]
     dot_launches[f"{sweep['label']} fused rung"] = sweep["dot_launches"]
+    torch.cuda.empty_cache()
+
+    # 13. gradients and the approximate tier: config #4's expectation value
+    # and MaxCut gradient, the 53-qubit sliced gradient, the sweep gradient,
+    # and the chi ladders, each rung priced by phase 11's fitted model
+    from tnc_tpu_torch.obs.calibrate import CalibratedCostModel
+
+    fitted = calibrated["record"]["model"]
+    grad = run_grad(CalibratedCostModel(fitted["flops_per_s"], fitted["dispatch_s"],
+                                        fitted["bytes_per_s"]))
+    chain_launches[f"{grad['label']} <Z...Z>"] = grad["chain_launches"]
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -3182,7 +3848,8 @@ def main() -> int:
                            for name in small["launches"] if "batch" not in name},
                         "sycamore53_m14_hyper": chain_record(northstar["chain_rows"]),
                         **calibrated_chains,
-                        **sweep_chains},
+                        **sweep_chains,
+                        f"{grad['label']} <Z...Z>": chain_record(grad["chain_rows"])},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -3196,7 +3863,7 @@ def main() -> int:
                                 launch_weighted(transpose_rec["shapes"])},
     }
     chain_rows += (sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
-                   + calibrated["chain_rows"] + sweep["chain_rows"])
+                   + calibrated["chain_rows"] + sweep["chain_rows"] + grad["chain_rows"])
     chain_rec = {**chain_record(chain_rows), "launches": sum(chain_launches.values())}
     dot_rows = (dot_rec["shapes"] + sliced["dot_rows"] + chunked["dot_rows"]
                 + northstar["dot_rows"] + sweep["dot_rows"])
@@ -3229,6 +3896,7 @@ def main() -> int:
         "sycamore53_m14_hyper": northstar["record"],
         "calibrated": calibrated["record"],
         sweep["label"]: sweep["record"],
+        "grad": grad["record"],
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
         "fused_chain_forms_by_path": chain_forms,

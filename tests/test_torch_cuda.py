@@ -728,3 +728,111 @@ def test_chain_sampler_on_the_card():
     for i, (a, b) in enumerate(zip(got, want)):
         if a != b:
             assert (i, next(k for k in range(20) if a[k] != b[k])) in near
+
+
+def _maxcut_terms(n):
+    return [(-0.5, "i" * u + "zz" + "i" * (n - u - 2)) for u in range(n - 1)]
+
+
+@pytest.mark.cuda
+def test_expectation_gradient_on_the_card():
+    """BASELINE config #4's circuit, ``qaoa_circuit(30, 2, default_rng(42))``:
+    the MaxCut energy's gradient over every gate leaf of both layers on the
+    card in complex64 (the default device) equals the host's complex128
+    gradient to 1e-4·max|g|, and its value the host's to 1e-5·29."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.builders.qaoa_circuit import qaoa_circuit
+    from tnc_tpu_torch.queries import pauli_expectation_value_and_grad
+
+    def circuit():
+        return qaoa_circuit(30, 2, np.random.default_rng(42))
+
+    terms = _maxcut_terms(30)
+    val, vals, grads = pauli_expectation_value_and_grad(circuit(), terms)
+    want, want_vals, want_grads = pauli_expectation_value_and_grad(
+        circuit(), terms, dtype="complex128", device="cpu")
+    assert abs(val - want) <= 1e-5 * len(terms)
+    assert float(np.max(np.abs(vals - want_vals))) <= 1e-5
+    scale = max(float(np.max(np.abs(g))) for g in want_grads)
+    assert len(grads) == len(want_grads)
+    for got, ref in zip(grads, want_grads):
+        assert got.dtype == np.complex64 and got.shape == ref.shape
+        assert float(np.max(np.abs(got - ref))) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_gradients_on_the_card():
+    """The sliced gradient of a 20-qubit Sycamore amplitude (4 slices) and
+    the sweep gradient of 8 bitstrings on the card in complex64 against the
+    host's complex128 ones, to 1e-4·max|g|; the sliced gradient equals the
+    unsliced one there."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.contractionpath.slicing import find_slicing
+    from tnc_tpu_torch.ops.autodiff import (
+        contraction_value_and_grad,
+        sliced_contraction_value_and_grad,
+    )
+    from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+    from tnc_tpu_torch.tensornetwork.sweep import amplitude_sweep_value_and_grad
+
+    def close(got, want):
+        scale = max(float(np.max(np.abs(g))) for g in want[1])
+        assert float(np.max(np.abs(got[0] - want[0]))) <= 1e-4 * max(
+            float(np.max(np.abs(want[0]))), 1e-30)
+        for a, b in zip(got[1], want[1]):
+            assert float(np.max(np.abs(a - b))) <= 1e-4 * scale
+
+    tn, _ = sycamore_circuit(20, 6, np.random.default_rng(7)).into_amplitude_network("0" * 20)
+    tn = simplify_network(tn)
+    path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+    slicing = find_slicing(tn.tensors, path.toplevel, 2.0 ** 7)
+    assert slicing.num_slices == 4
+    wrt = list(range(0, 28, 3))
+    card = sliced_contraction_value_and_grad(tn, path, slicing, wrt=wrt)
+    host = sliced_contraction_value_and_grad(tn, path, slicing, wrt=wrt, dtype="complex128",
+                                             device="cpu")
+    close(card, host)
+    close(contraction_value_and_grad(tn, path, wrt=wrt), host)
+
+    def circuit():
+        return sycamore_circuit(12, 6, np.random.default_rng(42))
+
+    bits = ["".join(str(int(b)) for b in row)
+            for row in np.random.default_rng(3).integers(0, 2, (8, 12))]
+    close(amplitude_sweep_value_and_grad(circuit(), bits),
+          amplitude_sweep_value_and_grad(circuit(), bits, dtype="complex128", device="cpu"))
+
+
+@pytest.mark.cuda
+def test_approximate_sweep_on_the_card():
+    """The boundary-MPS sweep of a ``peps(4, 4, 2, 2, 1)`` sandwich on the
+    card (the default ``backend="torch"``, no device given): complex128 within 1e-10
+    of the host's numpy sweep at every chi, value and weight; complex64
+    within 1e-4; and the chi ladder's error bounds the true error."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.approx import ApproxProgram, ChiLadder
+    from tnc_tpu_torch.builders.peps import peps
+    from tnc_tpu_torch.tensornetwork.approximate import attach_random_data
+
+    tn = attach_random_data(peps(4, 4, 2, 2, 1), np.random.default_rng(3))
+    prog = ApproxProgram.from_peps_sandwich(tn, 4, 4, 1)
+    exact = prog.contract(4096, backend="numpy")[0]
+    for chi in (2, 8, 32):
+        want, want_w = prog.contract(chi, backend="numpy")
+        got, got_w = prog.contract(chi, dtype="complex128")
+        assert abs(got - want) <= 1e-10 * abs(exact)
+        assert abs(got_w - want_w) <= 1e-10 * max(want_w, 1.0)
+        got32, _ = prog.contract(chi)
+        assert abs(got32 - want) <= 1e-4 * abs(exact)
+    res = ChiLadder(chi_cap=256).run(prog, rtol=1e-8, scale=abs(exact), dtype="complex128")
+    assert res.converged
+    for rung in res.rungs:
+        assert rung.err >= abs(rung.value - exact)

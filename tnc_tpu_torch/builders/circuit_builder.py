@@ -1,6 +1,5 @@
 """Quantum-circuit → tensor-network builder (the port's copy of
-``tnc_tpu.builders.circuit_builder``, without the expectation-value
-finalizer):
+``tnc_tpu.builders.circuit_builder``):
 
 - ``allocate_register(n)`` pushes |0⟩ kets, one edge each.
 - ``append_gate(data, qubits)`` creates a tensor whose legs are the *new*
@@ -8,9 +7,11 @@ finalizer):
   matching the gate storage layout ``(out…, in…)``.
 - Finalizers: ``into_amplitude_network(bitstring)`` (``0``/``1``/``*``
   wildcards → open legs), ``into_statevector_network()`` (all
-  wildcards), and the rebindable ones the serving and query layers plan
-  once per structure: ``into_amplitude_template(mask)`` (placeholder
-  bras) and ``into_sandwich_template(spec)`` (circuit ++ adjoint mirror,
+  wildcards), ``into_expectation_value_network(observables)`` (circuit
+  ++ adjoint mirror ++ one Pauli leaf per qubit), and the rebindable
+  ones the serving and query layers plan once per structure:
+  ``into_amplitude_template(mask)`` (placeholder bras) and
+  ``into_sandwich_template(spec)`` (circuit ++ adjoint mirror,
   each qubit determined, traced, open or an observable slot). A
   template's rebindable leaves are the trailing leaves of its network,
   in qubit order.
@@ -334,6 +335,40 @@ class Circuit:
         ]
         self.tensor_network.push_tensors(adjoints)
         return offset
+
+    def into_expectation_value_network(
+        self, observables: str | None = None
+    ) -> CompositeTensor:
+        """⟨ψ|P₁⊗…⊗Pₙ|ψ⟩ network: circuit ++ adjoint mirror ++ an
+        observable layer (``circuit_builder.rs:304-326``).
+
+        ``observables``: one Pauli character per qubit (``i``/``x``/
+        ``y``/``z``); default ``"z" * n`` — the reference's ⟨ψ|Z…Z|ψ⟩
+        layer. ``i`` traces the qubit out (its contribution is the
+        identity between the layers). The network contracts to the
+        scalar expectation value (real for Hermitian observables, up to
+        roundoff).
+        """
+        if observables is None:
+            observables = "z" * self.num_qubits()
+        observables = str(observables).lower()
+        if len(observables) != self.num_qubits():
+            raise ValueError(
+                f"observable string length {len(observables)} != qubit "
+                f"count {self.num_qubits()}"
+            )
+        for pos, c in enumerate(observables):
+            if c not in PAULI_MATRICES:
+                raise ValueError(
+                    f"invalid observable {c!r} at position {pos} "
+                    "(only 'i', 'x', 'y' and 'z' are allowed)"
+                )
+        offset = self._mirror_adjoint()
+        for c, edge in zip(observables, self.open_edges):
+            observable = LeafTensor.from_const([edge, edge + offset], 2)
+            observable.data = observable_leaf_data(PAULI_MATRICES[c])
+            self.tensor_network.push_tensor(observable)
+        return self.tensor_network
 
     def into_sandwich_template(
         self, spec: str | Iterable

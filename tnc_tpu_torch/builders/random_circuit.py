@@ -1,11 +1,16 @@
 """Random circuit generation (the port's copy of
-``tnc_tpu.builders.random_circuit``, trimmed to :func:`random_circuit`).
+``tnc_tpu.builders.random_circuit``, trimmed to :func:`random_circuit`
+and the brickwork recipe).
 
 :func:`random_circuit` places ``rounds`` rounds of Bernoulli-placed
 {sx, sy, sz} single-qubit gates and fsim(0.3, 0.2) two-qubit gates on a
-connectivity graph, closed as an amplitude network. It draws from the
-caller's ``np.random.Generator`` in exactly the reference's order, so one
-seed gives identical gates in both packages.
+connectivity graph, closed as an amplitude network.
+:func:`brickwork_circuit` is the dense brickwork ansatz (H layer, then
+random-angle Rz rotations and alternating CX bricks per round), and
+:func:`brickwork_from_angles` the same recipe from explicit angles — the
+parameterised circuit a variational user differentiates. Both draw from
+the caller's ``np.random.Generator`` in exactly the reference's order, so
+one seed gives identical gates in both packages.
 """
 
 from __future__ import annotations
@@ -53,6 +58,42 @@ def random_open_circuit(
                 circuit.append_gate(
                     TensorData.gate("fsim", _FSIM_ANGLES), [qr.qubit(i), qr.qubit(j)]
                 )
+    return circuit
+
+
+def brickwork_circuit(
+    qubits: int, depth: int, rng: np.random.Generator
+) -> Circuit:
+    """Dense brickwork circuit (H layer, then per-round random-angle Rz
+    rotations + alternating CX bricks), unfinalized. Deterministic in
+    ``rng``: same generator state → identical structure AND gate values.
+
+    >>> c = brickwork_circuit(4, 2, np.random.default_rng(0))
+    >>> len(c.tensor_network.tensors)  # 4 kets, 4 h, 8 rz, 3 cx
+    19
+    """
+    angles = [
+        [float(rng.uniform(0, 3)) for _ in range(qubits)]
+        for _ in range(depth)
+    ]
+    return brickwork_from_angles(qubits, angles)
+
+
+def brickwork_from_angles(
+    qubits: int, round_angles: list[list[float]]
+) -> Circuit:
+    """The brickwork recipe with explicit per-round Rz angles —
+    :func:`brickwork_circuit`'s builder, exposed so a caller can set
+    (or differentiate) the angles."""
+    circuit = Circuit()
+    qr = circuit.allocate_register(qubits)
+    for q in range(qubits):
+        circuit.append_gate(TensorData.gate("h"), [qr.qubit(q)])
+    for d, angles in enumerate(round_angles):
+        for q in range(qubits):
+            circuit.append_gate(TensorData.gate("rz", (angles[q],)), [qr.qubit(q)])
+        for q in range(d % 2, qubits - 1, 2):
+            circuit.append_gate(TensorData.gate("cx"), [qr.qubit(q), qr.qubit(q + 1)])
     return circuit
 
 

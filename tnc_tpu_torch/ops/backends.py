@@ -265,6 +265,26 @@ def place_buffers(
     ]
 
 
+def resolve_device(device=None, who: str = "TorchBackend"):
+    """The ``torch.device`` an entry point runs on: ``None`` means
+    ``"cuda"``. A CUDA device raises ``RuntimeError`` when CUDA is absent
+    (nothing falls back to the host) and turns TF32 off for matmuls and
+    cuDNN, so complex64 products keep full FP32. ``who`` names the
+    caller in the error."""
+    import torch
+
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who}: CUDA is not available; pass device='cpu' "
+                "to run on the host"
+            )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 def _complex_dtype(dtype):
     import torch
 
@@ -417,17 +437,7 @@ class TorchBackend(Backend):
         chunk_steps: int = 64,
         hoist: bool = True,
     ):
-        import torch
-
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "TorchBackend: CUDA is not available; pass device='cpu' "
-                    "to run on the host"
-                )
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = resolve_device(device, "TorchBackend")
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}: one of {PRECISIONS}")
         self.dtype = dtype

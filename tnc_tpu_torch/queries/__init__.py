@@ -1,7 +1,12 @@
-"""tnc_tpu_torch.queries — marginal sweeps and chain-rule sampling (the
-port's part of ``tnc_tpu.queries``), riding the rebinding and batching
-machinery of :mod:`tnc_tpu_torch.serve.rebind`:
+"""tnc_tpu_torch.queries — the query engine (the port's part of
+``tnc_tpu.queries``): Pauli expectation values, marginal sweeps and
+chain-rule sampling, riding the rebinding and batching machinery of
+:mod:`tnc_tpu_torch.serve.rebind`:
 
+- **Expectation values** (``expectation.py``) — ⟨ψ|P|ψ⟩ sandwich
+  networks with rebindable observable leaves; Pauli-sum terms batch
+  like bras through one planned program; ``value_and_grad`` through
+  ``torch.autograd``.
 - **Marginal sweeps** (``marginal.py``) — wildcard patterns contract as
   traced sandwich legs, returning marginal probabilities of the
   determined positions (``amplitude_sweep``'s ``'*'`` case).
@@ -9,11 +14,19 @@ machinery of :mod:`tnc_tpu_torch.serve.rebind`:
   over marginal sandwich networks: one planned structure per prefix
   length, conditionals rebound and batched across all in-flight
   samples, seeded-deterministic streams.
+- **Dense oracle** (``statevector.py``) — brute-force ``O(2^n)`` ground
+  truth for all of the above, used by the exactness pins.
 
-Expectation values, the service handlers and the dense oracle are not
-ported yet (ROADMAP A8, A10).
+The service handlers are not ported yet (ROADMAP A10).
 """
 
+from tnc_tpu_torch.queries.expectation import (  # noqa: F401
+    ExpectationProgram,
+    bind_expectation,
+    pauli_expectation,
+    pauli_expectation_value_and_grad,
+    pauli_sum_expectation,
+)
 from tnc_tpu_torch.queries.marginal import (  # noqa: F401
     bind_marginal,
     marginal_probabilities,
@@ -24,3 +37,7 @@ from tnc_tpu_torch.queries.sampling import (  # noqa: F401
     ChainSampler,
     sample_bitstrings,
 )
+
+# NOTE: the dense-oracle helpers live in ``tnc_tpu_torch.queries.statevector``
+# (not re-exported here: the module shares its name with its main
+# function, and the module is the stable import path).

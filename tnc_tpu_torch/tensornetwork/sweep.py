@@ -7,6 +7,10 @@ compiled program and one batched run over the stacked bra values
 evaluate B amplitudes at once
 (:meth:`~tnc_tpu_torch.ops.backends.TorchBackend.execute_batched`).
 
+:func:`amplitude_sweep_value_and_grad` differentiates a real scalar of
+the batch's amplitudes with respect to the shared leaves, through
+``torch.autograd`` on the same batched program.
+
 The sweep plans on the **raw** (unsimplified) network: host
 simplification folds bra values into neighbouring cores, which would
 make the shared leaf arrays bitstring-dependent. Rank-≤2 absorption
@@ -132,3 +136,72 @@ def amplitude_sweep(
         ]
         out[i] = complex(np.asarray(backend.execute(program, per)).reshape(-1)[0])
     return out
+
+
+def total_probability(amps):
+    """The default ``scalar_fn`` of :func:`amplitude_sweep_value_and_grad`:
+    the batch's probability mass ``Σ_b |amp_b|²``."""
+    import torch
+
+    return torch.sum(amps.real ** 2 + amps.imag ** 2)
+
+
+def amplitude_sweep_value_and_grad(
+    circuit: Circuit,
+    bitstrings: Sequence[str],
+    wrt: Sequence[int] | None = None,
+    scalar_fn=None,
+    pathfinder: Pathfinder | None = None,
+    dtype: str = "complex64",
+    device=None,
+):
+    """Amplitudes for every bitstring AND the gradient of a real scalar
+    of them w.r.t. selected (non-bra) leaf tensors — one reverse-mode
+    sweep through ``torch.autograd`` over the same batched program the
+    forward sweep runs (the bras a leading batch axis,
+    :func:`~tnc_tpu_torch.ops.batched.run_steps_batched`). The default
+    ``scalar_fn`` is the total probability mass ``Σ_b |amp_b|²`` of the
+    batch (:func:`total_probability`); a caller's maps the complex
+    ``(B,)`` amplitude tensor to a real scalar tensor.
+
+    ``wrt`` indexes the flat leaf order (``flat_leaf_tensors``; bra
+    slots — the trailing ``n`` leaves — are the sweep axis and cannot be
+    differentiated here). Returns ``(amps, grads)``; cotangents follow
+    the ``df = Re(sum(g * dT))`` convention of
+    :mod:`tnc_tpu_torch.ops.autodiff`. ``device=None`` means ``"cuda"``
+    (raises without CUDA, TF32 off).
+    """
+    import torch
+
+    from tnc_tpu_torch.ops.autodiff import (
+        _validate_wrt,
+        cotangents,
+        grad_of,
+        leaf_tensors,
+    )
+    from tnc_tpu_torch.ops.backends import resolve_device
+    from tnc_tpu_torch.ops.batched import run_steps_batched, thread_batch
+
+    if not bitstrings:
+        raise ValueError("amplitude_sweep_value_and_grad needs >= 1 bitstring")
+    device = resolve_device(device, "amplitude_sweep_value_and_grad")
+    program, host_arrays, bra_slots = _sweep_program(
+        circuit, bitstrings, pathfinder
+    )
+    bra_set = set(bra_slots)
+    n_slots = len(host_arrays)
+    if wrt is None:
+        wrt = [s for s in range(n_slots) if s not in bra_set]
+    wrt = _validate_wrt(wrt, n_slots)
+    for s in wrt:
+        if s in bra_set:
+            raise ValueError(
+                "bra slots carry the sweep axis; not differentiable"
+            )
+    scalar_fn = scalar_fn or total_probability
+    arrays = leaf_tensors(host_arrays, wrt, dtype, device)
+    flags, _ = thread_batch(program, bra_slots)
+    with torch.enable_grad():
+        amps = run_steps_batched(program, list(arrays), flags).reshape(len(bitstrings))
+        grads = grad_of(scalar_fn(amps), [arrays[s] for s in wrt])
+    return amps.detach().cpu().numpy(), cotangents(grads)
