@@ -188,7 +188,27 @@ Phases, each of which raises on failure (nothing is caught):
    least its distance from the exact value, each rung's seconds (its
    ``approx.sweep`` span, tracing on) beside ``rung_seconds`` under phase
    11's fitted model, and one 8x8 rung profiled for the card's busy share;
-14. one JSON line of path numbers (with each kernel's per-shape rows,
+14. the serving front end and resilience (every answer held to complex128):
+   ``ContractionService.from_circuit`` of phase 12's circuit on one
+   ``TorchBackend()`` with a plan cache (``max_batch=8``, ``max_wait_ms=20``),
+   64 amplitude requests from 4 threads in 8 rounds (8 repeats, collapsed by
+   dedup) within 1e-4 max|ref|, latency percentiles, batches and peak memory;
+   a deadline of 0, a transient and a fatal ``serve.dispatch`` fault (retry
+   in place; one batch degraded to 8 singletons), a transient
+   ``backend.dispatch`` fault, a ``max_queue=2`` service rejecting, a warm
+   ``from_circuit`` that hits the cache and plans nothing; the same service
+   over an ``IntermediateStore`` (residual steps, cached bytes and their
+   upload seconds, the store's counts); the sliced branch planned to 2^21
+   (128 slices) under ``TNC_TPU_CKPT`` with a checkpoint every 8 slices:
+   interrupted at the batch starting at slice 64 and resumed there bitwise,
+   an injected OOM at slice 32 halving the batch to 4, a fault inside a
+   CUDA graph capture retried bitwise; ``sycamore_circuit(20, 8)`` with
+   ``queries=True``, amplitudes, marginals, samples and Pauli sums
+   interleaved from 4 threads, no batch mixing two batching keys; and
+   config #4's circuit with ``approx=True`` (``chi_cap`` 8): the exact
+   ⟨Z…Z⟩, ``rtol=1e-2`` met by the ladder with an honest error bar,
+   ``rtol=1e-7`` escalated at the ``COMPLEX64_ERR_REL`` floor;
+15. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -208,13 +228,16 @@ complex128), and ends with its JSON record and the card line.
 alone, and ends with its JSON record and the card line.
 ``python3 chip_smoke.py --grad`` builds the kernels and runs phase 13 alone
 (its rungs then have no fitted model to be priced by), and ends with its
-JSON record and the card line.
+JSON record and the card line. ``python3 chip_smoke.py --serve`` builds the
+kernels and runs phase 14 alone, and ends with its JSON record and the card
+line.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -303,6 +326,14 @@ APPROX_QAOA_CAP = 64
 APPROX_PEPS = ((6, (16, 32, 64, 128, 256, 512), "complex128"),
                (8, (16, 32, 64, 128, 256), "complex64"))
 APPROX_PROFILE_CHI = 64  # the 8x8 rung profiled for the card's busy share
+
+# phase 14: the service serves SERVE_ROUNDS rounds of SERVE_BATCH amplitude
+# requests of phase 12's circuit (SERVE_BATCH - 1 distinct and one repeat a
+# round); the checkpointed sliced branch plans to 2^CKPT_TARGET elements (128
+# slices: phase 12's 2^26 gives 4)
+SERVE_ROUNDS = 8
+SERVE_BATCH = 8
+CKPT_TARGET = 21
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -579,7 +610,10 @@ def hold_chain_run(label_of, launches: int, rows: list, seen: dict | None = None
     :func:`hold_chain`; its row appended to ``rows``, labelled
     ``label_of(count of rows so far)``. With a ``seen`` dict, each distinct
     chain (its operands' shapes, links and batch) is held once and a
-    repeat adds ``launches`` to its row."""
+    repeat adds ``launches`` to its row. The launches a hold makes to
+    compare and time the kernel are taken back out of the launch counts,
+    so a held run counts what the path launched."""
+    from tnc_tpu_torch.ops.cuda_complex import CHAIN_FORMS, LAUNCHES
     from tnc_tpu_torch.ops.split_complex import chain_operands
 
     def hold(steps, buffers, batched=None, *_):
@@ -593,7 +627,11 @@ def hold_chain_run(label_of, launches: int, rows: list, seen: dict | None = None
                 rows[seen[key]]["launches"] += launches
                 return
             seen[key] = len(rows)
+        counts = dict(LAUNCHES), dict(CHAIN_FORMS)
         rows.append(hold_chain(first, link_ops, links, label_of(len(rows)), launches))
+        for live, saved in zip((LAUNCHES, CHAIN_FORMS), counts):
+            live.clear()
+            live.update(saved)
 
     return hold
 
@@ -2026,13 +2064,19 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
           f"{t_routed}): no shape of this plan for fused_transpose_dot", flush=True)
     check(t_admitted == 0, "the transpose gate admits a north-star step: hold it")
 
-    # each chain of the first batch, on the operands the executor builds
+    run_n = n if run_slices is None else run_slices
+    check(run_n % batch == 0, f"{run_n} slices are no whole number of batches of {batch}")
+
+    # each chain of the first batch, on the operands the executor builds; a
+    # row weighs the launches the run below makes at its operands
     print(f"[kernels] fused_chain against fused_chain_reference on the batched operands of "
-          f"the first batch ({len(chains)} residual chains, {batches} batches)", flush=True)
+          f"the first batch ({len(chains)} residual chains, {batches} batches, "
+          f"{run_n // batch} run)", flush=True)
     chain_rows = []
     with holding("run_chain_split", hold_chain_run(
             lambda i: f"m14 chunk {chains[i][0]} steps {chains[i][1][0]}..{chains[i][1][1] - 1}"
-            if i < len(chains) else f"m14 chain {i}", batches, chain_rows), split_complex):
+            if i < len(chains) else f"m14 chain {i}", run_n // batch, chain_rows),
+            split_complex):
         backend.execute_sliced(sp, arrays, slice_range=(0, batch))
     check(len(chain_rows) == len(chains),
           f"the first batch ran {len(chain_rows)} chains, the plan has {len(chains)}")
@@ -2040,8 +2084,6 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
     torch.cuda.empty_cache()
 
     # the amplitude over the run's slices
-    run_n = n if run_slices is None else run_slices
-    check(run_n % batch == 0, f"{run_n} slices are no whole number of batches of {batch}")
     if run_n == n:
         label, contract = "northstar all slices", (
             lambda: contract_tensor_network_sliced(tn, path, sl, backend))
@@ -2186,18 +2228,17 @@ def run_chunked_small(backend) -> dict:
             label = name if slice_batch == backend.slice_batch else f"{name}, batch {batch}"
             batches = sl.num_slices // batch
             expect = chains * batches
-            if slice_batch == backend.slice_batch:
-                print(f"[kernels] fused_chain against fused_chain_reference on the batched "
-                      f"operands of sycamore{cfg[:3]} ({sl.num_slices} slices, batch {batch}, "
-                      f"{chains} residual chain(s))", flush=True)
-                held = []
-                with holding("run_chain_split", hold_chain_run(
-                        lambda i: f"{name} launch {i}", 1, held), split_complex):
-                    run_backend.execute_sliced(sp, arrays, graphs=False)
-                check(len(held) == expect, f"{name}: {len(held)} chain calls, expected {expect}")
-                check(all(r["batch"] == batch for r in held),
-                      f"{name}: a chain launch was not batched")
-                rows += held
+            print(f"[kernels] fused_chain against fused_chain_reference on the batched "
+                  f"operands of sycamore{cfg[:3]} ({sl.num_slices} slices, batch {batch}, "
+                  f"{chains} residual chain(s))", flush=True)
+            held = []
+            with holding("run_chain_split", hold_chain_run(
+                    lambda i: f"{label} launch {i}", 1, held), split_complex):
+                run_backend.execute_sliced(sp, arrays, graphs=False)
+            check(len(held) == expect, f"{label}: {len(held)} chain calls, expected {expect}")
+            check(all(r["batch"] == batch for r in held),
+                  f"{label}: a chain launch was not batched")
+            rows += held
             graphed = run_counted(
                 lambda: contract_tensor_network_sliced(tn, path, sl, run_backend), label)
             eager = run_counted(lambda: run_backend.execute_sliced(sp, arrays, graphs=False),
@@ -2862,6 +2903,26 @@ def run_sweep() -> dict:
             "dot_launches": fused["launches"]["fused_complex_dot"], "label": label}
 
 
+def sample_replay(samples: list, p1_of, n: int, seed: int) -> tuple[int, int]:
+    """``ChainSampler``'s draws for one request of ``n`` samples under
+    ``seed`` (one uniform vector a position, sample-major) replayed on
+    another sampler's conditionals: ``p1_of(k, prefix)`` is that sampler's
+    probability of a 1 at position ``k`` after ``prefix``. Returns
+    ``(samples whose replayed bits differ, those whose first difference is
+    not within SAMPLE_NEAR of its threshold)``."""
+    rng = np.random.default_rng(seed)
+    draws = [rng.random(n) for _ in range(len(samples[0]))]
+    differ = unexplained = 0
+    for i, got in enumerate(samples):
+        for k, bit in enumerate(got):
+            p1 = p1_of(k, got[:k])
+            if ("1" if draws[k][i] < p1 else "0") != bit:
+                differ += 1
+                unexplained += abs(draws[k][i] - p1) > SAMPLE_NEAR
+                break
+    return differ, unexplained
+
+
 def run_queries() -> dict:
     """Phase 12 (d): the marginal sweep and chain sampling at 20 qubits
     (:func:`run_sweep`)."""
@@ -2958,36 +3019,29 @@ def run_queries() -> dict:
           f"{label}: {sum(r['launches'] for r in sampler_rows)} chain calls held for the "
           f"sampler's {sample_launches} launches")
     cond_err = 0.0
+    p128_at = []  # position -> {prefix: complex128 probability of a 1}
     for prefixes, p32 in steps:
         p128 = ChainSampler.conditionals(sampler, prefixes, oracle)
         cond_err = max(cond_err, float(np.max(np.abs(p32 - p128))))
+        p128_at.append({p: float(row[1]) for p, row in zip(prefixes, p128)})
     t0 = time.perf_counter()
     samples128 = ChainSampler(sycamore(QUERY), backend=oracle).sample(QUERY_SAMPLES, seed=0)
     sample128_s = time.perf_counter() - t0
-    # replay the draws: one uniform vector a position, sample-major
-    rng = np.random.default_rng(0)
-    near = 0
-    near_at: set = set()
-    for k, (prefixes, p32) in enumerate(steps):
-        draws = rng.random(QUERY_SAMPLES)
-        index = {p: i for i, p in enumerate(prefixes)}
-        for i, s in enumerate(samples):
-            if abs(draws[i] - p32[index[s[:k]]][1]) <= SAMPLE_NEAR:
-                near += 1
-                near_at.add((i, k))
-    differ = [i for i in range(QUERY_SAMPLES) if samples[i] != samples128[i]]
-    explained = all(
-        (i, next(k for k in range(qubits) if samples[i][k] != samples128[i][k])) in near_at
-        for i in differ)
+    differ = sum(s != t for s, t in zip(samples, samples128))
+    replayed, unexplained = sample_replay(samples, lambda k, p: p128_at[k][p],
+                                          QUERY_SAMPLES, 0)
     print(f"[check] {label} ChainSampler.sample({QUERY_SAMPLES}, seed=0): {sample_s:.3f} s, "
           f"{sum(len(p) for p, _ in steps)} conditionals over {len(steps)} steps, dispatch "
           f"{sample_route}, fused_chain {sample_launches} launches, max_memory_allocated "
           f"{sample_peak} bytes; conditionals against complex128 max|diff| {cond_err:.3e} "
-          f"(gate 1e-5); complex128 sampler {sample128_s:.3f} s; {len(differ)} of "
-          f"{QUERY_SAMPLES} samples differ, {near} uniforms within {SAMPLE_NEAR} of a "
-          f"threshold; {len(sampler_rows)} distinct chains held", flush=True)
+          f"(gate 1e-5); complex128 sampler {sample128_s:.3f} s; {differ} of "
+          f"{QUERY_SAMPLES} samples differ ({replayed} by the draws replayed on its "
+          f"conditionals), {unexplained} away from a threshold ({SAMPLE_NEAR}); "
+          f"{len(sampler_rows)} distinct chains held", flush=True)
     check(cond_err <= 1e-5, f"{label}: a conditional is off complex128 by {cond_err}")
-    check(explained, f"{label}: a sample differs from complex128's away from a threshold")
+    check(replayed == differ, f"{label}: the replayed draws give {replayed} differing samples, "
+                              f"the complex128 sampler {differ}")
+    check(unexplained == 0, f"{label}: a sample differs from complex128's away from a threshold")
     return {"chain_rows": chain_rows + sampler_rows,
             "chain_launches": {f"{label} marginal_sweep": run["launches"]["fused_chain"],
                                f"{label} sample": sample_launches},
@@ -2999,8 +3053,8 @@ def run_queries() -> dict:
                 "sample_wall_s": sample_s, "sample_peak_bytes": sample_peak,
                 "sample_dispatch": sample_route, "sample_launches": sample_launches,
                 "conditionals": sum(len(p) for p, _ in steps),
-                "conditional_max_abs_err": cond_err, "samples_differ": len(differ),
-                "near_threshold": near, "complex128_sample_wall_s": sample128_s}}
+                "conditional_max_abs_err": cond_err, "samples_differ": differ,
+                "complex128_sample_wall_s": sample128_s}}
 
 
 def median_run(run: dict) -> dict:
@@ -3589,6 +3643,756 @@ def run_grad(cost_model=None) -> dict:
             "chain_launches": qaoa["chain_launches"]}
 
 
+# --- phase 14: the serving front end and resilience -------------------------
+
+
+def obs_window():
+    """A context manager: the port's tracing on with a fresh registry, its
+    resilience counters read back through ``obs.counters_by_prefix``; the
+    previous state restored on exit."""
+    from tnc_tpu_torch import obs
+    from tnc_tpu_torch.obs import core
+
+    @contextlib.contextmanager
+    def window():
+        saved = (core._ENABLED, core._REGISTRY)
+        obs.configure(enabled=True, registry=core.MetricsRegistry())
+        try:
+            yield obs
+        finally:
+            core._ENABLED, core._REGISTRY = saved
+
+    return window()
+
+
+def held_chains(label: str, rows: list, seen: dict, launches: int):
+    """:func:`holding` of ``split_complex.run_chain_split`` through
+    :func:`hold_chain_run` with ``seen``: each distinct chain the port runs
+    meanwhile held against its plain version once (its row labelled
+    ``"<label> chain <i>"``), and every call adding ``launches`` to its
+    row. A service's dispatcher thread runs the holds: no other thread
+    touches the card while they synchronise and capture. Phase 14 holds a
+    warm-up pass with ``launches=0``, then the counted pass with 1, so the
+    rows weigh exactly the counted pass's launches (:func:`check_held`)."""
+    from tnc_tpu_torch.ops import split_complex
+
+    return holding("run_chain_split", hold_chain_run(lambda i: f"{label} chain {i}",
+                                                     launches, rows, seen), split_complex)
+
+
+def check_held(label: str, rows: list, launches: int, before: int = 0) -> None:
+    """The launches ``rows`` counted since they summed to ``before`` equal
+    the ``launches`` the path made: every ``fused_chain`` launch of the run
+    was on a chain held against its plain version."""
+    held = sum(r["launches"] for r in rows) - before
+    check(held == launches > 0,
+          f"{label}: {held} fused_chain launches on held chains, the path made {launches}")
+
+
+def serve_rows(seed: int = SWEEP_BITS_SEED) -> list[str]:
+    """The ``SERVE_ROUNDS * (SERVE_BATCH - 1)`` distinct bitstrings phase 14
+    serves: rows of ``default_rng(seed)``."""
+    rows = np.random.default_rng(seed).integers(
+        0, 2, (SERVE_ROUNDS * (SERVE_BATCH - 1), SWEEP[0]))
+    return ["".join(str(int(b)) for b in r) for r in rows]
+
+
+def submit_round(svc, requests: list, threads: int = 4) -> list:
+    """Submit one round of requests (callables ``svc -> future``) from
+    ``threads`` threads released together by a barrier, each taking a
+    contiguous share in order, and wait for every answer. Returns the
+    answers, or the exceptions raised, in request order. No thread but the
+    service's dispatcher touches the card meanwhile."""
+    import threading
+
+    futures = [None] * len(requests)
+    barrier = threading.Barrier(threads)
+    share = -(-len(requests) // threads)
+
+    def submit(k):
+        barrier.wait(timeout=60)
+        for i in range(k * share, min((k + 1) * share, len(requests))):
+            futures[i] = requests[i](svc)
+
+    workers = [threading.Thread(target=submit, args=(k,)) for k in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=120)
+    out = []
+    for f in futures:
+        try:
+            out.append(f.result(timeout=600))
+        except Exception as e:  # noqa: BLE001 - the caller checks each outcome
+            out.append(e)
+    return out
+
+
+def round_bits(rows: list[str], r: int) -> list[str]:
+    """Round ``r`` of phase 14's Sycamore-53 traffic: its ``SERVE_BATCH - 1``
+    distinct bitstrings of ``rows`` and a repeat of the first beside it."""
+    unique = rows[r * (SERVE_BATCH - 1):(r + 1) * (SERVE_BATCH - 1)]
+    return [unique[0]] + unique
+
+
+def hold_amps(label: str, got, bits, refs: dict) -> float:
+    """Each amplitude of ``bits`` against its complex128 reference within
+    1e-4 max|ref| (phase 12's gate); returns max|amp - ref|."""
+    want = np.array([refs[b] for b in bits])
+    got = np.asarray(got, dtype=np.complex128)
+    check(got.shape == want.shape and np.all(np.isfinite(got)),
+          f"{label}: answers of shape {got.shape} or non-finite")
+    err = float(np.max(np.abs(got - want)))
+    scale = float(np.max(np.abs(want)))
+    check(err <= 1e-4 * scale, f"{label}: an amplitude is off complex128 by {err} "
+                               f"(gate 1e-4 x {scale})")
+    return err
+
+
+def complex128_amps(bound, bits: list[str], batch: int = 2) -> dict:
+    """The complex128 amplitude of every bitstring on the card
+    (``TorchBackend(dtype="complex128", split_complex=False)``, ``batch``
+    bitstrings a call through ``bound``'s program)."""
+    import torch
+
+    from tnc_tpu_torch.ops.backends import TorchBackend
+
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    refs = {}
+    for i in range(0, len(bits), batch):
+        chunk = bits[i:i + batch]
+        for b, a in zip(chunk, bound.amplitudes(chunk, oracle)):
+            refs[b] = complex(a)
+    torch.cuda.empty_cache()
+    return refs
+
+
+def run_serve_sycamore(rows: list[str]) -> dict:
+    """Phase 14 (a): ``sycamore53_m8_serve`` and ``sycamore53_m8_serve_reuse``.
+
+    The service over ``sycamore_circuit(53, 8, rng 42)``'s amplitude
+    template on one ``TorchBackend()``, a plan cache in a temporary
+    directory, ``max_batch=8``, ``max_wait_ms=20``: a warm-up round that
+    holds each distinct chain against its plain version, then
+    ``SERVE_ROUNDS`` counted rounds of 8 requests from 4 threads (7 distinct
+    bitstrings and one repeat a round: 64 requests, 8 repeats, each
+    collapsed by the dispatcher's dedup), every launch on a held chain;
+    every answer within 1e-4 max|ref| of complex128 on the card;
+    latency percentiles, batches, peak memory against phase 12's. Then a
+    deadline of 0 (``DeadlineExceededError``), a transient
+    ``serve.dispatch`` fault retried in place, a fatal one degrading a
+    batch of 8 to singletons (each within the gate), a transient
+    ``backend.dispatch`` fault retried once; a ``max_queue=2`` service
+    rejecting a third request with ``QueueFullError``; a second
+    ``from_circuit`` over the same cache directory that hits it and calls
+    no planner. Then the same service with an ``IntermediateStore`` (a
+    warm-up service over a store of its own holding the chains first): the
+    residual's steps against the program's, the cached inputs' bytes and
+    their upload seconds, the store's counts after two batches, answers
+    within the gate. Only the dispatcher thread touches the card while a
+    service runs; the references are made after it stops."""
+    import tempfile
+
+    import torch
+
+    from tnc_tpu_torch.ops.backends import TorchBackend, place_buffers
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.resilience import faults
+    from tnc_tpu_torch.serve import (
+        ContractionService,
+        DeadlineExceededError,
+        IntermediateStore,
+        PlanCache,
+        QueueFullError,
+        rebind,
+    )
+
+    qubits, depth, _ = SWEEP
+    label = f"sycamore{qubits}_m{depth}_serve"
+    planned = []
+    real_plan = rebind.plan_structure
+
+    def counted_plan(*a, **k):
+        planned.append(1)
+        return real_plan(*a, **k)
+
+    rebind.plan_structure = counted_plan
+    record: dict = {}
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as cache_dir:
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            svc = ContractionService.from_circuit(
+                sycamore(SWEEP), backend=TorchBackend(), plan_cache=PlanCache(cache_dir),
+                max_batch=SERVE_BATCH, max_wait_ms=20)
+            cold_s = time.perf_counter() - t0
+            cold_planned = len(planned)
+            answers, served = [], []
+            held, seen = [], {}
+            try:
+                # a warm-up round holds each distinct chain; then the counted rounds
+                with held_chains(label, held, seen, 0):
+                    warmup = submit_round(svc, [lambda s, b=b: s.submit(b)
+                                                for b in round_bits(rows, 0)])
+                svc.reset_stats()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t0 = time.perf_counter()
+                with held_chains(label, held, seen, 1):
+                    for r in range(SERVE_ROUNDS):
+                        bits = round_bits(rows, r)
+                        answers += submit_round(svc, [lambda s, b=b: s.submit(b) for b in bits])
+                        served += bits
+                traffic_s = time.perf_counter() - t0
+                stats = svc.stats()
+                peak = torch.cuda.max_memory_allocated()
+                launches[label] = LAUNCHES["fused_chain"]
+                check_held(label, held, launches[label])
+                check(not any(isinstance(a, Exception) for a in answers),
+                      f"{label}: a request failed: {[a for a in answers if isinstance(a, Exception)][:1]}")
+                check(stats["counts"]["deduped"] == SERVE_ROUNDS,
+                      f"{label}: deduped {stats['counts']['deduped']}, expected {SERVE_ROUNDS}")
+                # a deadline of 0 expires in the queue
+                late = svc.submit(rows[0], timeout_s=0.0)
+                try:
+                    late.result(timeout=600)
+                    expired = False
+                except DeadlineExceededError:
+                    expired = True
+                check(expired, f"{label}: a request with timeout 0 was answered")
+                faulted = {}
+                distinct = rows[:SERVE_BATCH]
+                jobs = [lambda s, b=b: s.submit(b) for b in distinct]
+                with obs_window() as obs:
+                    before = dict(svc.stats()["counts"])
+                    with faults("serve.dispatch=transient*1"):
+                        faulted["serve transient"] = submit_round(svc, jobs)
+                    after = svc.stats()["counts"]
+                    serve_retries = obs.counters_by_prefix("resilience.retry.attempts")
+                    check(after["degraded_batches"] == before["degraded_batches"]
+                          and serve_retries == {"resilience.retry.attempts{site=serve.dispatch}": 1.0},
+                          f"{label}: the transient serve.dispatch fault was not retried in place "
+                          f"({serve_retries}, {after})")
+                with faults(f"serve.dispatch(batch={SERVE_BATCH})=fatal*1"):
+                    faulted["serve fatal"] = submit_round(svc, jobs)
+                degraded = svc.stats()["counts"]["degraded_batches"] - before["degraded_batches"]
+                check(degraded == 1, f"{label}: {degraded} batches degraded, expected 1")
+                with obs_window() as obs:
+                    with faults("backend.dispatch=transient*1"):
+                        faulted["backend transient"] = submit_round(svc, jobs)
+                    backend_retries = obs.counters_by_prefix("resilience.retry.attempts")
+                check(backend_retries == {"resilience.retry.attempts{site=backend.dispatch}": 1.0},
+                      f"{label}: backend.dispatch retries {backend_retries}")
+                final = svc.stats()
+            finally:
+                svc.stop()
+            check(final["counts"]["failed"] == 0, f"{label}: {final['counts']['failed']} failed")
+            # admission control on a second service over the warm program
+            small = ContractionService(svc.bound, backend=svc.backend, max_queue=2,
+                                       max_batch=1, max_wait_ms=0)
+            with small:
+                with faults("serve.dispatch=slow:0.5*1"):
+                    first = small.submit(rows[0])
+                    time.sleep(0.2)
+                    queued = [small.submit(rows[1]), small.submit(rows[2])]
+                    try:
+                        small.submit(rows[3])
+                        rejected = False
+                    except QueueFullError:
+                        rejected = True
+                    admitted = [f.result(timeout=600) for f in [first] + queued]
+            check(rejected, f"{label}: a max_queue=2 service admitted a third request")
+            # the warm service: the same cache directory, no planner
+            t0 = time.perf_counter()
+            warm = ContractionService.from_circuit(
+                sycamore(SWEEP), backend=svc.backend, plan_cache=PlanCache(cache_dir),
+                max_batch=SERVE_BATCH, max_wait_ms=20)
+            warm_s = time.perf_counter() - t0
+            warm_planned = len(planned) - cold_planned
+            warm_cache = warm.stats()["plan_cache"]["counts"]
+            warm.stop()
+            check(warm_planned == 0 and warm_cache["hit"] == 1,
+                  f"{label}: the warm service planned {warm_planned} times, cache {warm_cache}")
+
+            # the reuse cell: the same service over an IntermediateStore. A
+            # warm-up service over a store of its own holds each distinct
+            # chain (the store's materializations and the residual's), then
+            # a fresh one is counted
+            def reuse_service():
+                return ContractionService.from_circuit(
+                    sycamore(SWEEP), backend=TorchBackend(), plan_cache=PlanCache(cache_dir),
+                    reuse_store=IntermediateStore(), max_batch=SERVE_BATCH, max_wait_ms=20)
+
+            reuse_held, reuse_seen = [], {}
+            with held_chains(f"{label}_reuse", reuse_held, reuse_seen, 0):
+                with reuse_service() as warm_reuse:
+                    submit_round(warm_reuse, [lambda s, b=b: s.submit(b)
+                                              for b in rows[:SERVE_BATCH]])
+            torch.cuda.empty_cache()
+            reset_launches()
+            with held_chains(f"{label}_reuse", reuse_held, reuse_seen, 1):
+                t0 = time.perf_counter()
+                reuse = reuse_service()
+                reuse_bind_s = time.perf_counter() - t0
+                try:
+                    reuse_answers = []
+                    round_s = []
+                    for r in range(2):
+                        bits = rows[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
+                        t0 = time.perf_counter()
+                        reuse_answers += submit_round(reuse, [lambda s, b=b: s.submit(b)
+                                                              for b in bits])
+                        round_s.append(time.perf_counter() - t0)
+                    reuse_stats = reuse.stats()
+                finally:
+                    reuse.stop()
+            launches[f"{label}_reuse"] = LAUNCHES["fused_chain"]
+            check_held(f"{label}_reuse", reuse_held, launches[f"{label}_reuse"])
+        finally:
+            rebind.plan_structure = real_plan
+    check(not any(isinstance(a, Exception) for a in reuse_answers),
+          f"{label}_reuse: a request failed")
+
+    # the references, every service stopped
+    refs = complex128_amps(svc.bound, rows)
+    err = hold_amps(label, answers, served, refs)
+    hold_amps(f"{label} warm-up", warmup, round_bits(rows, 0), refs)
+    fault_errs = {name: hold_amps(f"{label} {name}", got, rows[:SERVE_BATCH], refs)
+                  for name, got in faulted.items()}
+    hold_amps(f"{label} max_queue=2", admitted, rows[:3], refs)
+    reuse_err = hold_amps(f"{label}_reuse", reuse_answers, rows[:2 * SERVE_BATCH], refs)
+
+    bound = reuse.bound
+    split = bound.reuse.split
+    cached = [a for (kind, _), a in zip(split.sources, bound.reuse.arrays_for(reuse.backend))
+              if kind == "cached"]
+    cached_bytes = int(sum(np.asarray(a).nbytes for a in cached))
+    upload_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        place_buffers(cached, reuse.backend.dtype, reuse.backend.split_complex,
+                      reuse.backend.device)
+        torch.cuda.synchronize()
+        upload_s.append(time.perf_counter() - t0)
+    lat = stats["latency_s"]
+    print(f"[{label}] cold from_circuit {cold_s:.3f} s ({cold_planned} plan), warm "
+          f"{warm_s:.3f} s ({warm_planned} plans, cache {warm_cache}); {len(served)} requests "
+          f"in {SERVE_ROUNDS} rounds from 4 threads in {traffic_s:.3f} s: "
+          f"{stats['counts']['batches']} batches (sizes {stats['batch_size']}), deduped "
+          f"{stats['counts']['deduped']}; latency p50 {lat['p50']:.4f} p90 {lat['p90']:.4f} "
+          f"p99 {lat['p99']:.4f} max {lat['max']:.4f} s; max_memory_allocated {peak} bytes "
+          f"(phase 12's sweep of 8: 43.15 GB); fused_chain {launches[label]} launches; "
+          f"max|amp - complex128| {err:.3e}", flush=True)
+    print(f"[{label} resilience] deadline 0 expired {expired}; serve.dispatch transient "
+          f"retried in place {serve_retries}; fatal degraded {degraded} batch of "
+          f"{SERVE_BATCH} to singletons; backend.dispatch transient {backend_retries}; "
+          f"max_queue=2 rejected the third {rejected}; answers off complex128 by "
+          f"{fault_errs}; final counts {final['counts']}", flush=True)
+    print(f"[{label}_reuse] from_circuit {reuse_bind_s:.3f} s; residual {len(bound.program.steps)} "
+          f"steps of the program's {len(split.steps)} ({len(split.cached_idx)} cached inputs, "
+          f"{cached_bytes} bytes, uploaded in {[round(s, 6) for s in upload_s]} s a dispatch); "
+          f"rounds {[round(s, 3) for s in round_s]} s (the first materializes); store after two "
+          f"batches {reuse_stats['reuse']}; fused_chain {launches[f'{label}_reuse']} launches; "
+          f"max|amp - complex128| {reuse_err:.3e}", flush=True)
+    record.update({
+        label: {"requests": len(served), "distinct": len(set(served)),
+                "cold_from_circuit_s": cold_s, "warm_from_circuit_s": warm_s,
+                "cold_plans": cold_planned, "warm_plans": warm_planned,
+                "warm_cache": warm_cache, "traffic_s": traffic_s,
+                "counts": stats["counts"], "batch_size": stats["batch_size"],
+                "latency_s": lat, "peak_bytes": peak, "fused_chain_launches": launches[label],
+                "max_abs_err": err, "expired": expired, "serve_retries": serve_retries,
+                "degraded": degraded, "backend_retries": backend_retries,
+                "rejected": rejected, "fault_max_abs_err": fault_errs,
+                "final_counts": final["counts"]},
+        f"{label}_reuse": {"residual_steps": len(bound.program.steps),
+                           "program_steps": len(split.steps),
+                           "cached_inputs": len(split.cached_idx), "cached_bytes": cached_bytes,
+                           "upload_s": upload_s, "round_s": round_s,
+                           "from_circuit_s": reuse_bind_s, "store": reuse_stats["reuse"],
+                           "fused_chain_launches": launches[f"{label}_reuse"],
+                           "max_abs_err": reuse_err},
+    })
+    return {"record": record, "launches": launches, "refs": refs,
+            "chain_rows": {label: held, f"{label}_reuse": reuse_held}}
+
+
+def run_sliced_ckpt(rows: list[str], refs: dict) -> dict:
+    """Phase 14 (b): ``sycamore53_m8_sliced_ckpt``. The sliced serving
+    branch, ``bind_circuit(sycamore_circuit(53, 8, rng 42),
+    target_size=2**CKPT_TARGET)`` (128 slices; phase 12's 2^26 gives 4,
+    too few for the cursors below), two bitstrings through the default
+    chunked path (batch 8, graphed) of one ``TorchBackend()``, with
+    ``TNC_TPU_CKPT`` a temporary directory and ``TNC_TPU_CKPT_EVERY=8``:
+    (a) uninterrupted; (b) a fatal ``chunked.batch(start=64)`` fault raises,
+    the checkpoint on disk holds cursor 64, the call made again resumes
+    there and equals (a) bitwise; (c) an ``oom`` at the batch starting at
+    slice 32 halves the batch to 4 (``resilience.degrade.batch_shrink``),
+    the result within the gate of (a); (d) a transient fault inside a CUDA
+    graph capture (``graphs.capture``) ends the capture and the batch runs
+    again, bitwise (a). No stream is left capturing. (a) and (c) run again
+    eagerly (``graphs=False``, bitwise theirs) with every chain held
+    against its plain version: the launches held equal the graphed runs'
+    launches, which the ``kernels`` line counts."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from tnc_tpu_torch.ops import graphs
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.resilience import faults
+    from tnc_tpu_torch.resilience.faultinject import InjectedFatal
+    from tnc_tpu_torch.serve import bind_circuit
+
+    qubits, depth, _ = SWEEP
+    label = f"sycamore{qubits}_m{depth}_sliced_ckpt"
+    bits = rows[:2]
+    t0 = time.perf_counter()
+    bound = bind_circuit(sycamore(SWEEP), "0" * qubits, target_size=2.0 ** CKPT_TARGET)
+    plan_s = time.perf_counter() - t0
+    slices = bound.sliced.slicing.num_slices
+    check(slices >= 128, f"{label}: {slices} slices, the checks need 128")
+    backend = TorchBackend()
+    # the same calls run eagerly (graphs=False: the same bits) with every
+    # chain held against its plain version; a replayed graph calls no Python
+    eager = TorchBackend()
+    eager.execute_sliced = functools.partial(eager.execute_sliced, graphs=False)
+    held, seen = [], {}
+    reset_launches()
+    graphs.reset_stats()
+    t0 = time.perf_counter()
+    clean = bound.amplitudes(bits, backend)
+    clean_s = time.perf_counter() - t0
+    clean_launches = LAUNCHES["fused_chain"]
+    clean_graphs = dict(graphs.STATS)
+    err = hold_amps(label, clean, bits, refs)
+    with held_chains(label, held, seen, 1):
+        clean_eager = bound.amplitudes(bits, eager)
+    check_held(label, held, clean_launches)
+    check(clean_eager.tobytes() == clean.tobytes(), f"{label}: the eager run differs from the "
+                                                    f"graphed run's bits")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        os.environ["TNC_TPU_CKPT"] = ckpt_dir
+        os.environ["TNC_TPU_CKPT_EVERY"] = "8"
+        try:
+            raised = False
+            with faults("chunked.batch(start=64)=fatal*1"):
+                try:
+                    bound.amplitudes(bits, backend)
+                except InjectedFatal:
+                    raised = True
+            check(raised, f"{label}: the chunked.batch(start=64) fault did not raise")
+            check(not torch.cuda.is_current_stream_capturing(),
+                  f"{label}: a stream is left capturing")
+            files = glob.glob(os.path.join(ckpt_dir, "*.npz"))
+            check(len(files) == 1, f"{label}: {len(files)} checkpoint files")
+            with np.load(files[0]) as z:
+                cursor = json.loads(str(z["meta"]))["cursor"]
+            with obs_window() as obs:
+                t0 = time.perf_counter()
+                resumed = bound.amplitudes(bits, backend)
+                resume_s = time.perf_counter() - t0
+                ckpt_counts = obs.counters_by_prefix("resilience.ckpt")
+            left = glob.glob(os.path.join(ckpt_dir, "*.npz"))
+            reset_launches()
+            with obs_window() as obs:
+                with faults("chunked.batch(start=32)=oom*1"):
+                    halved = bound.amplitudes(bits, backend)
+                shrink = obs.counters_by_prefix("resilience.degrade")
+                shrunk_to = obs.get_registry().gauges().get(("resilience.degrade.batch", ()))
+            halved_launches = LAUNCHES["fused_chain"]
+            before = sum(r["launches"] for r in held)
+            with held_chains(label, held, seen, 1), faults("chunked.batch(start=32)=oom*1"):
+                halved_eager = bound.amplitudes(bits, eager)
+            check_held(f"{label} halved", held, halved_launches, before)
+            with obs_window() as obs:
+                with faults("graphs.capture=transient*1"):
+                    recaptured = bound.amplitudes(bits, backend)
+                capture_retries = obs.counters_by_prefix("resilience.retry.attempts")
+        finally:
+            del os.environ["TNC_TPU_CKPT"], os.environ["TNC_TPU_CKPT_EVERY"]
+    check(not torch.cuda.is_current_stream_capturing(), f"{label}: a stream is left capturing")
+    bitwise = resumed.tobytes() == clean.tobytes()
+    check(cursor == 64, f"{label}: the checkpoint holds cursor {cursor}, not 64")
+    check(bitwise, f"{label}: the resumed run differs from the uninterrupted run's bits")
+    check(not left, f"{label}: the finished run left {left}")
+    check(ckpt_counts.get("resilience.ckpt.resumed") == 1.0,
+          f"{label}: checkpoint counters {ckpt_counts}")
+    check(shrink == {"resilience.degrade.batch_shrink": 1.0} and shrunk_to == 4.0,
+          f"{label}: the injected oom gave {shrink}, batch {shrunk_to}")
+    scale = float(np.max(np.abs(clean)))
+    halved_err = float(np.max(np.abs(halved - clean)))
+    check(halved_err <= 1e-4 * scale, f"{label}: the halved batch is off (a) by {halved_err}")
+    check(halved_eager.tobytes() == halved.tobytes(),
+          f"{label}: the eager halved run differs from the graphed one's bits")
+    check(recaptured.tobytes() == clean.tobytes()
+          and capture_retries == {"resilience.retry.attempts{site=chunked.batch}": 1.0},
+          f"{label}: the capture fault gave {capture_retries}, bits equal "
+          f"{recaptured.tobytes() == clean.tobytes()}")
+    print(f"[{label}] target 2^{CKPT_TARGET}: {slices} slices planned in {plan_s:.3f} s; (a) "
+          f"{len(bits)} bitstrings in {clean_s:.3f} s, fused_chain {clean_launches} launches, "
+          f"graphs {clean_graphs}, max|amp - complex128| {err:.3e}; (b) the fault at start=64 "
+          f"raised, checkpoint cursor {cursor}, resumed in {resume_s:.3f} s bitwise equal "
+          f"{bitwise}, {ckpt_counts}; (c) oom at start=32: {shrink}, batch {shrunk_to}, "
+          f"|halved - (a)| {halved_err:.3e}, fused_chain {halved_launches} launches; (d) a "
+          f"capture fault retried {capture_retries}, bitwise equal True; (a) and (c) again "
+          f"eagerly, bitwise equal, {len(held)} distinct chains held", flush=True)
+    return {"launches": clean_launches + halved_launches, "chain_rows": held, "record": {
+        "target_log2": CKPT_TARGET, "slices": slices, "plan_s": plan_s, "wall_s": clean_s,
+        "fused_chain_launches": clean_launches, "halved_fused_chain_launches": halved_launches,
+        "graphs": clean_graphs, "max_abs_err": err,
+        "cursor": cursor, "resume_s": resume_s, "resumed_bitwise": bitwise,
+        "ckpt_counters": ckpt_counts, "batch_shrink": shrink, "shrunk_to": shrunk_to,
+        "halved_max_abs_err": halved_err, "capture_retries": capture_retries}}
+
+
+def run_serve_mixed() -> dict:
+    """Phase 14 (c): ``sycamore20_m8_mixed``. ``from_circuit(sycamore_circuit(
+    20, 8, rng 42), queries=True)`` on one ``TorchBackend()``
+    (``max_batch=16``, ``max_wait_ms=20``): from 4 threads, 16 amplitudes,
+    8 marginals, 8 ``submit_sample(8, seed=k)`` and 8 two-term Pauli sums,
+    interleaved. Amplitudes within 1e-4 max|ref| and marginals within 1e-4
+    max p of the complex128 statevector; samples those of the complex128
+    conditionals unless a uniform lies within ``SAMPLE_NEAR`` of its
+    threshold; each expectation within 1e-5 absolute (and 1e-3 relative
+    where |ref| > 1e-2) of the statevector's. Every dispatched batch holds
+    one batching key; ``stats()["by_type"]`` printed. A warm-up pass of the
+    same requests holds each distinct chain against its plain version; the
+    counted pass's launches must all fall on held chains."""
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.queries import statevector as sv_oracle
+    from tnc_tpu_torch.serve import ContractionService
+
+    qubits, depth, _ = QUERY
+    label = f"sycamore{qubits}_m{depth}_mixed"
+    rng = np.random.default_rng(17)
+    amp_bits = ["".join(str(int(b)) for b in r) for r in rng.integers(0, 2, (16, qubits))]
+    patterns = ["".join(str(int(b)) for b in r) + "*" * (qubits - QUERY_FIXED)
+                for r in rng.integers(0, 2, (8, QUERY_FIXED))]
+    paulis = ["".join("ixyz"[int(c)] for c in r) for r in rng.integers(0, 4, (16, qubits))]
+    sums = [[(1.0, "z" * (k + 1) + "i" * (qubits - k - 1)), (0.5, paulis[k])] for k in range(8)]
+    jobs = []
+    for k in range(8):
+        jobs += [lambda s, b=amp_bits[2 * k]: s.submit(b),
+                 lambda s, p=patterns[k]: s.submit_marginal(p),
+                 lambda s, k=k: s.submit_sample(8, seed=k),
+                 lambda s, t=sums[k]: s.submit_expectation(t),
+                 lambda s, b=amp_bits[2 * k + 1]: s.submit(b)]
+    t0 = time.perf_counter()
+    svc = ContractionService.from_circuit(sycamore(QUERY), backend=TorchBackend(), queries=True,
+                                          max_batch=16, max_wait_ms=20)
+    bind_s = time.perf_counter() - t0
+    groups = []
+    real = svc._dispatch_group
+
+    def record(kind, payloads, bound):
+        if kind == "amplitude":
+            keys = {("amplitude",)}
+        else:
+            keys = {svc._handlers[kind].validate(p)[1] for p in payloads}
+        groups.append((kind, len(payloads), sorted(keys)))
+        return real(kind, payloads, bound)
+
+    svc._dispatch_group = record
+    held, seen = [], {}
+    try:
+        # a warm-up pass holds each distinct chain; then the counted pass
+        with held_chains(label, held, seen, 0):
+            submit_round(svc, jobs)
+        svc.reset_stats()
+        warm_groups = len(groups)
+        reset_launches()
+        t0 = time.perf_counter()
+        with held_chains(label, held, seen, 1):
+            answers = submit_round(svc, jobs)
+        traffic_s = time.perf_counter() - t0
+        stats = svc.stats()
+    finally:
+        svc.stop()
+    launches = LAUNCHES["fused_chain"]
+    check_held(label, held, launches)
+    bad = [a for a in answers if isinstance(a, Exception)]
+    check(not bad, f"{label}: a request failed: {bad[:1]}")
+    check(all(len(keys) == 1 for _, _, keys in groups),
+          f"{label}: a dispatched batch mixed batching keys: {groups}")
+    state = sv_oracle.statevector(sycamore(QUERY))
+    probs = np.abs(state) ** 2
+    amps = np.array([answers[5 * k] for k in range(8)] + [answers[5 * k + 4] for k in range(8)])
+    want = np.array([sv_oracle.amplitude(state, b)
+                     for b in amp_bits[0::2] + amp_bits[1::2]])
+    amp_err = float(np.max(np.abs(amps - want)))
+    check(amp_err <= 1e-4 * float(np.max(np.abs(want))), f"{label}: amplitudes off by {amp_err}")
+    marg = np.array([answers[5 * k + 1] for k in range(8)])
+    marg_want = np.array([sv_oracle.marginal_probability(state, p) for p in patterns])
+    marg_err = float(np.max(np.abs(marg - marg_want)))
+    check(marg_err <= 1e-4 * float(np.max(marg_want)), f"{label}: marginals off by {marg_err}")
+    def p1_of(k, prefix):
+        p = probs[tuple(int(c) for c in prefix)].reshape(2, -1).sum(axis=1)
+        return p[1] / p.sum() if p.sum() > 0 else 0.5
+
+    differ = unexplained = 0
+    for k in range(8):
+        d, u = sample_replay(answers[5 * k + 2], p1_of, 8, k)
+        differ, unexplained = differ + d, unexplained + u
+    check(unexplained == 0, f"{label}: {unexplained} samples differ from complex128's away "
+                            f"from a threshold")
+    ev = np.array([answers[5 * k + 3] for k in range(8)])
+    ev_want = np.array([sum(c * sv_oracle.pauli_expectation(state, p) for c, p in t)
+                        for t in sums])
+    ev_err = np.abs(ev - ev_want)
+    check(np.all(ev_err <= 1e-5), f"{label}: an expectation is off by {float(np.max(ev_err))}")
+    big = np.abs(ev_want) > 1e-2
+    check(np.all(ev_err[big] <= 1e-3 * np.abs(ev_want[big])),
+          f"{label}: an expectation is off by more than 1e-3 relative")
+    by_type = {kind: {"counts": row["counts"], "latency_s": row["latency_s"]}
+               for kind, row in stats["by_type"].items()}
+    counted = [(k, n) for k, n, _ in groups[warm_groups:]]
+    print(f"[{label}] from_circuit {bind_s:.3f} s; {len(jobs)} requests from 4 threads in "
+          f"{traffic_s:.3f} s (after a warm-up pass of the same requests, {warm_groups} "
+          f"batches), {len(counted)} batches {counted}, each one batching key; fused_chain "
+          f"{launches} launches, {len(held)} distinct chains held; amplitudes max|diff| "
+          f"{amp_err:.3e}, "
+          f"marginals {marg_err:.3e}, expectations {float(np.max(ev_err)):.3e}, samples differing "
+          f"from complex128 {differ} (all at a threshold); by_type {by_type}", flush=True)
+    return {"launches": launches, "chain_rows": held, "record": {
+        "bind_s": bind_s, "traffic_s": traffic_s, "batches": counted,
+        "fused_chain_launches": launches, "amp_max_abs_err": amp_err,
+        "marginal_max_abs_err": marg_err, "expectation_max_abs_err": float(np.max(ev_err)),
+        "samples_differ": differ, "by_type": by_type}}
+
+
+def run_serve_approx() -> dict:
+    """Phase 14 (d): ``qaoa30_p2_approx``. BASELINE config #4's circuit
+    (``qaoa_circuit(30, 2, rng 42)``) served with ``queries=True`` and
+    ``approx=True, approx_options={"chi_cap": 8}`` on one
+    ``TorchBackend()``: the exact ⟨Z…Z⟩ within 1e-5 absolute and 1e-3
+    relative of complex128 numpy (phase 13's gate), its chains held against
+    their plain versions on a warm-up request; ``rtol=1e-2`` met by the
+    ladder, its err at least its true error; ``rtol=1e-7`` escalated with
+    the floor ``COMPLEX64_ERR_REL`` to the exact answer, bit for bit. The
+    rungs and each request's seconds printed."""
+    from tnc_tpu_torch.approx.ladder import COMPLEX64_ERR_REL
+    from tnc_tpu_torch.builders.qaoa_circuit import qaoa_circuit
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.queries import pauli_expectation
+    from tnc_tpu_torch.serve import ApproxAnswer, ContractionService
+
+    qubits, rounds, seed = QAOA
+    label = f"qaoa{qubits}_p{rounds}_approx"
+    zz = "z" * qubits
+
+    def circuit():
+        return qaoa_circuit(qubits, rounds, np.random.default_rng(seed))
+
+    ref = complex(pauli_expectation(circuit(), zz, backend=NumpyBackend()))
+    t0 = time.perf_counter()
+    svc = ContractionService.from_circuit(circuit(), backend=TorchBackend(), queries=True,
+                                          approx=True, approx_options={"chi_cap": 8})
+    bind_s = time.perf_counter() - t0
+    seconds = {}
+    held, seen = [], {}
+    try:
+        # a warm-up request holds each distinct chain; then the counted one
+        with held_chains(label, held, seen, 0):
+            svc.expectation(zz, timeout_s=600)
+        reset_launches()
+        t0 = time.perf_counter()
+        with held_chains(label, held, seen, 1):
+            exact = complex(svc.expectation(zz, timeout_s=600))
+        seconds["exact"] = time.perf_counter() - t0
+        launches = LAUNCHES["fused_chain"]
+        check_held(label, held, launches)
+        t0 = time.perf_counter()
+        tolerant = svc.expectation(zz, timeout_s=600, rtol=1e-2)
+        seconds["rtol 1e-2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tight = svc.expectation(zz, timeout_s=600, rtol=1e-7)
+        seconds["rtol 1e-7"] = time.perf_counter() - t0
+        approx_stats = svc.stats()["by_tier"]
+    finally:
+        svc.stop()
+    err = abs(exact - ref)
+    check(err <= 1e-5 and err <= 1e-3 * abs(ref),
+          f"{label}: <Z...Z> {exact} off complex128 {ref} by {err}")
+    check(isinstance(tolerant, ApproxAnswer) and not tolerant.escalated
+          and tolerant.tolerance_met, f"{label}: rtol 1e-2 gave {tolerant}")
+    true_err = abs(tolerant.value - ref)
+    check(tolerant.err >= true_err, f"{label}: err {tolerant.err} under the true {true_err}")
+    check(tolerant.err <= 1e-2 * max(abs(tolerant.value), 1.0),
+          f"{label}: rtol 1e-2 answer's err {tolerant.err} over its tolerance")
+    floor = COMPLEX64_ERR_REL * max(abs(tight.value), 1.0)
+    check(tight.escalated and tight.err == floor,
+          f"{label}: rtol 1e-7 gave {tight}, floor {floor}")
+    # escalation runs the exact request's handler on the same backend
+    tight_err = abs(tight.value - ref)
+    check(complex(tight.value) == exact and tight_err <= 1e-5 and tight_err <= 1e-3 * abs(ref),
+          f"{label}: the escalated answer {tight.value} is not the exact one {exact} (off "
+          f"complex128 by {tight_err})")
+    router = approx_stats["approx"]["router"]
+    print(f"[{label}] from_circuit {bind_s:.3f} s; exact <Z...Z> {exact.real:.10e} (complex128 "
+          f"{ref.real:.10e}, |diff| {err:.3e}), fused_chain {launches} launches; rtol 1e-2: "
+          f"{tolerant} (true error {true_err:.3e}); rtol 1e-7: {tight}; rungs {router['rungs']}; "
+          f"seconds a request {seconds}; tiers {approx_stats['approx']['counts']}", flush=True)
+    return {"launches": launches, "chain_rows": held, "record": {
+        "bind_s": bind_s, "exact": [exact.real, exact.imag], "complex128": [ref.real, ref.imag],
+        "max_abs_err": err, "fused_chain_launches": launches,
+        "tolerant": {"value": [tolerant.value.real, tolerant.value.imag], "err": tolerant.err,
+                     "true_err": true_err, "chi_used": tolerant.chi_used,
+                     "sweeps": tolerant.sweeps},
+        "tight": {"escalated": tight.escalated, "err": tight.err, "sweeps": tight.sweeps},
+        "rungs": router["rungs"], "seconds": seconds,
+        "tier_counts": approx_stats["approx"]["counts"]}}
+
+
+def run_serve() -> dict:
+    """Phase 14: the serving front end and resilience on the card
+    (:func:`run_serve_sycamore`, :func:`run_sliced_ckpt`,
+    :func:`run_serve_mixed`, :func:`run_serve_approx`)."""
+    import torch
+
+    from tnc_tpu_torch.resilience import RetryPolicy, configure_retry
+
+    t0 = time.perf_counter()
+    # backoffs of a few ms: the injected transients need no real wait
+    configure_retry(RetryPolicy(max_attempts=3, base_delay_s=0.005))
+    try:
+        rows = serve_rows()
+        syc = run_serve_sycamore(rows)
+        torch.cuda.empty_cache()
+        sliced = run_sliced_ckpt(rows, syc["refs"])
+        torch.cuda.empty_cache()
+        mixed = run_serve_mixed()
+        torch.cuda.empty_cache()
+        approx = run_serve_approx()
+        torch.cuda.empty_cache()
+    finally:
+        configure_retry(None)
+    seconds = time.perf_counter() - t0
+    print(f"[serve] phase 14 in {seconds:.1f} s", flush=True)
+    cells = {f"sycamore{SWEEP[0]}_m{SWEEP[1]}_sliced_ckpt": sliced,
+             f"sycamore{QUERY[0]}_m{QUERY[1]}_mixed": mixed,
+             f"qaoa{QAOA[0]}_p{QAOA[1]}_approx": approx}
+    launches = {**{f"{k} (phase 14)": v for k, v in syc["launches"].items()},
+                **{f"{k} (phase 14)": cell["launches"] for k, cell in cells.items()}}
+    # each cell's held chains, their launches those the cell counted
+    rows = {**{f"{k} (phase 14)": v for k, v in syc["chain_rows"].items()},
+            **{f"{k} (phase 14)": cell["chain_rows"] for k, cell in cells.items()}}
+    check(all(sum(r["launches"] for r in rows[k]) == n for k, n in launches.items()),
+          "phase 14: a cell's held launches differ from its count")
+    record = {**syc["record"], **{k: cell["record"] for k, cell in cells.items()},
+              "seconds": seconds}
+    return {"record": record, "chain_launches": launches, "chain_rows": rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -3648,6 +4452,19 @@ def main() -> int:
         grad = run_grad()
         print(json.dumps({"grad": grad["record"],
                           "shapes": {"fused_chain": grad["chain_rows"]}}), flush=True)
+        print(card_line(), flush=True)
+        return 0
+
+    if "--serve" in sys.argv[1:]:
+        # the serving front end and resilience alone: phase 14
+        serve = run_serve()
+        print(json.dumps({"serve": serve["record"],
+                          "launches_by_path": {"fused_chain": serve["chain_launches"]},
+                          "kernels_by_path": {"fused_chain": {
+                              k: chain_record(r) for k, r in serve["chain_rows"].items()}},
+                          "shapes": {"fused_chain": [
+                              r for rows in serve["chain_rows"].values() for r in rows]}}),
+              flush=True)
         print(card_line(), flush=True)
         return 0
 
@@ -3820,6 +4637,13 @@ def main() -> int:
     grad = run_grad(CalibratedCostModel(fitted["flops_per_s"], fitted["dispatch_s"],
                                         fitted["bytes_per_s"]))
     chain_launches[f"{grad['label']} <Z...Z>"] = grad["chain_launches"]
+    torch.cuda.empty_cache()
+
+    # 14. the serving front end and resilience: the micro-batching service
+    # over phase 12's circuit (plan cache, reuse store, fault frames), the
+    # checkpointed sliced branch, the mixed query queue, the approximate tier
+    serve = run_serve()
+    chain_launches.update(serve["chain_launches"])
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -3845,11 +4669,12 @@ def main() -> int:
                         "sycamore53_m10_sliced": chain_record(sliced["chain_rows"]),
                         **{name: chain_record([r for r in small["chain_rows"]
                                                if r["label"].startswith(f"{name} launch")])
-                           for name in small["launches"] if "batch" not in name},
+                           for name in small["launches"]},
                         "sycamore53_m14_hyper": chain_record(northstar["chain_rows"]),
                         **calibrated_chains,
                         **sweep_chains,
-                        f"{grad['label']} <Z...Z>": chain_record(grad["chain_rows"])},
+                        f"{grad['label']} <Z...Z>": chain_record(grad["chain_rows"]),
+                        **{k: chain_record(r) for k, r in serve["chain_rows"].items()}},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -3863,7 +4688,14 @@ def main() -> int:
                                 launch_weighted(transpose_rec["shapes"])},
     }
     chain_rows += (sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
-                   + calibrated["chain_rows"] + sweep["chain_rows"] + grad["chain_rows"])
+                   + calibrated["chain_rows"] + sweep["chain_rows"] + grad["chain_rows"]
+                   + [r for rows in serve["chain_rows"].values() for r in rows])
+    # every path's rows weigh the launches it counted, so the record's times
+    # are means over exactly the launches the line reports
+    weighed = sum(r["launches"] for r in chain_rows)
+    check(weighed == sum(chain_launches.values()),
+          f"fused_chain rows weigh {weighed} launches, the paths counted "
+          f"{sum(chain_launches.values())}")
     chain_rec = {**chain_record(chain_rows), "launches": sum(chain_launches.values())}
     dot_rows = (dot_rec["shapes"] + sliced["dot_rows"] + chunked["dot_rows"]
                 + northstar["dot_rows"] + sweep["dot_rows"])
@@ -3897,6 +4729,7 @@ def main() -> int:
         "calibrated": calibrated["record"],
         sweep["label"]: sweep["record"],
         "grad": grad["record"],
+        "serve": serve["record"],
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
         "fused_chain_forms_by_path": chain_forms,

@@ -836,3 +836,87 @@ def test_approximate_sweep_on_the_card():
     assert res.converged
     for rung in res.rungs:
         assert rung.err >= abs(rung.value - exact)
+
+
+@pytest.mark.cuda
+def test_service_on_the_card():
+    """A ``ContractionService`` of ``sycamore_circuit(20, 8)`` on its own
+    ``TorchBackend()``: 16 amplitude requests from 2 threads, each within
+    1e-4 of max|ref| of complex128 on the card (the references made after
+    the service stopped, so no other thread works on the card meanwhile)."""
+    _card()
+    import threading
+
+    import numpy as np
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.serve import ContractionService, bind_template
+
+    rows = np.random.default_rng(7).integers(0, 2, (16, 20))
+    bits = ["".join(str(int(b)) for b in r) for r in rows]
+    futures = [None] * len(bits)
+    with ContractionService.from_circuit(sycamore_circuit(20, 8, np.random.default_rng(42)),
+                                         max_batch=8, max_wait_ms=20) as svc:
+        assert isinstance(svc.backend, TorchBackend)
+
+        def submit(k):
+            for i in range(k, len(bits), 2):
+                futures[i] = svc.submit(bits[i])
+
+        threads = [threading.Thread(target=submit, args=(k,)) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        got = np.array([f.result(timeout=120) for f in futures])
+        counts = svc.stats()["counts"]
+    assert counts["completed"] == len(bits) and counts["failed"] == 0
+    bound = bind_template(sycamore_circuit(20, 8, np.random.default_rng(42))
+                          .into_amplitude_template("0" * 20))
+    want = bound.amplitudes(bits, TorchBackend(dtype="complex128", split_complex=False))
+    assert float(np.max(np.abs(got - want))) <= 1e-4 * float(np.max(np.abs(want)))
+
+
+@pytest.mark.cuda
+def test_chunked_checkpoint_resume_on_the_card(tmp_path, monkeypatch):
+    """The chunked executor on the card (graphed, batch 4) over the 16 slices
+    of ``sycamore_circuit(20, 8, rng 7)``: interrupted by a fault at the
+    batch starting at slice 8 and called again, it resumes at cursor 8 and
+    gives the uninterrupted run's bits."""
+    _card()
+    import glob
+    import json
+
+    import numpy as np
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.contractionpath.slicing import find_slicing
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+    from tnc_tpu_torch.resilience import faults
+    from tnc_tpu_torch.resilience.faultinject import InjectedFatal
+    from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+
+    tn, _ = sycamore_circuit(20, 8, np.random.default_rng(7)).into_amplitude_network("0" * 20)
+    tn = simplify_network(tn)
+    path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+    sp = build_sliced_program(tn, path, find_slicing(tn.tensors, path.toplevel, 2.0 ** 17))
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)]
+    assert sp.slicing.num_slices == 16
+    backend = TorchBackend(slice_batch=4)
+    want = backend.execute_sliced(sp, arrays)
+    monkeypatch.setenv("TNC_TPU_CKPT", str(tmp_path))
+    monkeypatch.setenv("TNC_TPU_CKPT_EVERY", "4")
+    with faults("chunked.batch(start=8)=fatal*1"):
+        with pytest.raises(InjectedFatal):
+            backend.execute_sliced(sp, arrays)
+    (file,) = glob.glob(str(tmp_path / "*.npz"))
+    with np.load(file) as z:
+        assert json.loads(str(z["meta"]))["cursor"] == 8
+    got = backend.execute_sliced(sp, arrays)
+    assert np.asarray(got).tobytes() == np.asarray(want).tobytes()
+    assert not glob.glob(str(tmp_path / "*.npz"))
+    assert not torch.cuda.is_current_stream_capturing()

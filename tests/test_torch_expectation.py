@@ -9,7 +9,8 @@ dense oracle ``queries.statevector`` and ``queries.expectation``.
 - ``statevector``: every function bitwise the reference's.
 - ``ExpectationProgram.values`` / ``pauli_sum``: bitwise the reference's
   on ``NumpyBackend``; within 1e-5 on ``TorchBackend(device="cpu")``,
-  split and native; ``DISPATCH`` counts ``batched`` and ``sliced``; ``plan_cache`` raises ``NotImplementedError`` naming A10.
+  split and native; ``DISPATCH`` counts ``batched`` and ``sliced``; a
+  second ``bind_expectation`` over a ``plan_cache`` is a hit.
 - ``pauli_expectation_value_and_grad``: within 1e-10 (complex128) of the
   reference's values and cotangents, the θ chain rule over both layers
   against a central difference of the dense oracle, and a batched Pauli
@@ -229,11 +230,18 @@ def test_sliced_dispatch():
     assert np.max(np.abs(got - want)) <= 1e-12
 
 
-def test_plan_cache_and_default_backend(monkeypatch):
+def test_plan_cache_and_default_backend(monkeypatch, tmp_path):
     import torch
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        bind_expectation(_rotations(True), plan_cache={})
+    from tnc_tpu_torch.ops.backends import NumpyBackend
+    from tnc_tpu_torch.serve import PlanCache
+
+    cache = PlanCache(tmp_path)
+    cold = bind_expectation(_rotations(True), plan_cache=cache)
+    warm = bind_expectation(_rotations(True), plan_cache=cache)
+    assert cache.stats()["counts"]["hit"] == 1
+    assert warm.values(["zzz"], NumpyBackend()).tobytes() == \
+        cold.values(["zzz"], NumpyBackend()).tobytes()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pauli_expectation(_rotations(True), "zzz")

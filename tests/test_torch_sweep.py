@@ -16,8 +16,8 @@ against the JAX package on the CPU.
   also with ``slice_range``) — against the reference's bound program on
   its ``NumpyBackend`` (the numpy branch bitwise, the torch branches within
   1e-5 of max|ref|, the complex128 sliced branch within 1e-12), with the
-  reference's plan and slicing; ``plan_cache`` and ``reuse_store`` raise
-  ``NotImplementedError``.
+  reference's plan and slicing; ``plan_cache`` and ``reuse_store`` give
+  a cold binding's bits (the service planes not ported raise).
 - With no backend, ``amplitude_sweep`` (both branches) and
   ``BoundProgram.amplitudes`` take ``TorchBackend()``: they raise without
   CUDA rather than run on the host.
@@ -411,13 +411,21 @@ def test_bound_fully_open_template_matches_reference():
     assert port.amplitudes([], NumpyBackend()).shape == ref.amplitudes([]).shape == (0, 2, 2, 2)
 
 
-def test_unported_serving_options_raise():
-    tpl = _ghz(3).into_amplitude_template()
-    for kw in ({"plan_cache": object()}, {"reuse_store": object()}):
+def test_unported_serving_options_raise(tmp_path):
+    """``plan_cache`` and ``reuse_store`` bind (the same bits as a cold
+    binding on numpy); the service planes not ported raise naming A10."""
+    from tnc_tpu_torch.serve import ContractionService, IntermediateStore, PlanCache
+
+    reqs = ["000", "111", "010"]
+    want = bind_template(_ghz(3).into_amplitude_template()).amplitudes(reqs, NumpyBackend())
+    for kw in ({"plan_cache": PlanCache(tmp_path)}, {"reuse_store": IntermediateStore()}):
+        got = bind_template(_ghz(3).into_amplitude_template(), **kw)
+        assert got.amplitudes(reqs, NumpyBackend()).tobytes() == want.tobytes()
+        got = bind_circuit(_ghz(3), **kw)
+        assert got.amplitudes(reqs, NumpyBackend()).tobytes() == want.tobytes()
+    for kw in ({"telemetry_port": 0}, {"background_replan": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            bind_template(tpl, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            bind_circuit(_ghz(3), **kw)
+            ContractionService.from_circuit(_ghz(3), backend=NumpyBackend(), **kw)
 
 
 def test_generic_backend_loops():

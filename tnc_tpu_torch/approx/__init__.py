@@ -21,9 +21,9 @@ the boundary-MPS contractor
   :class:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel`, so admission
   control quotes approximate-tier latency exactly like exact plans.
 
-The service front end that routes ``rtol=``-tolerant requests here and
-escalates misses to the exact pipeline (the reference's
-``FidelityRouter``) is not ported yet (ROADMAP A10). On the card,
+The service front end routes ``rtol=``-tolerant requests here and
+escalates misses to the exact pipeline
+(:class:`~tnc_tpu_torch.serve.service.FidelityRouter`). On the card,
 ``backend="torch"`` sweeps run ``torch.linalg`` on CUDA tensors
 (:mod:`tnc_tpu_torch.tensornetwork.approximate`).
 """

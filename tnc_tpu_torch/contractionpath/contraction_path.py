@@ -52,6 +52,23 @@ class ContractionPath:
     def total_len(self) -> int:
         return len(self.toplevel) + sum(p.total_len() for p in self.nested.values())
 
+    def to_obj(self) -> list[list[int]]:
+        """JSON-able form of a *flat* path (the serving plan cache stores
+        paths as plain JSON). Nested paths are an in-memory planning
+        artifact and are not serialized here."""
+        if self.nested:
+            raise ValueError("only flat paths serialize to_obj")
+        return [[int(i), int(j)] for i, j in self.toplevel]
+
+    @classmethod
+    def from_obj(cls, obj) -> "ContractionPath":
+        """Inverse of :meth:`to_obj`.
+
+        >>> ContractionPath.from_obj([[0, 1], [0, 2]]).toplevel
+        [(0, 1), (0, 2)]
+        """
+        return cls.simple([(int(i), int(j)) for i, j in obj])
+
 
 def ssa_replace_ordering(
     ssa: ContractionPath, num_inputs: int | None = None

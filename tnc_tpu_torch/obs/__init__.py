@@ -1,6 +1,6 @@
-"""tnc_tpu_torch.obs — env-gated step spans and the calibrated cost model
-(the port's counterpart of ``tnc_tpu.obs``, its span registry and
-``calibrate`` module).
+"""tnc_tpu_torch.obs — env-gated spans and metrics and the calibrated cost
+model (the port's counterpart of ``tnc_tpu.obs``: its ``core`` registry of
+spans, counters, gauges and histograms, and its ``calibrate`` module).
 
 ``TNC_TPU_TRACE`` gates recording: unset → every span is a near-zero-cost
 no-op; set → spans record in-process. ``TNC_TPU_STEP_TIME`` additionally
@@ -12,15 +12,23 @@ that :func:`~tnc_tpu_torch.obs.calibrate.fit_device_model` fits.
 from tnc_tpu_torch.obs.core import (  # noqa: F401
     NULL_SPAN,
     MetricsRegistry,
+    QuantileSummary,
     Span,
     SpanRecord,
     configure,
+    counter_add,
+    counters_by_prefix,
     enabled,
+    format_metric_key,
+    gauge_set,
     get_registry,
+    observe,
     refresh_from_env,
     reset,
     span,
     step_timing_enabled,
+    trace_args,
+    traced,
 )
 from tnc_tpu_torch.obs.calibrate import (  # noqa: F401
     CalibratedCostModel,

@@ -1,10 +1,15 @@
-"""Env-gated span recording (the port's copy of the span part of
-``tnc_tpu.obs.core``).
+"""Env-gated spans and metrics (the port's copy of ``tnc_tpu.obs.core``).
 
 - :func:`span` — a context manager recording the wall time, nesting depth,
   process and thread id and attributes of one pipeline stage
   (``with obs.span("step[3] 4x8·8x2", flops=64): ...``). Completed spans
   land in the process-local :class:`MetricsRegistry`.
+- :func:`counter_add` / :func:`gauge_set` / :func:`observe` — named
+  metrics with optional labels, aggregated in the same registry
+  (histograms as bounded streaming :class:`QuantileSummary` blocks);
+  :func:`counters_by_prefix` reads a subsystem's counters back (the
+  resilience frames count retries, degradations, checkpoint saves and
+  resumes and fired faults under ``resilience.``).
 
 Everything is **disabled unless ``TNC_TPU_TRACE`` is set** (or
 :func:`configure` is called): the disabled path is one module-level bool
@@ -22,6 +27,10 @@ truthy rule.
 ...         pass
 >>> [(r.name, r.depth, r.args) for r in obs.get_registry().span_records()]
 [('execute', 1, {}), ('compile', 0, {'steps': 3})]
+>>> with obs.span("compile") as sp:
+...     _ = sp.add(flops=100)
+>>> obs.get_registry().counters()[('compile.flops', ())]
+100.0
 >>> _ = obs.configure(enabled=False)
 """
 
@@ -54,13 +63,164 @@ class SpanRecord:
     args: dict = field(default_factory=dict)
 
 
+class _P2Quantile:
+    """One streaming quantile via the P² algorithm (Jain & Chlamtac
+    1985): five markers tracked in O(1) memory per observation — no
+    retained samples. Below 5 observations the estimate is the exact
+    nearest-rank percentile of what was seen."""
+
+    __slots__ = ("p", "_q", "_n", "_np", "_dn", "_count")
+
+    def __init__(self, p: float):
+        if not 0.0 < p < 1.0:
+            raise ValueError("quantile must be in (0, 1)")
+        self.p = float(p)
+        self._q: list[float] = []  # marker heights (sorted samples < 5)
+        self._n = [0.0, 1.0, 2.0, 3.0, 4.0]  # marker positions
+        self._np = [0.0, 2 * p, 4 * p, 2 + 2 * p, 4.0]  # desired positions
+        self._dn = [0.0, p / 2, p, (1 + p) / 2, 1.0]
+        self._count = 0
+
+    def observe(self, x: float) -> None:
+        self._count += 1
+        q = self._q
+        if len(q) < 5:
+            q.append(x)
+            q.sort()
+            return
+        n = self._n
+        if x < q[0]:
+            q[0] = x
+            k = 0
+        elif x >= q[4]:
+            q[4] = x
+            k = 3
+        else:
+            k = 0
+            for i in range(1, 5):
+                if x < q[i]:
+                    k = i - 1
+                    break
+        for i in range(k + 1, 5):
+            n[i] += 1.0
+        for i in range(5):
+            self._np[i] += self._dn[i]
+        for i in (1, 2, 3):
+            d = self._np[i] - n[i]
+            if (d >= 1.0 and n[i + 1] - n[i] > 1.0) or (
+                d <= -1.0 and n[i - 1] - n[i] < -1.0
+            ):
+                sign = 1 if d > 0 else -1
+                cand = self._parabolic(i, sign)
+                if not (q[i - 1] < cand < q[i + 1]):
+                    cand = self._linear(i, sign)
+                q[i] = cand
+                n[i] += sign
+
+    def _parabolic(self, i: int, d: int) -> float:
+        q, n = self._q, self._n
+        return q[i] + d / (n[i + 1] - n[i - 1]) * (
+            (n[i] - n[i - 1] + d) * (q[i + 1] - q[i]) / (n[i + 1] - n[i])
+            + (n[i + 1] - n[i] - d) * (q[i] - q[i - 1]) / (n[i] - n[i - 1])
+        )
+
+    def _linear(self, i: int, d: int) -> float:
+        q, n = self._q, self._n
+        return q[i] + d * (q[i + d] - q[i]) / (n[i + d] - n[i])
+
+    def value(self) -> float:
+        if self._count == 0:
+            return 0.0
+        if self._count <= 5:
+            s = self._q
+            return float(s[min(len(s) - 1, int(self.p * (len(s) - 1)))])
+        return float(self._q[2])
+
+
+class QuantileSummary:
+    """Bounded streaming distribution summary: count / sum / min / max
+    plus P² estimates for a fixed quantile set — p50/p90/p99 without
+    retaining raw samples, however long the stream runs. The percentile
+    surface of :meth:`MetricsRegistry.observe` and of the serving
+    ``stats()`` latency blocks.
+
+    >>> s = QuantileSummary()
+    >>> for v in range(1, 101):
+    ...     s.observe(float(v))
+    >>> snap = s.snapshot()
+    >>> (snap["count"], snap["min"], snap["max"])
+    (100, 1.0, 100.0)
+    >>> 40.0 <= snap["p50"] <= 60.0
+    True
+    """
+
+    QUANTILES = (0.5, 0.9, 0.99)
+    __slots__ = ("count", "sum", "min", "max", "_estimators")
+
+    def __init__(self, quantiles: tuple = QUANTILES):
+        self.count = 0
+        self.sum = 0.0
+        self.min = 0.0
+        self.max = 0.0
+        self._estimators = {float(q): _P2Quantile(q) for q in quantiles}
+
+    def observe(self, value: float) -> None:
+        value = float(value)
+        if self.count == 0:
+            self.min = self.max = value
+        else:
+            self.min = min(self.min, value)
+            self.max = max(self.max, value)
+        self.count += 1
+        self.sum += value
+        for est in self._estimators.values():
+            est.observe(value)
+
+    def quantile(self, q: float) -> float:
+        est = self._estimators.get(float(q))
+        if est is None:
+            raise KeyError(f"quantile {q} is not tracked")
+        return est.value()
+
+    def quantiles(self) -> dict[float, float]:
+        return {q: est.value() for q, est in self._estimators.items()}
+
+    def snapshot(self) -> dict:
+        """Plain-data view; quantiles rendered as ``p50``-style keys."""
+        out = {
+            "count": self.count, "sum": self.sum,
+            "min": self.min, "max": self.max,
+        }
+        for q, est in self._estimators.items():
+            out[f"p{q * 100:g}".replace(".", "_")] = est.value()
+        return out
+
+
 class MetricsRegistry:
-    """Process-local span store. Thread-safe; one module-level instance
-    serves the whole process (:func:`get_registry`), tests may swap in a
-    fresh one via :func:`configure`."""
+    """Process-local metric and span store. Thread-safe; one module-level
+    instance serves the whole process (:func:`get_registry`), tests may
+    swap in a fresh one via :func:`configure`.
+
+    >>> reg = MetricsRegistry()
+    >>> reg.counter_add("slices", 4)
+    >>> reg.counter_add("slices", 2)
+    >>> reg.counter_add("cache", 1, kind="hit")
+    >>> reg.counters()[("slices", ())]
+    6.0
+    >>> reg.gauge_set("peak_bytes", 2.0**29)
+    >>> reg.observe("step_ms", 1.5); reg.observe("step_ms", 2.5)
+    >>> h = reg.histograms()[("step_ms", ())]
+    >>> (h["count"], h["sum"], h["min"], h["max"])
+    (2, 4.0, 1.5, 2.5)
+    >>> sorted(k for k in h if k.startswith("p"))
+    ['p50', 'p90', 'p99']
+    """
 
     def __init__(self, max_spans: int | None = None) -> None:
         self._lock = threading.Lock()
+        self._counters: dict[tuple, float] = {}
+        self._gauges: dict[tuple, float] = {}
+        self._hists: dict[tuple, QuantileSummary] = {}
         self._spans: list[SpanRecord] = []
         self._active: dict[int, "Span"] = {}
         self._dropped = 0
@@ -71,6 +231,43 @@ class MetricsRegistry:
         self._max_spans = max_spans
         self.epoch_ns = time.perf_counter_ns()
 
+    # -- metrics ---------------------------------------------------------
+    @staticmethod
+    def _key(name: str, labels: dict) -> tuple:
+        return (name, tuple(sorted(labels.items())))
+
+    def counter_add(self, name: str, value: float = 1.0, **labels) -> None:
+        key = self._key(name, labels)
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0.0) + float(value)
+
+    def gauge_set(self, name: str, value: float, **labels) -> None:
+        with self._lock:
+            self._gauges[self._key(name, labels)] = float(value)
+
+    def observe(self, name: str, value: float, **labels) -> None:
+        key = self._key(name, labels)
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = QuantileSummary()
+            h.observe(value)
+
+    def counters(self) -> dict[tuple, float]:
+        with self._lock:
+            return dict(self._counters)
+
+    def gauges(self) -> dict[tuple, float]:
+        with self._lock:
+            return dict(self._gauges)
+
+    def histograms(self) -> dict[tuple, dict]:
+        """Plain-data snapshots, each taken under the lock (so each block
+        is internally consistent)."""
+        with self._lock:
+            return {k: v.snapshot() for k, v in self._hists.items()}
+
+    # -- spans -----------------------------------------------------------
     def _span_opened(self, sp: "Span") -> None:
         with self._lock:
             self._active[id(sp)] = sp
@@ -98,6 +295,59 @@ class MetricsRegistry:
         with self._lock:
             return self._dropped
 
+    def span_stats(
+        self, max_depth: int | None = None, tid: int | None = None
+    ) -> dict[str, dict]:
+        """Aggregate wall time per span name: ``{name: {count, total_s,
+        min_s, max_s}}``. ``max_depth`` keeps only spans at or above a
+        nesting level (``0`` = top-level phases only); depth is **per
+        thread**, so breakdowns over multi-threaded runs should also pin
+        ``tid`` to the coordinating thread."""
+        out: dict[str, dict] = {}
+        for rec in self.span_records():
+            if max_depth is not None and rec.depth > max_depth:
+                continue
+            if tid is not None and rec.tid != tid:
+                continue
+            s = out.get(rec.name)
+            dur = rec.dur_ns / 1e9
+            if s is None:
+                out[rec.name] = {
+                    "count": 1, "total_s": dur, "min_s": dur, "max_s": dur
+                }
+            else:
+                s["count"] += 1
+                s["total_s"] += dur
+                s["min_s"] = min(s["min_s"], dur)
+                s["max_s"] = max(s["max_s"], dur)
+        return out
+
+    def snapshot(self) -> dict:
+        """Plain-data snapshot of every metric (JSON-ready; labels as
+        ``name{k=v}`` strings)."""
+        fmt = format_metric_key
+        return {
+            "counters": {fmt(k): v for k, v in self.counters().items()},
+            "gauges": {fmt(k): v for k, v in self.gauges().items()},
+            "histograms": {fmt(k): v for k, v in self.histograms().items()},
+            "dropped_spans": self.dropped_spans(),
+        }
+
+
+def format_metric_key(key: tuple) -> str:
+    """Registry metric key → ``name`` / ``name{k=v,...}`` string — the one
+    rendering rule shared by :meth:`MetricsRegistry.snapshot` and
+    :func:`counters_by_prefix`.
+
+    >>> format_metric_key(("serve.requests", (("kind", "amplitude"),)))
+    'serve.requests{kind=amplitude}'
+    """
+    name, labels = key
+    if not labels:
+        return name
+    inner = ",".join(f"{k}={v}" for k, v in labels)
+    return f"{name}{{{inner}}}"
+
 
 class _NullSpan:
     """Shared no-op span: the whole disabled-path cost of ``with
@@ -114,6 +364,9 @@ class _NullSpan:
     def set(self, **args: Any) -> "_NullSpan":
         return self
 
+    def add(self, **counters: Any) -> "_NullSpan":
+        return self
+
 
 NULL_SPAN = _NullSpan()
 
@@ -125,6 +378,45 @@ def _stack() -> list:
     if st is None:
         st = _TLS.stack = []
     return st
+
+
+class _TraceArgsCtx:
+    """Scope for :func:`trace_args`: while active, every span opened on
+    this thread inherits the given args (explicit span args win)."""
+
+    __slots__ = ("_args", "_prev")
+
+    def __init__(self, args: dict):
+        self._args = args
+
+    def __enter__(self) -> "_TraceArgsCtx":
+        self._prev = getattr(_TLS, "trace_extra", None)
+        if self._args:
+            merged = dict(self._prev) if self._prev else {}
+            merged.update(self._args)
+            _TLS.trace_extra = merged
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        if self._args:
+            _TLS.trace_extra = self._prev
+        return False
+
+
+def trace_args(**args: Any) -> _TraceArgsCtx:
+    """Attach ambient args to every span this thread opens inside the
+    context (request ids a dispatch carries, say). Nesting merges (inner
+    wins); explicit span args always win over ambient ones.
+
+    >>> _ = configure(enabled=True, registry=MetricsRegistry())
+    >>> with trace_args(riders="r1,r2"):
+    ...     with span("serve.dispatch") as sp:
+    ...         pass
+    >>> get_registry().span_records()[-1].args["riders"]
+    'r1,r2'
+    >>> _ = configure(enabled=False)
+    """
+    return _TraceArgsCtx(args)
 
 
 class Span:
@@ -143,7 +435,18 @@ class Span:
         self.args.update(args)
         return self
 
+    def add(self, **counters: Any) -> "Span":
+        """Accumulate numeric counters onto the span *and* the registry
+        (as ``<span name>.<counter>``)."""
+        for key, value in counters.items():
+            self.args[key] = self.args.get(key, 0) + value
+            self._reg.counter_add(f"{self.name}.{key}", value)
+        return self
+
     def __enter__(self) -> "Span":
+        extra = getattr(_TLS, "trace_extra", None)
+        if extra:
+            self.args = {**extra, **self.args}
         st = _stack()
         self._depth = len(st)
         st.append(self)
@@ -260,6 +563,67 @@ def span(name: str, **args: Any):
     if not _ENABLED:
         return NULL_SPAN
     return Span(name, _REGISTRY, args)
+
+
+def traced(name: str, **static_args: Any):
+    """Decorator form of :func:`span` for whole-function stages. Disabled
+    path: one bool check.
+
+    >>> @traced("plan.demo", kind="test")
+    ... def plan():
+    ...     return 7
+    >>> plan()   # disabled by default: plain call
+    7
+    """
+
+    def deco(fn):
+        import functools
+
+        @functools.wraps(fn)
+        def wrapper(*args: Any, **kwargs: Any):
+            if not _ENABLED:
+                return fn(*args, **kwargs)
+            with Span(name, _REGISTRY, dict(static_args)):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
+
+
+def counter_add(name: str, value: float = 1.0, **labels) -> None:
+    if _ENABLED:
+        _REGISTRY.counter_add(name, value, **labels)
+
+
+def gauge_set(name: str, value: float, **labels) -> None:
+    if _ENABLED:
+        _REGISTRY.gauge_set(name, value, **labels)
+
+
+def observe(name: str, value: float, **labels) -> None:
+    if _ENABLED:
+        _REGISTRY.observe(name, value, **labels)
+
+
+def counters_by_prefix(prefix: str) -> dict[str, float]:
+    """Flattened view of every counter under a name prefix, labels
+    rendered as ``name{k=v}`` strings — how a caller reads out a
+    subsystem's activity (``resilience.`` for retries, degradation rungs,
+    checkpoint saves and resumes, fired faults).
+
+    >>> _ = configure(enabled=True, registry=MetricsRegistry())
+    >>> counter_add("resilience.retry.attempts", 2, site="backend.dispatch")
+    >>> counter_add("other.thing", 1)
+    >>> counters_by_prefix("resilience.")
+    {'resilience.retry.attempts{site=backend.dispatch}': 2.0}
+    >>> _ = configure(enabled=False, registry=MetricsRegistry())
+    """
+    out: dict[str, float] = {}
+    for key, value in sorted(_REGISTRY.counters().items()):
+        if key[0].startswith(prefix):
+            out[format_metric_key(key)] = value
+    return out
 
 
 refresh_from_env()

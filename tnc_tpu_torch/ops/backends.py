@@ -3,9 +3,11 @@ counterpart of ``tnc_tpu.ops.backends``):
 
 - :class:`NumpyBackend` — the host oracle, complex128 numpy.
 - :class:`TorchBackend` — PyTorch on the GPU (or, when asked, the CPU):
-  the steps run eagerly, each buffer freed as soon as its step consumed
-  it. On the GPU the default is split-complex mode — every tensor a
-  (real, imag) float32 pair, steps planned by the kernel ladder of
+  the steps run eagerly, each intermediate freed as soon as its step
+  consumed it (the placed leaves live until the dispatch ends, so that a
+  retried dispatch can run again). On the GPU the default is
+  split-complex mode — every tensor a (real, imag) float32 pair, steps
+  planned by the kernel ladder of
   :mod:`tnc_tpu_torch.ops.split_complex` (chains of small steps through
   the hand-written ``fused_chain`` kernel, the stem step through Strassen,
   the rest through the Gauss identity).
@@ -19,6 +21,12 @@ residual in chunks batched over slices (:mod:`tnc_tpu_torch.ops.chunked`)
 program over a leading batch axis carried by some slots
 (:meth:`~TorchBackend.execute_batched`; the amplitude sweeps and the
 serving layer's bra batches).
+
+Every :class:`TorchBackend` run is one retryable dispatch
+(:meth:`TorchBackend._dispatch`: the ``backend.dispatch`` fault point and
+the shared :class:`~tnc_tpu_torch.resilience.retry.RetryPolicy`); the
+chunked executor retries each slice batch, halves the batch on an
+out-of-memory error and checkpoints under ``TNC_TPU_CKPT``.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ logger = logging.getLogger(__name__)
 
 class Backend:
     name: str = "base"
+    #: ``execute_sliced`` takes ``ckpt=`` and ``on_slice=`` (per-slice
+    #: checkpoints and cooperative preemption): the numpy oracle only
+    supports_slice_hooks: bool = False
 
     def execute(self, program: ContractionProgram, arrays: Sequence[Any]) -> np.ndarray:
         raise NotImplementedError
@@ -309,6 +320,7 @@ class NumpyBackend(Backend):
     """The host oracle: every step a complex128 numpy matmul."""
 
     name = "numpy"
+    dtype = np.dtype(np.complex128)
 
     def execute(
         self,
@@ -358,6 +370,8 @@ class NumpyBackend(Backend):
             list(arrays), batched, b, program.result_shape,
         )
 
+    supports_slice_hooks = True
+
     def execute_sliced(
         self,
         sp,
@@ -366,18 +380,21 @@ class NumpyBackend(Backend):
         host: bool = True,
         hoist: bool | None = None,
         slice_range: tuple[int, int] | None = None,
+        ckpt: str | None = None,
+        on_slice=None,
     ) -> np.ndarray:
         """The complex128 oracle of a sliced program
         (:func:`~tnc_tpu_torch.ops.sliced.execute_sliced_numpy`).
         ``host=False`` returns the result in **stored** shape, as the
         device backend does. ``hoist`` defaults to off, as in the
         reference: the plain loop is the oracle the hoisted executors are
-        held against."""
+        held against. ``ckpt`` / ``on_slice`` (``supports_slice_hooks``):
+        slice-boundary checkpointing and cooperative preemption."""
         from tnc_tpu_torch.ops.sliced import execute_sliced_numpy
 
         out = execute_sliced_numpy(
             sp, arrays, max_slices=max_slices, hoist=bool(hoist),
-            slice_range=slice_range,
+            slice_range=slice_range, ckpt=ckpt, on_slice=on_slice,
         )
         if not host:
             return out.reshape(sp.program.stored_result_shape)
@@ -453,18 +470,16 @@ class TorchBackend(Backend):
         self.chunk_steps = chunk_steps
         self.hoist = hoist
         self._policy_cache: dict[tuple, Any] = {}
+        self._fit: tuple | None = None  # (cost model,) once fitted
 
     def kernel_policy(self, program: ContractionProgram):
         """The kernel promotion ladder for ``program`` (split mode only;
         ``None`` otherwise), planned once per (program, env override) from
-        the cost model fitted to the step spans the registry holds
-        (:meth:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel.
-        from_registry`; ``None`` — the no-model ladder — when no fit is
-        possible) and cached, so the policy does not change between calls
-        as new step samples arrive. A fault in the fit raises."""
+        the backend's cost model (:meth:`cost_model`) and cached, so the
+        policy does not change between calls as new step samples arrive.
+        A fault in the fit raises."""
         if not self.split_complex:
             return None
-        from tnc_tpu_torch.obs.calibrate import CalibratedCostModel
         from tnc_tpu_torch.ops.split_complex import (
             complex_mult_key,
             dot_precision_key,
@@ -474,15 +489,70 @@ class TorchBackend(Backend):
         key = (program.signature(), complex_mult_key(), dot_precision_key())
         policy = self._policy_cache.get(key)
         if policy is None:
-            policy = plan_kernels(program, cost_model=CalibratedCostModel.from_registry())
+            policy = plan_kernels(program, cost_model=self.cost_model())
             self._policy_cache[key] = policy
         return policy
+
+    def cost_model(self):
+        """The cost model every policy of this backend is planned from:
+        :meth:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel.
+        from_registry` fitted to the registry's step spans at the first
+        call and kept for the backend's life (``None`` — the no-model
+        ladder — when no fit was possible then)."""
+        if self._fit is None:
+            from tnc_tpu_torch.obs.calibrate import CalibratedCostModel
+
+            self._fit = (CalibratedCostModel.from_registry(),)
+        return self._fit[0]
+
+    def policy_key(self) -> tuple:
+        """What decides how :meth:`kernel_policy` routes a program's steps
+        (and so which bits it gives): the ``TNC_TPU_COMPLEX_MULT`` /
+        ``TNC_TPU_DOT_PRECISION`` overrides and the constants of the
+        backend's :meth:`cost_model` (``None``: the no-model ladder). Empty
+        outside split mode. Part of the reuse store's environment key
+        (:func:`~tnc_tpu_torch.serve.reuse.backend_env_key`)."""
+        if not self.split_complex:
+            return ()
+        from tnc_tpu_torch.ops.split_complex import complex_mult_key, dot_precision_key
+
+        model = self.cost_model()
+        fit = (None if model is None
+               else (model.flops_per_s, model.dispatch_s, model.bytes_per_s))
+        return (complex_mult_key(), dot_precision_key(), fit)
 
     def _device_buffers(self, arrays: Sequence[Any]) -> list[Any]:
         return place_buffers(arrays, self.dtype, self.split_complex, self.device)
 
+    def _dispatch(self, run):
+        """One dispatch under the reference's retry frame
+        (``tnc_tpu/ops/backends.py:450-475``): the ``backend.dispatch``
+        fault point, then ``run()`` under the default
+        :class:`~tnc_tpu_torch.resilience.retry.RetryPolicy` — a TRANSIENT
+        failure runs it again after a backoff, a RESOURCE or FATAL one
+        (a sticky CUDA error among them) re-raises at once. Under
+        ``TNC_TPU_SYNC_DISPATCH`` the device is synchronised inside the
+        guarded region, so an asynchronous CUDA failure surfaces there.
+        ``run`` must start from inputs it does not consume. With no fault
+        the frame costs two calls and a bool check."""
+        from tnc_tpu_torch.resilience import retry as _retry
+        from tnc_tpu_torch.resilience.faultinject import fault_point
+
+        def attempt():
+            fault_point("backend.dispatch")
+            out = run()
+            if self.device.type == "cuda" and _retry.sync_dispatch():
+                import torch
+
+                torch.cuda.synchronize(self.device)
+            return out
+
+        return _retry.default_policy().run(attempt, label="backend.dispatch")
+
     def _run(self, program: ContractionProgram, buffers: list[Any]):
-        """Run ``program`` on ``buffers`` under :meth:`kernel_policy`. With
+        """Run ``program`` on ``buffers`` under :meth:`kernel_policy`, one
+        retryable dispatch (:meth:`_dispatch`; each attempt runs on its own
+        copy of the buffer list, whose tensors no step writes). With
         tracing and ``TNC_TPU_STEP_TIME`` on, one launch unit at a time
         through :func:`run_steps_timed` with ``sync``, each unit's span a
         measured sample for the calibration fit."""
@@ -491,13 +561,16 @@ class TorchBackend(Backend):
         from tnc_tpu_torch import obs
 
         if obs.enabled() and obs.step_timing_enabled():
-            with torch.inference_mode():
-                out, _ = run_steps_timed(
-                    program, buffers, self.kernel_policy(program), sync=True,
-                    precision=self.precision,
-                )
-            return out
-        return self._run_untimed(program, buffers)
+            def timed():
+                with torch.inference_mode():
+                    out, _ = run_steps_timed(
+                        program, list(buffers), self.kernel_policy(program), sync=True,
+                        precision=self.precision,
+                    )
+                return out
+
+            return self._dispatch(timed)
+        return self._dispatch(lambda: self._run_untimed(program, list(buffers)))
 
     def _run_untimed(self, program: ContractionProgram, buffers: list[Any]):
         import torch
@@ -555,19 +628,26 @@ class TorchBackend(Backend):
         import torch
 
         batched = _batched_slots(batched)
-        buffers = self._device_buffers(arrays)
-        with torch.inference_mode():
-            if self.split_complex:
-                from tnc_tpu_torch.ops.split_complex import combine_array, run_split_units
+        placed = self._device_buffers(arrays)
 
-                run_split_units(program.steps, buffers, self.precision,
-                                self.kernel_policy(program), batched=set(batched))
-                out = combine_array(*buffers[program.result_slot])
-            else:
+        def run():
+            buffers = list(placed)
+            with torch.inference_mode():
+                if self.split_complex:
+                    from tnc_tpu_torch.ops.split_complex import (
+                        combine_array,
+                        run_split_units,
+                    )
+
+                    run_split_units(program.steps, buffers, self.precision,
+                                    self.kernel_policy(program), batched=set(batched))
+                    return combine_array(*buffers[program.result_slot])
                 from tnc_tpu_torch.ops.batched import run_steps_batched, thread_batch
 
                 flags, _ = thread_batch(program, batched)
-                out = run_steps_batched(program, buffers, flags).cpu().numpy()
+                return run_steps_batched(program, buffers, flags).cpu().numpy()
+
+        out = self._dispatch(run)
         return out.reshape((-1,) + tuple(program.result_shape))
 
     def execute_sliced(
@@ -579,6 +659,7 @@ class TorchBackend(Backend):
         hoist: bool | None = None,
         slice_range: tuple[int, int] | None = None,
         graphs: bool = True,
+        ckpt: str | None = None,
     ):
         """Sum a sliced program over its slices on the device.
 
@@ -608,6 +689,15 @@ class TorchBackend(Backend):
         :mod:`tnc_tpu_torch.ops.graphs`), the first batch or slice and the
         prelude running eagerly; ``False`` runs everything eagerly, with
         the same bits.
+
+        ``ckpt`` (or ``TNC_TPU_CKPT``; chunked strategy): slice-range
+        checkpoints of the chunked executor, keyed by the program, the
+        run's parameters and a digest of the host ``arrays``; a call that
+        finds its checkpoint resumes at the saved cursor
+        (:func:`~tnc_tpu_torch.ops.chunked.run_sliced_chunked_placed`).
+        Unlike :class:`NumpyBackend` the backend has no per-slice
+        ``on_slice`` hook (``supports_slice_hooks`` is False, as on the
+        reference's ``JaxBackend``).
         """
         from tnc_tpu_torch.ops.sliced import slice_bounds
 
@@ -622,12 +712,16 @@ class TorchBackend(Backend):
         full = self._device_buffers(arrays)
         if self.sliced_strategy == "chunked" and sp.slicing.num_slices > 1:
             from tnc_tpu_torch.ops.chunked import run_sliced_chunked_placed
+            from tnc_tpu_torch.resilience import checkpoint as _ckpt
 
+            digest = (_ckpt.arrays_digest(arrays) if slice_range is None
+                      and _ckpt.resolve_ckpt(ckpt) is not None else None)
             result = run_sliced_chunked_placed(
                 sp, full, batch=self.slice_batch, chunk_steps=self.chunk_steps,
                 split_complex=self.split_complex, precision=self.precision,
                 dtype=self.dtype, device=self.device, max_slices=max_slices,
                 hoist=hoist, slice_range=slice_range, graphs=graphs,
+                ckpt=ckpt, ckpt_data_digest=digest,
             )
         else:
             lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)

@@ -30,10 +30,18 @@ eagerly, every later batch replays the chunks' graphs. A batch's slice
 indices go into a static device buffer before it runs, and the last
 chunk folds in the batch sum and the Kahan step, written into static
 accumulators in place. The graphs live for the call.
+
+Resilience (the reference's, ``tnc_tpu/ops/chunked.py:590-760``): each
+batch is one retryable dispatch behind the ``chunked.batch`` fault point;
+an out-of-memory error halves the batch (the failed shape's graphs and
+their pool released first); ``TNC_TPU_CKPT`` checkpoints the Kahan
+accumulator and the slice cursor between batches, and a restarted call
+resumes from them bitwise (:func:`run_sliced_chunked_placed`).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -43,6 +51,11 @@ import numpy as np
 
 from tnc_tpu_torch.ops.program import ContractionProgram, PairStep
 from tnc_tpu_torch.ops.sliced import SlicedProgram, kahan_step
+from tnc_tpu_torch.resilience import checkpoint as _ckpt
+from tnc_tpu_torch.resilience import retry as _retry
+from tnc_tpu_torch.resilience.faultinject import fault_point
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -176,6 +189,7 @@ def chunk_plan(
             _PLAN_CACHE.move_to_end(key)
             return hit
 
+    fault_point("chunked.plan")
     chunks = split_program(sp.program, chunk_steps)
     num_inputs = sp.program.num_inputs
     # which slots carry a batch axis: sliced leaves, and anything computed
@@ -258,6 +272,8 @@ def run_sliced_chunked_placed(
     hoist: bool = False,
     slice_range: tuple[int, int] | None = None,
     graphs: bool = True,
+    ckpt: str | None = None,
+    ckpt_data_digest: str | None = None,
 ):
     """Chunked slice-batched execution over already-placed device buffers
     (:func:`~tnc_tpu_torch.ops.backends.place_buffers`, never consumed);
@@ -271,7 +287,25 @@ def run_sliced_chunked_placed(
     slices; ``slice_range=(lo, hi)`` sums the shard ``[lo, hi)``; the two
     exclude each other. ``graphs`` (on the card): replay one CUDA graph
     per chunk for every batch after the first; ``False`` runs every batch
-    eagerly, with the same bits."""
+    eagerly, with the same bits.
+
+    Resilience, as the reference's executor has it. Each batch is one
+    retryable dispatch (the ``chunked.batch`` fault point with ``start=``
+    and ``batch=``, then the default
+    :class:`~tnc_tpu_torch.resilience.retry.RetryPolicy`); an
+    out-of-memory error halves the batch (``resilience.degrade.batch_shrink``),
+    after releasing the graphs of the failed batch shape and their pool,
+    and the same slices run again. ``ckpt`` (or ``TNC_TPU_CKPT``) arms
+    slice-range checkpoints: the Kahan accumulator (sum and compensation
+    of each part) is copied to the host after a batch when due
+    (``TNC_TPU_CKPT_EVERY`` / ``TNC_TPU_CKPT_SECS``), a later call with the
+    same signature (program, chunk size, split mode, precision, dtype,
+    slice count, device and ``ckpt_data_digest``, the input data) writes
+    it back into the static accumulators before its first batch and
+    resumes at the saved cursor, bitwise equal to the uninterrupted run at
+    the same batch; a finished run deletes its checkpoint. ``slice_range``
+    excludes an explicit ``ckpt`` (an armed ``TNC_TPU_CKPT`` is ignored for
+    a shard)."""
     import torch
 
     with torch.inference_mode():
@@ -280,7 +314,8 @@ def run_sliced_chunked_placed(
 
             sp, device_full = hoisted(sp, device_full, split_complex, precision)
         return _run_chunked(sp, list(device_full), batch, chunk_steps, split_complex,
-                            precision, dtype, device, max_slices, slice_range, graphs)
+                            precision, dtype, device, max_slices, slice_range, graphs,
+                            ckpt, ckpt_data_digest)
 
 
 def resolve_batch(
@@ -322,12 +357,34 @@ def resolve_batch(
     return batch, lo, num
 
 
-def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
-                 dtype, device, max_slices, slice_range, graphs=True):
+def _flatten_acc(acc) -> list:
+    """The Kahan accumulator (a (sum, compensation) pair per part: real
+    and imaginary in split mode) → the checkpoint payload, host arrays
+    ``[sum, comp, ...]`` part by part (the reference's ``[sr, cr, si,
+    ci]``)."""
+    return [t.cpu().numpy() for pair in acc for t in pair]
+
+
+def _restore_acc(acc, arrays) -> None:
+    """Write a checkpoint payload (:func:`_flatten_acc`) back into the
+    static accumulators, in place."""
     import torch
 
+    flat = [t for pair in acc for t in pair]
+    if len(arrays) != len(flat):
+        raise ValueError(f"checkpoint holds {len(arrays)} arrays for {len(flat)} accumulators")
+    for t, a in zip(flat, arrays):
+        t.copy_(torch.from_numpy(np.ascontiguousarray(a)).reshape(t.shape))
+
+
+def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
+                 dtype, device, max_slices, slice_range, graphs=True, ckpt=None,
+                 ckpt_data_digest=None):
+    import torch
+
+    from tnc_tpu_torch import obs
+    from tnc_tpu_torch.ops import graphs as _graphs
     from tnc_tpu_torch.ops.backends import _run_steps
-    from tnc_tpu_torch.ops.graphs import run_batches
     from tnc_tpu_torch.ops.split_complex import run_split_units
 
     if sp.slicing.num_slices <= 1:
@@ -340,14 +397,34 @@ def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
             return run_steps_split(sp.program, buffers, precision,
                                    policy=plan_kernels(sp.program))
         return _run_steps(sp.program, buffers)
+    if slice_range is not None and ckpt is not None:
+        raise ValueError("slice_range and ckpt are exclusive")
     batch, lo, num = resolve_batch(sp, batch, split_complex, dtype, device,
                                    max_slices, slice_range)
-    plans = chunk_plan(sp, batch, chunk_steps, split_complex, precision)
     first = device_full[0][0] if split_complex else device_full[0]
     rows_all = torch.from_numpy(slice_index_rows(sp.slicing, lo, num)).to(first.device)
     stored_shape = sp.program.stored_result_shape
     result_slot = sp.program.result_slot
 
+    # slice-range checkpointing: the signature covers everything that
+    # changes the accumulation except the batch (the cursor is a slice
+    # index, valid at any batch alignment)
+    ckpt_path = _ckpt.resolve_ckpt(ckpt) if slice_range is None else None
+    mgr = None
+    resumed = None
+    cursor = lo
+    if ckpt_path is not None:
+        sig = _ckpt.signature_hash(
+            "chunked-v1", sp.signature(), chunk_steps, split_complex,
+            precision, str(dtype), num, str(first.device), ckpt_data_digest,
+        )
+        mgr = _ckpt.SliceCheckpoint(ckpt_path, sig)
+        loaded = mgr.load()
+        if loaded is not None:
+            cursor, resumed = loaded
+            cursor = max(lo, min(int(cursor), num))
+
+    plans = chunk_plan(sp, batch, chunk_steps, split_complex, precision)
     if not plans:
         # zero-step program: the result is the (sliced) leaf itself — sum
         # its slices
@@ -358,45 +435,106 @@ def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
                       for p in parts)
         return total if split_complex else total[0]
 
-    res_batched = result_slot in plans[-1].batched_out
     parts = [p.dtype for p in device_full[0]] if split_complex else [first.dtype]
-    # static state every batch reads or updates in place: the batch's slice
-    # indices, and a (sum, compensation) pair per part (real and imaginary
-    # in split mode)
-    rows = torch.empty_like(rows_all[:batch])
+    # static state every batch updates in place: a (sum, compensation)
+    # pair per part (real and imaginary in split mode)
     acc = [(torch.zeros(stored_shape, dtype=dt, device=first.device),
             torch.zeros(stored_shape, dtype=dt, device=first.device)) for dt in parts]
-    buffers: list = []
+    if resumed is not None:
+        _restore_acc(acc, resumed)
 
-    def chunk(ci: int, cp: ChunkPlan):
-        def run() -> None:
-            if ci == 0:  # every batch starts from the resident leaves
-                buffers[:] = device_full
-            for slot in cp.leaf_in:
-                buffers[slot] = gather_slices(device_full[slot], sp.slot_slices[slot], rows)
-            batched = set(cp.batched_in)
-            if split_complex:
-                # the chunk's policy spans are relative to the chunk: a chain
-                # is one fused_chain launch for the whole batch
-                run_split_units(cp.chunk.steps, buffers, precision, cp.policy,
-                                batched=batched)
-            else:
-                _run_chunk(cp.chunk, buffers, batched)
-            if ci == len(plans) - 1:
-                out = buffers[result_slot]
-                buffers[result_slot] = None
-                # the batch sum in the working precision, then one Kahan
-                # step a batch: the batches' partial sums cancel far below
-                # each term
-                for (s, c), x in zip(acc, out if split_complex else (out,)):
-                    kahan_step(s, c, (x.sum(0) if res_batched else x * batch)
-                               .reshape(stored_shape))
+    def units(b: int, rows, plans_b):
+        """One batch of ``b`` slices as a unit per chunk, reading the
+        batch's slice indices from the static ``rows``."""
+        res_batched = result_slot in plans_b[-1].batched_out
+        buffers: list = []
 
-        return run
+        def chunk(ci: int, cp: ChunkPlan):
+            def run() -> None:
+                if ci == 0:  # every batch starts from the resident leaves
+                    buffers[:] = device_full
+                for slot in cp.leaf_in:
+                    buffers[slot] = gather_slices(device_full[slot], sp.slot_slices[slot],
+                                                  rows)
+                batched = set(cp.batched_in)
+                if split_complex:
+                    # the chunk's policy spans are relative to the chunk: a
+                    # chain is one fused_chain launch for the whole batch
+                    run_split_units(cp.chunk.steps, buffers, precision, cp.policy,
+                                    batched=batched)
+                else:
+                    _run_chunk(cp.chunk, buffers, batched)
+                if ci == len(plans_b) - 1:
+                    out = buffers[result_slot]
+                    buffers[result_slot] = None
+                    # the batch sum in the working precision, then one Kahan
+                    # step a batch: the batches' partial sums cancel far
+                    # below each term
+                    for (s, c), x in zip(acc, out if split_complex else (out,)):
+                        kahan_step(s, c, (x.sum(0) if res_batched else x * b)
+                                   .reshape(stored_shape))
 
-    run_batches(first.device, [(f"chunk {ci}", chunk(ci, cp)) for ci, cp in enumerate(plans)],
-                (num - lo) // batch,
-                lambda i: rows.copy_(rows_all[i * batch:(i + 1) * batch]), graphs)
+            return run
+
+        return [(f"chunk {ci}", chunk(ci, cp)) for ci, cp in enumerate(plans_b)]
+
+    # one runner per batch shape: the planned batch, a tail after an
+    # unaligned resume, a halved batch after an out-of-memory error
+    runners: dict[int, tuple] = {}
+
+    def runner_for(b: int):
+        got = runners.get(b)
+        if got is None:
+            rows = torch.empty_like(rows_all[:b])
+            plans_b = plans if b == batch else chunk_plan(
+                sp, b, chunk_steps, split_complex, precision)
+            got = runners[b] = (rows, _graphs.BatchRunner(first.device,
+                                                          units(b, rows, plans_b), graphs))
+        return got
+
+    sync = _retry.sync_dispatch() and first.device.type == "cuda"
+    while cursor < num:
+        b = min(batch, num - cursor)
+        rows, runner = runner_for(b)
+        start = _graphs.mark(first.device)
+
+        def one_batch(_cursor=cursor, _b=b, _rows=rows, _runner=runner) -> str:
+            fault_point("chunked.batch", start=_cursor, batch=_b)
+            _rows.copy_(rows_all[_cursor - lo:_cursor - lo + _b])
+            tag = _runner.run()
+            if sync:
+                torch.cuda.synchronize(first.device)
+            return tag
+
+        try:
+            # a transient failure retries the same batch: nothing is
+            # accumulated until the last chunk's Kahan step
+            tag = _retry.retry_call(one_batch, label="chunked.batch")
+        except Exception as exc:  # noqa: BLE001 — classified below
+            if (_retry.classify_exception(exc) is _retry.FailureClass.RESOURCE
+                    and batch > 1):
+                # OOM rung: release the failed shapes' graphs and pool,
+                # halve the batch, run the same slices again
+                for _, dead in runners.values():
+                    dead.release()
+                runners.clear()
+                if first.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                batch = max(1, batch // 2)
+                logger.warning("chunked batch hit a resource error (%s); degrading the "
+                               "slice batch to %d", exc, batch)
+                obs.counter_add("resilience.degrade.batch_shrink")
+                obs.gauge_set("resilience.degrade.batch", batch)
+                plans = chunk_plan(sp, batch, chunk_steps, split_complex, precision)
+                continue
+            raise
+        if start is not None:
+            _graphs.BATCH_EVENTS.append((tag, start, _graphs.mark(first.device)))
+        cursor += b
+        if mgr is not None:
+            mgr.maybe_save(cursor, lambda: _flatten_acc(acc))
+    if mgr is not None:
+        mgr.finalize()
     total = tuple(s + c for s, c in acc)
     return total if split_complex else total[0]
 
@@ -415,6 +553,7 @@ def execute_sliced_batched(
     hoist: bool = False,
     slice_range: tuple[int, int] | None = None,
     graphs: bool = True,
+    ckpt: str | None = None,
 ):
     """Run a sliced program as chunked, slice-batched steps on ``device``.
 
@@ -422,7 +561,8 @@ def execute_sliced_batched(
     result: a complex numpy array in ``result_shape``, or with
     ``host=False`` the device-resident accumulator in **stored** shape (a
     (real, imag) pair in split mode). Arguments as in
-    :func:`run_sliced_chunked_placed`."""
+    :func:`run_sliced_chunked_placed`; a checkpoint's data digest is taken
+    from the host ``arrays``."""
     from tnc_tpu_torch.ops.backends import place_buffers
 
     if sp.slicing.num_slices <= 1:
@@ -430,12 +570,16 @@ def execute_sliced_batched(
             "execute_sliced_batched expects a sliced program; "
             "use TorchBackend.execute for unsliced networks"
         )
+    # the input data's digest from the HOST arrays: a structurally
+    # identical program over other leaf data must not cross-resume
+    digest = (_ckpt.arrays_digest(arrays)
+              if slice_range is None and _ckpt.resolve_ckpt(ckpt) is not None else None)
     device_full = place_buffers(arrays, dtype, split_complex, device)
     acc = run_sliced_chunked_placed(
         sp, device_full, batch=batch, chunk_steps=chunk_steps,
         split_complex=split_complex, precision=precision, dtype=dtype,
         device=device, max_slices=max_slices, hoist=hoist, slice_range=slice_range,
-        graphs=graphs,
+        graphs=graphs, ckpt=ckpt, ckpt_data_digest=digest,
     )
     if not host:
         return acc

@@ -13,12 +13,15 @@ issues one graph launch where it issued every step, copy and kernel.
   replayed in that order, so an intermediate one unit hands the next
   stays at the address both were captured with. It keeps each unit's
   output alive as long as the graphs live.
-- :func:`run_batches` is the batch loop the sliced executors share: the
-  first batch eagerly (it builds the kernels, plans the chains' calls and
-  makes the kernels' one-time attribute calls, none of which a capture
-  may do), then every unit captured once and replayed for each later
-  batch. A batch's inputs go into static buffers before it runs
-  (``prepare``); a body reads nothing else that changes between batches.
+- :class:`BatchRunner` runs one batch shape's units as every sliced
+  executor runs a batch: the first time eagerly (it builds the kernels,
+  plans the chains' calls and makes the kernels' one-time attribute
+  calls, none of which a capture may do), the second time captured once
+  and replayed, then replayed. :func:`run_batches` is the loop's batch
+  loop over one runner; the chunked executor keeps a runner per batch
+  shape (a halved batch or an unaligned resume adds one). A batch's
+  inputs go into static buffers before it runs (``prepare``); a body
+  reads nothing else that changes between batches.
 - :class:`BoundProgram` is ``TorchBackend.bind_resident``'s callable: the
   first call eager, the second captures and replays, every later call
   replays; each call returns a fresh copy of the output.
@@ -32,8 +35,10 @@ captured, their capture time and their replays.
 
 Graphs exist only on the card (:func:`graph_class`); on the CPU the
 executors run every batch eagerly, which is the CPU implementation. A
-capture that fails raises :class:`CaptureError` naming the unit; nothing
-falls back to running it eagerly.
+capture that fails raises :class:`CaptureError` naming the unit (the
+``graphs.capture`` fault point fires inside each capture); nothing falls
+back to running it eagerly. Captures run in thread-local mode
+(:class:`_CudaGraph`).
 """
 
 from __future__ import annotations
@@ -98,7 +103,12 @@ def _add(added: tuple[dict, ...]) -> None:
 
 class _CudaGraph:
     """One ``torch.cuda.CUDAGraph``, captured through ``torch.cuda.graph``
-    (on its side stream) into the pool it is given."""
+    (on its side stream) into the pool it is given, in thread-local
+    capture mode: another thread's CUDA work during the capture (a serving
+    thread beside the dispatcher, a test's main thread) does not
+    invalidate it. The capturing thread's current stream is restored
+    however the capture ends, so a unit that raises leaves no stream in
+    capture mode and no side stream current."""
 
     def __init__(self):
         import torch
@@ -108,8 +118,13 @@ class _CudaGraph:
     def capture(self, fn, pool):
         import torch
 
-        with torch.cuda.graph(self.graph, pool=pool):
-            return fn()
+        prev = torch.cuda.current_stream()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                return fn()
+        finally:
+            if torch.cuda.current_stream() != prev:
+                torch.cuda.set_stream(prev)
 
     def replay(self) -> None:
         self.graph.replay()
@@ -143,11 +158,17 @@ class GraphSet:
         tensors every replay writes). The capture runs the unit's Python,
         which counts its launches on the host, but no kernel: the counts it
         added are taken back and recorded for :meth:`replay`."""
+        from tnc_tpu_torch.resilience.faultinject import fault_point
+
+        def captured():
+            fault_point("graphs.capture", unit=name)  # inside the capture
+            return fn()
+
         before = _snapshot()
         graph = self.kind()
         t0 = time.perf_counter()
         try:
-            out = graph.capture(fn, self.pool)
+            out = graph.capture(captured, self.pool)
         except Exception as e:
             _set_counters(before)
             raise CaptureError(f"CUDA graph capture of {name} failed: {e}") from e
@@ -170,7 +191,10 @@ class GraphSet:
         STATS["replays"] += len(self.units)
 
 
-def _mark(device):
+def mark(device):
+    """A CUDA event recorded now on the current stream when
+    :data:`BATCH_EVENTS` is a list and ``device`` is a CUDA device, else
+    ``None``."""
     if BATCH_EVENTS is None or device.type != "cuda":
         return None
     import torch
@@ -180,38 +204,66 @@ def _mark(device):
     return event
 
 
+class BatchRunner:
+    """The units of one batch shape (``(name, fn)`` pairs, in order), run
+    the way every sliced executor runs a batch: the first :meth:`run`
+    eagerly (it builds the kernels, plans the chains' calls and makes the
+    kernels' one-time attribute calls, none of which a capture may do);
+    with ``graphs`` on a device that has them (:func:`graph_class`), the
+    second captures each unit once and replays the set, every later one
+    replays. A capture that fails drops the graphs captured so far (the
+    next :meth:`run` captures afresh); :meth:`release` drops them and
+    their pool."""
+
+    def __init__(self, device, units, graphs: bool = True):
+        import torch
+
+        self.units = list(units)
+        self.kind = graph_class(torch.device(device)) if graphs else None
+        self.runs = 0
+        self.graph_set: GraphSet | None = None
+
+    def run(self) -> str:
+        """Run the units once; returns ``"eager"``, ``"capture"`` (the run
+        that captured, then replayed) or ``"replay"``."""
+        if self.kind is None or self.runs == 0:
+            for _, fn in self.units:
+                fn()
+            self.runs += 1
+            return "eager"
+        tag = "replay"
+        if self.graph_set is None:
+            tag = "capture"
+            graph_set = GraphSet(self.kind)
+            for name, fn in self.units:
+                graph_set.capture(name, fn)
+            self.graph_set = graph_set
+        self.graph_set.replay()
+        self.runs += 1
+        return tag
+
+    def release(self) -> None:
+        self.graph_set = None
+
+
 def run_batches(device, units, batches: int, prepare, graphs: bool = True) -> None:
     """Run ``units`` (``(name, fn)`` pairs: one batch's work, in order) for
     each of ``batches`` batches, ``prepare(i)`` first filling batch ``i``'s
-    static inputs (run eagerly, never captured).
-
-    With ``graphs`` on a device that has them (:func:`graph_class`), batch
-    0 runs eagerly; then each unit is captured once and the set is
-    replayed for batches 1 to ``batches - 1``. The graphs and
-    their pool are released on return. Otherwise every batch runs
-    eagerly."""
+    static inputs (run eagerly, never captured), through one
+    :class:`BatchRunner`: batch 0 eagerly, then with ``graphs`` on a device
+    that has them each unit captured once and the set replayed for batches
+    1 to ``batches - 1``. The graphs and their pool are released on
+    return."""
     import torch
 
     device = torch.device(device)
-    kind = graph_class(device) if graphs else None
-    graph_set = None
+    runner = BatchRunner(device, units, graphs)
     for i in range(batches):
-        start = _mark(device)
+        start = mark(device)
         prepare(i)
-        if kind is None or i == 0:
-            tag = "eager"
-            for _, fn in units:
-                fn()
-        else:
-            tag = "replay"
-            if graph_set is None:
-                tag = "capture"
-                graph_set = GraphSet(kind)
-                for name, fn in units:
-                    graph_set.capture(name, fn)
-            graph_set.replay()
+        tag = runner.run()
         if start is not None:
-            BATCH_EVENTS.append((tag, start, _mark(device)))
+            BATCH_EVENTS.append((tag, start, mark(device)))
 
 
 class BoundProgram:

@@ -116,6 +116,26 @@ def step_elems(st, mode: str | None = None) -> tuple[float, float]:
     return elems_in, float(math.prod(st.out_store))
 
 
+def steps_bytes(steps, dtype_bytes: float = 16.0) -> float:
+    """Predicted device traffic of a step sequence: per step, operands
+    read + the prep pass (:func:`step_prep_elems`) + result written, times
+    the element width (complex128 = 16 by default).
+
+    >>> from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
+    >>> from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+    >>> tn = CompositeTensor([LeafTensor.from_const([0, 1], 4),
+    ...                       LeafTensor.from_const([1, 2], 4)])
+    >>> program = build_program(tn, ContractionPath.simple([(0, 1)]))
+    >>> steps_bytes(program.steps, 1.0)   # 16 + 16 read, 16 written
+    48.0
+    """
+    total = 0.0
+    for st in steps:
+        elems_in, elems_out = step_elems(st)
+        total += (elems_in + elems_out) * dtype_bytes
+    return total
+
+
 def step_label(i: int, st) -> str:
     """Self-describing name of one step: index + matmul dims
     (``step[12] 256x512·512x64``).

@@ -12,7 +12,10 @@ runs it: by default the slice-invariant stem once
 over slices (:mod:`tnc_tpu_torch.ops.chunked`); or, as the ``loop``
 strategy, one slice at a time. Either way the full leaves stay resident
 on the card and the partial results are summed with Kahan compensation.
-:func:`execute_sliced_numpy` is the complex128 host oracle.
+:func:`execute_sliced_numpy` is the complex128 host oracle; it and the
+chunked executor checkpoint their cursor and accumulator under
+``TNC_TPU_CKPT`` (:mod:`tnc_tpu_torch.resilience.checkpoint`) and resume
+bit-identically.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from tnc_tpu_torch.ops.backends import _run_steps
 from tnc_tpu_torch.ops.program import ContractionProgram, build_program
 from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
 
+
 @dataclass(frozen=True)
 class SlicedProgram:
     program: ContractionProgram  # over slice-reduced shapes
@@ -38,6 +42,25 @@ class SlicedProgram:
 
     def signature(self) -> tuple:
         return (self.program.signature(), self.slicing, self.slot_slices)
+
+    def signature_digest(self) -> str:
+        """Stable hex digest of :meth:`signature` (the shared canonical
+        encoder) — what a plan-cache record persists on disk."""
+        from tnc_tpu_torch.utils.digest import stable_digest
+
+        return stable_digest(self.signature())
+
+
+class SliceYield(Exception):
+    """A sliced execution yielded voluntarily at a checkpoint boundary
+    (``on_slice`` returned True): the partial accumulator is persisted
+    (when a checkpoint is armed) and ``cursor`` names the next slice to
+    run. Re-invoking the same call resumes bit-identically from the
+    checkpoint. Not an error: the caller chose to be interrupted."""
+
+    def __init__(self, cursor: int):
+        super().__init__(f"sliced execution yielded at slice {cursor}")
+        self.cursor = int(cursor)
 
 
 def build_sliced_program(
@@ -185,6 +208,8 @@ def execute_sliced_numpy(
     max_slices: int | None = None,
     hoist: bool = False,
     slice_range: tuple[int, int] | None = None,
+    ckpt: str | None = None,
+    on_slice=None,
 ) -> np.ndarray:
     """CPU oracle: python loop over slices, sum of the program's complex128
     results.
@@ -194,7 +219,22 @@ def execute_sliced_numpy(
     only; mutually exclusive with ``max_slices``. ``hoist=True`` computes
     the slice-invariant stem once and loops only the residual program (the
     same steps in the same order, just not once per slice).
+
+    ``ckpt`` (or ``TNC_TPU_CKPT``) arms slice-range checkpointing: the
+    partial sum and cursor persist (``TNC_TPU_CKPT_EVERY`` slices or
+    ``TNC_TPU_CKPT_SECS`` seconds apart) and an interrupted run resumes
+    bit-identically (:mod:`tnc_tpu_torch.resilience.checkpoint`); the
+    signature covers the program, the summed slices, ``hoist`` and the
+    input data, so a range shard or another bitstring never resumes this
+    one. ``on_slice``: optional ``cb(next_cursor) -> bool`` called after
+    every slice but the last; returning True saves a checkpoint (when
+    armed) and raises :class:`SliceYield` — cooperative preemption at a
+    slice boundary. The fault point ``sliced.slice`` (``s=``) precedes
+    every slice.
     """
+    from tnc_tpu_torch.resilience import checkpoint as _ckpt
+    from tnc_tpu_torch.resilience.faultinject import fault_point
+
     lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
     full = [np.asarray(a, dtype=np.complex128) for a in arrays]
     if hoist:
@@ -202,11 +242,43 @@ def execute_sliced_numpy(
 
         sp, full = hoisted(sp, full)
     acc = np.zeros(sp.program.stored_result_shape, dtype=np.complex128)
-    for s in range(lo, hi):
+    mgr = None
+    start = lo
+    ckpt_path = _ckpt.resolve_ckpt(ckpt)
+    if ckpt_path is not None:
+        # arrays_digest: the program signature is structural — the same
+        # circuit with other leaf data (another bitstring) must not
+        # cross-resume; a range shard carries its bounds
+        if slice_range is not None:
+            sig = _ckpt.signature_hash(
+                "numpy-range-v1", sp.signature(), "complex128", lo, hi, hoist,
+                _ckpt.arrays_digest(arrays),
+            )
+        else:
+            sig = _ckpt.signature_hash(
+                "numpy-v1", sp.signature(), "complex128", hi, hoist,
+                _ckpt.arrays_digest(arrays),
+            )
+        mgr = _ckpt.SliceCheckpoint(ckpt_path, sig)
+        loaded = mgr.load()
+        if loaded is not None:
+            start, (saved,) = loaded
+            start = max(lo, min(int(start), hi))
+            acc = np.asarray(saved, dtype=np.complex128)
+    for s in range(start, hi):
+        fault_point("sliced.slice", s=s)
         indices = _slice_indices(sp.slicing, s)
         buffers = [
             index_buffer(arr, info, indices)
             for arr, info in zip(full, sp.slot_slices)
         ]
         acc = acc + _run_steps(sp.program, buffers)
+        if mgr is not None:
+            mgr.maybe_save(s + 1, lambda _a=acc: [_a])
+        if on_slice is not None and s + 1 < hi and on_slice(s + 1):
+            if mgr is not None:
+                mgr.save(s + 1, [acc])
+            raise SliceYield(s + 1)
+    if mgr is not None:
+        mgr.finalize()
     return acc.reshape(sp.program.result_shape)

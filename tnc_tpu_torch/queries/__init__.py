@@ -16,8 +16,10 @@ chain-rule sampling, riding the rebinding and batching machinery of
   samples, seeded-deterministic streams.
 - **Dense oracle** (``statevector.py``) — brute-force ``O(2^n)`` ground
   truth for all of the above, used by the exactness pins.
-
-The service handlers are not ported yet (ROADMAP A10).
+- **Service handlers** (``handlers.py``) — the three types as
+  ``submit()``-able requests on a
+  :class:`~tnc_tpu_torch.serve.service.ContractionService` mixed queue
+  with per-type batching keys.
 """
 
 from tnc_tpu_torch.queries.expectation import (  # noqa: F401
@@ -26,6 +28,12 @@ from tnc_tpu_torch.queries.expectation import (  # noqa: F401
     pauli_expectation,
     pauli_expectation_value_and_grad,
     pauli_sum_expectation,
+)
+from tnc_tpu_torch.queries.handlers import (  # noqa: F401
+    ExpectationQueryHandler,
+    MarginalQueryHandler,
+    SampleQueryHandler,
+    attach_query_handlers,
 )
 from tnc_tpu_torch.queries.marginal import (  # noqa: F401
     bind_marginal,

@@ -179,10 +179,9 @@ def bind_expectation(
     target_size: float | None = None,
 ) -> ExpectationProgram:
     """Plan the observable-placeholder sandwich of ``circuit``
-    (consumed — finalizer semantics; ``copy()`` first to keep it).
-    ``plan_cache`` is not ported yet
-    (:func:`~tnc_tpu_torch.serve.rebind.bind_template` raises
-    ``NotImplementedError``)."""
+    (consumed — finalizer semantics; ``copy()`` first to keep it). A
+    ``plan_cache`` hit plans nothing
+    (:func:`~tnc_tpu_torch.serve.rebind.bind_template`)."""
     from tnc_tpu_torch.serve.rebind import bind_template
 
     template = circuit.into_sandwich_template("p" * circuit.num_qubits())

@@ -54,8 +54,8 @@ def bind_marginal(
     """Plan/compile the marginal sandwich for one wildcard ``mask``
     (``'?'``/``'*'`` per qubit; ``circuit`` consumed). Returns the
     :class:`~tnc_tpu_torch.serve.rebind.BoundProgram`; each query rebinds
-    the determined positions' bras. ``plan_cache`` is not ported yet
-    (:func:`~tnc_tpu_torch.serve.rebind.bind_template` raises)."""
+    the determined positions' bras; a ``plan_cache`` hit plans nothing
+    (:func:`~tnc_tpu_torch.serve.rebind.bind_template`)."""
     from tnc_tpu_torch.serve.rebind import bind_template
 
     template = circuit.into_sandwich_template(mask)

@@ -51,8 +51,8 @@ class ChainSampler:
     The constructor copies ``circuit`` (it stays usable); marginal
     structures bind lazily, one per prefix length. ``backend=None`` is
     ``TorchBackend()`` on the card, which raises without CUDA (the
-    reference takes its complex128 ``NumpyBackend``); ``plan_cache`` is not
-    ported yet (binding raises).
+    reference takes its complex128 ``NumpyBackend``); ``plan_cache`` and
+    ``target_size`` flow into every prefix structure's planning.
 
     >>> from tnc_tpu_torch.ops.backends import NumpyBackend
     >>> from tnc_tpu_torch.tensornetwork.tensordata import TensorData

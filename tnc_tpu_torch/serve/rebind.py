@@ -26,11 +26,18 @@ batch leg, and each dispatch is one of:
 - ``loop`` — any other backend: one ``execute`` per request.
 
 :data:`DISPATCH` counts the dispatches by mode.
+
+A :class:`~tnc_tpu_torch.serve.plancache.PlanCache` makes a repeat
+structure load its path from disk with zero pathfinding; an
+:class:`~tnc_tpu_torch.serve.reuse.IntermediateStore` splits the bound
+program into cached, content-addressed subtrees and a per-request
+residual (:func:`bind_template`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import logging
+from dataclasses import dataclass, field
 from typing import Any, Iterable, Sequence
 
 import numpy as np
@@ -41,11 +48,11 @@ from tnc_tpu_torch.ops.batched import stacked_rows, thread_batch
 from tnc_tpu_torch.ops.program import ContractionProgram, build_program, flat_leaf_tensors
 from tnc_tpu_torch.ops.sliced import build_sliced_program
 
+logger = logging.getLogger(__name__)
+
 #: dispatches of :meth:`BoundProgram.amplitudes_det`, by mode (``threaded``,
 #: ``batched``, ``sliced``, ``loop``)
 DISPATCH: dict[str, int] = {}
-
-_LATER = "ROADMAP A10 (serving hooks and resilience)"
 
 
 def reset_dispatch() -> None:
@@ -96,15 +103,30 @@ class BoundProgram:
     bra_slots: tuple[int, ...]  # one per determined qubit, qubit order
     batch_flags: tuple[tuple[bool, bool], ...]
     threadable: bool  # batch leg threads through every touched step
-    # the budget this structure was planned under
+    plan: dict = field(default_factory=dict)  # plan-cache record (if any)
+    # the budget this structure was planned under (part of the cache key)
     target_size: float | None = None
     # a structure over its budget carries a sliced plan: each request runs
     # the slice loop (stacked dispatch; the batch leg stops here)
     sliced: Any = None  # SlicedProgram | None
+    # cross-request reuse (bind_template(..., reuse_store=)): `program` is
+    # then the per-request RESIDUAL and the cached-subtree inputs are
+    # materialized per backend environment from the content-addressed
+    # store (tnc_tpu_torch.serve.reuse)
+    reuse: Any = None  # ReuseBinding | None
 
     @property
     def result_shape(self) -> tuple[int, ...]:
         return tuple(self.program.result_shape)
+
+    def _serving_arrays(self, backend) -> list[np.ndarray]:
+        """The request-invariant input arrays for ``backend``: the bound
+        leaf data, or — under cross-request reuse — the residual's inputs
+        with cached subtrees materialized (store-first) for this
+        backend's numeric environment."""
+        if self.reuse is None:
+            return self.arrays
+        return self.reuse.arrays_for(backend)
 
     def _batch_buffers(
         self, batch_bits: Sequence[str], arrays: Sequence[np.ndarray]
@@ -150,9 +172,12 @@ class BoundProgram:
         ``slice_range=(lo, hi)`` (sliced structures only): each request's
         amplitude is the **partial sum** over that contiguous slice shard.
 
-        ``ckpt`` / ``on_slice`` (slice checkpoints and preemption) are
-        dropped on a backend without ``supports_slice_hooks``, as in the
-        reference; no backend of the port has them yet (ROADMAP A10)."""
+        ``ckpt`` / ``on_slice`` (sliced structures, backends with
+        ``supports_slice_hooks``: :class:`~tnc_tpu_torch.ops.backends.
+        NumpyBackend`): slice-boundary checkpointing and cooperative
+        preemption. Dropped on a backend without the hooks, as in the
+        reference; a ``TorchBackend`` checkpoints its sliced runs through
+        ``TNC_TPU_CKPT`` instead."""
         if backend is None:
             backend = TorchBackend()
         if slice_range is not None and self.sliced is None:
@@ -165,7 +190,7 @@ class BoundProgram:
             on_slice = None
         if not batch_bits:
             return np.zeros((0,) + self.result_shape, dtype=np.complex128)
-        arrays = self.arrays
+        arrays = self._serving_arrays(backend)
         kw = {} if slice_range is None else {"slice_range": slice_range}
         if ckpt is not None:
             kw["ckpt"] = ckpt
@@ -212,8 +237,13 @@ class BoundProgram:
 
 
 def plan_signature(bound: BoundProgram) -> str:
-    """The *plan* identity of a bound structure: its program's
-    :meth:`~tnc_tpu_torch.ops.program.ContractionProgram.signature_digest`."""
+    """The *plan* identity of a bound structure: the pre-split program's
+    :meth:`~tnc_tpu_torch.ops.program.ContractionProgram.signature_digest`.
+    Under cross-request reuse ``bound.program`` is the residual, whose
+    signature depends on the store split, so the identity comes from the
+    reuse binding."""
+    if bound.reuse is not None:
+        return bound.reuse.cold_signature
     return bound.program.signature_digest()
 
 
@@ -266,27 +296,109 @@ def bind_template(
     target_size: float | None = None,
     reuse_store=None,
 ) -> BoundProgram:
-    """Plan ``template`` and compile it into a :class:`BoundProgram`.
+    """Plan (or load a cached plan for) ``template`` and compile it into
+    a :class:`BoundProgram`.
+
+    With a :class:`~tnc_tpu_torch.serve.plancache.PlanCache`, a repeat
+    structure loads its path from disk and performs **zero pathfinding**;
+    a cached plan whose rebuilt program (or sliced program) no longer
+    matches the signature it was stored with, or that does not rebuild,
+    is dropped and the structure replanned.
 
     ``target_size``: peak-intermediate budget (elements). When the
     planned path exceeds it, the structure is sliced
-    (``slice_and_reconfigure``) and serving runs the slice loop per
-    request.
+    (``slice_and_reconfigure``) and the slicing + hoist split persist
+    in the plan record; serving then runs the slice loop per request.
 
-    ``plan_cache`` and ``reuse_store`` (the plan cache and cross-request
-    reuse) are not ported yet: passing either raises
-    ``NotImplementedError``.
+    ``reuse_store``: an :class:`~tnc_tpu_torch.serve.reuse.IntermediateStore`
+    — the bound program is split into content-addressed cached subtrees
+    plus a per-request residual (:func:`~tnc_tpu_torch.serve.reuse.
+    compute_split`); value-identical subtrees are contracted once
+    store-wide and reloaded by every later binding. On the numpy backend
+    results stay bit-identical to the cold path.
     """
-    if plan_cache is not None:
-        raise NotImplementedError(f"bind_template(plan_cache=...) waits for {_LATER}")
-    if reuse_store is not None:
-        raise NotImplementedError(f"bind_template(reuse_store=...) waits for {_LATER}")
+    from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+
     tn = template.network
     leaves = flat_leaf_tensors(tn)
     n_det = len(template.determined)
     bra_slots = tuple(range(len(leaves) - n_det, len(leaves)))
-    _, _, program, sliced, _ = plan_structure(tn, pathfinder, target_size)
+
+    plan: dict = {}
+    key = None
+    pairs = None
+    if plan_cache is not None:
+        # the budget is part of the key: a plan cached without (or with a
+        # different) target_size must not answer this lookup
+        key = plan_cache.key_for_network(tn, target_size)
+        plan = plan_cache.load(key) or {}
+        pairs = plan.get("pairs")
+    if pairs is None:
+        path, slicing, program, sliced, result = plan_structure(
+            tn, pathfinder, target_size
+        )
+        if plan_cache is not None:
+            plan = plan_cache.record_for(
+                path,
+                program,
+                slicing=slicing,
+                sliced_program=sliced,
+                flops=result.flops,
+                peak=result.size,
+                finder=(
+                    type(pathfinder).__name__
+                    if pathfinder is not None
+                    else "Greedy"
+                ),
+                target_size=target_size,
+            )
+            plan_cache.store(key, plan)
+    else:
+        try:
+            path = ContractionPath.from_obj(pairs)
+            slicing = plan_cache.plan_slicing(plan)
+            program = build_program(tn, path)
+            valid = plan_cache.validate(plan, program)
+            sliced = (
+                build_sliced_program(tn, path, slicing)
+                if valid and slicing is not None and slicing.num_slices > 1
+                else None
+            )
+            if sliced is not None and plan.get("sliced_sig") not in (
+                None, sliced.signature_digest()
+            ):
+                # the sliced compilation drifted from what the plan was
+                # stored with
+                valid = False
+        except Exception as exc:  # noqa: BLE001 — any bad entry → replan
+            # valid JSON but semantically corrupt (out-of-range pairs,
+            # planner drift): degrade to a replan, never raise — and never
+            # leave the poison pill on disk
+            logger.warning(
+                "cached plan %s does not rebuild (%s: %s); replanning",
+                key, type(exc).__name__, exc,
+            )
+            valid = False
+        if not valid:
+            plan_cache.invalidate(key)
+            return bind_template(
+                template, pathfinder, plan_cache, target_size, reuse_store
+            )
+
     arrays = [leaf.data.into_data() for leaf in leaves]
+    reuse = None
+    if reuse_store is not None and bra_slots:
+        from tnc_tpu_torch.serve.reuse import ReuseBinding, compute_split
+
+        split = compute_split(program, arrays, bra_slots, sliced=sliced)
+        if split is not None:
+            reuse = ReuseBinding(
+                split, reuse_store, arrays, program.signature_digest()
+            )
+            program = split.residual
+            sliced = split.residual_sliced
+            bra_slots = split.bra_slots
+            arrays = split.placeholder_arrays(reuse.base_arrays)
     flags, threadable = thread_batch(program, bra_slots)
     return BoundProgram(
         template=template,
@@ -295,8 +407,10 @@ def bind_template(
         bra_slots=bra_slots,
         batch_flags=flags,
         threadable=threadable,
+        plan=plan,
         sliced=sliced,
         target_size=target_size,
+        reuse=reuse,
     )
 
 
