@@ -98,7 +98,7 @@ Phases, each of which raises on failure (nothing is caught):
    reference's plan; the default path's plan (prelude, residual chunks,
    modes, chains, batch, modeled peak) and the transpose gate's count;
    each chain of the first batch held against its plain version; the
-   first 64 of its 4096 slices (``NORTHSTAR_RUN``; all of them take ~11
+   first 32 of its 4096 slices (``NORTHSTAR_RUN``; all of them take ~11
    minutes) through ``TorchBackend().execute_sliced`` (a warm-up batch,
    three timed runs), the device-resident part, the prelude apart and a
    profile of one batch; slices 0-15 one by one and the sum of the
@@ -208,7 +208,28 @@ Phases, each of which raises on failure (nothing is caught):
    config #4's circuit with ``approx=True`` (``chi_cap`` 8): the exact
    ⟨Z…Z⟩, ``rtol=1e-2`` met by the ladder with an honest error bar,
    ``rtol=1e-7`` escalated at the ``COMPLEX64_ERR_REL`` floor;
-15. one JSON line of path numbers (with each kernel's per-shape rows,
+15. the in-process serving planes: phase 14's Sycamore-53 rows served with
+   the background replanner (its bounded ``Hyperoptimizer`` swapping the
+   Greedy plan, both predicted costs printed), the shared-cache watcher,
+   the telemetry endpoint (``/metrics`` and ``/healthz`` scraped over
+   loopback during a round, the completed count that of ``stats()``), the
+   SLO engine (no burn alert until a ``slow`` ``serve.dispatch`` fault
+   longer than the budget, 5x round 0's median latency, then one in
+   ``stats()["slo"]`` and on ``/slo``), the cost-truth loop (a manual
+   refit published to a ``ModelRegistry`` and adopted, ``policy_key()``
+   unchanged), a round under ``maybe_jax_profiler_trace`` (a non-empty
+   torch trace) and the Chrome trace exported at the end (its rollup counts
+   every request); a second service picking the swapped plan up through
+   ``SharedCacheWatcher.poll_once``; phase 12's all-zeros amplitude at
+   2^26 through ``execute_sliced_resilient`` on the per-slice loop under a
+   memory cap below its modeled peak (a real CUDA OOM, a replan to a
+   slicing that fits, the allocated memory back where it was, the
+   amplitude within 1e-5 relative of complex128), then its fallback rung
+   (an injected ``oom``, the chunked executor at batch 1);
+   ``sycamore_circuit(20, 8)`` with ``plansvc=True``, a round before and a
+   round after the pod's merge swaps the plan. Every answer is held to
+   complex128 and every ``fused_chain`` launch to its plain version;
+16. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -230,7 +251,9 @@ alone, and ends with its JSON record and the card line.
 (its rungs then have no fitted model to be priced by), and ends with its
 JSON record and the card line. ``python3 chip_smoke.py --serve`` builds the
 kernels and runs phase 14 alone, and ends with its JSON record and the card
-line.
+line. ``python3 chip_smoke.py --planes`` builds the kernels and runs phase 15
+alone (its complex128 references made through the swapped plan), and ends
+with its JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -279,10 +302,10 @@ NORTHSTAR_QUALITY = 1.25
 NORTHSTAR_PARITY = 16  # slices held one by one (the reference bench's parity_slices)
 NORTHSTAR_CHECK_S = 60.0  # complex128 of every slice if it takes at most this,
 NORTHSTAR_CHECK_FEW = 256  # else of this many
-# the slices phase 10 contracts, 8 batches of 8: all 4096 take ~11 min on the card,
-# more than this script's time allows; `python3 chip_smoke.py --northstar-full`
-# contracts them all
-NORTHSTAR_RUN = 64
+# the slices phase 10 contracts, 4 batches of 8: all 4096 take ~11 min on the card,
+# more than this script's time allows (32, not 64, since phase 15 needs the room);
+# `python3 chip_smoke.py --northstar-full` contracts them all
+NORTHSTAR_RUN = 32
 # the square FP32 split products the Strassen crossover is timed at (phase 11)
 STRASSEN_SIZES = (1024, 2048, 4096, 8192)
 # the batched sweep (phase 12): a Sycamore amplitude network (qubits, depth, rng
@@ -334,6 +357,21 @@ APPROX_PROFILE_CHI = 64  # the 8x8 rung profiled for the card's busy share
 SERVE_ROUNDS = 8
 SERVE_BATCH = 8
 CKPT_TARGET = 21
+# phase 15: the in-process serving planes. The SLO objective's budget is
+# PLANES_SLO_FACTOR times round 0's median latency; the watcher's replica
+# serves round PLANES_ROUNDS of phase 14's rows; the plansvc cell plans phase
+# 14's mixed circuit under 2^PLANSVC_TARGET elements (above its Greedy peak,
+# 2^16.6, so that its plans stay unsliced) with PLANSVC_TRIALS trials; the
+# degrade cell caps the card's memory at DEGRADE_CAP of its program's modeled
+# peak above what the allocator holds, holds the amplitude to DEGRADE_REL of
+# complex128 and the memory after the ladder to DEGRADE_SLACK bytes of before
+PLANES_ROUNDS = 4
+PLANES_SLO_FACTOR = 5.0
+PLANSVC_TARGET = 17
+PLANSVC_TRIALS = 6
+DEGRADE_CAP = 0.9
+DEGRADE_REL = 1e-5
+DEGRADE_SLACK = 64 << 20
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -3735,17 +3773,18 @@ def round_bits(rows: list[str], r: int) -> list[str]:
     return [unique[0]] + unique
 
 
-def hold_amps(label: str, got, bits, refs: dict) -> float:
+def hold_amps(label: str, got, bits, refs: dict, tol: float = 1e-4) -> float:
     """Each amplitude of ``bits`` against its complex128 reference within
-    1e-4 max|ref| (phase 12's gate); returns max|amp - ref|."""
+    ``tol`` max|ref| (phase 12's gate 1e-4 by default); returns
+    max|amp - ref|."""
     want = np.array([refs[b] for b in bits])
     got = np.asarray(got, dtype=np.complex128)
     check(got.shape == want.shape and np.all(np.isfinite(got)),
           f"{label}: answers of shape {got.shape} or non-finite")
     err = float(np.max(np.abs(got - want)))
     scale = float(np.max(np.abs(want)))
-    check(err <= 1e-4 * scale, f"{label}: an amplitude is off complex128 by {err} "
-                               f"(gate 1e-4 x {scale})")
+    check(err <= tol * scale, f"{label}: an amplitude is off complex128 by {err} "
+                              f"(gate {tol:g} x {scale})")
     return err
 
 
@@ -4390,6 +4429,618 @@ def run_serve() -> dict:
           "phase 14: a cell's held launches differ from its count")
     record = {**syc["record"], **{k: cell["record"] for k, cell in cells.items()},
               "seconds": seconds}
+    return {"record": record, "chain_launches": launches, "chain_rows": rows,
+            "refs": syc["refs"]}
+
+
+# --- phase 15: the in-process serving planes ----------------------------------
+
+
+def http_get(url: str) -> bytes:
+    """One GET over loopback (the service's telemetry endpoint)."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.read()
+
+
+def rung_times(attempts: list) -> list:
+    """The seconds of each rung of one ladder call from its attempts (each
+    ``{"outcome", "slices", "t0", "t1", "launches"}``): every attempt's run,
+    and the replan between a failed attempt and the next."""
+    out = []
+    for i, a in enumerate(attempts):
+        if i:
+            out.append({"rung": "replan", "s": a["t0"] - attempts[i - 1]["t1"]})
+        out.append({"rung": a["outcome"], "slices": a["slices"], "s": a["t1"] - a["t0"],
+                    "launches": a["launches"]})
+    return out
+
+
+def hold_one_slice(label: str, backend, sp, arrays, rows: list) -> None:
+    """Each distinct chain of one slice (or batch of one) of ``sp`` held
+    against its plain version: slice 0 run eagerly on ``backend`` with
+    every ``run_chain_split`` held, each row weighing the launches one
+    slice makes at its operands, then weighed by the slices of the
+    sliced run (every slice launches the same chains)."""
+    fresh: list = []
+    with held_chains(label, fresh, {}, 1):
+        backend.execute_sliced(sp, arrays, max_slices=1, graphs=False)
+    for r in fresh:
+        r["launches"] *= sp.slicing.num_slices
+    rows += fresh
+
+
+def run_planes_serve(rows: list[str], refs: dict | None, meanwhile=None) -> dict:
+    """Phase 15 (a): ``sycamore53_m8_planes``. Phase 14's Sycamore-53 rows
+    served by ``ContractionService.from_circuit(sycamore_circuit(53, 8, rng
+    42), plan_cache=<tmp>, background_replan=True, shared_cache_watch=True,
+    telemetry_port=0, cost_truth=True, slo=...)`` on one ``TorchBackend()``
+    with ``TNC_TPU_TRACE`` naming a file: a warm-up round holding the Greedy
+    plan's chains, round 0, then ``meanwhile()`` (another cell's card work,
+    the service idle) while the replanner searches on the host; its swap
+    (the reference's margin 0.95 and its bounded ``Hyperoptimizer``; both
+    predicted costs printed) adopted by a round that holds the swapped
+    plan's chains at the rounds' batch, the SLO budget set to ``PLANES_SLO_FACTOR``
+    times round 0's median latency, round 1 under
+    ``maybe_jax_profiler_trace`` (``TNC_TPU_TRACE_JAX``: a non-empty torch
+    trace), round 2 while ``/metrics`` and ``/healthz`` are scraped over
+    loopback (the last scrape's completed count is ``stats()``'s), no burn
+    alert after rounds 1 and 2, round 3 under a ``slow`` ``serve.dispatch``
+    fault longer than the budget (a burn alert in ``stats()["slo"]`` and on
+    ``/slo``); then ``maybe_refit(trigger="manual")`` publishes a generation
+    to a temporary ``ModelRegistry``, one request adopts it, and
+    ``backend.policy_key()`` is unchanged; the exported Chrome trace rolls
+    up to every request served; a second service on the same cache
+    directory picks the swapped plan up through
+    ``SharedCacheWatcher.poll_once`` and serves one round. Every answer
+    within ``F32_REL_TOL`` max|ref| of complex128 (phase 14's references,
+    or made here through the swapped plan); every ``fused_chain`` launch on
+    a held chain."""
+    import tempfile
+    import threading
+
+    from tnc_tpu_torch import obs
+    from tnc_tpu_torch.contractionpath.contraction_cost import FlopsObjective
+    from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+    from tnc_tpu_torch.obs import core
+    from tnc_tpu_torch.obs.cost_truth import CostTruthConfig, ModelRegistry
+    from tnc_tpu_torch.obs.export import (
+        export_chrome_trace,
+        load_trace_events,
+        serve_trace_rollup,
+    )
+    from tnc_tpu_torch.obs.http import parse_prometheus, wait_port_released
+    from tnc_tpu_torch.obs.slo import BurnWindow, LatencyObjective, SLOConfig
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors, steps_flops
+    from tnc_tpu_torch.resilience import faults
+    from tnc_tpu_torch.serve import ContractionService, PlanCache
+    from tnc_tpu_torch.serve.rebind import plan_signature
+    from tnc_tpu_torch.serve.replan import SharedCacheWatcher, plan_predicted_cost
+
+    qubits, depth, _ = SWEEP
+    label = f"sycamore{qubits}_m{depth}_planes"
+    held, seen = [], {}
+    served: list = []  # (bits, answers) of every request, held at the end
+    saved = (core._ENABLED, core._REGISTRY, core._TRACE_PATH)
+    tmp = tempfile.TemporaryDirectory()
+    trace_file = os.path.join(tmp.name, "trace.json")
+    prof_dir = os.path.join(tmp.name, "profile")
+    cache_dir = os.path.join(tmp.name, "plans")
+    registry_dir = os.path.join(tmp.name, "models")
+    os.environ["TNC_TPU_TRACE"] = trace_file
+    core._REGISTRY = core.MetricsRegistry()
+    obs.refresh_from_env()
+    svc = svc2 = None
+    try:
+        check(obs.enabled() and obs.trace_path() == trace_file,
+              f"{label}: TNC_TPU_TRACE={trace_file} did not arm the trace export")
+        backend = TorchBackend()
+        t0 = time.perf_counter()
+        svc = ContractionService.from_circuit(
+            sycamore(SWEEP), backend=backend, plan_cache=PlanCache(cache_dir),
+            max_batch=SERVE_BATCH, max_wait_ms=20, background_replan=True,
+            shared_cache_watch=True, telemetry_port=0, cost_truth=True,
+            cost_truth_options={"registry": registry_dir, "config": CostTruthConfig(
+                refit_min_samples=2, refit_cooldown_s=0.0)},
+            # an objective no request misses until round 0 sets the budget
+            slo=SLOConfig(objectives=(LatencyObjective("amplitude", 3600.0, 0.9),)))
+        bind_s = time.perf_counter() - t0
+        greedy = svc.bound
+        url = svc._telemetry.url
+        # a second replica on the same cache directory, its watcher polled by hand
+        svc2 = ContractionService.from_circuit(
+            sycamore(SWEEP), backend=backend, plan_cache=PlanCache(cache_dir),
+            max_batch=SERVE_BATCH, max_wait_ms=20)
+        watcher = SharedCacheWatcher(svc2, svc2._plan_cache)
+        check(plan_signature(svc2.bound) == plan_signature(greedy),
+              f"{label}: the second service did not load the first's Greedy plan")
+        submitted = 0
+
+        def serve_round(service, bits):
+            nonlocal submitted
+            if service is svc:
+                submitted += len(bits)
+            got = submit_round(service, [lambda s, b=b: s.submit(b) for b in bits])
+            check(not any(isinstance(a, Exception) for a in got),
+                  f"{label}: a request failed: {[a for a in got if isinstance(a, Exception)][:1]}")
+            served.append((bits, got))
+            return got
+
+        # a warm-up round holds the Greedy plan's chains (launches 0)
+        with held_chains(label, held, seen, 0):
+            serve_round(svc, round_bits(rows, 0))
+        reset_launches()
+        svc.reset_stats()
+        with held_chains(label, held, seen, 1):
+            t0 = time.perf_counter()
+            serve_round(svc, round_bits(rows, 0))
+            round0_s = time.perf_counter() - t0
+        round0 = svc.stats()["latency_s"]
+        budget = PLANES_SLO_FACTOR * round0["p50"]
+
+        # the replanner searches on the host while the queue is empty; the
+        # card meanwhile runs another cell (the dispatcher stays idle)
+        replanner = svc._replanner
+        t0 = time.perf_counter()
+        counted = dict(LAUNCHES)  # the other cell counts its own launches
+        meanwhile_out = meanwhile() if meanwhile is not None else None
+        LAUNCHES.update(counted)
+        meanwhile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while replanner.stats["swaps"] + replanner.stats["rejects"] < 1:
+            check(time.perf_counter() - t0 < 600, f"{label}: no replan verdict in 600 s")
+            time.sleep(0.05)
+        verdict_wait_s = time.perf_counter() - t0
+        rstats = dict(replanner.stats)
+        check(rstats["swaps"] == 1, f"{label}: the replanner did not swap: {rstats}")
+        cache = svc._plan_cache
+        key = cache.key_for_network(greedy.template.network, greedy.target_size)
+        swapped_plan = cache.load(key)
+        leaves = flat_leaf_tensors(greedy.template.network)
+
+        def cost(record):
+            return plan_predicted_cost(
+                leaves, ContractionPath.from_obj(record["pairs"]).toplevel,
+                cache.plan_slicing(record), FlopsObjective())
+
+        greedy_cost, swapped_cost = cost(greedy.plan), cost(swapped_plan)
+        check(swapped_plan.get("finder") == "Hyperoptimizer"
+              and swapped_cost < replanner.margin * greedy_cost,
+              f"{label}: the cached plan ({swapped_plan.get('finder')}) costs {swapped_cost:.4e} "
+              f"against Greedy's {greedy_cost:.4e}")
+        # a round adopts the swap at its batch boundary and holds the swapped
+        # plan's chains at the batch the later rounds run
+        with held_chains(label, held, seen, 1):
+            serve_round(svc, round_bits(rows, 0))
+        swapped = svc.bound
+        check(svc.stats()["counts"]["plan_swaps"] >= 1 and swapped is not greedy
+              and swapped.plan.get("finder") == "Hyperoptimizer",
+              f"{label}: the swap was not adopted ({svc.stats()['counts']})")
+        swapped_flops = steps_flops(swapped.program.steps)
+
+        # the objective: round 0's median latency times PLANES_SLO_FACTOR
+        svc.attach_slo(SLOConfig(
+            objectives=(LatencyObjective("amplitude", budget, target=0.9),),
+            windows=(BurnWindow(60.0, 120.0, 2.0),), min_requests=SERVE_BATCH))
+        # round 1 under the torch profiler
+        os.environ["TNC_TPU_TRACE_JAX"] = prof_dir
+        round_s = []
+        try:
+            with held_chains(label, held, seen, 1):
+                with obs.maybe_jax_profiler_trace() as prof:
+                    t0 = time.perf_counter()
+                    serve_round(svc, round_bits(rows, 1))
+                    round_s.append(time.perf_counter() - t0)
+        finally:
+            del os.environ["TNC_TPU_TRACE_JAX"]
+        prof_events = 0
+        if prof.path is not None:
+            with open(prof.path, encoding="utf-8") as fh:
+                doc = json.load(fh)
+            prof_events = len(doc.get("traceEvents", doc) if isinstance(doc, dict) else doc)
+        check(prof.path is not None and prof_events > 0,
+              f"{label}: the profiler wrote {prof.path} with {prof_events} events")
+        alerts1 = svc.stats()["slo"]["alerts"]
+        # round 2 while /metrics and /healthz are scraped
+        scrapes: list = []
+        done = threading.Event()
+
+        def scrape():
+            while not done.is_set():
+                scrapes.append((http_get(f"{url}/metrics").decode(),
+                                json.loads(http_get(f"{url}/healthz"))))
+                done.wait(0.05)
+
+        scraper = threading.Thread(target=scrape)
+        scraper.start()
+        try:
+            with held_chains(label, held, seen, 1):
+                t0 = time.perf_counter()
+                serve_round(svc, round_bits(rows, 2))
+                round_s.append(time.perf_counter() - t0)
+        finally:
+            done.set()
+            scraper.join(timeout=60)
+        last = parse_prometheus(http_get(f"{url}/metrics").decode())
+        health = json.loads(http_get(f"{url}/healthz"))
+        completed = svc.stats()["counts"]["completed"]
+        scraped = last.get('tnc_tpu_serve_requests_total{outcome="completed"}')
+        check(scrapes and all(h["status"] == "ok" for _, h in scrapes) and health["status"] == "ok",
+              f"{label}: {len(scrapes)} scrapes during round 2, health {health}")
+        check(scraped == completed, f"{label}: /metrics says {scraped} completed, "
+                                    f"stats() {completed}")
+        alerts2 = svc.stats()["slo"]["alerts"]
+        check(not alerts1 and not alerts2,
+              f"{label}: burn alerts before the slow round (rounds 1, 2 took {round_s} s, "
+              f"budget {budget:.4f} s): {alerts1} {alerts2}")
+        # round 3 under a serve.dispatch fault slower than the budget
+        slow_s = budget + 0.5
+        with held_chains(label, held, seen, 1), faults(f"serve.dispatch=slow:{slow_s:.3f}*1"):
+            t0 = time.perf_counter()
+            serve_round(svc, round_bits(rows, 3))
+            round_s.append(time.perf_counter() - t0)
+        slo_stats = svc.stats()["slo"]
+        slo_http = json.loads(http_get(f"{url}/slo"))
+        check(any(a["kind"] == "burn" for a in slo_stats["alerts"])
+              and any(a["kind"] == "burn" for a in slo_http["alerts"]),
+              f"{label}: no burn alert after the slow round: {slo_stats['alerts']}, "
+              f"/slo {slo_http.get('alerts')}")
+        burn = slo_stats["objectives"][0]["windows"][0]
+
+        # the cost-truth loop: a manual refit, adopted at the next batch boundary
+        key_before = backend.policy_key()
+        ct = svc._cost_truth
+        refitted = ct.maybe_refit(trigger="manual")
+        pending = ct.stats()["pending_version"]
+        check(refitted and pending is not None,
+              f"{label}: the manual refit staged nothing: {ct.stats()['last_refit']}")
+        with held_chains(label, held, seen, 1):
+            serve_round(svc, [rows[1]])
+        cal = svc.stats()["calibration"]
+        published = ModelRegistry(registry_dir).latest()
+        key_after = backend.policy_key()
+        check(cal["model_version"] == pending and svc.cost_model is ct.model
+              and published is not None and published[0] == pending,
+              f"{label}: generation {pending} not adopted ({cal['model_version']}, "
+              f"registry {published and published[0]})")
+        check(key_before == key_after,
+              f"{label}: policy_key moved across the adoption: {key_before} -> {key_after}")
+        telemetry_port = svc._telemetry.port
+        final = svc.stats()
+        svc.stop()
+        check(wait_port_released("127.0.0.1", telemetry_port),
+              f"{label}: the telemetry port {telemetry_port} is still bound")
+        check(final["counts"]["failed"] == 0, f"{label}: {final['counts']['failed']} failed")
+
+        # the trace: every request of the first service rolls up
+        export_chrome_trace(trace_file)
+        rollup = serve_trace_rollup(load_trace_events(trace_file))
+        check(len(rollup["requests"]) == submitted,
+              f"{label}: the trace rolls up {len(rollup['requests'])} requests of {submitted}")
+
+        # the second replica adopts the swapped plan through its watcher
+        adopted = watcher.poll_once()
+        check(adopted, f"{label}: the watcher did not pick the swapped plan up")
+        with held_chains(label, held, seen, 1):
+            serve_round(svc2, round_bits(rows, PLANES_ROUNDS))
+        check(svc2.stats()["counts"]["plan_swaps"] == 1
+              and plan_signature(svc2.bound) == plan_signature(swapped),
+              f"{label}: the second service serves {svc2.bound.plan.get('finder')}")
+        svc2.stop()
+        launches = LAUNCHES["fused_chain"]
+        check_held(label, held, launches)
+    finally:
+        for service in (svc, svc2):
+            if service is not None:
+                service.stop()
+        core._ENABLED, core._REGISTRY, core._TRACE_PATH = saved
+        os.environ.pop("TNC_TPU_TRACE", None)
+        tmp.cleanup()
+
+    # every answer against complex128 (phase 14's, or through the swapped plan)
+    refs = dict(refs or {})
+    need = sorted({b for bits, _ in served for b in bits} | {"0" * qubits})
+    missing = [b for b in need if b not in refs]
+    if missing:
+        refs.update(complex128_amps(swapped, missing))
+    err = max(hold_amps(label, got, bits, refs, tol=F32_REL_TOL) for bits, got in served)
+    n_served = sum(len(bits) for bits, _ in served)
+    model = cal["model"]
+    print(f"[{label}] from_circuit {bind_s:.3f} s (Greedy, {len(greedy.program.steps)} steps); "
+          f"round 0 {round0_s:.3f} s, latency p50 {round0['p50']:.4f} s: budget "
+          f"{budget:.4f} s; {meanwhile_s:.2f} s of another cell, then the replan verdict "
+          f"{verdict_wait_s:.2f} s later: {rstats}; rounds 1-3 {[round(t, 3) for t in round_s]} s; "
+          f"predicted flops Greedy {greedy_cost:.4e}, Hyperoptimizer {swapped_cost:.4e} "
+          f"(margin {replanner.margin}); swapped program {swapped_flops:.4e} multiply-adds, "
+          f"{len(swapped.program.steps)} steps", flush=True)
+    print(f"[{label} slo] alerts after rounds 1, 2: {len(alerts1)}, {len(alerts2)}; round 3 "
+          f"slowed {slow_s:.3f} s: {[a['key'] for a in slo_stats['alerts']]} (burn "
+          f"{burn['burn_short']}/{burn['burn_long']}, /slo {len(slo_http['alerts'])} alerts); "
+          f"profiler round 1: {prof_events} events; {len(scrapes)} scrapes of /metrics and "
+          f"/healthz during round 2, completed {scraped} = stats() {completed}", flush=True)
+    print(f"[{label} cost truth] generation v{cal['model_version']} adopted: "
+          f"{model['flops_per_s']:.4e} multiply-adds/s, {model['dispatch_s']:.4e} s a step, "
+          f"bytes/s {model['bytes_per_s']}; policy_key unchanged {key_before == key_after}; "
+          f"counts {cal['counts']}", flush=True)
+    print(f"[{label} trace] {len(rollup['requests'])} requests rolled up, "
+          f"{rollup['attributed_share']:.4f} of {rollup['dispatch_wall_ms']:.2f} ms dispatch "
+          f"wall attributed; watcher adopted {adopted}; {n_served} answers, max|amp - "
+          f"complex128| {err:.3e}; fused_chain {launches} launches on {len(held)} held chains",
+          flush=True)
+    return {"launches": launches, "chain_rows": held, "zero_ref": refs["0" * qubits],
+            "meanwhile": meanwhile_out,
+            "record": {
+                "from_circuit_s": bind_s, "round0_s": round0_s, "round0_latency_s": round0,
+                "budget_s": budget, "meanwhile_s": meanwhile_s,
+                "replan_wait_s": verdict_wait_s, "replanner": rstats, "rounds_1_3_s": round_s,
+                "greedy_cost": greedy_cost, "swapped_cost": swapped_cost,
+                "margin": replanner.margin, "swapped_flops": swapped_flops,
+                "alerts_rounds_1_2": len(alerts1) + len(alerts2),
+                "alerts_round_3": [a["key"] for a in slo_stats["alerts"]], "burn": burn,
+                "profiler_events": prof_events, "scrapes": len(scrapes),
+                "scraped_completed": scraped, "stats_completed": completed,
+                "model_version": cal["model_version"], "model": model,
+                "cost_truth_counts": cal["counts"], "policy_key_unchanged": True,
+                "trace_requests": len(rollup["requests"]),
+                "attributed_share": rollup["attributed_share"],
+                "watcher_adopted": adopted, "answers": n_served, "max_abs_err": err,
+                "fused_chain_launches": launches}}
+
+
+def run_degrade() -> dict:
+    """Phase 15 (b): ``sycamore53_m8_degrade``. Phase 12's all-zeros
+    amplitude of ``sycamore_circuit(53, 8, rng 42)``: the raw network,
+    ``Greedy``, ``find_slicing`` to 2^``SWEEP_SLICED_TARGET``, through
+    ``execute_sliced_resilient`` on ``TorchBackend(sliced_strategy="loop",
+    hoist=False)`` with the card's memory capped
+    (``set_per_process_memory_fraction``) at what the allocator holds plus
+    ``DEGRADE_CAP`` of the program's modeled peak: a real
+    ``torch.cuda.OutOfMemoryError`` reaches the ladder, which replans finer
+    until the slicing fits; the cap restored however the call ends; the
+    allocated memory back within ``DEGRADE_SLACK`` of its level before; the
+    amplitude within ``DEGRADE_REL`` of complex128 (the unsliced path on the
+    card, ``TorchBackend(dtype="complex128", split_complex=False)``). Then
+    the fallback rung:
+    ``max_replans=0``, no cap, one injected ``oom`` at ``backend.dispatch``,
+    the chunked executor at batch 1, held the same way. Each rung's chains
+    held on slice 0's operands, weighed by its slices."""
+    import torch
+
+    from tnc_tpu_torch.contractionpath.slicing import find_slicing
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.budget import program_peak_bytes
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+    from tnc_tpu_torch.resilience import execute_sliced_resilient, faults
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    qubits, depth, _ = SWEEP
+    label = f"sycamore{qubits}_m{depth}_degrade"
+    tn, _ = sycamore(SWEEP).into_amplitude_network("0" * qubits)
+    path = plan(tn)
+    zero_ref = complex(contract_tensor_network(
+        tn, path, TorchBackend(dtype="complex128", split_complex=False)).data.into_data())
+    slicing = find_slicing(tn.tensors, path.toplevel, 2.0 ** SWEEP_SLICED_TARGET)
+    sp = build_sliced_program(tn, path, slicing)
+    modeled = program_peak_bytes(sp.program).peak_bytes
+    arrays = [np.asarray(leaf.data.into_data()) for leaf in flat_leaf_tensors(tn)]
+    backend = TorchBackend(sliced_strategy="loop", hoist=False)
+    real = backend.execute_sliced
+    attempts: list = []
+
+    def attempt(sp_, *args, **kwargs):
+        start = LAUNCHES["fused_chain"]
+        t0 = time.perf_counter()
+        try:
+            out = real(sp_, *args, **kwargs)
+        except BaseException as exc:
+            attempts.append({"outcome": type(exc).__name__, "slices": sp_.slicing.num_slices,
+                             "t0": t0, "t1": time.perf_counter(),
+                             "launches": LAUNCHES["fused_chain"] - start})
+            raise
+        attempts.append({"outcome": "ok", "slices": sp_.slicing.num_slices, "t0": t0,
+                         "t1": time.perf_counter(),
+                         "launches": LAUNCHES["fused_chain"] - start, "sp": sp_})
+        return out
+
+    backend.execute_sliced = attempt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = torch.cuda.memory_reserved() + DEGRADE_CAP * modeled
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        with obs_window() as obs:
+            t0 = time.perf_counter()
+            out, used = execute_sliced_resilient(tn, path, slicing, arrays=arrays,
+                                                 backend=backend)
+            wall = time.perf_counter() - t0
+            ladder = obs.counters_by_prefix("resilience.ladder")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    backend.execute_sliced = real
+    ok = attempts[-1]
+    check(attempts[0]["outcome"] == "OutOfMemoryError",
+          f"{label}: the first attempt ended {attempts[0]['outcome']}, not a CUDA OOM "
+          f"(cap {cap:.4e} bytes, modeled peak {modeled:.4e})")
+    check(ladder.get("resilience.ladder.replans", 0) >= 1 and ok["outcome"] == "ok",
+          f"{label}: ladder counters {ladder}, attempts {[a['outcome'] for a in attempts]}")
+    check(abs(after - before) <= DEGRADE_SLACK,
+          f"{label}: {after - before} bytes more allocated after the ladder than before")
+    amp = complex(np.asarray(out).reshape(-1)[0])
+    rel = abs(amp - zero_ref) / abs(zero_ref)
+    check(rel <= DEGRADE_REL, f"{label}: the amplitude is off complex128 by {rel:.3e} relative")
+    rows: list = []
+    hold_one_slice(label, backend, ok["sp"], arrays, rows)
+    check_held(label, rows, ok["launches"])
+    final_peak = program_peak_bytes(ok["sp"].program).peak_bytes
+
+    # the fallback rung: no replans, an injected oom, the chunked executor at batch 1
+    loop = TorchBackend(sliced_strategy="loop", hoist=False)
+    torch.cuda.empty_cache()
+    reset_launches()
+    with obs_window() as obs, faults("backend.dispatch=oom*1"):
+        t0 = time.perf_counter()
+        fb_out, fb_used = execute_sliced_resilient(tn, path, slicing, arrays=arrays,
+                                                   backend=loop, max_replans=0)
+        fb_s = time.perf_counter() - t0
+        fallback = obs.counters_by_prefix("resilience.ladder")
+    fb_launches = LAUNCHES["fused_chain"]
+    check(fallback == {"resilience.ladder.fallback_chunked": 1.0}
+          and fb_used.num_slices == slicing.num_slices,
+          f"{label}: the fallback rung gave {fallback}, {fb_used.num_slices} slices")
+    fb_amp = complex(np.asarray(fb_out).reshape(-1)[0])
+    fb_rel = abs(fb_amp - zero_ref) / abs(zero_ref)
+    check(fb_rel <= DEGRADE_REL, f"{label}: the fallback's amplitude is off by {fb_rel:.3e}")
+    fb_rows: list = []
+    hold_one_slice(f"{label} fallback",
+                   TorchBackend(sliced_strategy="chunked", slice_batch=1, hoist=False),
+                   sp, arrays, fb_rows)
+    check_held(f"{label} fallback", fb_rows, fb_launches)
+    rungs = rung_times(attempts)
+    print(f"[{label}] Greedy, find_slicing to 2^{SWEEP_SLICED_TARGET}: "
+          f"{slicing.num_slices} slices, modeled peak {modeled} bytes; memory capped at "
+          f"{cap:.4e} bytes ({DEGRADE_CAP} of the peak above {cap - DEGRADE_CAP * modeled:.4e} "
+          f"reserved): attempts {[(a['outcome'], a['slices']) for a in attempts]}, ladder "
+          f"{ladder}; rungs {[(r['rung'], round(r['s'], 3)) for r in rungs]}; final "
+          f"{used.num_slices} slices (legs {list(used.legs)}), modeled peak {final_peak} bytes; "
+          f"{wall:.3f} s, max_memory_allocated {peak} bytes; allocated {before} before, "
+          f"{after} after; amplitude {amp:.6e} against complex128 {zero_ref:.6e}: {rel:.3e} "
+          f"relative; fused_chain {ok['launches']} launches ({attempts[0]['launches']} in the "
+          f"failed attempt, not counted)", flush=True)
+    print(f"[{label} fallback] backend.dispatch oom, max_replans=0: {fallback}, chunked batch "
+          f"1 over {fb_used.num_slices} slices in {fb_s:.3f} s; {fb_rel:.3e} relative; "
+          f"fused_chain {fb_launches} launches", flush=True)
+    return {"launches": ok["launches"] + fb_launches, "chain_rows": rows + fb_rows,
+            "zero_ref": zero_ref, "record": {"slices": slicing.num_slices, "modeled_peak_bytes": modeled,
+                       "cap_bytes": cap, "attempts": [(a["outcome"], a["slices"])
+                                                      for a in attempts],
+                       "ladder": ladder, "rungs": rungs, "final_slices": used.num_slices,
+                       "final_modeled_peak_bytes": final_peak, "wall_s": wall,
+                       "peak_bytes": peak, "allocated_before": before,
+                       "allocated_after": after, "rel_err": rel,
+                       "fused_chain_launches": ok["launches"],
+                       "failed_attempt_launches": attempts[0]["launches"],
+                       "fallback": fallback, "fallback_s": fb_s, "fallback_rel_err": fb_rel,
+                       "fallback_fused_chain_launches": fb_launches}}
+
+
+def run_plansvc() -> dict:
+    """Phase 15 (c): ``sycamore20_m8_plansvc``. Phase 14's mixed circuit,
+    ``sycamore_circuit(20, 8, rng 42)``, served with ``plansvc=True`` on a
+    plan cache in a temporary directory under ``target_size=2**
+    PLANSVC_TARGET`` (above its Greedy peak: the plans stay unsliced) with
+    ``PLANSVC_TRIALS`` trials: one round of 8 amplitudes before the pod's
+    merge swaps the plan and one after, both against complex128 numpy
+    within ``F32_REL_TOL`` max|ref|; every chain held."""
+    import tempfile
+
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.serve import ContractionService, PlanCache
+    from tnc_tpu_torch.serve.rebind import plan_signature
+
+    qubits, depth, _ = QUERY
+    label = f"sycamore{qubits}_m{depth}_plansvc"
+    rng = np.random.default_rng(23)
+    bits = ["".join(str(int(b)) for b in r) for r in rng.integers(0, 2, (2 * SERVE_BATCH, qubits))]
+    held, seen = [], {}
+    reset_launches()
+    with tempfile.TemporaryDirectory() as cache_dir:
+        t0 = time.perf_counter()
+        svc = ContractionService.from_circuit(
+            sycamore(QUERY), backend=TorchBackend(), plan_cache=PlanCache(cache_dir),
+            target_size=2.0 ** PLANSVC_TARGET, max_batch=SERVE_BATCH, max_wait_ms=20,
+            plansvc=True, plansvc_options={"ntrials": PLANSVC_TRIALS})
+        try:
+            bind_s = time.perf_counter() - t0
+            greedy = svc.bound
+            with held_chains(label, held, seen, 1):
+                before = submit_round(svc, [lambda s, b=b: s.submit(b)
+                                            for b in bits[:SERVE_BATCH]])
+            swaps_before = svc.stats()["counts"]["plan_swaps"]
+            pod = svc._plansvc
+            t0 = time.perf_counter()
+            # the pod counts a merge as it starts it: wait for its verdict
+            while sum(pod.stats()["counts"][k] for k in ("swaps", "rejects",
+                                                           "merge_failures")) < 1:
+                check(time.perf_counter() - t0 < 600, f"{label}: no merge verdict in 600 s")
+                time.sleep(0.05)
+            merge_s = time.perf_counter() - t0
+            pod_stats = pod.stats()
+            check(pod_stats["counts"]["swaps"] == 1, f"{label}: the merge did not swap: {pod_stats}")
+            with held_chains(label, held, seen, 1):
+                after = submit_round(svc, [lambda s, b=b: s.submit(b)
+                                           for b in bits[SERVE_BATCH:]])
+            stats = svc.stats()
+            swapped = svc.bound
+        finally:
+            svc.stop()
+    check(swaps_before == 0 and stats["counts"]["plan_swaps"] == 1
+          and swapped.plan.get("finder") == "PlannerFleet"
+          and plan_signature(swapped) != plan_signature(greedy),
+          f"{label}: swaps {swaps_before} before the merge, {stats['counts']['plan_swaps']} "
+          f"after; serving {swapped.plan.get('finder')}")
+    launches = LAUNCHES["fused_chain"]
+    check_held(label, held, launches)
+    refs = dict(zip(bits, greedy.amplitudes(bits, NumpyBackend())))
+    err = max(hold_amps(f"{label} before", before, bits[:SERVE_BATCH], refs, tol=F32_REL_TOL),
+              hold_amps(f"{label} after", after, bits[SERVE_BATCH:], refs, tol=F32_REL_TOL))
+    print(f"[{label}] from_circuit {bind_s:.3f} s (Greedy, target 2^{PLANSVC_TARGET}); "
+          f"{PLANSVC_TRIALS} trials, merged {merge_s:.2f} s after the first round: role "
+          f"{pod_stats['role']}, counts {pod_stats['counts']}, board {pod_stats['board']}, best "
+          f"{pod_stats['best_cost']:.4e} multiply-adds ({pod_stats['best_delta']:.4f} below "
+          f"Greedy); swaps {swaps_before} -> {stats['counts']['plan_swaps']}; max|amp - "
+          f"complex128| {err:.3e}; fused_chain {launches} launches on {len(held)} held chains",
+          flush=True)
+    return {"launches": launches, "chain_rows": held, "record": {
+        "from_circuit_s": bind_s, "ntrials": PLANSVC_TRIALS, "target_log2": PLANSVC_TARGET,
+        "merge_s": merge_s, "pod": pod_stats, "plan_swaps": stats["counts"]["plan_swaps"],
+        "max_abs_err": err, "fused_chain_launches": launches}}
+
+
+def run_planes(refs: dict | None = None) -> dict:
+    """Phase 15: the in-process serving planes on the card
+    (:func:`run_planes_serve`, with :func:`run_degrade` run on the card while
+    its replanner searches on the host; :func:`run_plansvc`).
+    ``refs``: phase 14's complex128 amplitudes of its rows, if it ran."""
+    import torch
+
+    from tnc_tpu_torch.resilience import RetryPolicy, configure_retry
+
+    t0 = time.perf_counter()
+    configure_retry(RetryPolicy(max_attempts=3, base_delay_s=0.005))
+    try:
+        # the degradation ladder's cell runs while the replanner searches
+        planes = run_planes_serve(serve_rows(), refs, meanwhile=run_degrade)
+        degrade = planes["meanwhile"]
+        gap = abs(degrade["zero_ref"] - planes["zero_ref"])
+        check(gap <= 1e-10 * abs(planes["zero_ref"]),
+              f"phase 15: the two complex128 all-zeros amplitudes differ by {gap}")
+        torch.cuda.empty_cache()
+        plansvc = run_plansvc()
+        torch.cuda.empty_cache()
+    finally:
+        configure_retry(None)
+    seconds = time.perf_counter() - t0
+    print(f"[planes] phase 15 in {seconds:.1f} s", flush=True)
+    cells = {f"sycamore{SWEEP[0]}_m{SWEEP[1]}_planes": planes,
+             f"sycamore{SWEEP[0]}_m{SWEEP[1]}_degrade": degrade,
+             f"sycamore{QUERY[0]}_m{QUERY[1]}_plansvc": plansvc}
+    launches = {f"{k} (phase 15)": cell["launches"] for k, cell in cells.items()}
+    rows = {f"{k} (phase 15)": cell["chain_rows"] for k, cell in cells.items()}
+    check(all(sum(r["launches"] for r in rows[k]) == n for k, n in launches.items()),
+          "phase 15: a cell's held launches differ from its count")
+    record = {**{k: cell["record"] for k, cell in cells.items()}, "seconds": seconds}
     return {"record": record, "chain_launches": launches, "chain_rows": rows}
 
 
@@ -4464,6 +5115,19 @@ def main() -> int:
                               k: chain_record(r) for k, r in serve["chain_rows"].items()}},
                           "shapes": {"fused_chain": [
                               r for rows in serve["chain_rows"].values() for r in rows]}}),
+              flush=True)
+        print(card_line(), flush=True)
+        return 0
+
+    if "--planes" in sys.argv[1:]:
+        # the in-process serving planes alone: phase 15, its references made here
+        planes = run_planes()
+        print(json.dumps({"planes": planes["record"],
+                          "launches_by_path": {"fused_chain": planes["chain_launches"]},
+                          "kernels_by_path": {"fused_chain": {
+                              k: chain_record(r) for k, r in planes["chain_rows"].items()}},
+                          "shapes": {"fused_chain": [
+                              r for rows in planes["chain_rows"].values() for r in rows]}}),
               flush=True)
         print(card_line(), flush=True)
         return 0
@@ -4644,6 +5308,13 @@ def main() -> int:
     # checkpointed sliced branch, the mixed query queue, the approximate tier
     serve = run_serve()
     chain_launches.update(serve["chain_launches"])
+    torch.cuda.empty_cache()
+
+    # 15. the in-process serving planes: the replanner's swap, the SLO engine,
+    # telemetry, cost truth and trace export on phase 14's rows, the OOM
+    # degradation ladder on phase 12's amplitude, the planner pod at 20 qubits
+    planes = run_planes(serve["refs"])
+    chain_launches.update(planes["chain_launches"])
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -4674,7 +5345,8 @@ def main() -> int:
                         **calibrated_chains,
                         **sweep_chains,
                         f"{grad['label']} <Z...Z>": chain_record(grad["chain_rows"]),
-                        **{k: chain_record(r) for k, r in serve["chain_rows"].items()}},
+                        **{k: chain_record(r) for k, r in serve["chain_rows"].items()},
+                        **{k: chain_record(r) for k, r in planes["chain_rows"].items()}},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -4689,7 +5361,8 @@ def main() -> int:
     }
     chain_rows += (sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
                    + calibrated["chain_rows"] + sweep["chain_rows"] + grad["chain_rows"]
-                   + [r for rows in serve["chain_rows"].values() for r in rows])
+                   + [r for rows in serve["chain_rows"].values() for r in rows]
+                   + [r for rows in planes["chain_rows"].values() for r in rows])
     # every path's rows weigh the launches it counted, so the record's times
     # are means over exactly the launches the line reports
     weighed = sum(r["launches"] for r in chain_rows)
@@ -4730,6 +5403,7 @@ def main() -> int:
         sweep["label"]: sweep["record"],
         "grad": grad["record"],
         "serve": serve["record"],
+        "planes": planes["record"],
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
         "fused_chain_forms_by_path": chain_forms,

@@ -310,8 +310,9 @@ def gates(monkeypatch):
     for module in (port_core, ref_core):
         for name in ("_ENABLED", "_STEP_TIME", "_REGISTRY"):
             monkeypatch.setattr(module, name, getattr(module, name))
-    monkeypatch.setattr(ref_core, "_TRACE_PATH", ref_core._TRACE_PATH)
-    monkeypatch.setattr(ref_core, "_ATEXIT_REGISTERED", True)  # arms no export
+    for module in (port_core, ref_core):
+        monkeypatch.setattr(module, "_TRACE_PATH", module._TRACE_PATH)
+        monkeypatch.setattr(module, "_ATEXIT_REGISTERED", True)  # arms no export
     monkeypatch.delenv("TNC_TPU_FLIGHT_RECORDER", raising=False)
     return monkeypatch
 

@@ -920,3 +920,105 @@ def test_chunked_checkpoint_resume_on_the_card(tmp_path, monkeypatch):
     assert np.asarray(got).tobytes() == np.asarray(want).tobytes()
     assert not glob.glob(str(tmp_path / "*.npz"))
     assert not torch.cuda.is_current_stream_capturing()
+
+
+@pytest.mark.cuda
+def test_degrade_ladder_releases_memory_on_the_card():
+    """``execute_sliced_resilient`` on the per-slice loop under a memory cap
+    below the program's modeled peak: a real ``torch.cuda.OutOfMemoryError``
+    reaches the ladder, which replans to a slicing that fits; the cap is
+    restored, the memory the call allocated is given back (within 64 MiB)
+    and the amplitude "0"x53 of ``sycamore_circuit(53, 8, rng 42)`` is
+    within 1e-5 of complex128 on the card."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch import obs
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.contractionpath.slicing import find_slicing
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.budget import program_peak_bytes
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+    from tnc_tpu_torch.resilience import execute_sliced_resilient
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    tn, _ = sycamore_circuit(53, 8, np.random.default_rng(42)).into_amplitude_network("0" * 53)
+    path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+    slicing = find_slicing(tn.tensors, path.toplevel, 2.0 ** 26)
+    modeled = program_peak_bytes(build_sliced_program(tn, path, slicing).program).peak_bytes
+    arrays = [np.asarray(leaf.data.into_data()) for leaf in flat_leaf_tensors(tn)]
+    backend = TorchBackend(sliced_strategy="loop", hoist=False)
+    saved = (obs.enabled(), obs.get_registry())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cap = torch.cuda.memory_reserved() + 0.9 * modeled
+    torch.cuda.set_per_process_memory_fraction(
+        cap / torch.cuda.get_device_properties(0).total_memory)
+    try:
+        reg = obs.configure(enabled=True, registry=obs.MetricsRegistry())
+        out, used = execute_sliced_resilient(tn, path, slicing, arrays=arrays, backend=backend)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        obs.configure(enabled=saved[0], registry=saved[1])
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert reg.counters()[("resilience.ladder.replans", ())] >= 1.0
+    assert used.num_slices != slicing.num_slices
+    assert abs(after - before) <= 64 << 20
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    want = complex(contract_tensor_network(tn, path, oracle).data.into_data())
+    got = complex(np.asarray(out).reshape(-1)[0])
+    assert abs(got - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.cuda
+def test_cost_truth_adoption_keeps_the_policy_key_on_the_card():
+    """A ``TorchBackend()`` fitted to step spans the card recorded serves a
+    ``ContractionService`` with the cost-truth loop on; a manual refit is
+    adopted at the next batch boundary, and the backend's fit — what its
+    kernel policies were planned from — and its ``policy_key()`` stay as
+    they were."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch import obs
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.obs import core
+    from tnc_tpu_torch.obs.cost_truth import CostTruthConfig
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.serve import ContractionService
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    saved = (core._ENABLED, core._STEP_TIME, core._REGISTRY)
+    try:
+        obs.configure(enabled=True, step_time=True, registry=obs.MetricsRegistry())
+        for qubits, depth in ((20, 8), (24, 8)):
+            tn, _ = sycamore_circuit(qubits, depth, np.random.default_rng(42)) \
+                .into_amplitude_network("0" * qubits)
+            contract_tensor_network(tn, Greedy(OptMethod.GREEDY).find_path(tn).replace_path(),
+                                    TorchBackend())
+        obs.configure(enabled=False, step_time=False)
+        backend = TorchBackend()
+        key = backend.policy_key()
+        assert key[2] is not None, "no fit from the card's step spans"
+        bits = ["".join(str(int(b)) for b in r)
+                for r in np.random.default_rng(7).integers(0, 2, (8, 20))]
+        with ContractionService.from_circuit(
+                sycamore_circuit(20, 8, np.random.default_rng(42)), backend=backend,
+                max_batch=4, max_wait_ms=0, cost_truth=True, cost_truth_options={
+                    "config": CostTruthConfig(refit_min_samples=2, refit_cooldown_s=0.0,
+                                              use_step_spans=False)}) as svc:
+            for b in bits:
+                svc.amplitude(b, timeout_s=120)
+            ct = svc._cost_truth
+            assert ct.maybe_refit(trigger="manual")
+            svc.amplitude(bits[0], timeout_s=120)
+            assert svc.stats()["calibration"]["model_version"] == ct.model_version >= 1
+            assert svc.cost_model is ct.model and backend.cost_model() is not ct.model
+        assert backend.policy_key() == key
+    finally:
+        core._ENABLED, core._STEP_TIME, core._REGISTRY = saved

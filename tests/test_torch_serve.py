@@ -13,7 +13,9 @@ package on the CPU.
   numpy backend (converged, escalated, capped); on every ``TorchBackend``
   an escalated answer's error floor is ``COMPLEX64_ERR_REL``.
 - With no backend the service builds one ``TorchBackend()``, which raises
-  without CUDA; the planes not ported raise ``NotImplementedError``.
+  without CUDA; the fleet and elastic planes, not ported, raise
+  ``NotImplementedError`` (the in-process planes are held in
+  ``tests/test_torch_planes.py`` and ``tests/test_torch_telemetry.py``).
 
 Every wait has a timeout and every service stops in a ``with`` block.
 Configurations: ``sycamore_circuit(12, 4)`` (rng 42) and
@@ -429,22 +431,28 @@ def test_default_backend_is_the_card():
         ContractionService(bind_circuit(_circuit()))
 
 
-@pytest.mark.parametrize("option", [
-    {"telemetry_port": 0}, {"fleet_dir": "x"}, {"cost_truth": True}, {"plansvc": True},
-    {"background_replan": True}, {"shared_cache_watch": True}])
+@pytest.mark.parametrize("option", [{"fleet_dir": "x"}, {"fleet_endpoints": ("x",)}])
 def test_planes_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
         ContractionService.from_circuit(_circuit(), backend=NumpyBackend(), **option)
 
 
+@pytest.mark.parametrize("option", [
+    {"plansvc": True}, {"background_replan": True}, {"shared_cache_watch": True}])
+def test_cache_planes_need_a_plan_cache_as_the_reference(option):
+    for service, backend, circuit in ((ContractionService, NumpyBackend(), _circuit()),
+                                      (RefService, RefNumpyBackend(), _circuit(False))):
+        with pytest.raises(ValueError, match="requires a plan_cache"):
+            service.from_circuit(circuit, backend=backend, **option)
+
+
 def test_service_methods_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        ContractionService(bind_circuit(_circuit()), backend=NumpyBackend(), slo=object())
     with ContractionService(bind_circuit(_circuit()), backend=NumpyBackend()) as svc:
-        for method in ("enable_cost_truth", "serve_telemetry", "attach_fleet",
-                       "enable_elastic", "enable_plansvc"):
-            with pytest.raises(NotImplementedError):
+        for method in ("attach_fleet", "enable_elastic"):
+            with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
                 getattr(svc, method)()
+        with pytest.raises(ValueError, match="requires a plan_cache"):
+            svc.enable_plansvc()
 
 
 @pytest.mark.parametrize("module", [port_service, port_handlers], ids=["service", "handlers"])

@@ -413,7 +413,8 @@ def test_bound_fully_open_template_matches_reference():
 
 def test_unported_serving_options_raise(tmp_path):
     """``plan_cache`` and ``reuse_store`` bind (the same bits as a cold
-    binding on numpy); the service planes not ported raise naming A10."""
+    binding on numpy); the fleet plane, not ported, raises naming A10b, and
+    the replanner asks for a plan cache as the reference's does."""
     from tnc_tpu_torch.serve import ContractionService, IntermediateStore, PlanCache
 
     reqs = ["000", "111", "010"]
@@ -423,9 +424,11 @@ def test_unported_serving_options_raise(tmp_path):
         assert got.amplitudes(reqs, NumpyBackend()).tobytes() == want.tobytes()
         got = bind_circuit(_ghz(3), **kw)
         assert got.amplitudes(reqs, NumpyBackend()).tobytes() == want.tobytes()
-    for kw in ({"telemetry_port": 0}, {"background_replan": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            ContractionService.from_circuit(_ghz(3), backend=NumpyBackend(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+        ContractionService.from_circuit(_ghz(3), backend=NumpyBackend(), fleet_dir="x")
+    with pytest.raises(ValueError, match="requires a plan_cache"):
+        ContractionService.from_circuit(_ghz(3), backend=NumpyBackend(),
+                                        background_replan=True)
 
 
 def test_generic_backend_loops():

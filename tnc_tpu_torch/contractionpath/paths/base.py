@@ -53,24 +53,31 @@ class Pathfinder:
     """
 
     def find_path(self, tn: CompositeTensor) -> BasicContractionPathResult:
+        from tnc_tpu_torch import obs
         from tnc_tpu_torch.contractionpath.contraction_cost import contract_path_cost
 
-        nested: dict[int, ContractionPath] = {}
-        flat_inputs = []
-        for i, child in enumerate(tn.tensors):
-            if isinstance(child, CompositeTensor):
-                sub = self.find_path(child)
-                nested[i] = sub.ssa_path
-                flat_inputs.append(child.external_tensor())
-            else:
-                flat_inputs.append(child)
+        with obs.span(
+            "plan.find_path",
+            finder=type(self).__name__,
+            tensors=len(tn.tensors),
+        ) as osp:
+            nested: dict[int, ContractionPath] = {}
+            flat_inputs = []
+            for i, child in enumerate(tn.tensors):
+                if isinstance(child, CompositeTensor):
+                    sub = self.find_path(child)
+                    nested[i] = sub.ssa_path
+                    flat_inputs.append(child.external_tensor())
+                else:
+                    flat_inputs.append(child)
 
-        toplevel = self._solve_toplevel(flat_inputs)
-        ssa_path = ContractionPath(nested, toplevel)
-        flops, size = contract_path_cost(
-            tn.tensors, ssa_replace_ordering(ssa_path), True
-        )
-        return BasicContractionPathResult(ssa_path, flops, size)
+            toplevel = self._solve_toplevel(flat_inputs)
+            ssa_path = ContractionPath(nested, toplevel)
+            flops, size = contract_path_cost(
+                tn.tensors, ssa_replace_ordering(ssa_path), True
+            )
+            osp.set(predicted_flops=flops, predicted_peak=size)
+            return BasicContractionPathResult(ssa_path, flops, size)
 
     def _solve_toplevel(self, inputs: list) -> list[tuple[int, int]]:
         """Find an SSA pair path over flat leaf tensors."""

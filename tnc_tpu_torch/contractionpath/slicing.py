@@ -27,6 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence
 
+from tnc_tpu_torch import obs
 from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
 from tnc_tpu_torch.tensornetwork.tensor import LeafTensor
 
@@ -319,6 +320,7 @@ def hoisted_sliced_flops(
     return inv, residual, inv + slicing.num_slices * residual
 
 
+@obs.traced("plan.find_slicing")
 def find_slicing(
     inputs: Sequence[LeafTensor],
     replace_path: Sequence[tuple[int, int]],
@@ -415,6 +417,7 @@ def flat_replace_path(path_: ContractionPath) -> list[tuple[int, int]]:
     return list(path_.toplevel)
 
 
+@obs.traced("plan.slice_and_reconfigure")
 def slice_and_reconfigure(
     inputs: Sequence[LeafTensor],
     ssa_path: Sequence[tuple[int, int]],

@@ -1,10 +1,14 @@
-"""tnc_tpu_torch.obs — env-gated spans and metrics and the calibrated cost
-model (the port's counterpart of ``tnc_tpu.obs``: its ``core`` registry of
-spans, counters, gauges and histograms, and its ``calibrate`` module).
+"""tnc_tpu_torch.obs — env-gated spans and metrics, their exporters, the
+calibrated cost model and the serving planes that read them (the port's
+counterpart of ``tnc_tpu.obs``: ``core``, ``export``, ``http``,
+``calibrate``, ``slo`` and ``cost_truth``; the fleet plane is not ported
+yet).
 
 ``TNC_TPU_TRACE`` gates recording: unset → every span is a near-zero-cost
-no-op; set → spans record in-process. ``TNC_TPU_STEP_TIME`` additionally
-makes :class:`~tnc_tpu_torch.ops.backends.TorchBackend` run programs one
+no-op; ``1`` → spans and counters record in-process; a path → they also
+export as a Chrome-trace/Perfetto timeline at interpreter exit.
+``TNC_TPU_STEP_TIME`` additionally makes
+:class:`~tnc_tpu_torch.ops.backends.TorchBackend` run programs one
 synchronised launch unit at a time, so its step spans carry measured times
 that :func:`~tnc_tpu_torch.obs.calibrate.fit_device_model` fits.
 """
@@ -22,13 +26,30 @@ from tnc_tpu_torch.obs.core import (  # noqa: F401
     format_metric_key,
     gauge_set,
     get_registry,
+    maybe_jax_profiler_trace,
     observe,
+    process_trace_path,
     refresh_from_env,
     reset,
     span,
     step_timing_enabled,
     trace_args,
+    trace_path,
     traced,
+)
+from tnc_tpu_torch.obs.export import (  # noqa: F401
+    chrome_trace_events,
+    emit_metrics,
+    export_chrome_trace,
+    export_jsonl,
+    format_serve_rollup,
+    format_summary_table,
+    load_trace_events,
+    merge_trace_files,
+    replica_identity,
+    replica_name,
+    serve_trace_rollup,
+    trace_summary,
 )
 from tnc_tpu_torch.obs.calibrate import (  # noqa: F401
     CalibratedCostModel,
@@ -38,3 +59,36 @@ from tnc_tpu_torch.obs.calibrate import (  # noqa: F401
     fit_device_model,
     step_samples,
 )
+from tnc_tpu_torch.obs.slo import (  # noqa: F401
+    BurnWindow,
+    DriftDetector,
+    LatencyObjective,
+    SLOConfig,
+    SLOEngine,
+)
+from tnc_tpu_torch.obs.cost_truth import (  # noqa: F401
+    CostTruth,
+    CostTruthConfig,
+    ModelRegistry,
+    ModelRegistryWatcher,
+    PlanScoreboard,
+    ProductionSampler,
+    refit_model,
+)
+
+# the HTTP endpoint layer re-exports lazily (PEP 562), as the reference's
+# does: only telemetry-serving processes pay the http.server import
+_HTTP_EXPORTS = (
+    "TelemetryServer",
+    "parse_prometheus",
+    "parse_prometheus_types",
+    "render_prometheus",
+)
+
+
+def __getattr__(name: str):
+    if name in _HTTP_EXPORTS:
+        from tnc_tpu_torch.obs import http as _http
+
+        return getattr(_http, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -14,11 +14,16 @@
 Everything is **disabled unless ``TNC_TPU_TRACE`` is set** (or
 :func:`configure` is called): the disabled path is one module-level bool
 check returning a shared no-op span. ``TNC_TPU_TRACE`` values: unset,
-``0``, ``false``, ``off`` or ``no`` → off; anything else → record
-in-process. The reference also exports a Chrome trace when the value is a
-path; the port records and writes no file. ``TNC_TPU_STEP_TIME`` turns on
-the per-step timing mode (:func:`step_timing_enabled`), read with the same
-truthy rule.
+``0``, ``false``, ``off`` or ``no`` → off; ``1``, ``true``, ``yes`` or
+``on`` → record in-process; any other value → record *and* export a
+Chrome trace to that path at interpreter exit
+(:mod:`tnc_tpu_torch.obs.export`; a process of a ``torch.distributed``
+group of several writes its own :func:`process_trace_path`).
+``TNC_TPU_STEP_TIME`` turns on the per-step timing mode
+(:func:`step_timing_enabled`), read with the same truthy rule.
+``TNC_TPU_TRACE_JAX=<dir>`` (the reference's name) makes
+:func:`maybe_jax_profiler_trace` run a ``torch.profiler`` trace into that
+directory.
 
 >>> from tnc_tpu_torch import obs
 >>> _ = obs.configure(enabled=True, registry=MetricsRegistry())
@@ -230,6 +235,11 @@ class MetricsRegistry:
             )
         self._max_spans = max_spans
         self.epoch_ns = time.perf_counter_ns()
+        # wall-clock twin of the perf-counter epoch, captured at the same
+        # instant: span timestamps are perf-counter-relative, so merging
+        # traces of different processes needs this anchor
+        # (tnc_tpu_torch.obs.export.merge_trace_files)
+        self.epoch_unix_ns = time.time_ns()
 
     # -- metrics ---------------------------------------------------------
     @staticmethod
@@ -484,7 +494,9 @@ class Span:
 
 _ENABLED = False
 _STEP_TIME = False
+_TRACE_PATH: str | None = None
 _REGISTRY = MetricsRegistry()
+_ATEXIT_REGISTERED = False
 
 
 def enabled() -> bool:
@@ -509,18 +521,29 @@ def get_registry() -> MetricsRegistry:
     return _REGISTRY
 
 
+def trace_path() -> str | None:
+    """Chrome-trace export path at exit (from ``TNC_TPU_TRACE=<path>`` or
+    ``configure(trace_path=...)``), or None."""
+    return _TRACE_PATH
+
+
 def configure(
     enabled: bool | None = None,
     registry: MetricsRegistry | None = None,
+    trace_path: str | None = None,
     step_time: bool | None = None,
 ) -> MetricsRegistry:
     """Programmatic override of the env gates. Returns the active
-    registry. ``step_time`` overrides the ``TNC_TPU_STEP_TIME`` mode."""
-    global _ENABLED, _STEP_TIME, _REGISTRY
+    registry. ``trace_path`` arms the Chrome-trace export at exit;
+    ``step_time`` overrides the ``TNC_TPU_STEP_TIME`` mode."""
+    global _ENABLED, _STEP_TIME, _TRACE_PATH, _REGISTRY
     if registry is not None:
         _REGISTRY = registry
     if enabled is not None:
         _ENABLED = bool(enabled)
+    if trace_path is not None:
+        _TRACE_PATH = trace_path
+        _register_atexit()
     if step_time is not None:
         _STEP_TIME = bool(step_time)
     return _REGISTRY
@@ -541,20 +564,92 @@ def refresh_from_env() -> bool:
     >>> os.environ["TNC_TPU_TRACE"] = "Off"
     >>> refresh_from_env()
     False
-    >>> os.environ["TNC_TPU_TRACE"] = "trace.json"  # records, writes no file
+    >>> os.environ["TNC_TPU_TRACE"] = "on"  # records; a path also exports
     >>> refresh_from_env()
     True
     >>> _ = os.environ.pop("TNC_TPU_TRACE") if old is None else os.environ.update(
     ...     TNC_TPU_TRACE=old)
     >>> _ = refresh_from_env()
     """
-    global _ENABLED, _STEP_TIME
+    global _ENABLED, _STEP_TIME, _TRACE_PATH
     _STEP_TIME = (
         os.environ.get("TNC_TPU_STEP_TIME", "").strip().lower() in _TRUTHY
     )
     raw = os.environ.get("TNC_TPU_TRACE", "").strip()
-    _ENABLED = not (not raw or raw == "0" or raw.lower() in ("false", "off", "no"))
-    return _ENABLED
+    if not raw or raw == "0" or raw.lower() in ("false", "off", "no"):
+        _ENABLED = False
+        return _ENABLED
+    _ENABLED = True
+    if raw.lower() not in _TRUTHY:
+        _TRACE_PATH = raw
+        _register_atexit()
+    return True
+
+
+def process_identity() -> tuple[int, int]:
+    """``(process count, process index)`` of this process: from
+    ``torch.distributed`` when a process group is up
+    (``get_world_size()``, ``get_rank()``), else ``(1, 0)``; a process
+    that never imported ``torch.distributed`` has no group. The reference
+    asks ``jax.process_count()`` / ``jax.process_index()``."""
+    import sys
+
+    # a process group needs torch.distributed imported; importing it here
+    # (at interpreter exit, say) to learn that none is up is not safe
+    dist = sys.modules.get("torch.distributed")
+    try:
+        if dist is not None and dist.is_available() and dist.is_initialized():
+            return int(dist.get_world_size()), int(dist.get_rank())
+    except Exception:  # noqa: BLE001 — a torn-down group: one process
+        pass
+    return 1, 0
+
+
+def process_trace_path(
+    path: str,
+    process_index: int | None = None,
+    process_count: int | None = None,
+) -> str:
+    """Per-process variant of a trace export path: in a group of several
+    processes each suffixes its index (``trace.json`` → ``trace.p1.json``)
+    so no process clobbers another's export. One process (and a process
+    with no process group up) keeps the path unchanged. Explicit index and
+    count override the :func:`process_identity` probe.
+
+    >>> process_trace_path("/tmp/t.json", process_index=2,
+    ...                    process_count=4)
+    '/tmp/t.p2.json'
+    >>> process_trace_path("/tmp/t.json", process_index=0,
+    ...                    process_count=1)
+    '/tmp/t.json'
+    """
+    if process_index is None or process_count is None:
+        process_count, process_index = process_identity()
+    if process_count <= 1:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.p{process_index}{ext or '.json'}"
+
+
+def _register_atexit() -> None:
+    global _ATEXIT_REGISTERED
+    if _ATEXIT_REGISTERED:
+        return
+    _ATEXIT_REGISTERED = True
+    import atexit
+
+    def _dump() -> None:
+        if _TRACE_PATH and (_REGISTRY.span_records() or _REGISTRY.counters()):
+            from tnc_tpu_torch.obs.export import export_chrome_trace
+
+            try:
+                # each process of a group exports to its own
+                # process-suffixed file (trace.json -> trace.p1.json)
+                export_chrome_trace(process_trace_path(_TRACE_PATH), _REGISTRY)
+            except OSError:  # pragma: no cover - unwritable path at exit
+                pass
+
+    atexit.register(_dump)
 
 
 def span(name: str, **args: Any):
@@ -624,6 +719,75 @@ def counters_by_prefix(prefix: str) -> dict[str, float]:
         if key[0].startswith(prefix):
             out[format_metric_key(key)] = value
     return out
+
+
+_PROFILER_ACTIVE = False
+_PROFILER_SEQ = 0
+
+
+class _ProfilerTraceCtx:
+    """Context manager running a ``torch.profiler`` trace (host, and the
+    card's kernels where CUDA is up) when ``TNC_TPU_TRACE_JAX=<dir>`` is
+    set, and writing it as ``<dir>/torch_trace.<pid>.<n>.json`` on exit;
+    identity otherwise. Never nests (an inner one is a no-op) and degrades
+    to a no-op if the profiler cannot start. ``path`` names the file
+    written (None until one is)."""
+
+    __slots__ = ("_prof", "_dir", "path")
+
+    def __enter__(self):
+        global _PROFILER_ACTIVE
+        self._prof = None
+        self.path = None
+        self._dir = os.environ.get("TNC_TPU_TRACE_JAX")
+        if not self._dir or _PROFILER_ACTIVE:
+            return self
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+            _PROFILER_ACTIVE = True
+        except Exception:  # noqa: BLE001 - profiler support is optional
+            self._prof = None
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        global _PROFILER_ACTIVE, _PROFILER_SEQ
+        if self._prof is not None:
+            _PROFILER_ACTIVE = False
+            try:
+                self._prof.__exit__(*exc)
+                os.makedirs(self._dir, exist_ok=True)
+                _PROFILER_SEQ += 1
+                path = os.path.join(
+                    self._dir, f"torch_trace.{os.getpid()}.{_PROFILER_SEQ}.json")
+                self._prof.export_chrome_trace(path)
+                self.path = path
+            except Exception:  # noqa: BLE001 - see __enter__
+                pass
+        return False
+
+
+def maybe_jax_profiler_trace() -> _ProfilerTraceCtx:
+    """The one knob for device-level profiling, under the reference's name:
+    a context manager that runs a ``torch.profiler`` trace into
+    ``$TNC_TPU_TRACE_JAX`` when that variable names a directory and is a
+    transparent no-op otherwise (the reference runs ``jax.profiler.trace``
+    there).
+
+    >>> import os
+    >>> os.environ.pop("TNC_TPU_TRACE_JAX", None) and None
+    >>> with maybe_jax_profiler_trace() as prof:  # unset: no-op
+    ...     x = 1
+    >>> x, prof.path
+    (1, None)
+    """
+    return _ProfilerTraceCtx()
 
 
 refresh_from_env()

@@ -669,7 +669,8 @@ class TorchBackend(Backend):
         residual program per slice. Under ``sliced_strategy="chunked"`` the
         slices then run in batches through
         :func:`~tnc_tpu_torch.ops.chunked.run_sliced_chunked_placed`; under
-        ``"loop"`` one at a time: each slice pins the sliced axes of the
+        ``"loop"`` one at a time, the whole loop one dispatch under the
+        ``backend.dispatch`` retry frame (:meth:`_dispatch`): each slice pins the sliced axes of the
         leaves that carry them (a dense copy of the slice), runs every step
         under the no-model ladder — one policy, planned once a call for
         all slices, as the reference's loop plans it — and is added to the
@@ -732,7 +733,9 @@ class TorchBackend(Backend):
 
                 with torch.inference_mode():
                     sp, full = hoisted(sp, full, self.split_complex, self.precision)
-            result = self._run_sliced(sp, full, lo, hi, graphs)
+            # the loop is one retryable dispatch, as a program is
+            # (:meth:`_dispatch`); it never consumes ``full``
+            result = self._dispatch(lambda: self._run_sliced(sp, full, lo, hi, graphs))
         if not host:
             return result
         if self.split_complex:

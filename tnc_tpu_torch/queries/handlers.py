@@ -64,6 +64,10 @@ class SampleQueryHandler:
     rides along."""
 
     kind = "sample"
+    # per-dispatch work scales with each request's n_samples, not the
+    # batch size: measured seconds per batch-size bucket are not
+    # comparable, so the SLO drift detector does not track this kind
+    drift_stable = False
     # stochastic: two requests with equal payloads but distinct seeds
     # (or seed=None) must draw independently — the dispatcher's
     # queue-level dedup never collapses sample riders
@@ -104,6 +108,9 @@ class ExpectationQueryHandler:
     rebind batch."""
 
     kind = "expectation"
+    # per-dispatch work scales with the unique Pauli strings across the
+    # batch: not drift-comparable per batch-size bucket
+    drift_stable = False
     # deterministic in the payload (normalized term tuples are
     # hashable): identical riders in one window collapse to a single
     # dispatch entry
@@ -160,6 +167,9 @@ class MarginalQueryHandler:
     plans."""
 
     kind = "marginal"
+    # one structure per mask, work linear in batch rows: batch-size
+    # buckets see comparable seconds, so drift tracking is meaningful
+    drift_stable = True
     # deterministic in the (string) pattern: safe to collapse
     # identical riders queue-level
     dedup_payloads = True

@@ -17,9 +17,9 @@ Three pieces, threaded through the execution stack:
   path is testable on the CPU.
 
 The OOM degradation rung that halves the slice batch lives in
-:mod:`tnc_tpu_torch.ops.chunked`; the reference's wider ladder
-(``resilience/degrade.py``: finer slicing, a host-loop fallback) is not
-ported (ROADMAP A10).
+:mod:`tnc_tpu_torch.ops.chunked`; the wider ladder above it (finer
+slicing, then a chunked fallback at batch 1) is
+:func:`~tnc_tpu_torch.resilience.degrade.execute_sliced_resilient`.
 
 Everything is env/arg-gated with a no-op fast path: with no resilience
 env vars set the hot paths pay one bool/dict check.
@@ -31,6 +31,7 @@ from tnc_tpu_torch.resilience.checkpoint import (  # noqa: F401
     resolve_ckpt,
     signature_hash,
 )
+from tnc_tpu_torch.resilience.degrade import execute_sliced_resilient  # noqa: F401
 from tnc_tpu_torch.resilience.faultinject import (  # noqa: F401
     InjectedFault,
     InjectedFatal,

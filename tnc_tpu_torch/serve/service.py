@@ -59,10 +59,23 @@ thread. CUDA graph captures run in thread-local mode
 (:mod:`tnc_tpu_torch.ops.graphs`), so a caller's own CUDA work on another
 thread does not invalidate the dispatcher's capture.
 
+The in-process planes: the SLO engine (``slo=``, :meth:`attach_slo`;
+:mod:`tnc_tpu_torch.obs.slo`), the cost-truth loop
+(:meth:`enable_cost_truth`; :mod:`tnc_tpu_torch.obs.cost_truth`), the
+telemetry endpoint (:meth:`serve_telemetry`; :mod:`tnc_tpu_torch.obs.http`),
+the background replanner and the shared-cache watcher
+(:mod:`tnc_tpu_torch.serve.replan`) and the planner pod
+(:meth:`enable_plansvc`; :mod:`tnc_tpu_torch.serve.plansvc`). Their
+threads do host work only; what reaches the card (a swapped plan, an
+adopted cost model) is adopted by the dispatcher at a batch boundary. An
+adopted cost-model generation reaches the service's ``cost_model``, the
+:class:`FidelityRouter` and the replanner, not the backend's own fit
+(:meth:`~tnc_tpu_torch.ops.backends.TorchBackend.cost_model`), so the
+kernel policies and ``policy_key()`` go on naming the fit they were
+planned from.
+
 Not ported (each raises ``NotImplementedError`` naming its queue): the
-SLO engine, the cost-truth loop, the telemetry endpoint, the fleet plane,
-elastic scheduling (tenants, priorities, preemption), the planner fleet
-and the background replanner and shared-cache watcher.
+fleet plane and elastic scheduling (tenants, priorities, preemption).
 """
 
 from __future__ import annotations
@@ -83,22 +96,27 @@ from tnc_tpu_torch.obs.core import QuantileSummary
 from tnc_tpu_torch.ops.backends import TorchBackend
 from tnc_tpu_torch.resilience import retry as _retry
 from tnc_tpu_torch.resilience.faultinject import fault_point
-from tnc_tpu_torch.serve.rebind import BoundProgram, bind_circuit
+from tnc_tpu_torch.serve.rebind import (
+    BoundProgram,
+    bind_circuit,
+    plan_signature,
+    pow2_bucket,
+)
 
 logger = logging.getLogger(__name__)
+
+#: drift-bucket granularity: the reference's power-of-two rule (its
+#: rebind pads batched dispatches to it; the port pads none, and keeps
+#: the buckets so that drift rows compare across the two packages)
+batch_bucket = pow2_bucket
 
 #: the approximate tier's request kind (its batching keys are
 #: ``(APPROX_KIND, base kind)`` — approx traffic never co-batches with
 #: exact traffic OR across base kinds)
 APPROX_KIND = "approx"
 
-_SLO_LATER = "ROADMAP A10 (obs/slo.py)"
-_COST_TRUTH_LATER = "ROADMAP A10 (obs/cost_truth.py)"
-_TELEMETRY_LATER = "ROADMAP A10 (obs/http.py, obs/export.py)"
-_FLEET_LATER = "ROADMAP A10 (obs/fleet.py, serve/multihost.py)"
-_ELASTIC_LATER = "ROADMAP A10 (serve/elastic.py)"
-_PLANSVC_LATER = "ROADMAP A10 (serve/plansvc.py)"
-_REPLAN_LATER = "ROADMAP A10 (serve/replan.py)"
+_FLEET_LATER = "ROADMAP A10b (obs/fleet.py, serve/multihost.py)"
+_ELASTIC_LATER = "ROADMAP A10b (serve/elastic.py)"
 
 
 def tier_of(kind: str) -> str:
@@ -183,13 +201,17 @@ class ContractionService:
         dispatcher is only ever called with a batch and the CURRENT
         bound.
 
-        ``cost_model``: a :class:`~tnc_tpu_torch.obs.calibrate.
-        CalibratedCostModel` the :class:`FidelityRouter` prices its rungs
-        with. ``slo`` (the reference's SLO engine) is not ported."""
+        ``slo``: an :class:`~tnc_tpu_torch.obs.slo.SLOEngine` (or an
+        :class:`~tnc_tpu_torch.obs.slo.SLOConfig` to build one) — every
+        terminal request outcome and every dispatch measurement feeds
+        it, burn and drift alerts surface in ``stats()["slo"]`` and the
+        telemetry endpoint. ``cost_model``: a :class:`~tnc_tpu_torch.obs.
+        calibrate.CalibratedCostModel` giving the drift detector its
+        predicted dispatch seconds and the :class:`FidelityRouter` its
+        rung prices (without one, drift tracks raw measured seconds per
+        bucket)."""
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        if slo is not None:
-            raise NotImplementedError(f"ContractionService(slo=...) waits for {_SLO_LATER}")
         self.bound = bound
         self.backend = backend if backend is not None else TorchBackend()
         self.dispatcher = dispatcher
@@ -239,6 +261,20 @@ class ContractionService:
         # plan-swap generation: bumps on every adopted swap; rides the
         # dispatch spans and request timelines
         self._generation = 0
+        self._replanner = None  # attached BackgroundReplanner, if any
+        self._plansvc = None  # attached PlannerFleet pod, if any
+        self._watchers: list = []  # SharedCacheWatchers, ModelRegistryWatchers
+        self._telemetry = None  # attached TelemetryServer, if any
+        self._slo = None
+        self._slo_last_check = 0.0
+        # cost-truth plane (enable_cost_truth): production sampling,
+        # refits, versioned model adoption, the plan scoreboard and the
+        # post-swap rollback watch
+        self._cost_truth = None
+        # per-bound derived constants (program flops/bytes/steps, plan
+        # key and signature), memoized by bound identity
+        self._bound_profiles: dict[int, dict] = {}
+        self.attach_slo(slo)
 
     @classmethod
     def from_circuit(
@@ -282,21 +318,42 @@ class ContractionService:
         exact pipeline on a tolerance miss. ``approx_options`` are
         :meth:`enable_approx` kwargs.
 
-        ``background_replan``, ``shared_cache_watch``, ``telemetry_port``,
-        ``fleet_dir`` / ``fleet_endpoints``, ``cost_truth`` and ``plansvc``
-        (the reference's replanner, telemetry, fleet, cost-truth and
-        planner-fleet planes) raise ``NotImplementedError``."""
-        unported = (
-            (background_replan or replan_options, "background_replan", _REPLAN_LATER),
-            (shared_cache_watch or watch_options, "shared_cache_watch", _REPLAN_LATER),
-            (telemetry_port is not None, "telemetry_port", _TELEMETRY_LATER),
-            (fleet_dir is not None or fleet_endpoints, "fleet_dir", _FLEET_LATER),
-            (cost_truth or cost_truth_options, "cost_truth", _COST_TRUTH_LATER),
-            (plansvc or plansvc_dir or plansvc_options, "plansvc", _PLANSVC_LATER),
-        )
-        for asked, what, later in unported:
-            if asked:
-                raise NotImplementedError(f"from_circuit({what}=...) waits for {later}")
+        ``background_replan=True`` (requires ``plan_cache``) attaches a
+        :class:`~tnc_tpu_torch.serve.replan.BackgroundReplanner`: a cache
+        miss is answered from the fast greedy plan at once, and the
+        worker hyper-optimizes the structure between requests, swapping
+        in the improved plan when its predicted cost wins.
+        ``replan_options`` are its constructor kwargs.
+
+        ``shared_cache_watch=True`` (requires ``plan_cache``) attaches a
+        :class:`~tnc_tpu_torch.serve.replan.SharedCacheWatcher`: replicas
+        sharing one cache directory adopt each other's published plans
+        at batch boundaries. ``watch_options`` are its kwargs.
+
+        ``plansvc=True`` (requires ``plan_cache``) attaches a
+        :class:`~tnc_tpu_torch.serve.plansvc.PlannerFleet` pod
+        (:meth:`enable_plansvc`) on the trial board ``plansvc_dir``
+        (default: ``plansvc/`` inside the plan-cache directory);
+        ``plansvc_options`` are its kwargs.
+
+        ``cost_truth=True`` turns on the cost-truth loop
+        (:meth:`enable_cost_truth`); ``cost_truth_options`` are its kwargs
+        (``registry=`` a shared model-registry directory).
+
+        ``telemetry_port`` (0 = ephemeral) starts the scrape endpoint
+        (:meth:`serve_telemetry`): ``/metrics``, ``/healthz``, ``/slo``,
+        ``/calibration`` and ``/fleet``.
+
+        ``fleet_dir`` / ``fleet_endpoints`` (the reference's fleet plane)
+        raise ``NotImplementedError``."""
+        if fleet_dir is not None or fleet_endpoints:
+            raise NotImplementedError(f"from_circuit(fleet_dir=...) waits for {_FLEET_LATER}")
+        if background_replan and plan_cache is None:
+            raise ValueError("background_replan requires a plan_cache")
+        if shared_cache_watch and plan_cache is None:
+            raise ValueError("shared_cache_watch requires a plan_cache")
+        if plansvc and plan_cache is None:
+            raise ValueError("plansvc requires a plan_cache")
         query_circuit = circuit.copy() if queries else None
         approx_circuit = circuit.copy() if approx else None
         bound = bind_circuit(
@@ -316,8 +373,31 @@ class ContractionService:
                 )
             if approx:
                 svc.enable_approx(approx_circuit, **(approx_options or {}))
+            if background_replan:
+                from tnc_tpu_torch.serve.replan import BackgroundReplanner
+
+                BackgroundReplanner(
+                    svc, plan_cache, **(replan_options or {})
+                ).start()
+            if shared_cache_watch:
+                from tnc_tpu_torch.serve.replan import SharedCacheWatcher
+
+                watcher = SharedCacheWatcher(
+                    svc, plan_cache, **(watch_options or {})
+                )
+                svc._watchers.append(watcher)
+                watcher.start()
+            if plansvc:
+                svc.enable_plansvc(
+                    directory=plansvc_dir, **(plansvc_options or {})
+                )
+            if cost_truth or cost_truth_options:
+                svc.enable_cost_truth(**(cost_truth_options or {}))
+            if telemetry_port is not None:
+                svc.serve_telemetry(port=telemetry_port)
         except Exception:
             # a bad option kwarg must not leak a running dispatcher thread
+            # (or half the attachments) the caller cannot reach
             svc.stop()
             raise
         return svc
@@ -338,7 +418,21 @@ class ContractionService:
     def stop(self, drain: bool = True) -> None:
         """Stop accepting requests; by default finish ('drain') what is
         already queued, otherwise fail queued requests with
-        :class:`ServiceClosedError`."""
+        :class:`ServiceClosedError`. The planner pod stops first (the
+        replanner's delegate path blocks on it), then the replanner, the
+        watchers and the telemetry endpoint (which releases its port)."""
+        pod, self._plansvc = self._plansvc, None
+        if pod is not None:
+            pod.stop()
+        replanner, self._replanner = self._replanner, None
+        if replanner is not None:
+            replanner.stop()
+        watchers, self._watchers = list(self._watchers), []
+        for watcher in watchers:
+            watcher.stop()
+        telemetry, self._telemetry = self._telemetry, None
+        if telemetry is not None:
+            telemetry.stop()
         with self._cond:
             if not self._running:
                 return
@@ -391,16 +485,36 @@ class ContractionService:
 
     def _current_bound(self) -> BoundProgram:
         """The bound to dispatch the NEXT batch under, adopting any staged
-        replacement first — the one boundary where swaps become visible."""
+        replacement (and any staged cost-model generation) first — the
+        one boundary where swaps become visible, so no batch ever mixes
+        plans or model versions."""
+        ct = self._cost_truth
+        refused = prior = None
         with self._lock:
             pending, self._pending_bound = self._pending_bound, None
             if pending is not None:
-                self.bound = pending
-                self._counts["plan_swaps"] += 1
-                self._generation += 1
+                if ct is not None and ct.is_pinned(plan_signature(pending)):
+                    # a rolled-back plan staged again (watcher, replanner
+                    # re-run): refuse it, keep serving
+                    refused, pending = pending, None
+                else:
+                    prior = self.bound
+                    self.bound = pending
+                    self._counts["plan_swaps"] += 1
+                    self._generation += 1
+        if refused is not None:
+            ct.count("pin_refusals")
+            obs.counter_add("serve.cost_truth.pin_refused")
+            logger.warning("refused adoption of a regression-pinned plan")
         if pending is not None:
             obs.counter_add("serve.replan.adopted")
             logger.info("adopted a swapped program for serving")
+            if ct is not None:
+                self._arm_swap_watch(pending, prior)
+        if ct is not None:
+            adopted = ct.adopt_pending()
+            if adopted is not None:
+                self._adopt_cost_model(*adopted)
         return self.bound
 
     def queue_depth(self) -> int:
@@ -408,27 +522,48 @@ class ContractionService:
         with self._cond:
             return len(self._queue)
 
-    # -- planes not ported ---------------------------------------------------
-
     def attach_slo(self, slo) -> "ContractionService":
-        if slo is not None:
-            raise NotImplementedError(f"attach_slo waits for {_SLO_LATER}")
+        """Attach (or replace, or None-detach) the SLO engine — an
+        :class:`~tnc_tpu_torch.obs.slo.SLOEngine` or an
+        :class:`~tnc_tpu_torch.obs.slo.SLOConfig` to build one. Attach
+        after a warm-up, so that first-call requests never count against
+        the objectives or seed the drift baselines."""
+        if slo is not None and not hasattr(slo, "record_request"):
+            from tnc_tpu_torch.obs.slo import SLOEngine
+
+            slo = SLOEngine(slo)
+        self._slo = slo
         return self
 
-    def enable_cost_truth(self, *args, **kwargs) -> "ContractionService":
-        raise NotImplementedError(f"enable_cost_truth waits for {_COST_TRUTH_LATER}")
+    def enable_plansvc(
+        self, directory: str | None = None, **options
+    ) -> "ContractionService":
+        """Attach a :class:`~tnc_tpu_torch.serve.plansvc.PlannerFleet` pod:
+        a daemon that — only while the request queue is empty — runs
+        planner trials against the shared trial board under
+        ``directory`` (default: ``plansvc/`` inside the plan-cache
+        directory) and merges the best plan through the plan cache and
+        ``swap_bound``. Requires a plan cache. ``options`` are
+        :class:`~tnc_tpu_torch.serve.plansvc.PlannerFleet` kwargs
+        (``ntrials``, ``margin``, ``sa_steps``, ``cost_model``...). A
+        re-attach replaces the previous pod."""
+        from tnc_tpu_torch.serve.plansvc import PlannerFleet
 
-    def serve_telemetry(self, *args, **kwargs):
-        raise NotImplementedError(f"serve_telemetry waits for {_TELEMETRY_LATER}")
+        if self._plan_cache is None:
+            raise ValueError("enable_plansvc requires a plan_cache")
+        if self._plansvc is not None:
+            self._plansvc.stop()
+            self._plansvc = None
+        PlannerFleet(
+            self, self._plan_cache, directory=directory, **options
+        ).start()
+        return self
 
     def attach_fleet(self, *args, **kwargs):
         raise NotImplementedError(f"attach_fleet waits for {_FLEET_LATER}")
 
     def enable_elastic(self, *args, **kwargs) -> "ContractionService":
         raise NotImplementedError(f"enable_elastic waits for {_ELASTIC_LATER}")
-
-    def enable_plansvc(self, *args, **kwargs) -> "ContractionService":
-        raise NotImplementedError(f"enable_plansvc waits for {_PLANSVC_LATER}")
 
     # -- query handlers ----------------------------------------------------
 
@@ -492,11 +627,13 @@ class ContractionService:
                 self._count("rejected")
                 self._count_type(kind, "rejected")
                 obs.counter_add("serve.requests.rejected", reason="closed")
+                self._slo_request(kind, 0.0, "rejected")
                 raise ServiceClosedError("service is not running")
             if len(self._queue) >= self.max_queue:
                 self._count("rejected")
                 self._count_type(kind, "rejected")
                 obs.counter_add("serve.requests.rejected", reason="queue_full")
+                self._slo_request(kind, 0.0, "rejected")
                 raise QueueFullError(
                     f"queue at max_queue={self.max_queue}; retry later"
                 )
@@ -680,6 +817,9 @@ class ContractionService:
                     self._count_type(req.kind, "failed")
                     obs.counter_add("serve.requests.failed")
                     obs.counter_add("serve.query.failed", type=req.kind)
+                    self._slo_request(
+                        req.kind, time.monotonic() - req.t_submit, "failed"
+                    )
                     self._trace_request(req, "failed")
 
     def _complete(self, req: _Request, result=None, exc=None) -> bool:
@@ -697,6 +837,9 @@ class ContractionService:
             self._count_type(req.kind, "cancelled")
             obs.counter_add("serve.requests.cancelled")
             obs.counter_add("serve.query.cancelled", type=req.kind)
+            self._slo_request(
+                req.kind, time.monotonic() - req.t_submit, "cancelled"
+            )
             self._trace_request(req, "cancelled")
             return False
 
@@ -744,10 +887,12 @@ class ContractionService:
                     self._count("expired")
                     self._count_type(req.kind, "expired")
                     obs.counter_add("serve.requests.expired")
+                    self._slo_request(req.kind, now - req.t_submit, "expired")
                     self._trace_request(req, "expired")
             else:
                 live.append(req)
         if not live:
+            self._slo_check()
             return
         for req in live:
             obs.observe("serve.wait_s", now - req.t_submit)
@@ -762,6 +907,7 @@ class ContractionService:
             groups.setdefault(req.key, []).append(req)
         for group in groups.values():
             self._run_group(group, bound)
+        self._slo_check()
 
     def _run_group(self, group: list[_Request], bound: BoundProgram) -> None:
         kind = group[0].kind
@@ -810,6 +956,7 @@ class ContractionService:
                 batch=len(group), kind=kind, riders=riders,
                 generation=generation,
                 collapsed=len(group) - len(payloads),
+                **self._span_model(),
             ):
                 results = self.retry_policy.run(
                     lambda: self._dispatch_group(kind, payloads, bound),
@@ -834,6 +981,8 @@ class ContractionService:
         done = time.monotonic()
         dispatch_s = done - t0
         self._note_dispatch(kind, dispatch_s)
+        self._slo_dispatch(kind, len(group), dispatch_s, bound)
+        self._cost_truth_dispatch(kind, len(group), dispatch_s, bound)
         for req, result in zip(group, results):
             if self._complete(req, result=result):
                 self._finish(
@@ -857,6 +1006,7 @@ class ContractionService:
                     "serve.dispatch",
                     batch=1, kind=req.kind, riders=f"r{req.rid}",
                     generation=generation, degraded=1,
+                    **self._span_model(),
                 ):
                     results = self._dispatch_group(req.kind, [req.bits], bound)
             except Exception as exc:  # noqa: BLE001 — per-request verdict
@@ -865,10 +1015,15 @@ class ContractionService:
                     self._count_type(req.kind, "failed")
                     obs.counter_add("serve.requests.failed")
                     obs.counter_add("serve.query.failed", type=req.kind)
+                    self._slo_request(
+                        req.kind, time.monotonic() - req.t_submit, "failed"
+                    )
                     self._trace_request(req, "failed", degraded=True)
                 continue
             done = time.monotonic()
             self._note_dispatch(req.kind, done - t0)
+            self._slo_dispatch(req.kind, 1, done - t0, bound)
+            self._cost_truth_dispatch(req.kind, 1, done - t0, bound)
             if self._complete(req, result=results[0]):
                 self._finish(
                     req, done, dispatch_s=done - t0, riders=1,
@@ -898,9 +1053,14 @@ class ContractionService:
         obs.observe("serve.latency_s", latency)
         obs.observe("serve.query.latency_s", latency, type=req.kind)
         obs.observe("serve.tier.latency_s", latency, tier=tier)
+        timeline = None
+        if self._slo is not None or obs.enabled():
+            timeline = self._timeline(
+                req, "completed", latency, dispatch_s, riders, generation, degraded)
+        if self._slo is not None:
+            self._slo_request(req.kind, latency, "completed", timeline=timeline)
         if obs.enabled():
-            self._trace_request(req, "completed", timeline=self._timeline(
-                req, "completed", latency, dispatch_s, riders, generation, degraded))
+            self._trace_request(req, "completed", timeline=timeline)
 
     # -- per-request timeline ------------------------------------------------
 
@@ -943,6 +1103,260 @@ class ContractionService:
                 req, outcome, time.monotonic() - req.t_submit, degraded=degraded)
         with obs.span("serve.request", **timeline):
             pass
+
+    # -- SLO plumbing --------------------------------------------------------
+
+    def _slo_request(
+        self, kind: str, latency: float, outcome: str, timeline=None
+    ) -> None:
+        if self._slo is not None:
+            self._slo.record_request(kind, latency, outcome, timeline=timeline)
+
+    def _slo_dispatch(
+        self, kind: str, batch: int, measured_s: float, bound: BoundProgram
+    ) -> None:
+        """Feed the drift detector one dispatch observation, bucketed by
+        query type x power-of-two batch size. Kinds whose handler declares
+        ``drift_stable = False`` (work varies with the payload, not the
+        batch size: sampling's ``n_samples``, expectation's unique-term
+        count) are excluded, and counted as excluded, so that workload mix
+        never reads as drift."""
+        if self._slo is None:
+            return
+        bucket = f"{kind}/b{batch_bucket(batch)}"
+        handler = self._handlers.get(kind)
+        if handler is not None and not getattr(handler, "drift_stable", True):
+            exclude = getattr(self._slo, "record_dispatch_excluded", None)
+            if exclude is not None:
+                exclude(bucket)
+            return
+        self._slo.record_dispatch(
+            bucket, self._predict_dispatch_s(kind, bound), measured_s
+        )
+
+    def _predict_dispatch_s(self, kind: str, bound: BoundProgram):
+        """Calibrated prediction for one dispatch of ``kind`` under
+        ``bound`` (None without a cost model, or for handler query types
+        whose flops the service cannot see)."""
+        if self.cost_model is None or kind != "amplitude":
+            return None
+        try:
+            prof = self._bound_profile(bound)
+            return self.cost_model.op_seconds(
+                prof["flops"], dispatches=prof["steps"]
+            )
+        except Exception:  # noqa: BLE001 — prediction is best-effort
+            return None
+
+    #: minimum seconds between dispatcher-thread SLO evaluations (the burn
+    #: windows are seconds to hours; the evaluation stays off the
+    #: per-batch hot path)
+    _SLO_CHECK_INTERVAL_S = 0.2
+
+    def _slo_check(self) -> None:
+        if self._slo is None:
+            return
+        now = time.monotonic()
+        if now - self._slo_last_check < self._SLO_CHECK_INTERVAL_S:
+            return
+        self._slo_last_check = now
+        alerts = self._slo.check()
+        if self._cost_truth is not None and any(
+            a.get("kind") == "drift" for a in alerts
+        ):
+            # the drift alert is the refit trigger (the refit's own
+            # cooldown and hysteresis bound the reaction)
+            self._cost_truth.maybe_refit(trigger="drift")
+
+    # -- cost-truth loop -------------------------------------------------------
+
+    def enable_cost_truth(
+        self,
+        registry=None,
+        config=None,
+        watch: bool = True,
+        poll_interval_s: float = 0.25,
+    ) -> "ContractionService":
+        """Turn on the cost-truth loop (:mod:`tnc_tpu_torch.obs.cost_truth`):
+        amplitude dispatches are reservoir-sampled by (kind x batch
+        bucket), a drift alert triggers a hysteresis-bounded refit of the
+        ``time ≈ flops/F + bytes/B + c`` model, accepted fits publish as
+        versioned generations, and every pricing surface (drift
+        predictions, replanner objective, router quotes) adopts a
+        generation only at a batch boundary. A plan scoreboard records
+        measured against predicted dispatch seconds; a freshly swapped
+        plan that measures worse than the incumbent beyond tolerance rolls
+        back.
+
+        ``registry`` — a :class:`~tnc_tpu_torch.obs.cost_truth.ModelRegistry`
+        or a directory for one; replicas sharing it converge on one
+        generation (``watch=True`` polls it every ``poll_interval_s``
+        seconds). ``config`` — a :class:`~tnc_tpu_torch.obs.cost_truth.
+        CostTruthConfig`. ``TNC_TPU_COST_TRUTH=0`` suppresses the plane.
+
+        An adopted generation never reaches the backend's own fit
+        (:meth:`~tnc_tpu_torch.ops.backends.TorchBackend.cost_model`): the
+        kernel policies, and ``policy_key()`` with the reuse store's key,
+        keep naming the fit they were planned from."""
+        from tnc_tpu_torch.obs import cost_truth as _ct
+
+        cfg = _ct.config_from_env(config)
+        if registry is not None and not isinstance(registry, _ct.ModelRegistry):
+            registry = _ct.ModelRegistry(registry)
+        ct = _ct.CostTruth(cfg, model=self.cost_model, registry=registry)
+        self._cost_truth = ct
+        if ct.model is not None and ct.model is not self.cost_model:
+            # the registry's current generation outranks the constructor's
+            # offline constants
+            self._adopt_cost_model(ct.model_version, ct.model)
+        if watch and registry is not None and cfg.enabled:
+            watcher = _ct.ModelRegistryWatcher(
+                self, registry, poll_interval_s=poll_interval_s
+            )
+            self._watchers.append(watcher)
+            watcher.start()
+        return self
+
+    def _bound_profile(self, bound: BoundProgram) -> dict:
+        """Derived per-bound constants (program flops, bytes and step
+        count, plan-cache key, plan signature, scoreboard key), memoized
+        by bound identity so the hot path never recomputes them."""
+        prof = self._bound_profiles.get(id(bound))
+        if prof is not None and prof["bound"] is bound:
+            return prof
+        from tnc_tpu_torch.ops.program import steps_bytes, steps_flops
+        from tnc_tpu_torch.serve.plancache import network_structure_digest
+
+        steps = bound.program.steps
+        cache_key = network_structure_digest(
+            bound.template.network, bound.target_size
+        )
+        sig = plan_signature(bound)
+        prof = {
+            "bound": bound,
+            "flops": float(steps_flops(steps)),
+            "bytes": float(steps_bytes(steps)),
+            "steps": max(len(steps), 1),
+            "cache_key": cache_key,
+            "sig": sig,
+            # scoreboard rows are per plan: an adopted swap scores apart
+            # from its incumbent
+            "score_key": f"{cache_key}:{sig[:12]}",
+        }
+        if len(self._bound_profiles) >= 8:
+            self._bound_profiles.clear()
+        self._bound_profiles[id(bound)] = prof
+        return prof
+
+    def _cost_truth_dispatch(
+        self, kind: str, batch: int, dispatch_s: float, bound: BoundProgram
+    ) -> None:
+        """Feed the cost-truth plane one measured amplitude dispatch
+        (sampler, scoreboard, post-swap watch); restage the prior plan
+        when the watch's verdict is a regression."""
+        ct = self._cost_truth
+        if ct is None or kind != "amplitude":
+            return
+        try:
+            prof = self._bound_profile(bound)
+        except Exception:  # noqa: BLE001 — observability must not fail serving
+            return
+        verdict = ct.observe_dispatch(
+            kind, batch, dispatch_s,
+            flops=prof["flops"], nbytes=prof["bytes"], steps=prof["steps"],
+            plan_key=prof["score_key"],
+            predicted_s=self._predict_dispatch_s(kind, bound),
+        )
+        if verdict == "rollback":
+            self._rollback_plan(prof)
+
+    def _rollback_plan(self, prof: dict) -> None:
+        """The adopted plan regressed inside its watch window: restage the
+        prior bound (adopted at the next batch boundary) and pin the
+        regressed plan's signature against re-adoption."""
+        ct = self._cost_truth
+        prior = ct.take_rollback()
+        if prior is None:
+            return
+        with self._lock:
+            self._pending_bound = prior
+        obs.counter_add("serve.cost_truth.rollback")
+        obs.counter_add("slo.alerts", kind="plan_rollback")
+        logger.warning(
+            "plan %s rolled back: measured dispatch seconds regressed "
+            "past %.2fx its pre-swap baseline (%s)",
+            prof["score_key"][:20], ct.config.rollback_tolerance,
+            ct.last_rollback,
+        )
+
+    def _arm_swap_watch(
+        self, new_bound: BoundProgram, prior_bound: BoundProgram | None
+    ) -> None:
+        """Start the regression watch for a just-adopted swap, against the
+        incumbent's measured seconds (its prediction while the scoreboard
+        is cold; with neither the swap is trusted)."""
+        ct = self._cost_truth
+        if ct is None or prior_bound is None:
+            return
+        try:
+            prior_prof = self._bound_profile(prior_bound)
+            new_prof = self._bound_profile(new_bound)
+        except Exception:  # noqa: BLE001 — watch arming is best-effort
+            return
+        baseline = ct.scoreboard.measured_seconds(
+            prior_prof["score_key"],
+            min_samples=ct.config.scoreboard_min_samples,
+        )
+        if baseline is None and self.cost_model is not None:
+            baseline = self.cost_model.op_seconds(
+                prior_prof["flops"], dispatches=prior_prof["steps"]
+            )
+        if ct.arm_swap_watch(
+            new_prof["score_key"], prior_bound, new_prof["sig"], baseline
+        ):
+            obs.counter_add("serve.cost_truth.swap_watch")
+
+    def _adopt_cost_model(self, version: int, model) -> None:
+        """A staged model generation becomes the one every pricing surface
+        of the service reads — its drift predictions and quotes, the
+        :class:`FidelityRouter`'s rung prices, the background replanner's
+        seconds objective — adopted at a batch boundary. The backend's
+        own fit, which its kernel policies were planned from and which
+        ``policy_key()`` names, stays as it was."""
+        self.cost_model = model
+        if self._router is not None:
+            self._router.cost_model = model
+        replanner = self._replanner
+        if replanner is not None:
+            adopt = getattr(replanner, "adopt_cost_model", None)
+            if adopt is not None:
+                adopt(model)
+        obs.counter_add("serve.cost_truth.model_adopted")
+        logger.info(
+            "adopted cost-model generation v%d (%.3e flops/s, "
+            "%.1e s/dispatch)", version, model.flops_per_s, model.dispatch_s,
+        )
+
+    def measured_plan_seconds(self) -> float | None:
+        """Measured mean dispatch seconds of the serving plan from the
+        scoreboard (None while cold or without cost truth) — the
+        replanner's measured-incumbent margin input."""
+        ct = self._cost_truth
+        if ct is None:
+            return None
+        try:
+            prof = self._bound_profile(self.bound)
+        except Exception:  # noqa: BLE001 — pricing input is best-effort
+            return None
+        return ct.scoreboard.measured_seconds(
+            prof["score_key"], min_samples=ct.config.scoreboard_min_samples
+        )
+
+    def _span_model(self) -> dict:
+        """Span kwargs stamping the active model generation (empty
+        without cost truth)."""
+        ct = self._cost_truth
+        return {} if ct is None else {"model_version": ct.model_version}
 
     # -- stats -------------------------------------------------------------
 
@@ -1090,6 +1504,12 @@ class ContractionService:
             out["reuse"] = store.stats()
         if self._plan_cache is not None:
             out["plan_cache"] = self._plan_cache.stats()
+        if self._slo is not None:
+            out["slo"] = self._slo.stats()
+        if self._plansvc is not None:
+            out["plansvc"] = self._plansvc.stats()
+        if self._cost_truth is not None:
+            out["calibration"] = self._cost_truth.stats()
         return out
 
     def _effective_reuse_store(self):
@@ -1100,6 +1520,144 @@ class ContractionService:
             return self.reuse_store
         reuse = getattr(self.bound, "reuse", None)
         return reuse.store if reuse is not None else None
+
+    # -- live telemetry endpoint -------------------------------------------
+
+    def serve_telemetry(self, host: str = "127.0.0.1", port: int = 0):
+        """Start (and own) the scrape endpoint of this service:
+        ``/metrics`` (Prometheus text: the obs registry and the service's
+        own families, percentile-identical to ``stats()``), ``/healthz``,
+        ``/slo``, ``/calibration`` and ``/fleet`` (``{"enabled": false}``:
+        no fleet plane yet). Returns the started
+        :class:`~tnc_tpu_torch.obs.http.TelemetryServer` (``.port`` is the
+        bound port when ``port=0``); :meth:`stop` shuts it down and
+        releases the port. The server's thread reads host counters only."""
+        from tnc_tpu_torch.obs.export import replica_identity
+        from tnc_tpu_torch.obs.http import TelemetryServer
+
+        if self._telemetry is not None:
+            return self._telemetry
+
+        def health() -> dict:
+            running = self._running
+            return {
+                "status": "ok" if running else "stopped",
+                "running": running,
+                "queue_depth": self.queue_depth() if running else 0,
+                "replica": replica_identity(),
+            }
+
+        def slo() -> dict:
+            if self._slo is None:
+                return {"enabled": False}
+            body = self._slo.stats()
+            body["enabled"] = True
+            body["recent_requests"] = self._slo.timelines()[-32:]
+            return body
+
+        def calibration() -> dict:
+            # late-bound: enable_cost_truth may run after serve_telemetry
+            if self._cost_truth is None:
+                return {"enabled": False}
+            return self._cost_truth.stats()
+
+        self._telemetry = TelemetryServer(
+            registry=obs.get_registry(),
+            host=host,
+            port=port,
+            health_fn=health,
+            slo_fn=slo,
+            extra_metrics_fn=self._prometheus_families,
+            calibration_fn=calibration,
+        ).start()
+        return self._telemetry
+
+    def _prometheus_families(self) -> list:
+        """The service's own metric families for ``/metrics`` — computed
+        from the same counters and quantile summaries ``stats()`` reads
+        (snapshotted under the lock), whether or not obs tracing is on."""
+        with self._lock:
+            counts = dict(self._counts)
+            overall = (
+                self._latency_block(self._latencies),
+                self._latencies.sum,
+            )
+            by_type = {
+                kind: (
+                    dict(row),
+                    self._latency_block(self._latencies_by_type[kind]),
+                    self._latencies_by_type[kind].sum,
+                )
+                for kind, row in self._by_type.items()
+            }
+        fams: list = [("gauge", "serve.queue_depth", {}, self.queue_depth())]
+        # request outcomes get their own family, so that
+        # sum(serve_requests_total) is a true request count
+        for key in ("submitted", "completed", "failed", "expired", "rejected",
+                    "cancelled"):
+            fams.append(("counter", "serve.requests", {"outcome": key}, counts[key]))
+        fams.append(("counter", "serve.batches", {}, counts["batches"]))
+        fams.append(("counter", "serve.batches_degraded", {}, counts["degraded_batches"]))
+        fams.append(("counter", "serve.plan_swaps", {}, counts["plan_swaps"]))
+        fams.append(("counter", "serve.dedup_collapsed", {}, counts["deduped"]))
+        store = self._effective_reuse_store()
+        if store is not None:
+            reuse_stats = store.stats()
+            for key in store.COUNT_KEYS:
+                fams.append(("counter", "serve.reuse", {"event": key}, reuse_stats[key]))
+            fams.append(("gauge", "serve.reuse.bytes_held", {}, reuse_stats["bytes_held"]))
+            fams.append(("gauge", "serve.reuse.entries", {}, reuse_stats["entries"]))
+            fams.append(("counter", "serve.reuse.prefix_flops_saved", {},
+                         reuse_stats["prefix_flops_saved"]))
+        if self._plan_cache is not None:
+            for key, value in self._plan_cache.stats()["counts"].items():
+                fams.append(("counter", "serve.plan_cache", {"event": key}, value))
+        if self._plansvc is not None:
+            svc_stats = self._plansvc.stats()
+            for key, value in sorted(svc_stats["counts"].items()):
+                fams.append(("counter", "serve.plansvc.events", {"event": key}, value))
+            for key, value in sorted(svc_stats["board"].items()):
+                fams.append(("counter", "serve.plansvc.board", {"event": key}, value))
+            fams.append(("gauge", "serve.plansvc.best_delta", {}, svc_stats["best_delta"]))
+
+        def summary(name: str, labels: dict, block: dict, total: float):
+            for q, qlabel in (("p50", "0.5"), ("p90", "0.9"), ("p99", "0.99")):
+                fams.append(("summary", name, {**labels, "quantile": qlabel}, block[q]))
+            fams.append(("summary", f"{name}_count", labels, block["count"]))
+            fams.append(("summary", f"{name}_sum", labels, total))
+            fams.append(("gauge", f"{name}_max", labels, block["max"]))
+
+        summary("serve.latency_seconds", {}, *overall)
+        for kind, (row, block, total) in by_type.items():
+            for key, value in row.items():
+                if key == "batches":
+                    fams.append(("counter", "serve.type_batches", {"type": kind}, value))
+                else:
+                    fams.append(("counter", "serve.type_requests",
+                                 {"type": kind, "outcome": key}, value))
+            summary("serve.type_latency_seconds", {"type": kind}, block, total)
+        with self._lock:
+            tier_rows = {t: dict(r) for t, r in self._by_tier.items()}
+        for tier, row in tier_rows.items():
+            for key, value in row.items():
+                if key == "batches":
+                    fams.append(("counter", "serve.tier_batches", {"tier": tier}, value))
+                else:
+                    fams.append(("counter", "serve.tier_requests",
+                                 {"tier": tier, "outcome": key}, value))
+        ct = self._cost_truth
+        if ct is not None:
+            # the live model generation, the loop's event ledger and the
+            # sampler's reservoir fill: the numbers of stats()["calibration"]
+            cal = ct.stats()
+            fams.append(("gauge", "serve.cost_truth.model_version", {},
+                         float(cal["model_version"])))
+            for event, value in sorted(cal["counts"].items()):
+                fams.append(("counter", "serve.cost_truth.events", {"event": event},
+                             float(value)))
+            fams.append(("gauge", "serve.cost_truth.sampler_kept", {},
+                         float(cal["sampler"]["kept"])))
+        return fams
 
 
 @dataclass(frozen=True)
@@ -1156,6 +1714,9 @@ class FidelityRouter:
     """
 
     kind = APPROX_KIND
+    # work per dispatch varies with each request's ladder climb, not the
+    # batch size: the SLO drift detector does not track this kind
+    drift_stable = False
 
     BASES = ("amplitude", "expectation", "marginal")
 
