@@ -79,10 +79,10 @@ Phases, each of which raises on failure (nothing is caught):
    prelude timed apart and a profile of one eager batch of the residual;
    the amplitude against
    phase 8's complex128 partials and the loop's amplitude; the forced
-   ``fused`` rung on the first two batches (each ``fused_complex_dot`` launch
-   of the first,
-   batched over the slices, held against its plain version on the
-   operands the executor builds; launches and routed steps against the
+   ``fused`` rung on the first two batches (the ``fused_complex_dot``
+   launches of the first, batched over the slices, held against the plain
+   version on the operands the executor builds, each distinct pair of
+   operand shapes once; launches and routed steps against the
    plan's gate; the sum against the default rung's); then
    ``sycamore_circuit(20, 6, rng 7)`` over 4 slices and ``(20, 8, rng 7)``
    over 16, whose residuals keep chains, against the numpy oracle, each
@@ -93,7 +93,11 @@ Phases, each of which raises on failure (nothing is caught):
    afresh by the port's ``plan_northstar`` — ``Hyperoptimizer`` (128
    trials, target 2^29) and ``slice_and_reconfigure`` with the
    reference's defaults, its wall seconds, trial pool and planner
-   engines (native or Python) printed — held to its per-slice peak (at
+   engines (native or Python) printed. The plan is host work: a process
+   of its own (``python3 chip_smoke.py --northstar-plan-to DIR``, its
+   trial pool one worker short of the host's cores) makes it while
+   phases 2-9 run on the card, and this phase waits for it and loads it.
+   It is held to its per-slice peak (at
    most 2^29 elements) and to within 1.25x of the sliced flops of the
    reference's plan; the default path's plan (prelude, residual chunks,
    modes, chains, batch, modeled peak) and the transpose gate's count;
@@ -103,7 +107,7 @@ Phases, each of which raises on failure (nothing is caught):
    three timed runs), the device-resident part, the prelude apart and a
    profile of one batch; slices 0-15 one by one and the sum of the
    slices run against complex128 on the card; the forced ``fused`` rung
-   on the first two batches;
+   on the first two batches, as in phase 9;
    In phases 8-10 and the small amplitudes the timed runs are the
    executors' default, which replays a CUDA graph of the loop's body for
    every slice after the first, or one graph per chunk for every batch
@@ -182,7 +186,8 @@ Phases, each of which raises on failure (nothing is caught):
    ``sycamore_circuit(20, 8, default_rng(42))`` by the product rule in
    complex128; and the boundary-MPS sweep on the card
    (``backend="torch"``): the QAOA ⟨Z…Z⟩ up ``ChiLadder(chi_cap=64)`` in
-   complex128 (must converge) and complex64, ``peps(6, 6, 2, 2, 1)`` in
+   complex128 (must converge) and complex64 (its top two rungs),
+   ``peps(6, 6, 2, 2, 1)`` in
    complex128 up to its exact chi 512 (against the numpy host sweep), and
    ``peps(8, 8, 2, 2, 1)`` in complex64 up to chi 256, every rung's err at
    least its distance from the exact value, each rung's seconds (its
@@ -229,7 +234,27 @@ Phases, each of which raises on failure (nothing is caught):
    ``sycamore_circuit(20, 8)`` with ``plansvc=True``, a round before and a
    round after the pod's merge swaps the plan. Every answer is held to
    complex128 and every ``fused_chain`` launch to its plain version;
-16. one JSON line of path numbers (with each kernel's per-shape rows,
+16. the partitioned planner: BASELINE config #4's ⟨Z…Z⟩ network,
+   simplified, planned as the reference bench plans it —
+   ``find_partitioning(tn, 4)``, four work-bounded rounds of simulated
+   annealing with ``IntermediatePartitioningModel`` (48 chains a round on
+   the spawn pool, ``random.Random(42)``; each round's best score
+   printed), ``compute_solution`` (and, priced by phase 11's fitted model,
+   its predicted critical path in seconds) — contracted through
+   ``TorchBackend(dtype="complex64").bind_resident`` (three calls: eager,
+   captured, replayed) within 1e-5 absolute and 1e-3 relative of the
+   complex128 numpy value, its steps, multiply-adds and peak beside the
+   ``Greedy`` plans'; the same network under ``Greedy`` and under
+   ``balance_partitions_iter``'s plan on the same gates; then the tree
+   cut: phase 12's raw network, its ``Greedy`` SSA path cut into 4 blocks
+   by ``plan_treecut(..., seed=3)``, ``compute_solution_with_paths`` with
+   the GREEDY fan-in, contracted on ``TorchBackend()`` (one warm-up, three
+   timed runs: wall, CUDA-event seconds, peak against
+   ``compute_memory_requirements``; the device-resident part timed and
+   profiled for the card's busy share) within 1e-4·max(|ref|, 2^-14) of
+   complex128 on the card and of phase 12's value. Every chain of every
+   plan is held against its plain version;
+17. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -253,7 +278,9 @@ JSON record and the card line. ``python3 chip_smoke.py --serve`` builds the
 kernels and runs phase 14 alone, and ends with its JSON record and the card
 line. ``python3 chip_smoke.py --planes`` builds the kernels and runs phase 15
 alone (its complex128 references made through the swapped plan), and ends
-with its JSON record and the card line.
+with its JSON record and the card line. ``python3 chip_smoke.py
+--partitioned`` builds the kernels and runs phase 16 alone (no fitted model,
+no phase 12 value), and ends with its JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -306,6 +333,10 @@ NORTHSTAR_CHECK_FEW = 256  # else of this many
 # more than this script's time allows (32, not 64, since phase 15 needs the room);
 # `python3 chip_smoke.py --northstar-full` contracts them all
 NORTHSTAR_RUN = 32
+# the full run plans the north star in a process of its own while phases 2-9 run
+# (host work beside device work); phase 10 waits at most this long for it
+NORTHSTAR_PLAN_FLAG = "--northstar-plan-to"
+NORTHSTAR_PLAN_WAIT_S = 900.0
 # the square FP32 split products the Strassen crossover is timed at (phase 11)
 STRASSEN_SIZES = (1024, 2048, 4096, 8192)
 # the batched sweep (phase 12): a Sycamore amplitude network (qubits, depth, rng
@@ -372,6 +403,17 @@ PLANSVC_TRIALS = 6
 DEGRADE_CAP = 0.9
 DEGRADE_REL = 1e-5
 DEGRADE_SLACK = 64 << 20
+# phase 16: the partitioned planner. Config #4 split into PARTS blocks by
+# find_partitioning, then SA_ROUNDS work-bounded rounds of SA_TRIALS chains
+# (the bench's engine settings, bench.py:1013-1053, its plan independent of
+# the host); phase 12's raw network cut into TREECUT_PARTS blocks by
+# plan_treecut(seed=TREECUT_SEED), its fan-in drawn from random.Random(TREECUT_RNG)
+PARTS = 4
+SA_ROUNDS = 4
+SA_TRIALS = 48
+TREECUT_PARTS = 4
+TREECUT_SEED = 3
+TREECUT_RNG = 0
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
 PEAK_BYTES_PER_S = 3.35e12
@@ -828,7 +870,7 @@ def hold_dot(ar, ai, br, bi, launches: int, label: str, f64: bool = False) -> di
                                          want, exact, scale)
         del exact
     macs = rows * k * m * n
-    reps = 3 if 8.0 * macs > 1e13 else 10 if 8.0 * macs > 1e11 else 20
+    reps = 3 if 8.0 * macs > 1e12 else 10 if 8.0 * macs > 1e11 else 20
     del want
     in_graph = graph_ms(lambda: cuda_complex.fused_complex_dot(ar, ai, br, bi), got,
                         f"fused_complex_dot {label}", reps)
@@ -1677,7 +1719,7 @@ def run_sliced(backend) -> dict:
     eager = run_counted(lambda: backend.execute_sliced(sp, arrays, graphs=False),
                         "sliced main path, eager", reps=1, warmup=lambda: None)
     prof = profile_device_path(
-        lambda: backend.execute_sliced(sp, arrays, host=False), "sliced", reps=2,
+        lambda: backend.execute_sliced(sp, arrays, host=False), "sliced", reps=1,
         profiled=lambda: backend.execute_sliced(sp, arrays, slice_range=(0, 4), host=False,
                                                 graphs=False))
     replay = profile_replay(
@@ -1842,10 +1884,12 @@ def print_chunked_plan(label: str, plan_rec: dict, backend) -> None:
 
 
 def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -> dict:
-    """The forced ``fused`` rung on the default sliced path: every
-    ``fused_complex_dot`` launch of the first ``batch`` slices held against
-    its plain version on the operands the executor builds (prelude launches
-    once, residual launches batched over the slices); then the first two
+    """The forced ``fused`` rung on the default sliced path: the
+    ``fused_complex_dot`` launches of the first ``batch`` slices held against
+    the plain version on the operands the executor builds, each distinct
+    pair of operand shapes once, its row weighing every launch at those
+    shapes (prelude launches once, residual launches batched over the
+    slices); then the first two
     batches counted, graphed (the second batch replays the chunks' graphs,
     so the kernel runs inside a CUDA graph) and eagerly: the same bits and
     counts, launches and routed steps held to the plan's gate, and the sum
@@ -1865,13 +1909,23 @@ def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -
           f"the chunked executor builds for slices 0-{batch - 1} of {label} (forced fused "
           f"rung: {len(admitted_pre)} prelude launches, {len(admitted_res)} batched)",
           flush=True)
-    dot_rows = []
+    dot_rows, seen = [], {}
     labels = iter([f"{label} prelude step {i}" for i in admitted_pre]
                   + [f"{label} residual step {i}" for i in admitted_res])
+
+    def hold(ar, ai, br, bi):
+        # each distinct pair of operand shapes held once, on the first
+        # step's operands; its row weighs every launch at those shapes
+        step, key = next(labels), (tuple(ar.shape), tuple(br.shape))
+        if key in seen:
+            dot_rows[seen[key]]["launches"] += 1
+            return
+        seen[key] = len(dot_rows)
+        dot_rows.append(hold_dot(ar, ai, br, bi, 1, step))
+
     os.environ["TNC_TPU_COMPLEX_MULT"] = "fused"
     try:
-        with holding("fused_complex_dot", lambda ar, ai, br, bi: dot_rows.append(
-                hold_dot(ar, ai, br, bi, 1, next(labels)))):
+        with holding("fused_complex_dot", hold):
             backend.execute_sliced(sp, arrays, slice_range=(0, batch))
         torch.cuda.empty_cache()
         fused = run_counted(lambda: backend.execute_sliced(sp, arrays, slice_range=(lo, hi)),
@@ -1885,10 +1939,13 @@ def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -
                         backend.precision)
     graphed = compare_graphed(f"{label} fused rung", fused, eager, len(chunks), 2)
     del eager
-    want_launches = len(admitted_pre) + len(admitted_res)
-    check(len(dot_rows) == want_launches,
-          f"{label} fused rung called fused_complex_dot {len(dot_rows)} times, the gate "
-          f"admits {want_launches}")
+    # prelude launches run once, unbatched; residual launches batched
+    held = {b: sum(r["launches"] for r in dot_rows if (r["batch"] > 1) == b)
+            for b in (False, True)}
+    check(held == {False: len(admitted_pre), True: len(admitted_res)},
+          f"{label} fused rung called fused_complex_dot {held[False]} times unbatched and "
+          f"{held[True]} times batched; the gate admits {len(admitted_pre)} prelude and "
+          f"{len(admitted_res)} residual steps")
     want_launches = len(admitted_pre) + 2 * len(admitted_res)
     check(fused["launches"]["fused_complex_dot"] == want_launches,
           f"{label} fused rung launched fused_complex_dot "
@@ -1900,8 +1957,8 @@ def check_fused_first_batch(backend, sp, arrays, batch: int, refs, label: str) -
     check(fused["routed"] == dict(want_routed),
           f"{label} fused rung routed {fused['routed']}, the plan's gate says "
           f"{dict(want_routed)}")
-    check(all(r["batch"] == batch for r in dot_rows[len(admitted_pre):]),
-          f"a residual launch of {label}'s forced rung was not batched")
+    check(all(r["batch"] in (1, batch) for r in dot_rows),
+          f"a launch of {label}'s forced rung was batched over other than {batch} slices")
     z_fused = scalar(fused["out"])
     gate = 1e-5 * sum(abs(r) for r in refs[lo:hi])
     print(f"[check] {label} fused rung on slices {lo}-{hi - 1}: {z_fused!r} vs default "
@@ -1982,7 +2039,7 @@ def run_sliced_chunked(backend, cell) -> dict:
     eager = run_counted(lambda: backend.execute_sliced(sp, arrays, graphs=False),
                         "sliced chunked main path, eager", reps=1, warmup=lambda: None)
     prof = profile_device_path(
-        lambda: backend.execute_sliced(sp, arrays, host=False), "sliced chunked", reps=2,
+        lambda: backend.execute_sliced(sp, arrays, host=False), "sliced chunked", reps=1,
         profiled=residual_batch(backend, sp, arrays, plan_rec["batch"]))
     prelude_s = time_prelude(backend, sp, arrays)
     batches = n // plan_rec["batch"]
@@ -2038,7 +2095,81 @@ def run_sliced_chunked(backend, cell) -> dict:
             "dot_launches": fused["record"]["fused_launches"]["fused_complex_dot"]}
 
 
-def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN) -> dict:
+class BackgroundPlan:
+    """The north star's plan made by ``python3 chip_smoke.py
+    --northstar-plan-to DIR`` in a process group of its own, which keeps the
+    plan in ``DIR`` (the port's ``plan_northstar`` cache). Its trial pool
+    has one worker fewer than the host's cores, so the card's phases keep a
+    core; the trials' merge is the same at any worker count. ``stop()``
+    (also run at exit) ends the group and removes ``DIR``."""
+
+    def __init__(self) -> None:
+        import atexit
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="northstar-plan-")
+        self.log = open(os.path.join(self.dir, "plan.log"), "w+")
+        env = dict(os.environ)
+        env.setdefault("TNC_TPU_HYPER_WORKERS", str(max(1, len(os.sched_getaffinity(0)) - 1)))
+        self.workers = env["TNC_TPU_HYPER_WORKERS"]
+        self.stopped = False
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), NORTHSTAR_PLAN_FLAG, self.dir],
+            stdout=self.log, stderr=subprocess.STDOUT, env=env, start_new_session=True)
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        import shutil
+        import signal
+
+        if self.stopped:
+            return
+        self.stopped = True
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)  # the planner and its trial pool
+        self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def result(self):
+        """Wait for the plan and load it; the record keeps the child's
+        ``plan_s`` and adds ``wait_s`` (this process's wait) and ``load_s``."""
+        from tnc_tpu_torch.benchmark.northstar import plan_northstar
+
+        qubits, depth, seed, ntrials, target = NORTHSTAR
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=NORTHSTAR_PLAN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"the north-star plan took over {NORTHSTAR_PLAN_WAIT_S:g} s")
+        wait_s = time.perf_counter() - t0
+        self.log.seek(0)
+        check(rc == 0, f"the north-star plan process exited with {rc}: "
+              f"{self.log.read()[-4000:]}")
+        kept = [f for f in os.listdir(self.dir) if f.endswith(".json")]
+        check(len(kept) == 1, f"the north-star plan process kept {kept}")
+        with open(os.path.join(self.dir, kept[0])) as f:
+            plan_s = json.load(f)["record"]["plan_s"]
+        plan = plan_northstar(qubits, depth, seed, ntrials, float(target), cache=True,
+                              cache_dir=self.dir)
+        check(plan.record["cached"], "the kept north-star plan did not load")
+        plan.record.update(load_s=plan.record["plan_s"], plan_s=plan_s, wait_s=wait_s)
+        return plan
+
+
+def make_northstar_plan(directory: str) -> int:
+    """``--northstar-plan-to DIR``: plan the north star and keep it in
+    ``DIR``; host work only, no torch."""
+    from tnc_tpu_torch.benchmark.northstar import plan_northstar
+
+    qubits, depth, seed, ntrials, target = NORTHSTAR
+    plan_northstar(qubits, depth, seed, ntrials, float(target), cache=True,
+                   cache_dir=directory)
+    return 0
+
+
+def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN,
+                  planned: BackgroundPlan | None = None) -> dict:
     """The north star (``NORTHSTAR``, BASELINE config #3): one Sycamore-53
     depth-14 amplitude planned afresh by the port's ``plan_northstar``
     (``Hyperoptimizer`` and ``slice_and_reconfigure`` with the reference's
@@ -2063,7 +2194,15 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
     from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network_sliced
 
     qubits, depth, seed, ntrials, target = NORTHSTAR
-    plan = plan_northstar(qubits, depth, seed, ntrials, float(target))
+    if planned is None:
+        plan = plan_northstar(qubits, depth, seed, ntrials, float(target))
+        where = ""
+    else:
+        plan = planned.result()
+        where = (f" (in a process beside phases 2-9 with a pool of {planned.workers}; "
+                 f"waited {plan.record['wait_s']:.2f} s for it, loaded in "
+                 f"{plan.record['load_s']:.2f} s)")
+        planned.stop()
     rec = plan.record
     tn, path, sl = plan.tn, plan.path, plan.slicing
     n = sl.num_slices
@@ -2075,7 +2214,7 @@ def run_northstar(backend, reps: int = 3, run_slices: int | None = NORTHSTAR_RUN
           f"{rec['tensors']} tensors; Hyperoptimizer(ntrials={ntrials}, "
           f"target_size=2^{target}) {rec['hyper_s']:.2f} s on the {trials} "
           f"({rec['cpu_count']} host cores), slice_and_reconfigure {rec['slice_s']:.2f} s, "
-          f"plan {rec['plan_s']:.2f} s in all; planner engines: {rec['native']}; path flops "
+          f"plan {rec['plan_s']:.2f} s in all{where}; planner engines: {rec['native']}; path flops "
           f"{rec['path_flops']:.4e}, unsliced peak {rec['path_peak']:.4e}; {n} slices over "
           f"legs {rec['sliced_legs']}, per-slice peak {rec['slice_peak']:.4e} elements; sliced "
           f"flops {rec['sliced_total_flops']:.4e} (gate {limit:.4e} = {NORTHSTAR_QUALITY} x the "
@@ -3114,6 +3253,18 @@ def maxcut_terms(qubits: int) -> list:
     return [(-0.5, "i" * u + "zz" + "i" * (qubits - u - 2)) for u in range(qubits - 1)]
 
 
+def hold_value(label: str, got: complex, ref: complex) -> float:
+    """Config #4's gates: within 1e-5 absolute (the observable's norm is 1)
+    and 1e-3 relative of the complex128 value."""
+    err = abs(got - ref)
+    print(f"[check] {label} <Z...Z> {got.real:.10e} (complex128 {ref.real:.10e}): |diff| "
+          f"{err:.3e} (gate 1e-5), relative {err / abs(ref):.3e} (gate 1e-3)", flush=True)
+    check(err <= 1e-5, f"{label}: <Z...Z> off complex128 by {err}")
+    check(err <= 1e-3 * abs(ref), f"{label}: <Z...Z> off complex128 by {err / abs(ref)} "
+          f"relative")
+    return err
+
+
 def grad_qaoa() -> dict:
     """Phase 13 (a): BASELINE config #4 at full width.
 
@@ -3179,16 +3330,10 @@ def grad_qaoa() -> dict:
     run = run_counted(lambda: pauli_expectation(circuit(), zz, backend=backend), label)
     check(set(expectation.DISPATCH) == {"batched"}, f"{label}: dispatch {expectation.DISPATCH}")
     got = complex(run["out"])
-    err = abs(got - ref)
     check(run["launches"]["fused_chain"] == len(policy.chains),
           f"{label}: fused_chain launched {run['launches']['fused_chain']} times for "
           f"{len(policy.chains)} chains")
-    print(f"[check] {label} <Z...Z> {got.real:.10e} (complex128 {ref.real:.10e}): |diff| "
-          f"{err:.3e} (gate 1e-5), relative {err / abs(ref):.3e} (gate 1e-3); dispatch "
-          f"{expectation.DISPATCH}", flush=True)
-    check(err <= 1e-5, f"{label}: <Z...Z> off complex128 by {err}")
-    check(err <= 1e-3 * abs(ref), f"{label}: <Z...Z> off complex128 by {err / abs(ref)} "
-          f"relative")
+    err = hold_value(f"{label} (dispatch {expectation.DISPATCH})", got, ref)
     torch.cuda.empty_cache()
 
     # the MaxCut energy and its gradient
@@ -3570,9 +3715,10 @@ def run_approx(cost_model, qaoa_ref: float) -> dict:
     The QAOA ⟨Z…Z⟩ grid (``ApproxProgram.sandwich_from_circuit(...)
     .rebind_pauli``) up ``ChiLadder(chi_cap=64)`` at ``rtol=1e-6,
     scale=1.0`` in complex128 (it must converge; every rung's err at least
-    its distance from (a)'s complex128 value), then in complex64 up to the
-    chi at which complex128 converged (its floating-point floor, 1e-4 x
-    max(|v|, scale), lies above that tolerance: reported, not converged). ``peps(6, 6, 2, 2, 1)`` (leaves at
+    its distance from (a)'s complex128 value), then in complex64 on the
+    top two of those rungs, half the chi at which complex128 converged and
+    that chi (its floating-point floor, 1e-4 x max(|v|, scale), lies above
+    that tolerance: reported, not converged). ``peps(6, 6, 2, 2, 1)`` (leaves at
     ``unit_scale``) in complex128 up
     (16 ... 512): the chi-512 rung truncation-free and within 1e-10 of the
     host's numpy sweep at chi 512, every lower rung's err at least its
@@ -3599,10 +3745,10 @@ def run_approx(cost_model, qaoa_ref: float) -> dict:
     print(f"[{label}] grid {len(prog.grid)} x {len(prog.grid[0])}, exact chi bound "
           f"{exact_chi_bound(prog)}", flush=True)
     record: dict = {}
-    cap = APPROX_QAOA_CAP
+    ladder = ChiLadder(chi_cap=APPROX_QAOA_CAP)
     for dtype in ("complex128", "complex64"):
         res, run, times = traced_ladder(
-            ChiLadder(chi_cap=cap), prog, f"{label} {dtype} ladder", rtol=1e-6,
+            ladder, prog, f"{label} {dtype} ladder", rtol=1e-6,
             scale=1.0, backend="torch", dtype=dtype, cost_model=cost_model)
         wall = run["walls"][0]
         rows = ladder_rows(f"{label} {dtype}", res, times, qaoa_ref)
@@ -3613,7 +3759,9 @@ def run_approx(cost_model, qaoa_ref: float) -> dict:
               f"{label} {dtype}: a rung's err is below its distance from the exact value")
         if dtype == "complex128":
             check(res.converged, f"{label}: the complex128 ladder did not converge")
-            cap = res.chi_used  # past it the complex64 rungs are truncation-free too
+            # past its chi the complex64 rungs are truncation-free too; the rungs
+            # below the top two repeat the complex128 ones at a coarser width
+            ladder = ChiLadder(chis=(max(res.chi_used // 2, 1), res.chi_used))
         record[f"qaoa_{dtype}"] = {"converged": res.converged, "chi_used": res.chi_used,
                                    "value": res.value.real, "err": res.err, "wall_s": wall,
                                    "elapsed_s": run["elapsed"][0],
@@ -5044,7 +5192,409 @@ def run_planes(refs: dict | None = None) -> dict:
     return {"record": record, "chain_launches": launches, "chain_rows": rows}
 
 
+# --- phase 16: the partitioned planner ----------------------------------------
+
+
+def plan_numbers(program) -> dict:
+    """A program's steps, naive multiply-adds and largest intermediate
+    (elements)."""
+    from tnc_tpu_torch.ops.program import step_flops
+
+    return {"steps": len(program.steps),
+            "madds": sum(step_flops(st) for st in program.steps),
+            "peak": max(math.prod(st.out_store) for st in program.steps)}
+
+
+def plan_line(name: str, numbers: dict) -> str:
+    return (f"{name + ' ' if name else ''}{numbers['steps']} steps, "
+            f"{numbers['madds']:.4e} multiply-adds, largest intermediate "
+            f"2^{math.log2(numbers['peak']):.2f} elements")
+
+
+@contextlib.contextmanager
+def sa_round_scores(sa, n_trials: int):
+    """While active, the best chain score of every round of a simulated-
+    annealing run of ``sa`` (the port's ``simulated_annealing`` module) is
+    appended to the yielded list, with how the round ran: ``"pool"`` (its
+    chains on the spawn pool, read from ``pool_map_with_retry``'s results)
+    or ``"serial"`` (the engine's own serial path, read from each
+    ``_run_chain`` in this process). Both names are looked up at each call."""
+    rounds: list = []
+    serial: list = []
+    real_map, real_chain = sa.pool_map_with_retry, sa._run_chain
+
+    def pool_map(pool, submit, rebuild, log, what):
+        results, pool = real_map(pool, submit, rebuild, log, what)
+        if results is not None:
+            rounds.append(("pool", min(score for score, _ in results)))
+        return results, pool
+
+    def run_chain(*args):
+        out = real_chain(*args)
+        serial.append(out[0])
+        if len(serial) == n_trials:
+            rounds.append(("serial", min(serial)))
+            serial.clear()
+        return out
+
+    sa.pool_map_with_retry, sa._run_chain = pool_map, run_chain
+    try:
+        yield rounds
+    finally:
+        sa.pool_map_with_retry, sa._run_chain = real_map, real_chain
+
+
+def held_contraction(label: str, tn, path, backend) -> dict:
+    """``contract_tensor_network(tn, path, backend)`` once with each distinct
+    chain held against its plain version (a repeat weighs one launch), its
+    launches counted; the program's chains must all have launched."""
+    import torch
+
+    from tnc_tpu_torch.ops import split_complex
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.program import build_program
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    chains = len(backend.kernel_policy(build_program(tn, path)).chains)
+    rows: list = []
+    torch.cuda.synchronize()
+    reset_launches()
+    with holding("run_chain_split",
+                 hold_chain_run(lambda i: f"{label} chain {i}", 1, rows, {}),
+                 split_complex):
+        out = contract_tensor_network(tn, path, backend)
+    torch.cuda.synchronize()
+    launches = LAUNCHES["fused_chain"]
+    check(launches == chains, f"{label}: fused_chain launched {launches} times for "
+          f"{chains} chains")
+    print(f"[{label}] {launches} fused_chain launches, {len(rows)} distinct chains held",
+          flush=True)
+    return {"out": out, "launches": launches, "rows": rows}
+
+
+def run_partitioned_qaoa(cost_model=None) -> dict:
+    """Phase 16 (a): BASELINE config #4 planned the reference bench's way
+    (``bench.py:1350-1377``): ``qaoa_circuit(30, 2, default_rng(42))``'s
+    ⟨Z…Z⟩ network, ``simplify_network``, ``find_partitioning(tn, 4)``,
+    ``SA_ROUNDS`` work-bounded rounds of simulated annealing with
+    ``IntermediatePartitioningModel`` (48 chains a round on the spawn pool,
+    ``random.Random(42)``; the best chain score of each round printed), then
+    ``compute_solution`` and ``build_program``; contracted through
+    ``TorchBackend(dtype="complex64").bind_resident`` as the bench does:
+    every distinct chain held against its plain version first, then three
+    calls (eager; captured and replayed; replayed), each timed and counted,
+    within 1e-5 absolute and 1e-3 relative of the complex128 ``NumpyBackend``
+    value of the same program, the three calls bitwise equal. The same
+    network under ``Greedy`` and under ``balance_partitions_iter``'s plan
+    (its chains held) on the same gates. With ``cost_model`` (phase 11's
+    fit), ``compute_solution`` in the seconds domain too."""
+    import random
+
+    import torch
+
+    from tnc_tpu_torch.builders.qaoa_circuit import qaoa_circuit
+    from tnc_tpu_torch.contractionpath.balancing import (
+        BalanceSettings,
+        balance_partitions_iter,
+    )
+    from tnc_tpu_torch.contractionpath.repartitioning import compute_solution
+    from tnc_tpu_torch.contractionpath.repartitioning import simulated_annealing as sa
+    from tnc_tpu_torch.ops import graphs, split_complex
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.program import build_program, flat_leaf_tensors
+    from tnc_tpu_torch.queries import bind_expectation
+    from tnc_tpu_torch.tensornetwork.partitioning import find_partitioning
+    from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+
+    qubits, rounds, seed = QAOA
+    label = f"qaoa{qubits}_p{rounds}_partitioned"
+    t0 = time.perf_counter()
+    raw = qaoa_circuit(qubits, rounds, np.random.default_rng(seed)) \
+        .into_expectation_value_network()
+    tn = simplify_network(raw)
+    simplify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    initial = find_partitioning(tn, PARTS)
+    partition_s = time.perf_counter() - t0
+    sizes = [initial.count(b) for b in range(PARTS)]
+    print(f"[{label}] {len(raw)} -> {len(tn)} tensors ({simplify_s:.2f} s); "
+          f"find_partitioning into {PARTS}: blocks {sizes} ({partition_s:.3f} s)", flush=True)
+
+    sa_rng = random.Random(seed)
+    model = sa.IntermediatePartitioningModel(tn)
+    t0 = time.perf_counter()
+    with sa_round_scores(sa, SA_TRIALS) as round_scores:
+        best, score = sa.balance_partitions(model, model.initial_solution(initial), sa_rng,
+                                            n_trials=SA_TRIALS, max_rounds=SA_ROUNDS)
+    sa_s = time.perf_counter() - t0
+    assignment = best[0]
+    check(len(round_scores) == SA_ROUNDS, f"{label}: {len(round_scores)} SA rounds seen, "
+          f"not {SA_ROUNDS}")
+    print(f"[{label}] SA ({SA_ROUNDS} rounds of {SA_TRIALS} chains, "
+          f"{sorted({how for how, _ in round_scores})}): best chain score by round "
+          f"{[s for _, s in round_scores]}, best {score:.6g}, blocks "
+          f"{[assignment.count(b) for b in range(PARTS)]} in {sa_s:.2f} s", flush=True)
+    check(score <= min(s for _, s in round_scores),
+          f"{label}: the SA's best {score} is above a round's best chain")
+    t0 = time.perf_counter()
+    ptn, ppath, parallel, serial = compute_solution(tn, assignment, rng=sa_rng)
+    solution_s = time.perf_counter() - t0
+    program = build_program(ptn, ppath)
+    arrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(ptn)]
+    numbers = plan_numbers(program)
+    greedy_path = plan(tn)
+    greedy_numbers = plan_numbers(build_program(tn, greedy_path))
+    phase13_numbers = plan_numbers(bind_expectation(
+        qaoa_circuit(qubits, rounds, np.random.default_rng(seed))).bound.program)
+    print(f"[{label}] compute_solution ({solution_s:.3f} s): parallel cost {parallel:.6g}, "
+          f"serial cost {serial:.6g}; {plan_line('partitioned', numbers)}; "
+          f"{plan_line('Greedy on the simplified network', greedy_numbers)}; "
+          f"{plan_line('phase 13 Greedy sandwich', phase13_numbers)}", flush=True)
+    record = {"tensors": [len(raw), len(tn)], "blocks": sizes, "sa_rounds": SA_ROUNDS,
+              "sa_trials": SA_TRIALS, "sa_round_scores": [s for _, s in round_scores],
+              "sa_mode": sorted({how for how, _ in round_scores}), "sa_score": score,
+              "sa_s": sa_s, "sa_blocks": [assignment.count(b) for b in range(PARTS)],
+              "parallel_cost": parallel, "serial_cost": serial, "plan": numbers,
+              "greedy_plan": greedy_numbers, "phase13_plan": phase13_numbers}
+    if cost_model is not None:
+        _, _, par_s, ser_s = compute_solution(tn, assignment, rng=random.Random(seed),
+                                              cost_model=cost_model)
+        print(f"[{label}] under phase 11's fitted model: predicted critical path "
+              f"{par_s:.6g} s, serial {ser_s:.6g} s", flush=True)
+        record.update(predicted_critical_s=par_s, predicted_serial_s=ser_s)
+
+    t0 = time.perf_counter()
+    ref = complex(np.asarray(NumpyBackend().execute(program, arrays)).reshape(-1)[0])
+    print(f"[{label}] complex128 NumpyBackend {ref.real:.10e} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    backend = TorchBackend(dtype="complex64")
+    policy = backend.kernel_policy(program)
+    check(policy.chains, f"{label}: the policy forms no chain")
+    rows: list = []
+    seen: dict = {}
+    print(f"[kernels] fused_chain against fused_chain_reference on the operands of "
+          f"{label} (each distinct chain once)", flush=True)
+    with holding("run_chain_split",
+                 hold_chain_run(lambda i: f"{label} chain {i}", 1, rows, seen), split_complex):
+        backend.bind_resident(program, arrays, graphs=False)()
+    check(sum(r["launches"] for r in rows) == len(policy.chains),
+          f"{label}: {sum(r['launches'] for r in rows)} chain calls held for "
+          f"{len(policy.chains)} chains")
+    bound = backend.bind_resident(program, arrays)
+    calls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        graphs.reset_stats()
+        t0 = time.perf_counter()
+        out = bound()
+        torch.cuda.synchronize()
+        calls.append({"wall_s": time.perf_counter() - t0, "out": out,
+                      "launches": LAUNCHES["fused_chain"], "graphs": dict(graphs.STATS),
+                      "peak_bytes": torch.cuda.max_memory_allocated()})
+    for i, call in enumerate(calls):
+        check(call["launches"] == len(policy.chains),
+              f"{label} bound call {i}: fused_chain launched {call['launches']} times for "
+              f"{len(policy.chains)} chains")
+        check(all(torch.equal(a, b) for a, b in zip(call["out"], calls[0]["out"])),
+              f"{label} bound call {i}: not the first call's bits")
+    del bound
+    got = complex(torch.complex(*calls[-1]["out"]).cpu().numpy().reshape(-1)[0])
+    print(f"[{label}] bind_resident calls: eager {calls[0]['wall_s']:.6f} s, captured and "
+          f"replayed {calls[1]['wall_s']:.6f} s, replayed {calls[2]['wall_s']:.6f} s; "
+          f"{len(policy.chains)} fused_chain launches a call; graphs "
+          f"{[c['graphs']['graphs'] for c in calls]}, replays "
+          f"{[c['graphs']['replays'] for c in calls]}; max_memory_allocated "
+          f"{[c['peak_bytes'] for c in calls]}", flush=True)
+    err = hold_value(label, got, ref)
+    # the path's launches are the three bound calls': each held row weighs
+    # one launch a call
+    launches = {label: sum(c["launches"] for c in calls)}
+    for r in rows:
+        r["launches"] *= len(calls)
+    record.update(chains=len(policy.chains), value=[got.real, got.imag],
+                  complex128=[ref.real, ref.imag], abs_err=err,
+                  bound_walls_s=[c["wall_s"] for c in calls],
+                  bound_peak_bytes=[c["peak_bytes"] for c in calls])
+
+    # the same network under Greedy, then under balance_partitions_iter's plan
+    greedy_label = f"qaoa{qubits}_p{rounds}_greedy"
+    greedy = held_contraction(greedy_label, tn, greedy_path, backend)
+    greedy_got = complex(greedy["out"].data.into_data())
+    hold_value(greedy_label, greedy_got, ref)
+    launches[greedy_label] = greedy["launches"]
+
+    balanced_label = f"qaoa{qubits}_p{rounds}_balanced"
+    t0 = time.perf_counter()
+    best_iter, btn, bpath, history = balance_partitions_iter(
+        tn, initial, BalanceSettings(), random.Random(seed))
+    balance_s = time.perf_counter() - t0
+    bprogram = build_program(btn, bpath)
+    bnumbers = plan_numbers(bprogram)
+    barrays = [leaf.data.into_data() for leaf in flat_leaf_tensors(btn)]
+    bref = complex(np.asarray(NumpyBackend().execute(bprogram, barrays)).reshape(-1)[0])
+    print(f"[{balanced_label}] balance_partitions_iter ({balance_s:.2f} s): best iteration "
+          f"{best_iter} of {len(history) - 1}, cost {history[0]:.6g} -> {min(history):.6g}, "
+          f"blocks {[len(b) for b in btn]}; {plan_line('balanced', bnumbers)}; complex128 "
+          f"{bref.real:.10e}", flush=True)
+    balanced = held_contraction(balanced_label, btn, bpath, backend)
+    hold_value(balanced_label, complex(balanced["out"].data.into_data()), bref)
+    hold_value(f"{balanced_label} complex128 against the partitioned plan's", bref, ref)
+    launches[balanced_label] = balanced["launches"]
+    record.update(greedy_value=[greedy_got.real, greedy_got.imag],
+                  balanced={"best_iteration": best_iter, "history": history,
+                            "blocks": [len(b) for b in btn], "plan": bnumbers,
+                            "seconds": balance_s, "complex128": [bref.real, bref.imag]})
+    torch.cuda.empty_cache()
+    return {"record": record, "chain_launches": launches,
+            "chain_rows": {label: rows, greedy_label: greedy["rows"],
+                           balanced_label: balanced["rows"]}}
+
+
+def run_treecut(amp_ref: complex | None = None) -> dict:
+    """Phase 16 (b): the tree cut on the card. The amplitude "0"x53 of
+    ``sycamore_circuit(53, 8, default_rng(42))`` (phase 12's raw network),
+    its ``Greedy`` SSA path cut into ``TREECUT_PARTS`` blocks by
+    ``plan_treecut(..., seed=TREECUT_SEED)``, the partitioned plan from
+    ``compute_solution_with_paths(..., rng=random.Random(0))`` (the default
+    GREEDY fan-in), contracted by ``contract_tensor_network(ptn, ppath,
+    TorchBackend())`` on one card: its chains held against their plain
+    version in the warm-up, three timed runs (wall, CUDA-event seconds,
+    peak against ``compute_memory_requirements``), the device-resident
+    part timed alone and profiled once (device busy seconds and share), the
+    amplitude within
+    1e-4·max(|ref|, 2^-14) of complex128 on the card (and of phase 12's
+    complex128 value for the bitstring, ``amp_ref``, where it ran)."""
+    import random
+
+    import torch
+
+    from tnc_tpu_torch.contractionpath.contraction_cost import (
+        communication_path_op_costs,
+        compute_memory_requirements,
+    )
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.contractionpath.repartitioning import compute_solution_with_paths
+    from tnc_tpu_torch.contractionpath.treecut import plan_treecut
+    from tnc_tpu_torch.ops import split_complex
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.program import build_program
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    qubits, depth, _ = SWEEP
+    label = f"sycamore{qubits}_m{depth}_treecut"
+    tn, _ = sycamore(SWEEP).into_amplitude_network("0" * qubits)
+    t0 = time.perf_counter()
+    greedy = Greedy(OptMethod.GREEDY).find_path(tn)
+    greedy_s = time.perf_counter() - t0
+    greedy_numbers = plan_numbers(build_program(tn, greedy.replace_path()))
+    t0 = time.perf_counter()
+    cut = plan_treecut(list(tn.tensors), greedy.ssa_path.toplevel, TREECUT_PARTS,
+                       seed=TREECUT_SEED)
+    cut_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptn, ppath, parallel, serial = compute_solution_with_paths(
+        tn, cut.assignment, cut.local_paths, rng=random.Random(TREECUT_RNG))
+    solution_s = time.perf_counter() - t0
+    program = build_program(ptn, ppath)
+    numbers = plan_numbers(program)
+    top = build_program(*compute_solution_with_paths(
+        tn, cut.assignment, cut.local_paths, communication_path=cut.toplevel)[:2])
+    top_numbers = plan_numbers(top)
+    mem = compute_memory_requirements(ptn.tensors, ppath)
+    print(f"[{label}] {len(tn)} tensors; Greedy ({greedy_s:.2f} s): "
+          f"{plan_line('', greedy_numbers)}; plan_treecut into {TREECUT_PARTS} "
+          f"(seed {TREECUT_SEED}, {cut_s:.2f} s): blocks "
+          f"{[cut.assignment.count(b) for b in range(TREECUT_PARTS)]}, critical estimate "
+          f"{cut.critical_estimate:.6g}, serial {cut.serial_estimate:.6g}, speedup estimate "
+          f"{cut.speedup_estimate:.3f}; compute_solution_with_paths ({solution_s:.2f} s, "
+          f"GREEDY fan-in {ppath.toplevel}): parallel {parallel:.6g}, serial {serial:.6g}; "
+          f"{plan_line('partitioned', numbers)}; with the cut's own fan-in "
+          f"{cut.toplevel}: {plan_line('', top_numbers)}; compute_memory_requirements "
+          f"{mem:.6g} elements", flush=True)
+
+    backend = TorchBackend()
+    policy = backend.kernel_policy(program)
+    rows: list = []
+    seen: dict = {}
+
+    def held():
+        with holding("run_chain_split",
+                     hold_chain_run(lambda i: f"{label} chain {i}", 1, rows, seen),
+                     split_complex):
+            return contract_tensor_network(ptn, ppath, backend)
+
+    print(f"[kernels] fused_chain against fused_chain_reference on the operands of {label} "
+          f"(each distinct chain once, in the warm-up)", flush=True)
+    run = run_counted(lambda: contract_tensor_network(ptn, ppath, backend), label,
+                      warmup=held)
+    check(sum(r["launches"] for r in rows) == len(policy.chains),
+          f"{label}: {sum(r['launches'] for r in rows)} chain calls held for "
+          f"{len(policy.chains)} chains")
+    check(run["launches"]["fused_chain"] == len(policy.chains),
+          f"{label}: fused_chain launched {run['launches']['fused_chain']} times for "
+          f"{len(policy.chains)} chains")
+    got = complex(run["out"].data.into_data())
+    del run["out"]
+    prof = profile_device_path(device_run(ptn, ppath, backend), label)
+    t0 = time.perf_counter()
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    ref = complex(contract_tensor_network(ptn, ppath, oracle).data.into_data())
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    tol = 1e-4 * max(abs(ref), 2.0 ** -14)
+    err = abs(got - ref)
+    peak = run["peak_bytes"]
+    print(f"[check] {label} amplitude {got:.6e}, complex128 on the card {ref:.6e} "
+          f"({ref_s:.2f} s): |diff| {err:.3e} (gate {tol:.3e}); wall "
+          f"{statistics.median(run['walls']):.4f} s, CUDA-event span "
+          f"{statistics.median(run['elapsed']):.4f} s; max_memory_allocated {peak} bytes, "
+          f"{peak / (8 * mem):.3f}x compute_memory_requirements at 8 bytes an element",
+          flush=True)
+    check(err <= tol, f"{label}: amplitude off complex128 by {err}")
+    if amp_ref is not None:
+        gap = abs(got - amp_ref)
+        print(f"[check] {label} against phase 12's complex128 amplitude {amp_ref:.6e}: "
+              f"|diff| {gap:.3e} (gate {tol:.3e})", flush=True)
+        check(gap <= tol, f"{label}: amplitude off phase 12's complex128 by {gap}")
+    record = {"tensors": len(tn), "greedy_plan": greedy_numbers, "greedy_s": greedy_s,
+              "treecut_s": cut_s, "blocks": [cut.assignment.count(b)
+                                             for b in range(TREECUT_PARTS)],
+              "critical_estimate": cut.critical_estimate,
+              "serial_estimate": cut.serial_estimate, "parallel_cost": parallel,
+              "serial_cost": serial, "plan": numbers, "toplevel_plan": top_numbers,
+              "memory_requirement": mem, "chains": len(policy.chains),
+              "amplitude": [got.real, got.imag], "complex128": [ref.real, ref.imag],
+              "abs_err": err, "wall_s": run["walls"], "elapsed_s": run["elapsed"],
+              "peak_bytes": peak, **prof,
+              "busy_share": prof["device_busy_s"] / prof["profiled_s"]}
+    return {"record": record, "chain_launches": {label: run["launches"]["fused_chain"]},
+            "chain_rows": {label: rows}}
+
+
+def run_partitioned(cost_model=None, amp_ref: complex | None = None) -> dict:
+    """Phase 16: the partitioned planner (:func:`run_partitioned_qaoa`,
+    :func:`run_treecut`)."""
+    t0 = time.perf_counter()
+    qaoa = run_partitioned_qaoa(cost_model)
+    cut = run_treecut(amp_ref)
+    seconds = time.perf_counter() - t0
+    print(f"[partitioned] phase 16 in {seconds:.1f} s", flush=True)
+    rows = {**qaoa["chain_rows"], **cut["chain_rows"]}
+    launches = {**qaoa["chain_launches"], **cut["chain_launches"]}
+    check(all(sum(r["launches"] for r in rows[k]) == n for k, n in launches.items()),
+          "phase 16: a cell's held launches differ from its count")
+    return {"record": {"qaoa30_p2_partitioned": qaoa["record"],
+                       "sycamore53_m8_treecut": cut["record"], "seconds": seconds},
+            "chain_launches": launches, "chain_rows": rows}
+
+
 def main() -> int:
+    if sys.argv[1:2] == [NORTHSTAR_PLAN_FLAG] and len(sys.argv) == 3:
+        return make_northstar_plan(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -5071,6 +5621,16 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
+    phase_s: dict = {}
+    clock = [t0]
+
+    def phase_done(n: int) -> None:
+        """Print and keep the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[n] = now - clock[0]
+        clock[0] = now
+        print(f"[phase {n}] {phase_s[n]:.1f} s", flush=True)
+
     cuda_complex.build_kernels()
     print(f"[build] {len(cuda_complex.BUILD_LOG)} kernels in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -5132,6 +5692,19 @@ def main() -> int:
         print(card_line(), flush=True)
         return 0
 
+    if "--partitioned" in sys.argv[1:]:
+        # the partitioned planner alone: phase 16, no fitted model
+        part = run_partitioned()
+        print(json.dumps({"partitioned": part["record"],
+                          "launches_by_path": {"fused_chain": part["chain_launches"]},
+                          "kernels_by_path": {"fused_chain": {
+                              k: chain_record(r) for k, r in part["chain_rows"].items()}},
+                          "shapes": {"fused_chain": [
+                              r for rows in part["chain_rows"].values() for r in rows]}}),
+              flush=True)
+        print(card_line(), flush=True)
+        return 0
+
     if "--sweep" in sys.argv[1:]:
         # the batched sweep and the query path alone: phase 12
         sweep = run_sweep()
@@ -5140,6 +5713,10 @@ def main() -> int:
                                      "fused_complex_dot": sweep["dot_rows"]}}), flush=True)
         print(card_line(), flush=True)
         return 0
+
+    # the north star's plan (phase 10) is made beside phases 2-9
+    northstar_plan = BackgroundPlan()
+    phase_done(1)
 
     # 2. plan + kernels against their plain versions
     tn, permutor = build_config(QUBITS)
@@ -5162,6 +5739,8 @@ def main() -> int:
     dot_rec = check_dot(program, gen)
     torch.cuda.empty_cache()
 
+    phase_done(2)
+
     # 3. main path
     main = run_main_path(tn, path, backend, "main path")
     sv_leaf, walls, launches = main["out"], main["walls"], main["launches"]
@@ -5173,6 +5752,8 @@ def main() -> int:
     check(launches["fused_chain"] > 0, "main path launched no fused_chain")
     chain_launches = {"random28": launches["fused_chain"]}
     chain_forms = {"random28": main_forms}
+
+    phase_done(3)
 
     # 4. correctness
     sv = np.asarray(sv_leaf.data.into_data())
@@ -5206,6 +5787,8 @@ def main() -> int:
     check(diff <= 1e-5, f"{SMALL_QUBITS}-qubit statevector off by {diff}")
     del sv_leaf
 
+    phase_done(4)
+
     # 5. forced fused rung
     os.environ["TNC_TPU_COMPLEX_MULT"] = "fused"
     try:
@@ -5228,8 +5811,12 @@ def main() -> int:
           "fused rung disagrees with the main path")
     del fused_leaf, fused_sv
 
+    phase_done(5)
+
     # 6. where the main path's time goes
     prof = profile_device_path(device_run(tn, path, backend), "random28")
+
+    phase_done(6)
 
     # 7. the PEPS cell: the transpose kernel at the plan's shapes, then
     # the path under the default policy and the forced fused_transpose rung
@@ -5243,12 +5830,16 @@ def main() -> int:
     transpose_rec["launches"] = peps_rec["fused_transpose_launches"]
     torch.cuda.empty_cache()
 
+    phase_done(7)
+
     # 8. the sliced cell on the per-slice loop, unhoisted
     sliced = run_sliced(TorchBackend(sliced_strategy="loop", hoist=False))
     chain_launches["sycamore53_m10_sliced"] = sliced["chain_launches"]
     chain_forms["sycamore53_m10_sliced"] = sliced["record"]["chain_forms"]
     dot_launches["sycamore53_m10_sliced fused rung"] = sliced["dot_launches"]
     torch.cuda.empty_cache()
+
+    phase_done(8)
 
     # 9. the sliced cell on the default path (stem hoisted, residual chunked
     # and batched over slices), and the two small amplitudes whose residuals
@@ -5261,13 +5852,17 @@ def main() -> int:
     chain_forms.update({name: r["fused_chain_forms"] for name, r in small["records"].items()})
     torch.cuda.empty_cache()
 
+    phase_done(9)
+
     # 10. the north star: sycamore(53, 14) planned by the port's hyper-optimizer
     # and slice_and_reconfigure, all its slices on the default path
-    northstar = run_northstar(backend)
+    northstar = run_northstar(backend, planned=northstar_plan)
     chain_launches["sycamore53_m14_hyper"] = northstar["chain_launches"]
     chain_forms["sycamore53_m14_hyper"] = northstar["record"]["chain_forms"]
     dot_launches["sycamore53_m14_hyper fused rung"] = northstar["dot_launches"]
     torch.cuda.empty_cache()
+
+    phase_done(10)
 
     # 11. the calibrated kernel ladder: a device model fitted to the card's
     # step spans, random28 and peps44_b32 planned and run under it, and the
@@ -5283,6 +5878,8 @@ def main() -> int:
     transpose_rec["launches"] += calibrated["transpose_launches"]
     torch.cuda.empty_cache()
 
+    phase_done(11)
+
     # 12. the batched amplitude sweep of sycamore(53, 8), its serving path and
     # forced fused rung, and the marginal and sampling queries at 20 qubits
     sweep = run_sweep()
@@ -5291,6 +5888,8 @@ def main() -> int:
     chain_forms[sweep["label"]] = sweep["record"]["chain_forms"]
     dot_launches[f"{sweep['label']} fused rung"] = sweep["dot_launches"]
     torch.cuda.empty_cache()
+
+    phase_done(12)
 
     # 13. gradients and the approximate tier: config #4's expectation value
     # and MaxCut gradient, the 53-qubit sliced gradient, the sweep gradient,
@@ -5303,6 +5902,8 @@ def main() -> int:
     chain_launches[f"{grad['label']} <Z...Z>"] = grad["chain_launches"]
     torch.cuda.empty_cache()
 
+    phase_done(13)
+
     # 14. the serving front end and resilience: the micro-batching service
     # over phase 12's circuit (plan cache, reuse store, fault frames), the
     # checkpointed sliced branch, the mixed query queue, the approximate tier
@@ -5310,11 +5911,26 @@ def main() -> int:
     chain_launches.update(serve["chain_launches"])
     torch.cuda.empty_cache()
 
+    phase_done(14)
+
     # 15. the in-process serving planes: the replanner's swap, the SLO engine,
     # telemetry, cost truth and trace export on phase 14's rows, the OOM
     # degradation ladder on phase 12's amplitude, the planner pod at 20 qubits
     planes = run_planes(serve["refs"])
     chain_launches.update(planes["chain_launches"])
+    torch.cuda.empty_cache()
+
+    phase_done(15)
+
+    # 16. the partitioned planner: config #4 planned by find_partitioning and
+    # SA (and by balance_partitions_iter), phase 12's network cut by
+    # plan_treecut, each contracted on the card
+    zero = sweep["record"]["complex128"][0]
+    part = run_partitioned(CalibratedCostModel(fitted["flops_per_s"], fitted["dispatch_s"],
+                                               fitted["bytes_per_s"]),
+                           complex(zero[0], zero[1]))
+    chain_launches.update(part["chain_launches"])
+    phase_done(16)
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -5346,7 +5962,8 @@ def main() -> int:
                         **sweep_chains,
                         f"{grad['label']} <Z...Z>": chain_record(grad["chain_rows"]),
                         **{k: chain_record(r) for k, r in serve["chain_rows"].items()},
-                        **{k: chain_record(r) for k, r in planes["chain_rows"].items()}},
+                        **{k: chain_record(r) for k, r in planes["chain_rows"].items()},
+                        **{k: chain_record(r) for k, r in part["chain_rows"].items()}},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -5362,7 +5979,8 @@ def main() -> int:
     chain_rows += (sliced["chain_rows"] + small["chain_rows"] + northstar["chain_rows"]
                    + calibrated["chain_rows"] + sweep["chain_rows"] + grad["chain_rows"]
                    + [r for rows in serve["chain_rows"].values() for r in rows]
-                   + [r for rows in planes["chain_rows"].values() for r in rows])
+                   + [r for rows in planes["chain_rows"].values() for r in rows]
+                   + [r for rows in part["chain_rows"].values() for r in rows])
     # every path's rows weigh the launches it counted, so the record's times
     # are means over exactly the launches the line reports
     weighed = sum(r["launches"] for r in chain_rows)
@@ -5404,6 +6022,8 @@ def main() -> int:
         "grad": grad["record"],
         "serve": serve["record"],
         "planes": planes["record"],
+        "partitioned": part["record"],
+        "phase_seconds": phase_s,
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},
         "fused_chain_forms_by_path": chain_forms,

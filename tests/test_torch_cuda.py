@@ -1022,3 +1022,45 @@ def test_cost_truth_adoption_keeps_the_policy_key_on_the_card():
         assert backend.policy_key() == key
     finally:
         core._ENABLED, core._STEP_TIME, core._REGISTRY = saved
+
+
+@pytest.mark.cuda
+def test_partitioned_treecut_amplitude_on_the_card():
+    """A ``sycamore_circuit(20, 8)`` amplitude cut into 4 blocks from its
+    ``Greedy`` tree (``plan_treecut(..., seed=3)``, the GREEDY fan-in of
+    ``compute_solution_with_paths``): the nested program on the card, one
+    ``fused_chain`` launch per chain of its policy, equals the same program
+    on the host's plain chain (``TorchBackend(device="cpu",
+    split_complex=True)``) and complex128 to 1e-5·max(|ref|, 2^-14)."""
+    _card()
+    import random
+
+    import numpy as np
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.contractionpath.repartitioning import compute_solution_with_paths
+    from tnc_tpu_torch.contractionpath.treecut import plan_treecut
+    from tnc_tpu_torch.ops.backends import NumpyBackend, TorchBackend
+    from tnc_tpu_torch.ops.program import build_program
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    tn, _ = sycamore_circuit(20, 8, np.random.default_rng(42)).into_amplitude_network("0" * 20)
+    ssa = Greedy(OptMethod.GREEDY).find_path(tn).ssa_path.toplevel
+    cut = plan_treecut(list(tn.tensors), ssa, 4, seed=3)
+    ptn, path, _, _ = compute_solution_with_paths(tn, cut.assignment, cut.local_paths,
+                                                  rng=random.Random(0))
+    assert len(ptn) == 4 and path.nested
+    backend = TorchBackend()
+    chains = len(backend.kernel_policy(build_program(ptn, path)).chains)
+    assert chains > 0
+    cc.reset_launches()
+    got = complex(contract_tensor_network(ptn, path, backend).data.into_data())
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["fused_chain"] == chains
+    plain = complex(contract_tensor_network(
+        ptn, path, TorchBackend(device="cpu", split_complex=True)).data.into_data())
+    want = complex(contract_tensor_network(ptn, path, NumpyBackend()).data.into_data())
+    tol = 1e-5 * max(abs(want), 2.0 ** -14)
+    assert abs(got - plain) <= tol
+    assert abs(got - want) <= tol

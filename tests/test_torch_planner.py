@@ -63,6 +63,15 @@ PLANNER_MODULES = [
     "tnc_tpu_torch.contractionpath.slicing",
     "tnc_tpu_torch.contractionpath.paths.hyper",
     "tnc_tpu_torch.benchmark.northstar",
+    "tnc_tpu_torch.contractionpath.paths.optimal",
+    "tnc_tpu_torch.contractionpath.paths.branchbound",
+    "tnc_tpu_torch.contractionpath.communication_schemes",
+    "tnc_tpu_torch.tensornetwork.partitioning",
+    "tnc_tpu_torch.contractionpath.repartitioning.__init__",
+    "tnc_tpu_torch.contractionpath.repartitioning.simulated_annealing",
+    "tnc_tpu_torch.contractionpath.repartitioning.genetic",
+    "tnc_tpu_torch.contractionpath.balancing",
+    "tnc_tpu_torch.contractionpath.treecut",
 ]
 ENGINES = ["native", "python"]
 NO_BUDGET = dict(reconf_rounds=1, step_budget=None, final_rounds=2, final_budget=None)

@@ -2,7 +2,8 @@
 ``tnc_tpu.contractionpath.contraction_cost``, trimmed to what the
 :class:`~tnc_tpu_torch.contractionpath.paths.greedy.Greedy` and
 :class:`~tnc_tpu_torch.contractionpath.paths.hyper.Hyperoptimizer`
-finders, the slicing scorers and the path result call).
+finders, the slicing scorers, the path result and the partitioned
+planner call).
 
 Flops and peak memory are predicted *before* any kernel runs. All costs
 are floats — Sycamore-class networks overflow 64-bit integers.
@@ -13,6 +14,9 @@ are floats — Sycamore-class networks overflow 64-bit integers.
   dims
 - :func:`contract_size_tensors` — ``|out| + |a| + |b|`` elements;
   ``_bytes`` variant multiplies by 16 (complex128)
+- :func:`communication_path_cost` / :func:`communication_path_op_costs`
+  — a fan-in path's critical-path and serial cost with per-input start
+  latencies; :func:`compute_memory_requirements` — a nested path's peak
 - :func:`greedy_cost_fn` — the greedy finder's pair-scoring heuristics.
 - :class:`PathObjective` / :class:`FlopsObjective` /
   :class:`SizeObjective` — the path-level ranking a trial-based finder
@@ -122,6 +126,91 @@ def contract_path_cost(
     return _contract_path_custom_cost(
         inputs, contract_path, cost_function, contract_size_tensors
     )
+
+
+def communication_path_cost(
+    inputs: Sequence[LeafTensor],
+    contract_path: Sequence[tuple[int, int]],
+    only_count_ops: bool = False,
+    only_critical_path: bool = True,
+    tensor_cost: Sequence[float] | None = None,
+    cost_function: CostFn | None = None,
+) -> tuple[float, float]:
+    """Cost of a flat (communication) path with per-input start latencies.
+
+    With ``only_critical_path`` the accumulated cost of a contraction is
+    ``cost(i,j) + max(latency_i, latency_j)`` — the parallel makespan;
+    otherwise latencies add — the serial sum (``contraction_cost.rs:178-244``).
+
+    ``cost_function`` overrides the per-pair cost (e.g. a
+    :class:`CalibratedObjective`'s seconds-domain ``pair_cost``, with
+    ``tensor_cost`` latencies in seconds to match).
+    """
+    if cost_function is None:
+        cost_function = (
+            contract_op_cost_tensors if only_count_ops else contract_cost_tensors
+        )
+    if tensor_cost is not None:
+        if len(tensor_cost) != len(inputs):
+            raise ValueError("tensor_cost length must match inputs")
+        latencies = list(tensor_cost)
+    else:
+        latencies = [0.0] * len(inputs)
+
+    if len(inputs) == 1:
+        return latencies[0], latencies[0]
+
+    tensors = [t.copy() for t in inputs]
+    op_cost = 0.0
+    mem_cost = 0.0
+    for i, j in contract_path:
+        out = tensors[i] ^ tensors[j]
+        mem_cost = max(mem_cost, contract_size_tensors(tensors[i], tensors[j]))
+        step = cost_function(tensors[i], tensors[j])
+        if only_critical_path:
+            op_cost = step + max(latencies[i], latencies[j])
+        else:
+            op_cost = step + latencies[i] + latencies[j]
+        latencies[i] = op_cost
+        tensors[i] = out
+    return op_cost, mem_cost
+
+
+def communication_path_op_costs(
+    inputs: Sequence[LeafTensor],
+    contract_path: Sequence[tuple[int, int]],
+    only_count_ops: bool = False,
+    tensor_cost: Sequence[float] | None = None,
+    cost_function: CostFn | None = None,
+) -> tuple[tuple[float, float], float]:
+    """((critical-path cost, sum cost), peak memory)
+    (``contraction_cost.rs:156-167``).
+    """
+    parallel_cost, _ = communication_path_cost(
+        inputs, contract_path, only_count_ops, True, tensor_cost,
+        cost_function,
+    )
+    serial_cost, mem_cost = communication_path_cost(
+        inputs, contract_path, only_count_ops, False, tensor_cost,
+        cost_function,
+    )
+    return (parallel_cost, serial_cost), mem_cost
+
+
+def compute_memory_requirements(
+    inputs: Sequence[Tensor],
+    contract_path: ContractionPath,
+    memory_estimator: CostFn = contract_size_tensors,
+) -> float:
+    """Peak memory of a nested path under ``memory_estimator``
+    (``contraction_cost.rs:254-264``).
+    """
+
+    def zero(_a: LeafTensor, _b: LeafTensor) -> float:
+        return 0.0
+
+    _, mem = _contract_path_custom_cost(inputs, contract_path, zero, memory_estimator)
+    return mem
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,14 @@ a flat ``toplevel`` pair list. In a partitioned/distributed network, the
 ``toplevel`` path doubles as the inter-device communication schedule
 (``mpi/communication.rs:199-249``).
 
-Two path formats:
+Path formats:
 
 - **SSA**: each contraction output gets the next fresh id (``n``, ``n+1``,
   ...); inputs are referenced by ssa id.
 - **replace-left**: the output replaces the *left* input's position; no
   positions are compacted (executor keeps a list of optionals).
+- **linear/opt-einsum**: not used internally; see :func:`ssa_ordering` for
+  converting optimizer triple output.
 """
 
 from __future__ import annotations
@@ -70,6 +72,40 @@ class ContractionPath:
         return cls.simple([(int(i), int(j)) for i, j in obj])
 
 
+def path(*items) -> ContractionPath:
+    """Convenience constructor mirroring TNC's ``path!`` macro.
+
+    ``path((0, 1), (3, 2))`` builds a simple path; nested children are given
+    as ``path({2: path((0, 1))}, (0, 1))`` — a leading dict maps child index
+    to its nested path.
+    """
+    nested: dict[int, ContractionPath] = {}
+    toplevel: list[tuple[int, int]] = []
+    for item in items:
+        if isinstance(item, dict):
+            nested.update(item)
+        else:
+            toplevel.append((int(item[0]), int(item[1])))
+    return ContractionPath(nested, toplevel)
+
+
+def ssa_ordering(triples: Sequence[tuple[int, int, int]], n: int) -> ContractionPath:
+    """Convert optimizer triple output ``(in1, in2, out)`` with arbitrary
+    intermediate ids into strict SSA format (``contractionpath.rs:180-192``).
+    """
+    remap: dict[int, int] = {}
+    next_id = n
+    ssa_path = []
+    for u1, u2, u3 in triples:
+        t1 = remap[u1] if u1 >= n else u1
+        t2 = remap[u2] if u2 >= n else u2
+        if u3 not in remap:
+            remap[u3] = next_id
+        next_id += 1
+        ssa_path.append((t1, t2))
+    return ContractionPath.simple(ssa_path)
+
+
 def ssa_replace_ordering(
     ssa: ContractionPath, num_inputs: int | None = None
 ) -> ContractionPath:
@@ -111,3 +147,16 @@ def replace_ssa_ordering(
         current[a] = nxt
         nxt += 1
     return out
+
+
+def validate_path(path_: ContractionPath, num_tensors: int) -> bool:
+    """Sanity-check a replace-left path fully contracts ``num_tensors``
+    tensors into one (``paths.rs:87-100``): every step consumes a live
+    position and exactly one survivor remains.
+    """
+    alive = set(range(num_tensors))
+    for i, j in path_.toplevel:
+        if i not in alive or j not in alive or i == j:
+            return False
+        alive.discard(j)
+    return len(alive) == 1 or (num_tensors == 1 and not path_.toplevel)
