@@ -62,7 +62,7 @@ Phases, each of which raises on failure (nothing is caught):
    2^29 elements: 128 slices of 169 steps. ``fused_chain`` against its
    plain version on the chain operands
    slice 0 builds; ``contract_tensor_network_sliced`` once to warm up and
-   three times timed (``fused_chain`` launched once per chain and slice);
+   twice timed (``fused_chain`` launched once per chain and slice);
    the device-resident part, a profile of four eager slices and the CUDA-event
    time of every step of slice 0; slices 0-7 and the whole amplitude against
    complex128 on the card (the first 32 slices only if complex128 of all
@@ -75,7 +75,7 @@ Phases, each of which raises on failure (nothing is caught):
    stem hoisted (128 steps, once), the 41 residual steps chunked and
    batched over 8 slices at a time. The plan (prelude and residual, chunks,
    modes, the batch requested and run, the modeled peak); the amplitude
-   once to warm up and three times timed; the device-resident part, the
+   once to warm up and twice timed; the device-resident part, the
    prelude timed apart and a profile of one eager batch of the residual;
    the amplitude against
    phase 8's complex128 partials and the loop's amplitude; the forced
@@ -102,7 +102,7 @@ Phases, each of which raises on failure (nothing is caught):
    reference's plan; the default path's plan (prelude, residual chunks,
    modes, chains, batch, modeled peak) and the transpose gate's count;
    each chain of the first batch held against its plain version; the
-   first 32 of its 4096 slices (``NORTHSTAR_RUN``; all of them take ~11
+   first 24 of its 4096 slices (``NORTHSTAR_RUN``; all of them take ~11
    minutes) through ``TorchBackend().execute_sliced`` (a warm-up batch,
    three timed runs), the device-resident part, the prelude apart and a
    profile of one batch; slices 0-15 one by one and the sum of the
@@ -178,8 +178,9 @@ Phases, each of which raises on failure (nothing is caught):
    complex128 on the card on 8 seeded leaves, d/dγ of round 1 against a
    central difference; ``sliced_contraction_value_and_grad`` of the
    amplitude "0"x53 of ``sycamore_circuit(53, 8, default_rng(42))`` (raw
-   network, ``Greedy``, ``find_slicing`` to 2^26) over 8 seeded leaves,
-   timed beside the sliced forward and one slice's forward-with-grad, its
+   network, ``Greedy``, ``find_slicing`` to 2^26.15: 32 slices) over 8
+   seeded leaves, timed beside the sliced forward and one slice's
+   forward-with-grad, its
    value against the complex128 slices, its cotangents by the linearity
    oracle against the unsliced complex128 forward, its peak within 1.5x of
    one slice's; ``amplitude_sweep_value_and_grad`` of 16 bitstrings of
@@ -254,7 +255,32 @@ Phases, each of which raises on failure (nothing is caught):
    profiled for the card's busy share) within 1e-4·max(|ref|, 2^-14) of
    complex128 on the card and of phase 12's value. Every chain of every
    plan is held against its plain version;
-17. one JSON line of path numbers (with each kernel's per-shape rows,
+17. the multi-GPU executors (``tnc_tpu_torch.parallel``) on the one card:
+   phase 16's tree cut through ``distributed_partitioned_contraction`` on
+   ``[cuda:0] * 4`` (the local phases on streams of their own, the fan-in
+   by ``.to()``), then with ``hbm_bytes`` at half the largest partition's
+   modeled peak, so that it slices locally through the chunked executor
+   (each: the local phase timed together and one by one, one counted run
+   with its fan-in levels' bytes and flops, the amplitude within
+   1e-4·max(|ref|, 2^-14) of complex128); BASELINE config #5 planned as
+   ``bench.py:1442-1500`` plans it (``sycamore_circuit(24, 20, rng 42)``,
+   ``find_partitioning`` into 8, four work-bounded SA rounds,
+   ``compute_solution``) through ``partitioned_sliced_executor`` on
+   ``[cuda:0] * 8`` at the bench's 16 GiB budget, ``run(1)``, ``run(2)``
+   and ``run()``, the sum against a complex128 contraction of the
+   flattened plan on the card; phase 8's amplitude through
+   ``distributed_sliced_contraction`` in a spawned rank of an NCCL group,
+   all 128 slices, within 1e-4·Σ_s|ref_s| of phase 8's complex128
+   slices; and two spawned gloo ranks sharing ``cuda:0`` over a
+   ``TCPStore``: ``broadcast_path`` of config #4's plan, its
+   process-sharded contraction (the same bits on both ranks, phase 16's
+   gates), phase 8's amplitude over the two ranks (64 slices each, the
+   ranks bitwise equal, within those gates of the NCCL rank's value), and
+   ``gather_objects`` with rank 1 withholding its part (``GatherLost(1)``).
+   Every ``fused_chain`` launch, the ranks' included, is held against its
+   plain version; a rank that fails or outlives its timeout fails the run
+   (the group killed first);
+18. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -281,6 +307,9 @@ alone (its complex128 references made through the swapped plan), and ends
 with its JSON record and the card line. ``python3 chip_smoke.py
 --partitioned`` builds the kernels and runs phase 16 alone (no fitted model,
 no phase 12 value), and ends with its JSON record and the card line.
+``python3 chip_smoke.py --parallel`` builds the kernels, runs phase 16 (for
+its plans), makes phase 8's plan and complex128 slices, runs phase 17, and
+ends with its JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -310,6 +339,7 @@ PEPS_SMALL = (3, 3, 2, 16, 0)
 # the sliced cell: a Sycamore single amplitude (qubits, depth, rng seed, log2 of
 # the slicing target), and a small one checked against the host oracle
 SLICED = (53, 10, 42, 29)
+MAIN_SLICED_REPS = 2  # timed runs of its 128 slices in phases 8 and 9
 SLICED_SMALL = (20, 6, 7, 7)
 # the small amplitudes whose residuals keep chains on the default sliced path
 # (the cell's residual has none): 4 slices in one batch, 2 chains; 16 slices
@@ -329,10 +359,11 @@ NORTHSTAR_QUALITY = 1.25
 NORTHSTAR_PARITY = 16  # slices held one by one (the reference bench's parity_slices)
 NORTHSTAR_CHECK_S = 60.0  # complex128 of every slice if it takes at most this,
 NORTHSTAR_CHECK_FEW = 256  # else of this many
-# the slices phase 10 contracts, 4 batches of 8: all 4096 take ~11 min on the card,
-# more than this script's time allows (32, not 64, since phase 15 needs the room);
+# the slices phase 10 contracts, 3 batches of 8 (a replayed batch between two
+# others): all 4096 take ~11 min on the card, more than this script's time
+# allows (24, not 64, since phases 15 and 17 need the room);
 # `python3 chip_smoke.py --northstar-full` contracts them all
-NORTHSTAR_RUN = 32
+NORTHSTAR_RUN = 24
 # the full run plans the north star in a process of its own while phases 2-9 run
 # (host work beside device work); phase 10 waits at most this long for it
 NORTHSTAR_PLAN_FLAG = "--northstar-plan-to"
@@ -364,10 +395,12 @@ GRAD_SLOTS = 8  # seeded leaves each gradient is held to the linearity oracle on
 GRAD_SEED = 11
 GRAD_EPS = 1e-4  # the central difference of d/dgamma
 # the sliced gradient at real size: phase 12's sweep circuit, raw network,
-# Greedy, find_slicing to 2^26 (128 slices), unless the gradient would pass
-# GRAD_SLICED_BUDGET_S at the fitted rate below three times over: then 2^27
-GRAD_SLICED = (53, 8, 42, 26)
-GRAD_SLICED_FALLBACK = 27
+# Greedy, find_slicing to 2^26.15 (32 slices, so that the peak gate below sees
+# a state kept across slices), unless the gradient would pass
+# GRAD_SLICED_BUDGET_S at the fitted rate below three times over: then
+# 2^26.25 (16 slices)
+GRAD_SLICED = (53, 8, 42, 26.15)
+GRAD_SLICED_FALLBACK = 26.25
 GRAD_SLICED_BUDGET_S = 60.0
 FITTED_MADDS_PER_S = 9.8e12  # phase 11's fitted complex multiply-adds/s (PERF.md)
 GRAD_SWEEP = (20, 8, 42)  # phase 12's query circuit
@@ -416,6 +449,12 @@ TREECUT_SEED = 3
 TREECUT_RNG = 0
 
 # published H100 SXM peaks (dense, no sparsity) the bounds are taken from
+# phase 17: the multi-GPU executors on one card
+PARALLEL_DEVICES = 4  # the tree cut's partitions on [cuda:0] * 4
+CONFIG5 = (24, 20, 42, 8)  # BASELINE config #5 (bench.py:1427-1430): qubits, depth, seed, k
+CONFIG5_HBM = 16 << 30  # the bench's pinned device budget (bench.py:1475)
+CHILD_TIMEOUT_S = 300.0  # a spawned rank's limit from the phase's start
+
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # CUDA-core FMA rates
 # real flops per complex multiply-add in a bound: the Gauss identity needs
@@ -559,6 +598,25 @@ def max_err(got, want) -> tuple[float, float]:
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
     return err, scale
+
+
+def statevector_stats(sv: np.ndarray, ref: np.ndarray) -> dict:
+    """The checks of a host statevector against another over their 2^28
+    elements, computed on the card (numpy took 10-15 s for them on the
+    host) and freed there: ``finite``, the ``norm`` ``<sv|sv>``, ``scale``
+    (max|ref|), ``diff`` (max|sv - ref|) and ``close`` (numpy's
+    ``allclose(sv, ref, rtol=1e-4, atol=1e-4 * scale)``)."""
+    import torch
+
+    a = torch.from_numpy(np.ascontiguousarray(sv)).to("cuda").reshape(-1)
+    b = torch.from_numpy(np.ascontiguousarray(ref)).to("cuda").reshape(-1)
+    scale = float(b.abs().max())
+    out = {"finite": bool(torch.isfinite(a).all()), "norm": float(torch.vdot(a, a).real),
+           "scale": scale, "diff": float((a - b).abs().max()),
+           "close": bool(torch.allclose(a, b, rtol=1e-4, atol=1e-4 * scale))}
+    del a, b
+    torch.cuda.empty_cache()
+    return out
 
 
 def build_config(qubits: int, bitstring: str | None = None):
@@ -1655,7 +1713,7 @@ def run_sliced(backend) -> dict:
     ``TorchBackend(sliced_strategy="loop", hoist=False)``): one Sycamore-53
     depth-10 amplitude over its 128 slices (``SLICED``). Plan; ``fused_chain`` held against its plain
     version on slice 0's own chain operands; the amplitude through
-    ``contract_tensor_network_sliced`` (one warm-up, three timed runs,
+    ``contract_tensor_network_sliced`` (one warm-up, two timed runs,
     ``fused_chain`` launched once per chain and slice), its device-resident
     part, a profile and the CUDA-event time of every step of one slice;
     complex128 on the card slice by slice; the forced ``fused`` rung on
@@ -1711,7 +1769,7 @@ def run_sliced(backend) -> dict:
 
     # the amplitude, all slices
     main = run_counted(lambda: contract_tensor_network_sliced(tn, path, sl, backend),
-                       "sliced main path")
+                       "sliced main path", reps=MAIN_SLICED_REPS)
     z = scalar(main["out"])
     check(main["launches"]["fused_chain"] == len(policy.chains) * n,
           f"fused_chain launched {main['launches']['fused_chain']} times for "
@@ -2018,7 +2076,7 @@ def residual_batch(backend, sp, arrays, batch: int):
 def run_sliced_chunked(backend, cell) -> dict:
     """The sliced cell on the default ``TorchBackend()``: the stem hoisted,
     the residual chunked and batched over slices. Plan; the amplitude through
-    ``contract_tensor_network_sliced`` (one warm-up, three timed runs), the
+    ``contract_tensor_network_sliced`` (one warm-up, two timed runs), the
     device-resident part, the prelude timed apart and a profile of one
     batch; the amplitude against phase 8's complex128 partials and the
     loop's amplitude; the forced ``fused`` rung on the first two batches
@@ -2034,7 +2092,7 @@ def run_sliced_chunked(backend, cell) -> dict:
     print_chunked_plan(f"sycamore{SLICED[:3]}", plan_rec, backend)
 
     main = run_counted(lambda: contract_tensor_network_sliced(tn, path, sl, backend),
-                       "sliced chunked main path")
+                       "sliced chunked main path", reps=MAIN_SLICED_REPS)
     z = scalar(main["out"])
     eager = run_counted(lambda: backend.execute_sliced(sp, arrays, graphs=False),
                         "sliced chunked main path, eager", reps=1, warmup=lambda: None)
@@ -2708,13 +2766,11 @@ def run_calibrated(refs: dict, gen) -> dict:
             "transpose_routed": run["transpose_routed"]}
         if name == "random28":
             sv = np.asarray(out.data.into_data())
-            check(sv.shape == (2,) * QUBITS and np.all(np.isfinite(sv)),
+            stats = statevector_stats(sv, refs["sv"])
+            check(sv.shape == (2,) * QUBITS and stats["finite"],
                   f"calibrated statevector has shape {sv.shape} or non-finite values")
-            scale = float(np.max(np.abs(refs["sv"])))
-            diff = float(np.max(np.abs(sv - refs["sv"])))
-            check(np.allclose(sv, refs["sv"], rtol=1e-4, atol=1e-4 * scale),
-                  "random28 calibrated disagrees with the default policy")
-            norm = float(np.vdot(sv.reshape(-1), sv.reshape(-1)).real)
+            scale, diff, norm = stats["scale"], stats["diff"], stats["norm"]
+            check(stats["close"], "random28 calibrated disagrees with the default policy")
             check(abs(norm - 1.0) <= 1e-4, f"calibrated norm {norm} not within 1e-4 of 1")
             worst = 0.0
             for bits, ref in refs["amplitudes"]:
@@ -3454,7 +3510,7 @@ def grad_sliced() -> dict:
     """Phase 13 (b): the sliced gradient at real size.
 
     The raw amplitude network "0"x53 of ``sycamore_circuit(53, 8,
-    default_rng(42))``, ``Greedy``, ``find_slicing`` to 2^26 (2^27 if the
+    default_rng(42))``, ``Greedy``, ``find_slicing`` to 2^26.15 (2^26.25 if the
     gradient would pass ``GRAD_SLICED_BUDGET_S`` at three times phase 11's
     fitted rate, ``FITTED_MADDS_PER_S``). ``sliced_contraction_value_and_grad`` on the card in
     complex64 over ``GRAD_SLOTS`` seeded gate leaves, timed beside the
@@ -5451,7 +5507,8 @@ def run_partitioned_qaoa(cost_model=None) -> dict:
     torch.cuda.empty_cache()
     return {"record": record, "chain_launches": launches,
             "chain_rows": {label: rows, greedy_label: greedy["rows"],
-                           balanced_label: balanced["rows"]}}
+                           balanced_label: balanced["rows"]},
+            "cell": {"ptn": ptn, "ppath": ppath, "ref": ref}}
 
 
 def run_treecut(amp_ref: complex | None = None) -> dict:
@@ -5572,7 +5629,7 @@ def run_treecut(amp_ref: complex | None = None) -> dict:
               "peak_bytes": peak, **prof,
               "busy_share": prof["device_busy_s"] / prof["profiled_s"]}
     return {"record": record, "chain_launches": {label: run["launches"]["fused_chain"]},
-            "chain_rows": {label: rows}}
+            "chain_rows": {label: rows}, "cell": {"ptn": ptn, "ppath": ppath, "ref": ref}}
 
 
 def run_partitioned(cost_model=None, amp_ref: complex | None = None) -> dict:
@@ -5589,7 +5646,550 @@ def run_partitioned(cost_model=None, amp_ref: complex | None = None) -> dict:
           "phase 16: a cell's held launches differ from its count")
     return {"record": {"qaoa30_p2_partitioned": qaoa["record"],
                        "sycamore53_m8_treecut": cut["record"], "seconds": seconds},
-            "chain_launches": launches, "chain_rows": rows}
+            "chain_launches": launches, "chain_rows": rows,
+            "cells": {"qaoa": qaoa["cell"], "treecut": cut["cell"]}}
+
+
+def sliced_refs(cell) -> list:
+    """The complex128 value of every slice of phase 8's cell on the card: its
+    own partials (phase 8 keeps all of them unless complex128 of all would
+    have taken over ``SLICED_CHECK_S``), completed here where it kept 32."""
+    from tnc_tpu_torch.ops.backends import TorchBackend
+
+    refs = list(cell["refs"])
+    n = cell["slicing"].num_slices
+    if len(refs) < n:
+        oracle = TorchBackend(dtype="complex128", split_complex=False,
+                              sliced_strategy="loop", hoist=False)
+        refs += [scalar(oracle.execute_sliced(cell["sp"], cell["arrays"], slice_range=(s, s + 1)))
+                 for s in range(len(refs), n)]
+    return refs
+
+
+def m10_cell() -> dict:
+    """Phase 8's plan (``SLICED``) and complex128 partials, made here when
+    phase 17 runs alone."""
+    from tnc_tpu_torch.ops.program import flat_leaf_tensors
+    from tnc_tpu_torch.ops.sliced import build_sliced_program
+
+    tn, path, sl = build_sliced(SLICED)
+    cell = {"tn": tn, "path": path, "slicing": sl, "sp": build_sliced_program(tn, path, sl),
+            "arrays": [leaf.data.into_data() for leaf in flat_leaf_tensors(tn)], "refs": []}
+    t0 = time.perf_counter()
+    cell["refs"] = sliced_refs(cell)
+    print(f"[parallel] sycamore{SLICED[:3]} at 2^{SLICED[3]}: {sl.num_slices} slices, "
+          f"complex128 of each on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    return cell
+
+
+def path_obj(p):
+    """A nested contraction path as plain tuples."""
+    return (tuple(sorted((k, path_obj(v)) for k, v in p.nested.items())),
+            tuple(tuple(pair) for pair in p.toplevel))
+
+
+def treecut_distributed(cell) -> dict:
+    """Phase 17 (1): phase 16's tree cut of the Sycamore-53 depth-8 amplitude
+    through ``distributed_partitioned_contraction`` on ``[cuda:0] *
+    PARALLEL_DEVICES``, then again with ``hbm_bytes`` at half the largest
+    partition's modeled peak, so that it slices locally through the chunked
+    executor. Each budget: the scattered partitions' local phase run once
+    with each distinct chain held against its plain version (one launch a
+    call; the fan-in's pair programs form no chain), then timed with the
+    partitions issued together on their streams and one by one; then one
+    counted run of the entry point (wall, CUDA-event seconds, peak,
+    launches equal to the held local phase's) traced for the fan-in levels'
+    bytes and flops, its amplitude within 1e-4·max(|ref|, 2^-14) of phase
+    16's complex128 value."""
+    import torch
+
+    from tnc_tpu_torch.ops.budget import program_peak_bytes
+    from tnc_tpu_torch.ops.program import build_program
+    from tnc_tpu_torch.parallel.partitioned import resolve_devices
+
+    ptn, ppath, ref = cell["ptn"], cell["ppath"], cell["ref"]
+    label = f"sycamore{SWEEP[0]}_m{SWEEP[1]}_treecut_distributed"
+    devices = resolve_devices([torch.device("cuda:0")] * PARALLEL_DEVICES)
+    tol = 1e-4 * max(abs(ref), 2.0 ** -14)
+    peaks = [program_peak_bytes(build_program(child, ppath.nested[i])).peak_bytes
+             for i, child in enumerate(ptn.tensors)]
+    largest = peaks.index(max(peaks))
+    budget = max(peaks) // 2
+    rows: list = []
+    seen: dict = {}
+    launches = 0
+    record = {"devices": len(devices), "partition_peak_bytes": peaks, "budget_bytes": budget,
+              "toplevel": [list(p) for p in ppath.toplevel], "runs": {}}
+    for name, kw in (("unbudgeted", {}), ("half the largest peak", {"hbm_bytes": budget})):
+        # one fresh trace a budget: the policies plan without a fitted model
+        # in every run, and its spans are this budget's alone
+        with obs_window() as obs:
+            rec = treecut_budget(ptn, ppath, devices, kw, f"{label} {name}", rows, seen, obs)
+        if kw:
+            check(largest in rec["sliced_partitions"], f"{label}: the largest partition "
+                  f"({largest}, {peaks[largest]} bytes modeled) did not slice under {budget} "
+                  f"bytes")
+        err = abs(complex(*rec["amplitude"]) - ref)
+        print(f"[check] {label} {name}: amplitude {complex(*rec['amplitude']):.6e} vs "
+              f"complex128 {ref:.6e}, |diff| {err:.3e} (gate {tol:.3e})", flush=True)
+        check(err <= tol, f"{label} {name}: amplitude off complex128 by {err}")
+        record["runs"][name] = {**rec, "abs_err": err}
+        launches += rec["launches"]
+        torch.cuda.empty_cache()
+    record["complex128"] = [ref.real, ref.imag]
+    return {"label": label, "record": record, "launches": launches, "rows": rows}
+
+
+def treecut_budget(ptn, ppath, devices, kw: dict, label: str, rows: list, seen: dict,
+                   obs) -> dict:
+    """One budget of :func:`treecut_distributed`: the scatter, the local
+    phase held then timed together and one by one, the counted run of
+    ``distributed_partitioned_contraction(..., **kw)`` and its fan-in
+    levels' spans."""
+    import torch
+
+    from tnc_tpu_torch.ops.sliced import SlicedProgram
+    from tnc_tpu_torch.parallel.partitioned import (
+        Communication,
+        DeviceTensorMapping,
+        distributed_partitioned_contraction,
+        local_contract_partitions,
+        scatter_partitions,
+    )
+
+    comm, buffers = scatter_partitions(ptn, ppath, devices, "complex64", True, **kw)
+    sliced = {i: p.slicing.num_slices for i, p in enumerate(comm.programs)
+              if isinstance(p, SlicedProgram)}
+
+    def local(subset):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        local_contract_partitions(
+            Communication(DeviceTensorMapping(tuple(range(len(subset)))), devices,
+                          [comm.programs[i] for i in subset],
+                          [comm.results_meta[i] for i in subset]),
+            [buffers[i] for i in subset], True, "float32")
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    parts = list(range(len(comm.programs)))
+    # the local phase once with each distinct chain held (the fan-in's pair
+    # programs form no chain), then timed together and one by one
+    before = sum(r["launches"] for r in rows)
+    with held_chains(label, rows, seen, 1):
+        local(parts)
+    together = local(parts)
+    alone = [local([i]) for i in parts]
+    del comm, buffers
+    run = run_counted(lambda: distributed_partitioned_contraction(ptn, ppath, devices=devices,
+                                                                  **kw),
+                      label, reps=1, warmup=lambda: None)
+    check_held(label, rows, run["launches"]["fused_chain"], before)
+    levels = [{k: r.args[k] for k in ("pairs", "bytes", "flops")}
+              for r in obs.get_registry().span_records() if r.name == "partitioned.fanin_level"]
+    got = complex(run["out"].data.into_data())
+    print(f"[{label}] partitions sliced {sliced}; local phase on {len(parts)} streams "
+          f"{together:.4f} s (CUDA events), one by one {sum(alone):.4f} s "
+          f"({[round(a, 4) for a in alone]}); fan-in levels {levels}", flush=True)
+    return {"sliced_partitions": sliced, "wall_s": run["walls"][0],
+            "elapsed_s": run["elapsed"][0], "peak_bytes": run["peak_bytes"],
+            "launches": run["launches"]["fused_chain"], "local_together_s": together,
+            "local_alone_s": alone, "fanin_levels": levels, "amplitude": [got.real, got.imag]}
+
+
+def config5() -> dict:
+    """Phase 17 (2): BASELINE config #5 planned as ``bench.py:1442-1500``
+    plans it — ``sycamore_circuit(24, 20, default_rng(42))``'s amplitude
+    "0"x24, ``simplify_network``, ``find_partitioning(tn, 8)``, ``SA_ROUNDS``
+    work-bounded rounds of simulated annealing with
+    ``IntermediatePartitioningModel`` from ``random.Random(42)``,
+    ``compute_solution`` — through ``partitioned_sliced_executor(...,
+    devices=[cuda:0] * 8, hbm_bytes=16 GiB)``: ``run(1)`` to warm up (each
+    distinct chain held against its plain version), ``run(2)`` timed (the
+    bench's probe) and ``run()`` over every global slice, each counted; the
+    full sum within 1e-4·max(|ref|, 2^-14) of a complex128 contraction of
+    the ``flatten_partitioned_path`` plan on the card."""
+    import random
+
+    import torch
+
+    from tnc_tpu_torch.builders.sycamore_circuit import sycamore_circuit
+    from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+    from tnc_tpu_torch.contractionpath.repartitioning import compute_solution
+    from tnc_tpu_torch.contractionpath.repartitioning import simulated_annealing as sa
+    from tnc_tpu_torch.contractionpath.slicing import sliced_flops, sliced_peak
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.parallel.partitioned import (
+        flatten_partitioned_path,
+        partitioned_sliced_executor,
+    )
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+    from tnc_tpu_torch.tensornetwork.partitioning import find_partitioning
+    from tnc_tpu_torch.tensornetwork.simplify import simplify_network
+    from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor
+
+    qubits, depth, seed, k = CONFIG5
+    label = f"sycamore{qubits}_m{depth}_partitioned{k}"
+    t0 = time.perf_counter()
+    raw, _ = sycamore_circuit(qubits, depth, np.random.default_rng(seed)) \
+        .into_amplitude_network("0" * qubits)
+    tn = simplify_network(raw)
+    initial = find_partitioning(tn, k)
+    model = sa.IntermediatePartitioningModel(tn)
+    with sa_round_scores(sa, SA_TRIALS) as round_scores:
+        best, score = sa.balance_partitions(model, model.initial_solution(initial),
+                                            random.Random(seed), n_trials=SA_TRIALS,
+                                            max_rounds=SA_ROUNDS)
+    ptn, ppath, parallel, serial = compute_solution(tn, best[0], rng=random.Random(seed))
+    plan_s = time.perf_counter() - t0
+    devices = [torch.device("cuda:0")] * k
+    t0 = time.perf_counter()
+    run, slicing, meta = partitioned_sliced_executor(ptn, ppath, devices=devices,
+                                                     hbm_bytes=CONFIG5_HBM)
+    setup_s = time.perf_counter() - t0
+    leaves, pairs = flatten_partitioned_path(ptn, ppath)
+    num = slicing.num_slices
+    peak = sliced_peak(leaves, pairs, slicing)
+    madds = sliced_flops(leaves, pairs, slicing)
+    print(f"[{label}] {len(raw)} -> {len(tn)} tensors, find_partitioning into {k}: blocks "
+          f"{[initial.count(b) for b in range(k)]}; SA best chain score by round "
+          f"{[s for _, s in round_scores]}, best {score:.6g}; compute_solution: parallel "
+          f"{parallel:.6g}, serial {serial:.6g}; planned in {plan_s:.2f} s; global slicing at "
+          f"2^{math.log2(CONFIG5_HBM / 64):.0f} elements (hbm {CONFIG5_HBM} bytes): {num} slices "
+          f"over legs {list(slicing.legs)}, per-slice peak {peak:.4e} elements, "
+          f"{madds:.4e} multiply-adds over all slices; executor set up in {setup_s:.3f} s",
+          flush=True)
+    rows: list = []
+    seen: dict = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    with held_chains(f"{label} run(1)", rows, seen, 1):
+        run(1)
+    per_slice = sum(r["launches"] for r in rows)
+    check(LAUNCHES["fused_chain"] == per_slice > 0,
+          f"{label}: run(1) launched fused_chain {LAUNCHES['fused_chain']} times, held "
+          f"{per_slice}")
+    probe = run_counted(lambda: run(2), f"{label} run(2)", reps=1, warmup=lambda: None)
+    full = run_counted(lambda: run(), f"{label} run()", reps=1, warmup=lambda: None)
+    for name, r, n in (("run(2)", probe, min(2, num)), ("run()", full, num)):
+        check(r["launches"]["fused_chain"] == per_slice * n,
+              f"{label} {name}: fused_chain launched {r['launches']['fused_chain']} times, "
+              f"{per_slice} a slice over {n} slices")
+    runs = 1 + min(2, num) + num
+    for r in rows:
+        r["launches"] *= runs
+    got = complex(full["out"].reshape(-1)[0])
+    t0 = time.perf_counter()
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    ref = complex(contract_tensor_network(CompositeTensor([leaf.copy() for leaf in leaves]),
+                                          ContractionPath.simple(pairs), oracle)
+                  .data.into_data())
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    tol = 1e-4 * max(abs(ref), 2.0 ** -14)
+    err = abs(got - ref)
+    probe_s = probe["walls"][0] / min(2, num)
+    print(f"[check] {label}: {got:.6e} vs complex128 of the flattened plan on the card "
+          f"{ref:.6e} ({ref_s:.2f} s), |diff| {err:.3e} (gate {tol:.3e}); run(2) "
+          f"{probe['walls'][0]:.4f} s ({probe_s:.4f} s a slice), run() {full['walls'][0]:.4f} "
+          f"s over {num} slices ({full['walls'][0] / num:.4f} s a slice, CUDA events "
+          f"{full['elapsed'][0]:.4f} s), peak {full['peak_bytes']} bytes; {per_slice} "
+          f"fused_chain launches a slice", flush=True)
+    check(math.isfinite(got.real) and math.isfinite(got.imag), f"{label}: non-finite sum")
+    check(err <= tol, f"{label}: sum off complex128 by {err}")
+    record = {"tensors": [len(raw), len(tn)], "blocks": [initial.count(b) for b in range(k)],
+              "sa_round_scores": [s for _, s in round_scores], "sa_score": score,
+              "parallel_cost": parallel, "serial_cost": serial, "plan_s": plan_s,
+              "slices": num, "legs": list(slicing.legs), "per_slice_peak_elems": peak,
+              "sliced_multiply_adds": madds, "probe_wall_s": probe["walls"][0],
+              "probe_s_per_slice": probe_s, "wall_s": full["walls"][0],
+              "elapsed_s": full["elapsed"][0], "s_per_slice": full["walls"][0] / num,
+              "peak_bytes": full["peak_bytes"], "chains_per_slice": per_slice,
+              "amplitude": [got.real, got.imag], "complex128": [ref.real, ref.imag],
+              "abs_err": err}
+    return {"label": label, "record": record, "launches": per_slice * runs, "rows": rows}
+
+
+def spmd_share(rank: int, world: int, tn, path, slicing, label: str) -> dict:
+    """This rank's run of ``distributed_sliced_contraction`` under the
+    process group on ``cuda:0``: a warm-up of one slice a rank with each
+    distinct chain held against its plain version, then the counted run
+    over every slice (this rank's share, ``all_reduce``-d), whose launches
+    the held rows weigh."""
+    from tnc_tpu_torch.parallel import distributed_sliced_contraction
+
+    rows: list = []
+    with held_chains(f"{label} rank {rank}", rows, {}, 1):
+        distributed_sliced_contraction(tn, path, slicing, max_slices=world, device="cuda:0")
+    per_slice = sum(r["launches"] for r in rows)
+    run = run_counted(lambda: distributed_sliced_contraction(tn, path, slicing, device="cuda:0"),
+                      f"{label} rank {rank}", reps=1, warmup=lambda: None)
+    chunk = slicing.num_slices // world
+    launches = run["launches"]["fused_chain"]
+    check(launches == per_slice * chunk > 0,
+          f"{label} rank {rank}: fused_chain launched {launches} times, {per_slice} a slice "
+          f"over {chunk} slices")
+    for r in rows:
+        r["launches"] *= chunk
+    z = scalar(run["out"])
+    return {"value": [z.real, z.imag], "launches": launches, "rows": rows,
+            "wall_s": run["walls"][0], "elapsed_s": run["elapsed"][0],
+            "peak_bytes": run["peak_bytes"], "slices": chunk}
+
+
+def rank_spmd(rank: int, world: int, tn, path, slicing, label: str) -> dict:
+    """Phase 17 (3), in its one rank of an NCCL group: :func:`spmd_share`."""
+    return spmd_share(rank, world, tn, path, slicing, label)
+
+
+def rank_pair(rank: int, world: int, ptn, ppath, tn, path, slicing, labels) -> dict:
+    """Phase 17 (4), in each of two gloo ranks sharing ``cuda:0``: rank 0
+    ``broadcast_path``s config #4's plan (the other rank passes an empty
+    path); the process-sharded ``distributed_partitioned_contraction`` of
+    it (each rank's chains held, one launch a call); :func:`spmd_share` of
+    the m10 amplitude (64 slices a rank); everything gathered on rank 0
+    with ``gather_objects``; then a gather that rank 1 withholds from,
+    whose slot must come back ``GatherLost(1)`` after 2 s."""
+    import torch
+
+    from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.parallel.partitioned import (
+        broadcast_path,
+        distributed_partitioned_contraction,
+        gather_objects,
+    )
+
+    qaoa_label, m10_label = labels
+    got_path = broadcast_path(ppath if rank == 0 else ContractionPath.simple([]))
+    rows: list = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with held_chains(f"{qaoa_label} rank {rank}", rows, {}, 1):
+        out = distributed_partitioned_contraction(ptn, got_path, dtype="complex64",
+                                                  device="cuda:0")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES["fused_chain"]
+    # a rank's partitions may hold no chain; the cell's launches are checked
+    # over both ranks
+    check(sum(r["launches"] for r in rows) == launches,
+          f"{qaoa_label} rank {rank}: {sum(r['launches'] for r in rows)} fused_chain "
+          f"launches on held chains, the path made {launches}")
+    data = np.asarray(out.data.into_data())
+    mine = {"path": path_obj(got_path), "qaoa": {"data": data, "launches": launches,
+                                                 "rows": rows, "wall_s": wall},
+            "m10": spmd_share(rank, world, tn, path, slicing, m10_label)}
+    parts = gather_objects(mine, timeout_s=CHILD_TIMEOUT_S)
+    if rank != 0:
+        return {"gathered": None, "lost": None}
+    t0 = time.perf_counter()
+    lost = gather_objects(f"rank {rank}", timeout_s=2, missing_ok=True)
+    return {"gathered": parts, "lost": lost, "lost_s": time.perf_counter() - t0}
+
+
+RANK_TASKS = {"spmd": rank_spmd, "pair": rank_pair}
+
+
+def rank_main(rank: int, world: int, port: int, prefix: str, backend_name: str, task: str,
+              kwargs: dict, go, out_dir: str) -> None:
+    """The entry point of one rank of phase 17's process groups, spawned by
+    :class:`Ranks`: joins the group (``backend_name`` over the parent's
+    ``TCPStore`` at ``port``, under ``prefix``), sets its communicator up
+    with one collective, waits for the parent's ``go`` (its start-up
+    overlaps the parent's work), runs ``task`` on ``cuda:0`` and writes what
+    it returns to ``out_dir``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = dist.PrefixStore(prefix, dist.TCPStore(
+        "127.0.0.1", port, is_master=False,
+        timeout=datetime.timedelta(seconds=CHILD_TIMEOUT_S)))
+    dist.init_process_group(backend_name, store=store, rank=rank, world_size=world)
+    try:
+        # set the communicator up before the gate (NCCL builds it at the
+        # first collective, seconds), so the timed work after it is the task's
+        from tnc_tpu_torch.parallel.partitioned import rank_device
+
+        dist.all_reduce(torch.zeros(1, device=rank_device("cuda:0")))
+        torch.cuda.synchronize()
+        check(go.wait(CHILD_TIMEOUT_S), f"{prefix} rank {rank}: never told to start")
+        out = RANK_TASKS[task](rank, world, **kwargs)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{prefix.strip('/')}-{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+class Ranks:
+    """The ``world`` spawned processes of one process group on the card
+    (:func:`rank_main`), started at once and held at a gate until
+    :meth:`finish`. A rank that exits non-zero, or outlives
+    ``CHILD_TIMEOUT_S`` after the gate opens, fails the run: every rank of
+    the group is killed first."""
+
+    def __init__(self, ctx, world: int, port: int, prefix: str, backend_name: str, task: str,
+                 kwargs_of, out_dir: str):
+        self.prefix, self.out_dir = prefix, out_dir
+        self.go = ctx.Event()
+        self.procs = [ctx.Process(target=rank_main, args=(
+            rank, world, port, prefix, backend_name, task, kwargs_of(rank), self.go, out_dir))
+            for rank in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+        for p in self.procs:
+            p.join(30)
+
+    def finish(self) -> tuple[list, float]:
+        """Open the gate, wait for every rank; their results and the seconds
+        from the gate to the last exit."""
+        import pickle
+
+        t0 = time.perf_counter()
+        self.go.set()
+        for p in self.procs:
+            p.join(max(CHILD_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+        seconds = time.perf_counter() - t0
+        hung = [rank for rank, p in enumerate(self.procs) if p.is_alive()]
+        self.kill()
+        codes = [p.exitcode for p in self.procs]
+        check(not hung, f"{self.prefix}: ranks {hung} still running {CHILD_TIMEOUT_S} s "
+              f"after the start (killed)")
+        check(codes == [0] * len(self.procs), f"{self.prefix}: ranks exited {codes}")
+        out = []
+        for rank in range(len(self.procs)):
+            with open(os.path.join(self.out_dir, f"{self.prefix.strip('/')}-{rank}.pkl"),
+                      "rb") as f:
+                out.append(pickle.load(f))
+        return out, seconds
+
+
+def run_parallel(cells: dict, m10: dict) -> dict:
+    """Phase 17: the multi-GPU executors on the one card —
+    :func:`treecut_distributed`, :func:`config5`, then two spawned process
+    groups on ``cuda:0``, started at the phase's start so that their
+    start-up overlaps (1) and (2): (3) phase 8's m10 amplitude through
+    ``distributed_sliced_contraction`` in one rank of an NCCL group, all
+    128 slices, within 1e-4·Σ_s|ref_s| of phase 8's complex128 slices; (4)
+    two gloo ranks (:func:`rank_pair`): the broadcast path, the
+    process-sharded config #4 ⟨Z…Z⟩ (the same bits on both ranks, within
+    1e-5 absolute and 1e-3 relative of complex128), the m10 amplitude over
+    the two ranks (bitwise equal on both, within that gate of (3)'s value
+    and 1e-4·Σ_s|ref_s| of complex128), and ``GatherLost(1)``. Every
+    ``fused_chain`` launch of every path, the ranks' included, is held
+    against its plain version; the ranks' rows come back through
+    ``gather_objects`` and their results files."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    refs = sliced_refs(m10)
+    m10_ref, m10_abs = sum(refs), sum(abs(r) for r in refs)
+    qaoa = cells["qaoa"]
+    qubits, depth = SLICED[:2]
+    spmd_label = f"sycamore{qubits}_m{depth}_spmd"
+    pair_labels = (f"qaoa{QAOA[0]}_p{QAOA[1]}_partitioned_2ranks",
+                   f"sycamore{qubits}_m{depth}_spmd_2ranks")
+    sliced = {"tn": m10["tn"], "path": m10["path"], "slicing": m10["slicing"]}
+    ctx = multiprocessing.get_context("spawn")
+    server = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+    groups = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        try:
+            nccl = Ranks(ctx, 1, server.port, "nccl/", "nccl", "spmd",
+                         lambda r: {**sliced, "label": spmd_label}, out_dir)
+            groups.append(nccl)
+            pair = Ranks(ctx, 2, server.port, "gloo/", "gloo", "pair",
+                         lambda r: {"ptn": qaoa["ptn"],
+                                    "ppath": qaoa["ppath"] if r == 0 else None,
+                                    **sliced, "labels": pair_labels}, out_dir)
+            groups.append(pair)
+            cut = treecut_distributed(cells["treecut"])
+            cfg5 = config5()
+            torch.cuda.empty_cache()
+            (spmd,), spmd_s = nccl.finish()
+            (pair0, _), pair_s = pair.finish()
+        finally:
+            for group in groups:
+                group.kill()
+
+    z = complex(*spmd["value"])
+    err = abs(z - m10_ref)
+    print(f"[check] {spmd_label}: one NCCL rank, {spmd['slices']} slices in "
+          f"{spmd['wall_s']:.4f} s (CUDA events {spmd['elapsed_s']:.4f} s, peak "
+          f"{spmd['peak_bytes']} bytes): {z!r} vs complex128 {m10_ref!r}, |diff| {err:.3e} "
+          f"(gate 1e-4 x sum|ref_s| = {1e-4 * m10_abs:.3e}); the rank took {spmd_s:.1f} s "
+          f"from the start", flush=True)
+    check(err <= 1e-4 * m10_abs, f"{spmd_label}: amplitude off complex128 by {err}")
+
+    ranks = pair0["gathered"]
+    qaoa_label, pair_m10_label = pair_labels
+    check(ranks[0]["path"] == ranks[1]["path"] == path_obj(qaoa["ppath"]),
+          f"{qaoa_label}: broadcast_path gave rank 1 another path")
+    check(np.array_equal(ranks[0]["qaoa"]["data"], ranks[1]["qaoa"]["data"]),
+          f"{qaoa_label}: the ranks' values differ")
+    zq = complex(ranks[0]["qaoa"]["data"].reshape(-1)[0])
+    qaoa_err = hold_value(f"{qaoa_label} (process-sharded over 2 gloo ranks)", zq, qaoa["ref"])
+    values = [complex(*r["m10"]["value"]) for r in ranks]
+    check(values[0] == values[1], f"{pair_m10_label}: the ranks' sums differ: {values}")
+    z2 = values[0]
+    err2, gap = abs(z2 - m10_ref), abs(z2 - z)
+    print(f"[check] {pair_m10_label}: {[r['m10']['slices'] for r in ranks]} slices a rank in "
+          f"{[round(r['m10']['wall_s'], 4) for r in ranks]} s, the ranks bitwise equal: "
+          f"{z2!r}; vs complex128 |diff| {err2:.3e} (gate {1e-4 * m10_abs:.3e}); vs the NCCL "
+          f"rank's |diff| {gap:.3e} (gates 1e-5, 1e-3 x |value| = {1e-3 * abs(z):.3e}); "
+          f"the group took {pair_s:.1f} s from the start", flush=True)
+    check(err2 <= 1e-4 * m10_abs, f"{pair_m10_label}: amplitude off complex128 by {err2}")
+    check(gap <= 1e-5 and gap <= 1e-3 * abs(z),
+          f"{pair_m10_label}: amplitude off the NCCL rank's by {gap}")
+    from tnc_tpu_torch.parallel.partitioned import GatherLost
+
+    print(f"[check] gather_objects with rank 1 withholding (timeout 2 s, missing_ok): "
+          f"{pair0['lost']} in {pair0['lost_s']:.2f} s", flush=True)
+    check(pair0["lost"] == ["rank 0", GatherLost(1)],
+          f"gather_objects gave {pair0['lost']}, not ['rank 0', GatherLost(1)]")
+
+    seconds = time.perf_counter() - t_phase
+    print(f"[parallel] phase 17 in {seconds:.1f} s", flush=True)
+    launches = {cut["label"]: cut["launches"], cfg5["label"]: cfg5["launches"],
+                spmd_label: spmd["launches"],
+                qaoa_label: sum(r["qaoa"]["launches"] for r in ranks),
+                pair_m10_label: sum(r["m10"]["launches"] for r in ranks)}
+    rows = {cut["label"]: cut["rows"], cfg5["label"]: cfg5["rows"], spmd_label: spmd["rows"],
+            qaoa_label: [row for r in ranks for row in r["qaoa"]["rows"]],
+            pair_m10_label: [row for r in ranks for row in r["m10"]["rows"]]}
+    check(all(sum(r["launches"] for r in rows[k]) == n > 0 for k, n in launches.items()),
+          f"phase 17: a cell's held launches differ from its count, or it launched no "
+          f"fused_chain: {launches}")
+    record = {
+        cut["label"]: cut["record"], cfg5["label"]: cfg5["record"],
+        spmd_label: {k: spmd[k] for k in ("value", "launches", "wall_s", "elapsed_s",
+                                          "peak_bytes", "slices")}
+        | {"abs_err": err, "complex128": [m10_ref.real, m10_ref.imag], "seconds": spmd_s},
+        qaoa_label: {"value": [zq.real, zq.imag], "abs_err": qaoa_err,
+                     "launches": launches[qaoa_label],
+                     "wall_s": [r["qaoa"]["wall_s"] for r in ranks]},
+        pair_m10_label: {"value": [z2.real, z2.imag], "abs_err": err2, "gap_to_nccl": gap,
+                         "wall_s": [r["m10"]["wall_s"] for r in ranks],
+                         "slices": [r["m10"]["slices"] for r in ranks], "seconds": pair_s},
+        "gather_lost_s": pair0["lost_s"], "seconds": seconds}
+    return {"record": record, "chain_launches": launches, "chain_rows": rows}
 
 
 def main() -> int:
@@ -5705,6 +6305,22 @@ def main() -> int:
         print(card_line(), flush=True)
         return 0
 
+    if "--parallel" in sys.argv[1:]:
+        # the multi-GPU executors alone: phase 17 on phase 16's plans (run
+        # first, no fitted model, no phase 12 value) and phase 8's plan
+        part = run_partitioned()
+        par = run_parallel(part["cells"], m10_cell())
+        rows = {**part["chain_rows"], **par["chain_rows"]}
+        print(json.dumps({"partitioned": part["record"], "parallel": par["record"],
+                          "launches_by_path": {"fused_chain": {
+                              **part["chain_launches"], **par["chain_launches"]}},
+                          "kernels_by_path": {"fused_chain": {
+                              k: chain_record(r) for k, r in rows.items()}},
+                          "shapes": {"fused_chain": [
+                              r for cell in rows.values() for r in cell]}}), flush=True)
+        print(card_line(), flush=True)
+        return 0
+
     if "--sweep" in sys.argv[1:]:
         # the batched sweep and the query path alone: phase 12
         sweep = run_sweep()
@@ -5803,12 +6419,11 @@ def main() -> int:
           f"its timed shapes weigh {dot_rec['expect']} launches")
     dot_launches = {"random28 fused rung": launches["fused_complex_dot"]}
     fused_sv = np.asarray(fused_leaf.data.into_data())
-    scale = float(np.max(np.abs(sv)))
-    fdiff = float(np.max(np.abs(fused_sv - sv)))
+    stats = statevector_stats(fused_sv, sv)
+    scale, fdiff = stats["scale"], stats["diff"]
     print(f"[fused rung] max|diff| vs main path {fdiff:.3e} (scale {scale:.3e})",
           flush=True)
-    check(np.allclose(fused_sv, sv, rtol=1e-4, atol=1e-4 * scale),
-          "fused rung disagrees with the main path")
+    check(stats["close"], "fused rung disagrees with the main path")
     del fused_leaf, fused_sv
 
     phase_done(5)
@@ -5844,7 +6459,8 @@ def main() -> int:
     # 9. the sliced cell on the default path (stem hoisted, residual chunked
     # and batched over slices), and the two small amplitudes whose residuals
     # keep chains, through the batched fused_chain
-    chunked = run_sliced_chunked(backend, sliced.pop("cell"))
+    m10 = sliced.pop("cell")  # phase 17 runs its plan again
+    chunked = run_sliced_chunked(backend, m10)
     dot_launches["sycamore53_m10_chunked fused rung"] = chunked["dot_launches"]
     torch.cuda.empty_cache()
     small = run_chunked_small(backend)
@@ -5932,6 +6548,13 @@ def main() -> int:
     chain_launches.update(part["chain_launches"])
     phase_done(16)
 
+    # 17. the multi-GPU executors on the one card: phase 16's tree cut over
+    # four device slots, config #5 partitioned and globally sliced over eight,
+    # phase 8's amplitude in an NCCL rank, and two gloo ranks sharing the card
+    par = run_parallel(part["cells"], m10)
+    chain_launches.update(par["chain_launches"])
+    phase_done(17)
+
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
     calibrated_chains = {}
@@ -5963,7 +6586,8 @@ def main() -> int:
                         f"{grad['label']} <Z...Z>": chain_record(grad["chain_rows"]),
                         **{k: chain_record(r) for k, r in serve["chain_rows"].items()},
                         **{k: chain_record(r) for k, r in planes["chain_rows"].items()},
-                        **{k: chain_record(r) for k, r in part["chain_rows"].items()}},
+                        **{k: chain_record(r) for k, r in part["chain_rows"].items()},
+                        **{k: chain_record(r) for k, r in par["chain_rows"].items()}},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -5980,7 +6604,8 @@ def main() -> int:
                    + calibrated["chain_rows"] + sweep["chain_rows"] + grad["chain_rows"]
                    + [r for rows in serve["chain_rows"].values() for r in rows]
                    + [r for rows in planes["chain_rows"].values() for r in rows]
-                   + [r for rows in part["chain_rows"].values() for r in rows])
+                   + [r for rows in part["chain_rows"].values() for r in rows]
+                   + [r for rows in par["chain_rows"].values() for r in rows])
     # every path's rows weigh the launches it counted, so the record's times
     # are means over exactly the launches the line reports
     weighed = sum(r["launches"] for r in chain_rows)
@@ -6023,6 +6648,7 @@ def main() -> int:
         "serve": serve["record"],
         "planes": planes["record"],
         "partitioned": part["record"],
+        "parallel": par["record"],
         "phase_seconds": phase_s,
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},

@@ -1,8 +1,9 @@
-"""Networks and comparisons shared by the partitioned planner's tests
-(``tests/test_torch_partitioning.py``, ``tests/test_torch_repartitioning.py``):
-the same network in both packages from one numpy seed, and tensors and
-nested paths as plain tuples so that the two packages' results compare
-with ``==``."""
+"""Networks and comparisons shared by the partitioned planner's and the
+multi-device executors' tests (``tests/test_torch_partitioning.py``,
+``tests/test_torch_repartitioning.py``, ``tests/test_torch_parallel*.py``):
+the same network in both packages from one numpy seed, a reference network
+and path carried over to the port, and tensors and nested paths as plain
+tuples so that the two packages' results compare with ``==``."""
 
 import numpy as np
 
@@ -12,7 +13,9 @@ from tnc_tpu.tensornetwork.tensor import CompositeTensor as RefComposite
 from tnc_tpu.tensornetwork.tensor import LeafTensor as RefLeaf
 from tnc_tpu_torch.builders.connectivity import ConnectivityLayout
 from tnc_tpu_torch.builders.random_circuit import random_circuit
+from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
 from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
+from tnc_tpu_torch.tensornetwork.tensordata import TensorData
 
 # a fitted model's constants (flops/s, launch seconds, bytes/s)
 MODEL = (9.8e12, 6.1e-6, 2.4e12)
@@ -65,3 +68,20 @@ def circuits(qubits=10, depth=5, seed=8):
                              RefLayout.LINE)
     assert tensor_obj(port) == tensor_obj(ref)
     return port, ref
+
+
+def to_port(t):
+    """A reference (nested) network as the port's: the same legs, bond
+    dims and data."""
+    if isinstance(t, RefComposite):
+        return CompositeTensor([to_port(c) for c in t.tensors])
+    if t.data.kind.name == "NONE":
+        return LeafTensor(list(t.legs), list(t.bond_dims))
+    return LeafTensor(list(t.legs), list(t.bond_dims),
+                      TensorData.matrix(np.asarray(t.data.into_data())))
+
+
+def path_to_port(p) -> ContractionPath:
+    """A reference (nested) contraction path as the port's."""
+    return ContractionPath({k: path_to_port(v) for k, v in p.nested.items()},
+                           [tuple(pair) for pair in p.toplevel])

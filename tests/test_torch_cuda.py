@@ -1064,3 +1064,127 @@ def test_partitioned_treecut_amplitude_on_the_card():
     tol = 1e-5 * max(abs(want), 2.0 ** -14)
     assert abs(got - plain) <= tol
     assert abs(got - want) <= tol
+
+
+def _cluster_chain(k: int, m: int, seed: int = 0):
+    """``tests/_cluster_fixture.cluster_chain`` in the port's classes (this
+    file imports no JAX): k dense clusters K_m over bond-2 legs joined by
+    one bond each, seeded complex Gaussian leaves."""
+    import itertools
+
+    import numpy as np
+
+    from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
+    from tnc_tpu_torch.tensornetwork.tensordata import TensorData
+
+    rng = np.random.default_rng(seed)
+    next_leg = itertools.count()
+    members = []
+    for _ in range(k):
+        legs_per = [[] for _ in range(m)]
+        for i in range(m):
+            for j in range(i + 1, m):
+                leg = next(next_leg)
+                legs_per[i].append(leg)
+                legs_per[j].append(leg)
+        members.append(legs_per)
+    for c in range(k - 1):
+        leg = next(next_leg)
+        members[c][-1].append(leg)
+        members[c + 1][0].append(leg)
+    tensors = []
+    for legs_per in members:
+        for legs in legs_per:
+            shape = (2,) * len(legs)
+            data = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(
+                float(np.prod(shape)))
+            tensors.append(LeafTensor(legs, [2] * len(legs), TensorData.matrix(data)))
+    return CompositeTensor(tensors)
+
+
+def _partitioned(tn, k: int):
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.tensornetwork.partitioning import (
+        find_partitioning,
+        partition_tensor_network,
+    )
+    from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor
+
+    grouped = partition_tensor_network(CompositeTensor(list(tn.tensors)),
+                                       find_partitioning(tn, k))
+    return grouped, Greedy(OptMethod.GREEDY).find_path(grouped).replace_path()
+
+
+@pytest.mark.cuda
+def test_mesh_strategy_on_the_card():
+    """``local_sliced_strategy="mesh"`` with ``[cuda:0] * 4`` on a two-cluster
+    chain under a budget that slices both partitions: each partition's
+    slices split over its own slot and a spare one, each share on a stream
+    of its own, the partials summed on the partition's device; equal within
+    1e-5·max(|ref|, 2^-14) to the same plan on the host's plain kernels and
+    to complex128."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+    from tnc_tpu_torch.ops.sliced import SlicedProgram
+    from tnc_tpu_torch.parallel.partitioned import (
+        distributed_partitioned_contraction,
+        scatter_partitions,
+    )
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    tn = _cluster_chain(2, 6)
+    grouped, path = _partitioned(tn, 2)
+    devices = [torch.device("cuda:0")] * 4
+    hbm = 1 << 13  # under the partitions' modeled peaks (12672 bytes)
+    comm, _ = scatter_partitions(grouped, path, devices, "complex64", True, hbm_bytes=hbm)
+    assert all(isinstance(p, SlicedProgram) and p.slicing.num_slices % 2 == 0
+               for p in comm.programs)
+    got = complex(distributed_partitioned_contraction(
+        grouped, path, devices=devices, hbm_bytes=hbm,
+        local_sliced_strategy="mesh").data.into_data())
+    host = complex(distributed_partitioned_contraction(
+        grouped, path, devices=[torch.device("cpu")] * 4, split_complex=True,
+        hbm_bytes=hbm, local_sliced_strategy="mesh").data.into_data())
+    want = complex(contract_tensor_network(
+        tn, Greedy(OptMethod.GREEDY).find_path(tn).replace_path(), "numpy").data.into_data())
+    tol = 1e-5 * max(abs(want), 2.0 ** -14)
+    assert np.isfinite(got) and abs(got - host) <= tol and abs(got - want) <= tol
+
+
+@pytest.mark.cuda
+def test_fanin_between_repeated_devices_is_bitwise_a_one_device_run():
+    """Four partitions on ``[cuda:0] * 4``: the local phases on streams of
+    their own, the fan-in's ``.to()`` a no-op on the repeated device — the
+    bits of the same partition programs and pair programs run one after
+    another on the current stream of one device."""
+    _card()
+    import numpy as np
+
+    from tnc_tpu_torch.builders.connectivity import ConnectivityLayout
+    from tnc_tpu_torch.builders.random_circuit import random_circuit
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.parallel.partitioned import (
+        distributed_partitioned_contraction,
+        plan_fanin_pairs,
+        scatter_partitions,
+    )
+    from tnc_tpu_torch.contractionpath.communication_schemes import fanin_levels
+
+    tn = random_circuit(16, 6, 0.9, 0.8, np.random.default_rng(5), ConnectivityLayout.LINE)
+    grouped, path = _partitioned(tn, 4)
+    devices = [torch.device("cuda:0")] * 4
+    got = distributed_partitioned_contraction(grouped, path, devices=devices)
+
+    comm, buffers = scatter_partitions(grouped, path, devices, "complex64", True)
+    backend = TorchBackend()
+    held = [backend._run(program, bufs) for program, bufs in zip(comm.programs, buffers)]
+    flat = [pair for level in fanin_levels(path.toplevel) for pair in level]
+    programs, _, _, meta = plan_fanin_pairs(comm.results_meta, flat)
+    for program, (x, y) in zip(programs, flat):
+        held[x] = backend._run(program, [held[x], held[y]])
+        held[y] = None
+    root = next(h for h in held if h is not None)
+    want = torch.complex(*root).cpu().numpy().reshape(meta.bond_dims)
+    assert np.array_equal(got.data.into_data(), want)

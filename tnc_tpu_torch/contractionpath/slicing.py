@@ -1,6 +1,5 @@
 """Contraction slicing: trade flops for peak memory (the port's copy of
-``tnc_tpu.contractionpath.slicing``, without the multi-device
-``find_parallel_slicing``).
+``tnc_tpu.contractionpath.slicing``).
 
 Selected *contracted* legs are fixed to an index value, the contraction
 runs once per index combination, and the results are summed. Every slice
@@ -11,6 +10,9 @@ once and runs them per slice
 The slice-leg selection is the standard greedy heuristic (as used by
 cotengra's SliceFinder): repeatedly slice the leg that most reduces the
 predicted peak intermediate size, until the peak fits the target.
+:func:`find_parallel_slicing` extends a slicing until its slice count
+divides over the devices of a slice-parallel run
+(:mod:`tnc_tpu_torch.parallel.sliced_parallel`).
 :func:`slice_and_reconfigure` interleaves that with subtree
 reconfiguration, scoring legs by the hoisted cost: the executors run the
 slice-invariant stem once (:mod:`tnc_tpu_torch.ops.hoist`), so a
@@ -35,6 +37,7 @@ __all__ = [
     "Slicing",
     "StemAccountant",
     "SlicedCostEvaluator",
+    "find_parallel_slicing",
     "find_slicing",
     "flat_replace_path",
     "greedy_slice_to_target",
@@ -408,6 +411,99 @@ def sliced_peak(
     True
     """
     return _make_replayer(inputs, replace_path).peak(set(slicing.legs))
+
+
+@obs.traced("plan.find_parallel_slicing")
+def find_parallel_slicing(
+    inputs: Sequence[LeafTensor],
+    replace_path: Sequence[tuple[int, int]],
+    n_devices: int,
+    target_size: float | None = None,
+    max_extra_legs: int = 8,
+    base: Slicing | None = None,
+    cost_model=None,
+) -> Slicing | None:
+    """A slicing suitable for **slice-parallel** execution
+    (:func:`tnc_tpu_torch.parallel.distributed_sliced_contraction`): at
+    least ``n_devices`` slices, count divisible by ``n_devices``, and — when
+    ``target_size`` is given — peak intermediate size within it.
+
+    Memory slicing picks legs by peak reduction (:func:`find_slicing`),
+    or comes in as ``base`` (e.g. a :func:`slice_and_reconfigure` result
+    to extend with divisibility legs only); the extra legs sliced purely
+    for parallelism are picked to minimize the total sliced flops under
+    hoisted execution (the overhead the devices must amortize). Returns
+    ``None`` if no divisible slicing exists within ``max_extra_legs``
+    extra legs — the caller falls back to partition parallelism.
+    ``cost_model`` (a measured
+    :class:`~tnc_tpu_torch.obs.calibrate.CalibratedCostModel`) scores the
+    extra legs in predicted seconds — per-slice launch overhead included —
+    instead of raw flops.
+
+    >>> ts = [LeafTensor.from_const([0, 1], 4), LeafTensor.from_const([1, 2], 4),
+    ...       LeafTensor.from_const([2, 0], 4)]   # closed triangle
+    >>> s = find_parallel_slicing(ts, [(0, 1), (0, 2)], 4)
+    >>> s.num_slices % 4 == 0 and s.num_slices >= 4
+    True
+    """
+    dims: dict[int, int] = {}
+    open_legs: set[int] = set()
+    for t in inputs:
+        for leg, dim in t.edges():
+            dims[leg] = dim
+            if leg in open_legs:
+                open_legs.discard(leg)
+            else:
+                open_legs.add(leg)
+
+    if base is not None and target_size is not None:
+        # base was planned against its own budget: checking a second
+        # target here would be ambiguous
+        raise ValueError("pass either base or target_size, not both")
+    removed: set[int] = set(base.legs) if base is not None else set()
+    if base is None and target_size is not None:
+        removed = set(
+            find_slicing(inputs, replace_path, target_size, max_slices=1 << 40).legs
+        )
+
+    replayer = _make_replayer(inputs, replace_path)
+    acct: StemAccountant | None = None  # built at the first extra leg
+
+    def count(legs: set[int]) -> int:
+        n = 1
+        for leg in legs:
+            n *= dims[leg]
+        return n
+
+    extra = 0
+    while not (count(removed) >= n_devices and count(removed) % n_devices == 0):
+        if extra >= max_extra_legs:
+            return None
+        candidates = [
+            leg
+            for leg in dims
+            if leg not in removed and leg not in open_legs and dims[leg] > 1
+        ]
+        if not candidates:
+            return None
+        if acct is None:
+            acct = StemAccountant(inputs, replace_path, cost_model=cost_model)
+        best = min(
+            candidates,
+            key=lambda leg: (
+                acct.hoisted_cost(
+                    removed | {leg},
+                    replayer.flops(removed | {leg}),
+                    count(removed | {leg}),
+                ),
+                leg,
+            ),
+        )
+        removed.add(best)
+        extra += 1
+
+    ordered = sorted(removed)
+    return Slicing(tuple(ordered), tuple(dims[l] for l in ordered))
 
 
 def flat_replace_path(path_: ContractionPath) -> list[tuple[int, int]]:

@@ -700,42 +700,21 @@ class TorchBackend(Backend):
         ``on_slice`` hook (``supports_slice_hooks`` is False, as on the
         reference's ``JaxBackend``).
         """
-        from tnc_tpu_torch.ops.sliced import slice_bounds
-
-        if hoist is None:
-            hoist = self.hoist
         if slice_range is not None and max_slices is not None:
             raise ValueError("slice_range and max_slices are exclusive")
         if slice_range is None and sp.slicing.num_slices == 1:
             if not host:
                 return self.execute_on_device(sp.program, arrays)
             return self.execute(sp.program, arrays)
-        full = self._device_buffers(arrays)
-        if self.sliced_strategy == "chunked" and sp.slicing.num_slices > 1:
-            from tnc_tpu_torch.ops.chunked import run_sliced_chunked_placed
+        digest = None
+        if self.sliced_strategy == "chunked" and slice_range is None:
             from tnc_tpu_torch.resilience import checkpoint as _ckpt
 
-            digest = (_ckpt.arrays_digest(arrays) if slice_range is None
-                      and _ckpt.resolve_ckpt(ckpt) is not None else None)
-            result = run_sliced_chunked_placed(
-                sp, full, batch=self.slice_batch, chunk_steps=self.chunk_steps,
-                split_complex=self.split_complex, precision=self.precision,
-                dtype=self.dtype, device=self.device, max_slices=max_slices,
-                hoist=hoist, slice_range=slice_range, graphs=graphs,
-                ckpt=ckpt, ckpt_data_digest=digest,
-            )
-        else:
-            lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
-            if hoist:
-                import torch
-
-                from tnc_tpu_torch.ops.hoist import hoisted
-
-                with torch.inference_mode():
-                    sp, full = hoisted(sp, full, self.split_complex, self.precision)
-            # the loop is one retryable dispatch, as a program is
-            # (:meth:`_dispatch`); it never consumes ``full``
-            result = self._dispatch(lambda: self._run_sliced(sp, full, lo, hi, graphs))
+            if _ckpt.resolve_ckpt(ckpt) is not None:
+                digest = _ckpt.arrays_digest(arrays)
+        result = self.run_sliced_placed(
+            sp, self._device_buffers(arrays), max_slices=max_slices, hoist=hoist,
+            slice_range=slice_range, graphs=graphs, ckpt=ckpt, ckpt_data_digest=digest)
         if not host:
             return result
         if self.split_complex:
@@ -743,6 +722,50 @@ class TorchBackend(Backend):
 
             return combine_array(*result).reshape(sp.program.result_shape)
         return result.cpu().numpy().reshape(sp.program.result_shape)
+
+    def run_sliced_placed(
+        self,
+        sp,
+        full: list[Any],
+        max_slices: int | None = None,
+        hoist: bool | None = None,
+        slice_range: tuple[int, int] | None = None,
+        graphs: bool = True,
+        ckpt: str | None = None,
+        ckpt_data_digest: str | None = None,
+    ):
+        """The slice sum of :meth:`execute_sliced` over leaves ``full``
+        already placed on this backend's device (:meth:`_device_buffers`,
+        never consumed), under the backend's strategy; the stored-shape
+        result on the device, a (real, imag) pair in split mode. The
+        distributed executors run each device's share of the slices
+        through it. ``ckpt_data_digest`` names the host data for the
+        chunked executor's checkpoints."""
+        from tnc_tpu_torch.ops.sliced import slice_bounds
+
+        if hoist is None:
+            hoist = self.hoist
+        if self.sliced_strategy == "chunked" and sp.slicing.num_slices > 1:
+            from tnc_tpu_torch.ops.chunked import run_sliced_chunked_placed
+
+            return run_sliced_chunked_placed(
+                sp, full, batch=self.slice_batch, chunk_steps=self.chunk_steps,
+                split_complex=self.split_complex, precision=self.precision,
+                dtype=self.dtype, device=self.device, max_slices=max_slices,
+                hoist=hoist, slice_range=slice_range, graphs=graphs,
+                ckpt=ckpt, ckpt_data_digest=ckpt_data_digest,
+            )
+        lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
+        if hoist:
+            import torch
+
+            from tnc_tpu_torch.ops.hoist import hoisted
+
+            with torch.inference_mode():
+                sp, full = hoisted(sp, full, self.split_complex, self.precision)
+        # the loop is one retryable dispatch, as a program is
+        # (:meth:`_dispatch`); it never consumes ``full``
+        return self._dispatch(lambda: self._run_sliced(sp, full, lo, hi, graphs))
 
     def slice_buffers(self, sp, full: list[Any], row) -> list[Any]:
         """The buffer list of one slice over resident leaves ``full``
