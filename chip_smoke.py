@@ -197,7 +197,7 @@ Phases, each of which raises on failure (nothing is caught):
 14. the serving front end and resilience (every answer held to complex128):
    ``ContractionService.from_circuit`` of phase 12's circuit on one
    ``TorchBackend()`` with a plan cache (``max_batch=8``, ``max_wait_ms=20``),
-   64 amplitude requests from 4 threads in 8 rounds (8 repeats, collapsed by
+   40 amplitude requests from 4 threads in 5 rounds (5 repeats, collapsed by
    dedup) within 1e-4 max|ref|, latency percentiles, batches and peak memory;
    a deadline of 0, a transient and a fatal ``serve.dispatch`` fault (retry
    in place; one batch degraded to 8 singletons), a transient
@@ -280,7 +280,30 @@ Phases, each of which raises on failure (nothing is caught):
    Every ``fused_chain`` launch, the ranks' included, is held against its
    plain version; a rank that fails or outlives its timeout fails the run
    (the group killed first);
-18. one JSON line of path numbers (with each kernel's per-shape rows,
+18. the fleet on one card (``tnc_tpu_torch.serve.multihost``,
+   ``serve.elastic``, ``obs.fleet``): two spawned gloo ranks sharing
+   ``cuda:0`` over a ``TCPStore``, both binding phase 14's two Sycamore-53
+   depth-8 programs from a plan cache the parent fills (no planner call in
+   either rank): the sliced program at 2^21 through a ``ClusterDispatcher``
+   (64 slices a rank, the range partials summed within 1e-4 max|ref| of
+   phase 14's uninterrupted value); rank 0's ``ContractionService`` over
+   the serving program with a roster-aware ``ClusterDispatcher``,
+   ``attach_fleet`` and ``serve_telemetry``, rank 1 in ``serve_cluster``
+   with a registry, telemetry and the flight recorder: rounds of phase
+   14's rows, every row bitwise one process's ``amplitudes_det`` of its
+   shard and within 1e-4 max|ref| of complex128, the ranks on one
+   ``policy_key``; rank 1's dispatch spans (and its flight dump) wearing
+   the root's riders and sequence; rank 0's ``/fleet`` listing both
+   replicas live and summing rank 1's batches; rank 1 SIGKILLed on a
+   command: its slot ``GatherLost``, its rows recomputed bitwise at the
+   root, one ``serve.elastic.reassigned``, no request failed, and once its
+   heartbeat is stale a round with no range for it that waits for nothing;
+   then elastic scheduling on rank 0 (a tenant over its quota rejected, the
+   dispatch order ``weighted_fair_order``'s, a priority request next and
+   nothing preempted: the card's backend has no slice hooks). Every
+   ``fused_chain`` launch of both ranks is held against its plain version;
+   the ranks' peaks together must fit the card;
+19. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -309,7 +332,10 @@ with its JSON record and the card line. ``python3 chip_smoke.py
 no phase 12 value), and ends with its JSON record and the card line.
 ``python3 chip_smoke.py --parallel`` builds the kernels, runs phase 16 (for
 its plans), makes phase 8's plan and complex128 slices, runs phase 17, and
-ends with its JSON record and the card line.
+ends with its JSON record and the card line. ``python3 chip_smoke.py
+--fleet`` builds the kernels, makes phase 14's complex128 amplitudes of the
+rows phase 18 serves and its sliced cell's uninterrupted value, runs phase
+18 alone, and ends with its JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -417,8 +443,10 @@ APPROX_PROFILE_CHI = 64  # the 8x8 rung profiled for the card's busy share
 # phase 14: the service serves SERVE_ROUNDS rounds of SERVE_BATCH amplitude
 # requests of phase 12's circuit (SERVE_BATCH - 1 distinct and one repeat a
 # round); the checkpointed sliced branch plans to 2^CKPT_TARGET elements (128
-# slices: phase 12's 2^26 gives 4)
-SERVE_ROUNDS = 8
+# slices: phase 12's 2^26 gives 4). Five rounds (eight until phase 18 came):
+# phase 15 serves round 4 and phase 18 rounds 0-4; every row's complex128
+# reference is made on the card
+SERVE_ROUNDS = 5
 SERVE_BATCH = 8
 CKPT_TARGET = 21
 # phase 15: the in-process serving planes. The SLO objective's budget is
@@ -454,6 +482,14 @@ PARALLEL_DEVICES = 4  # the tree cut's partitions on [cuda:0] * 4
 CONFIG5 = (24, 20, 42, 8)  # BASELINE config #5 (bench.py:1427-1430): qubits, depth, seed, k
 CONFIG5_HBM = 16 << 30  # the bench's pinned device budget (bench.py:1475)
 CHILD_TIMEOUT_S = 300.0  # a spawned rank's limit from the phase's start
+# phase 18: the fleet on one card. Two gloo ranks share cuda:0: rank 0 serves
+# FLEET_ROUNDS rounds of phase 14's rows through a ClusterDispatcher while rank 1
+# parks in serve_cluster; then rank 1 is killed in the next round. The heartbeat,
+# staleness and gather bounds set how long the worker loss waits
+FLEET_ROUNDS = 3
+FLEET_HEARTBEAT_S = 0.5
+FLEET_STALE_S = 2.0
+FLEET_TIMEOUT_S = 3.0
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # CUDA-core FMA rates
@@ -3913,9 +3949,10 @@ def held_chains(label: str, rows: list, seen: dict, launches: int):
     meanwhile held against its plain version once (its row labelled
     ``"<label> chain <i>"``), and every call adding ``launches`` to its
     row. A service's dispatcher thread runs the holds: no other thread
-    touches the card while they synchronise and capture. Phase 14 holds a
-    warm-up pass with ``launches=0``, then the counted pass with 1, so the
-    rows weigh exactly the counted pass's launches (:func:`check_held`)."""
+    touches the card while they synchronise and capture. A warm-up held
+    with ``launches=0`` before a counted run held with 1 (phase 14's
+    serving cell, phase 18's ranks) makes the rows weigh exactly the
+    counted run's launches (:func:`check_held`)."""
     from tnc_tpu_torch.ops import split_complex
 
     return holding("run_chain_split", hold_chain_run(lambda i: f"{label} chain {i}",
@@ -4018,7 +4055,7 @@ def run_serve_sycamore(rows: list[str]) -> dict:
     directory, ``max_batch=8``, ``max_wait_ms=20``: a warm-up round that
     holds each distinct chain against its plain version, then
     ``SERVE_ROUNDS`` counted rounds of 8 requests from 4 threads (7 distinct
-    bitstrings and one repeat a round: 64 requests, 8 repeats, each
+    bitstrings and one repeat a round: 40 requests, 5 repeats, each
     collapsed by the dispatcher's dedup), every launch on a held chain;
     every answer within 1e-4 max|ref| of complex128 on the card;
     latency percentiles, batches, peak memory against phase 12's. Then a
@@ -4387,7 +4424,8 @@ def run_sliced_ckpt(rows: list[str], refs: dict) -> dict:
           f"|halved - (a)| {halved_err:.3e}, fused_chain {halved_launches} launches; (d) a "
           f"capture fault retried {capture_retries}, bitwise equal True; (a) and (c) again "
           f"eagerly, bitwise equal, {len(held)} distinct chains held", flush=True)
-    return {"launches": clean_launches + halved_launches, "chain_rows": held, "record": {
+    return {"launches": clean_launches + halved_launches, "chain_rows": held, "clean": clean,
+            "record": {
         "target_log2": CKPT_TARGET, "slices": slices, "plan_s": plan_s, "wall_s": clean_s,
         "fused_chain_launches": clean_launches, "halved_fused_chain_launches": halved_launches,
         "graphs": clean_graphs, "max_abs_err": err,
@@ -4406,9 +4444,10 @@ def run_serve_mixed() -> dict:
     conditionals unless a uniform lies within ``SAMPLE_NEAR`` of its
     threshold; each expectation within 1e-5 absolute (and 1e-3 relative
     where |ref| > 1e-2) of the statevector's. Every dispatched batch holds
-    one batching key; ``stats()["by_type"]`` printed. A warm-up pass of the
-    same requests holds each distinct chain against its plain version; the
-    counted pass's launches must all fall on held chains."""
+    one batching key; ``stats()["by_type"]`` printed. One pass: each
+    distinct chain is held against its plain version when it first runs
+    (its hold inside the pass's time), and the pass's launches must all
+    fall on held chains."""
     from tnc_tpu_torch.ops.backends import TorchBackend
     from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
     from tnc_tpu_torch.queries import statevector as sv_oracle
@@ -4447,11 +4486,7 @@ def run_serve_mixed() -> dict:
     svc._dispatch_group = record
     held, seen = [], {}
     try:
-        # a warm-up pass holds each distinct chain; then the counted pass
-        with held_chains(label, held, seen, 0):
-            submit_round(svc, jobs)
-        svc.reset_stats()
-        warm_groups = len(groups)
+        # one counted pass; each distinct chain held as it first runs
         reset_launches()
         t0 = time.perf_counter()
         with held_chains(label, held, seen, 1):
@@ -4497,10 +4532,10 @@ def run_serve_mixed() -> dict:
           f"{label}: an expectation is off by more than 1e-3 relative")
     by_type = {kind: {"counts": row["counts"], "latency_s": row["latency_s"]}
                for kind, row in stats["by_type"].items()}
-    counted = [(k, n) for k, n, _ in groups[warm_groups:]]
+    counted = [(k, n) for k, n, _ in groups]
     print(f"[{label}] from_circuit {bind_s:.3f} s; {len(jobs)} requests from 4 threads in "
-          f"{traffic_s:.3f} s (after a warm-up pass of the same requests, {warm_groups} "
-          f"batches), {len(counted)} batches {counted}, each one batching key; fused_chain "
+          f"{traffic_s:.3f} s (each distinct chain held against its plain version as it "
+          f"first ran), {len(counted)} batches {counted}, each one batching key; fused_chain "
           f"{launches} launches, {len(held)} distinct chains held; amplitudes max|diff| "
           f"{amp_err:.3e}, "
           f"marginals {marg_err:.3e}, expectations {float(np.max(ev_err)):.3e}, samples differing "
@@ -4634,7 +4669,7 @@ def run_serve() -> dict:
     record = {**syc["record"], **{k: cell["record"] for k, cell in cells.items()},
               "seconds": seconds}
     return {"record": record, "chain_launches": launches, "chain_rows": rows,
-            "refs": syc["refs"]}
+            "refs": syc["refs"], "sliced_clean": sliced["clean"]}
 
 
 # --- phase 15: the in-process serving planes ----------------------------------
@@ -5806,7 +5841,8 @@ def config5() -> dict:
     work-bounded rounds of simulated annealing with
     ``IntermediatePartitioningModel`` from ``random.Random(42)``,
     ``compute_solution`` — through ``partitioned_sliced_executor(...,
-    devices=[cuda:0] * 8, hbm_bytes=16 GiB)``: ``run(1)`` to warm up (each
+    devices=[cuda:0] * 8, hbm_bytes=16 GiB, plan_max_slices=1 << 40)``, as the bench
+    passes it: ``run(1)`` to warm up (each
     distinct chain held against its plain version), ``run(2)`` timed (the
     bench's probe) and ``run()`` over every global slice, each counted; the
     full sum within 1e-4·max(|ref|, 2^-14) of a complex128 contraction of
@@ -5848,7 +5884,8 @@ def config5() -> dict:
     devices = [torch.device("cuda:0")] * k
     t0 = time.perf_counter()
     run, slicing, meta = partitioned_sliced_executor(ptn, ppath, devices=devices,
-                                                     hbm_bytes=CONFIG5_HBM)
+                                                     hbm_bytes=CONFIG5_HBM,
+                                                     plan_max_slices=1 << 40)
     setup_s = time.perf_counter() - t0
     leaves, pairs = flatten_partitioned_path(ptn, ppath)
     num = slicing.num_slices
@@ -6053,9 +6090,11 @@ class Ranks:
         for p in self.procs:
             p.join(30)
 
-    def finish(self) -> tuple[list, float]:
-        """Open the gate, wait for every rank; their results and the seconds
-        from the gate to the last exit."""
+    def finish(self, exits: tuple | None = None) -> tuple[list, float]:
+        """Open the gate, wait for every rank; their results (``None`` for a
+        rank whose expected exit code in ``exits`` is not 0) and the seconds
+        from the gate to the last exit. ``exits``: each rank's expected exit
+        code (default 0 for all); any other code fails the run."""
         import pickle
 
         t0 = time.perf_counter()
@@ -6068,9 +6107,13 @@ class Ranks:
         codes = [p.exitcode for p in self.procs]
         check(not hung, f"{self.prefix}: ranks {hung} still running {CHILD_TIMEOUT_S} s "
               f"after the start (killed)")
-        check(codes == [0] * len(self.procs), f"{self.prefix}: ranks exited {codes}")
+        want = list(exits) if exits is not None else [0] * len(self.procs)
+        check(codes == want, f"{self.prefix}: ranks exited {codes}, expected {want}")
         out = []
         for rank in range(len(self.procs)):
+            if want[rank] != 0:
+                out.append(None)
+                continue
             with open(os.path.join(self.out_dir, f"{self.prefix.strip('/')}-{rank}.pkl"),
                       "rb") as f:
                 out.append(pickle.load(f))
@@ -6192,6 +6235,499 @@ def run_parallel(cells: dict, m10: dict) -> dict:
     return {"record": record, "chain_launches": launches, "chain_rows": rows}
 
 
+# --- phase 18: the fleet on one card -------------------------------------------
+
+
+def fleet_bind(cache_dir: str):
+    """Phase 14's two Sycamore-53 depth-8 programs bound through the plan
+    cache in ``cache_dir``: the serving plan (``from_circuit``'s) and the
+    sliced one at ``2**CKPT_TARGET`` (128 slices). Returns both and the
+    cache."""
+    from tnc_tpu_torch.serve import PlanCache, bind_circuit
+
+    cache = PlanCache(cache_dir)
+    bound = bind_circuit(sycamore(SWEEP), plan_cache=cache)
+    sliced = bind_circuit(sycamore(SWEEP), "0" * SWEEP[0], plan_cache=cache,
+                          target_size=2.0 ** CKPT_TARGET)
+    return bound, sliced, cache
+
+
+def wait_roster(registry, pred, what: str, timeout_s: float = 60.0) -> float:
+    """Poll ``registry.roster()`` until ``pred(rows by name)`` holds; the
+    seconds it took. Fails the run past ``timeout_s``."""
+    t0 = time.perf_counter()
+    while True:
+        rows = {r["name"]: r for r in registry.roster()["replicas"]}
+        if pred(rows):
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < timeout_s, f"phase 18: {what} within {timeout_s} s")
+        time.sleep(0.05)
+
+
+def fleet_scheduling(bound, backend, rows: list[str]) -> dict:
+    """Phase 18 (f) on rank 0: a local service under ``enable_elastic``
+    (tenant weights a 2, b 1; tenant b's quota 3), one request a batch. A
+    request held in dispatch by a slow ``serve.dispatch`` fault, then tenant
+    traffic queued behind it and a priority-1 request last: b's fourth is
+    rejected at admission (``TenantQuotaError``); the rest dispatch in the
+    order that taking ``weighted_fair_order``'s first of what is queued
+    gives, the priority request first. Nothing is preempted: a
+    ``TorchBackend`` has no slice hooks."""
+    from tnc_tpu_torch.resilience import faults
+    from tnc_tpu_torch.serve import ContractionService, ElasticConfig, TenantQuotaError
+    from tnc_tpu_torch.serve import elastic
+
+    weights = {"a": 2.0, "b": 1.0}
+    queued = [("b", 0, rows[1]), ("b", 0, rows[2]), ("b", 0, rows[3]), ("a", 0, rows[4]),
+              ("a", 0, rows[5]), ("c", 1, rows[6])]
+    done, futs = [], []
+    before = elastic.counters().get("preempted", 0)
+    svc = ContractionService(bound, backend=backend, max_batch=1, max_wait_ms=0)
+    svc.enable_elastic(ElasticConfig(tenant_weights=weights, tenant_quotas={"b": 3}))
+    with faults("serve.dispatch=slow:1.0*1"), svc:
+        first = svc.submit(rows[0], tenant="a")
+        time.sleep(0.3)  # the first request is in dispatch, asleep
+        for i, (tenant, prio, bits) in enumerate(queued):
+            futs.append(svc.submit(bits, tenant=tenant, priority=prio))
+            futs[-1].add_done_callback(lambda _f, i=i: done.append(i))
+        try:
+            svc.submit(rows[7], tenant="b")
+            rejected = False
+        except TenantQuotaError:
+            rejected = True
+        tenants = svc.stats()["elastic"]["tenants"]
+        answers = [f.result(timeout=600) for f in [first] + futs]
+        stats = svc.stats()
+    expect, left = [], list(range(len(queued)))
+    while left:  # the window takes the first of a fresh order each batch
+        pick = elastic.weighted_fair_order([queued[i] for i in left], lambda q: q[0],
+                                           lambda q: q[1], weights=weights)[0]
+        expect.append(left.pop(pick))
+    return {"order": done, "expect": expect, "rejected": rejected, "tenants": tenants,
+            "answers": answers, "bits": [rows[0]] + [q[2] for q in queued],
+            "counts": stats["counts"],
+            "preempted": elastic.counters().get("preempted", 0) - before}
+
+
+def fleet_root(bound, sliced, backend, rows: list[str], fleet_dir: str) -> dict:
+    """Rank 0 of phase 18: (b) the sliced program through a frozen
+    ``ClusterDispatcher`` (64 slices a rank); (a) a service over the serving
+    program with a roster-aware dispatcher, ``attach_fleet`` and
+    ``serve_telemetry``, ``FLEET_ROUNDS`` rounds of phase 14's rows, then
+    its ``/fleet`` view (d); (e) a second service over a new dispatcher
+    once rank 1 parks again: the round in which rank 1 dies (its slot
+    ``GatherLost``, its rows recomputed here, the process lost for good),
+    then, once the roster also reads its heartbeat stale, a round with no
+    range for it (given because it is lost; a live process placed out by
+    its stale heartbeat alone is a CPU test's case,
+    ``tests/test_torch_elastic.py``); (f) :func:`fleet_scheduling`.
+    Every dispatch is logged: its sequence, riders, bits, ranges, rows and
+    seconds."""
+    from tnc_tpu_torch.obs.fleet import FleetRegistry, current_dispatch_context
+    from tnc_tpu_torch.serve import ClusterDispatcher, ContractionService
+    from tnc_tpu_torch.serve import elastic
+
+    log: list = []
+
+    class Recording(ClusterDispatcher):
+        def __call__(self, bound, bits, backend=None):
+            t0 = time.perf_counter()
+            out = super().__call__(bound, bits, backend)
+            ctx = current_dispatch_context()
+            log.append({"stage": self.stage, "seq": self._seq,
+                        "riders": ctx.riders if ctx is not None else "", "bits": list(bits),
+                        "ranges": self.last_ranges, "out": np.asarray(out),
+                        "s": time.perf_counter() - t0})
+            return out
+
+    def dispatcher(stage: str):
+        d = Recording(registry=FleetRegistry(fleet_dir, stale_after_s=FLEET_STALE_S),
+                      timeout_s=FLEET_TIMEOUT_S)
+        d.stage = stage
+        return d
+
+    # a reader of the roster (it never heartbeats)
+    watch = FleetRegistry(fleet_dir, name="watch", stale_after_s=FLEET_STALE_S)
+
+    def service(d):
+        svc = ContractionService(bound, backend=backend, dispatcher=d, max_batch=SERVE_BATCH,
+                                 max_wait_ms=20).start()
+        tel = svc.serve_telemetry(port=0)
+        svc.attach_fleet(directory=fleet_dir, heartbeat_s=FLEET_HEARTBEAT_S,
+                         stale_after_s=FLEET_STALE_S)
+        return svc, tel
+
+    def requests(r):
+        return [lambda s, b=b: s.submit(b) for b in round_bits(rows, r)]
+
+    out: dict = {}
+    # (b) slices: a frozen fleet, the sliced program's two bitstrings
+    d1 = Recording()
+    d1.stage = "slices"
+    sbits = [sliced.template.request_bits(b) for b in rows[:2]]
+    out["slices"] = d1(sliced, sbits, backend)
+    d1.stop()
+
+    # (a) bras rounds, (d) the federated view
+    d2 = dispatcher("bras")
+    svc, tel = service(d2)
+    try:
+        out["join_s"] = wait_roster(watch, lambda r: r.get("p1", {}).get("state") == "live",
+                                    "rank 1 on the roster")
+        out["answers"] = []
+        for r in range(FLEET_ROUNDS):
+            out["answers"].append(submit_round(svc, requests(r)))
+        # the worker counts a batch just after it hands its rows over: read
+        # the federated view until it has counted every batch it served
+        served = len(log)
+        key = "tnc_tpu_serve_cluster_worker_batches_total"
+        t0 = time.perf_counter()
+        while True:
+            out["view"] = json.loads(http_get(tel.url + "/fleet"))
+            if (out["view"]["counters"].get(key) == served
+                    or time.perf_counter() - t0 > 10.0):
+                break
+            time.sleep(0.1)
+        out["bras_stats"] = svc.stats()
+    finally:
+        svc.stop()
+        d2.stop()
+
+    # (e) worker loss: rank 1 parks again (its progress back at 0 batches)
+    d3 = dispatcher("loss")
+    svc, tel = service(d3)
+    try:
+        wait_roster(watch, lambda r: r.get("p1", {}).get("state") == "live"
+                    and r["p1"]["payload"].get("batches_served") == 0, "rank 1 parked again")
+        before = elastic.counters().get("reassigned", 0)
+        out["loss_answers"] = submit_round(svc, requests(FLEET_ROUNDS))
+        out["reassigned"] = elastic.counters().get("reassigned", 0) - before
+        out["lost"] = sorted(d3.lost)
+        out["stale_wait_s"] = wait_roster(
+            watch, lambda r: r.get("p1", {}).get("state") == "stale", "rank 1 stale")
+        out["after_answers"] = submit_round(svc, requests(FLEET_ROUNDS + 1))
+        out["reassigned_after"] = elastic.counters().get("reassigned", 0) - before
+        out["loss_stats"] = svc.stats()
+    finally:
+        svc.stop()
+        d3.stop()
+    out["log"] = log
+
+    # (f) elastic scheduling on this rank alone
+    out["scheduling"] = fleet_scheduling(bound, backend, rows)
+    return out
+
+
+def fleet_oracle(bound, backend, log: list) -> list:
+    """Each logged bras dispatch against one process's ``amplitudes_det`` of
+    the same shards (its ranges, or the even split) on ``backend``: whether
+    its rows are bitwise those, and their largest difference."""
+    from tnc_tpu_torch.serve import shard_ranges
+
+    checked = []
+    for entry in log:
+        if entry["stage"] == "slices":
+            continue
+        ranges = entry["ranges"] or shard_ranges(len(entry["bits"]), 2)
+        parts = [bound.amplitudes_det(entry["bits"][lo:hi], backend)
+                 for lo, hi in ranges if hi > lo]
+        want = np.concatenate(parts)
+        got = entry["out"]
+        checked.append({"seq": entry["seq"], "stage": entry["stage"],
+                        "bitwise": got.dtype == want.dtype and got.tobytes() == want.tobytes(),
+                        "max_diff": float(np.max(np.abs(got - want)))})
+    return checked
+
+
+def rank_fleet(rank: int, world: int, cache_dir: str, fleet_dir: str, flight_dir: str,
+               out_dir: str, rows: list, label: str) -> dict:
+    """Phase 18, in each of two gloo ranks sharing ``cuda:0``: both bind
+    phase 14's programs through the parent's plan cache (hits, no planner
+    call) on one ``TorchBackend`` whose sliced runs are eager; each holds
+    the chains of a round's two shards in a warm-up, then runs the fleet
+    with every ``fused_chain`` launch held (:func:`held_chains`). Rank 0:
+    :func:`fleet_root`, then :func:`fleet_oracle` of its dispatches. Rank
+    1 (``TNC_TPU_FLIGHT_RECORDER`` set): ``serve_cluster`` of the sliced
+    program, then of the serving program (registry, telemetry), writes its
+    record to ``out_dir``, and parks a third time under a ``kill`` rule at
+    ``cluster.broadcast(side=worker)``: the next command SIGKILLs it."""
+    import torch
+
+    from tnc_tpu_torch import obs
+    from tnc_tpu_torch.obs.core import MetricsRegistry
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.resilience import faults
+    from tnc_tpu_torch.serve import serve_cluster
+
+    obs.configure(enabled=True, registry=MetricsRegistry())
+    if rank == 1:
+        os.environ["TNC_TPU_FLIGHT_RECORDER"] = flight_dir
+        os.environ["TNC_TPU_FLIGHT_INTERVAL"] = "0.25"
+        obs.refresh_from_env()
+    t0 = time.perf_counter()
+    bound, sliced, cache = fleet_bind(cache_dir)
+    bind_s = time.perf_counter() - t0
+    planned = sum(1 for r in obs.get_registry().span_records() if r.name.startswith("plan."))
+    cache_counts = dict(cache.stats()["counts"])
+    backend = TorchBackend()
+    backend.execute_sliced = functools.partial(backend.execute_sliced, graphs=False)
+    held, seen = [], {}
+    unique = round_bits(rows, 0)[1:]
+    with held_chains(f"{label} rank {rank}", held, seen, 0):
+        for lo, hi in ((0, 4), (4, len(unique))):
+            bound.amplitudes_det(unique[lo:hi], backend)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    record = {"bind_s": bind_s, "planned": planned, "cache": cache_counts,
+              "policy_key": repr(backend.policy_key()), "obs_enabled": obs.enabled()}
+    t0 = time.perf_counter()
+    with held_chains(f"{label} rank {rank}", held, seen, 1):
+        if rank == 0:
+            record.update(fleet_root(bound, sliced, backend, rows, fleet_dir))
+        else:
+            record["served"] = [serve_cluster(sliced, backend),
+                                serve_cluster(bound, backend, plan_cache=cache,
+                                              fleet_dir=fleet_dir, telemetry_port=0,
+                                              heartbeat_s=FLEET_HEARTBEAT_S)]
+    torch.cuda.synchronize()
+    record.update({"run_s": time.perf_counter() - t0, "launches": LAUNCHES["fused_chain"],
+                   "rows": held, "peak_bytes": torch.cuda.max_memory_allocated()})
+    if rank == 0:
+        record["oracle"] = fleet_oracle(bound, backend, record["log"])
+        for entry in record["log"]:
+            entry["out"] = entry["out"].tolist() if entry["stage"] == "slices" else None
+        return record
+    import pickle
+
+    record["spans"] = [(r.name, dict(r.args)) for r in obs.get_registry().span_records()
+                       if r.name == "serve.dispatch"]
+    with open(os.path.join(out_dir, "fleet-1-record.pkl"), "wb") as f:
+        pickle.dump(record, f)
+    with faults("cluster.broadcast(side=worker)=kill*1"):
+        serve_cluster(bound, backend, plan_cache=cache, fleet_dir=fleet_dir,
+                      heartbeat_s=FLEET_HEARTBEAT_S)
+    fail("phase 18: rank 1 outlived its kill rule")
+
+
+RANK_TASKS["fleet"] = rank_fleet
+
+
+def flight_dump(flight_dir: str) -> dict:
+    """Rank 1's flight-recorder dump (``flight-p1-<pid>.json``), parsed."""
+    import glob
+
+    files = glob.glob(os.path.join(flight_dir, "flight-p1-*.json"))
+    check(len(files) == 1, f"phase 18: flight dumps {os.listdir(flight_dir)}")
+    with open(files[0], encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def fleet_refs(rows: list[str]) -> tuple[dict, np.ndarray]:
+    """What phase 18 holds its answers to when it runs alone: the complex128
+    amplitude of each row it serves (as phase 14 makes them) and phase
+    14's uninterrupted value of the sliced cell's two bitstrings."""
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.serve import bind_circuit
+
+    need = rows[:(FLEET_ROUNDS + 2) * (SERVE_BATCH - 1)]
+    refs = complex128_amps(bind_circuit(sycamore(SWEEP)), need)
+    sliced = bind_circuit(sycamore(SWEEP), "0" * SWEEP[0], target_size=2.0 ** CKPT_TARGET)
+    return refs, sliced.amplitudes(rows[:2], TorchBackend())
+
+
+def run_fleet(refs: dict, sliced_clean) -> dict:
+    """Phase 18: the fleet on one card. Two gloo ranks sharing ``cuda:0``
+    over a ``TCPStore`` the parent opens (:func:`rank_fleet`), started at
+    the phase's start while the parent plans phase 14's two programs into a
+    plan cache both ranks bind from. The gates: (a) bras mode, every row of
+    every dispatch bitwise one process's ``amplitudes_det`` of the same
+    shards, and within phase 14's gate of complex128, the ranks on one
+    ``policy_key``; (b) slices mode, the two ranks' range partials summed
+    in range order within phase 14's gate of its uninterrupted value; (c)
+    rank 1's ``serve.dispatch`` spans carry rank 0's riders and sequence,
+    also in its flight-recorder dump; (d) rank 0's ``/fleet`` lists both
+    replicas live and its merged ``serve.cluster.worker_batches`` equals
+    the batches rank 1 served; (e) rank 1 SIGKILLed on a command: its slot
+    lost, its rows recomputed bitwise, one ``serve.elastic.reassigned``, no
+    request failed; the next round gives the lost process ``(0, 0)`` and
+    does not wait (the roster reads it stale by then, but the lost set
+    alone gives that range); (f) :func:`fleet_scheduling`. Every
+    ``fused_chain`` launch of both ranks held against its plain version;
+    the two ranks' peaks together within the card."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    qubits, depth, _ = SWEEP
+    label = f"sycamore{qubits}_m{depth}_cluster"
+    rows = serve_rows()
+    ctx = multiprocessing.get_context("spawn")
+    server = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+    with tempfile.TemporaryDirectory() as work:
+        dirs = {name: os.path.join(work, name) for name in ("plans", "fleet", "flight", "out")}
+        for d in dirs.values():
+            os.makedirs(d)
+        ranks = Ranks(ctx, 2, server.port, "fleet/", "gloo", "fleet", lambda r: {
+            "cache_dir": dirs["plans"], "fleet_dir": dirs["fleet"],
+            "flight_dir": dirs["flight"], "out_dir": dirs["out"], "rows": rows,
+            "label": label}, dirs["out"])
+        try:
+            t0 = time.perf_counter()
+            num = fleet_bind(dirs["plans"])[1].sliced.slicing.num_slices
+            plan_s = time.perf_counter() - t0
+            (root, _), ranks_s = ranks.finish(exits=(0, -9))
+        finally:
+            ranks.kill()
+        with open(os.path.join(dirs["out"], "fleet-1-record.pkl"), "rb") as f:
+            work1 = pickle.load(f)
+        flight = flight_dump(dirs["flight"])
+
+    # neither rank planned; both on one kernel policy
+    for rank, rec in enumerate((root, work1)):
+        check(rec["planned"] == 0 and rec["cache"].get("hit") == 2 and not rec["cache"].get("miss"),
+              f"{label}: rank {rank} planned {rec['planned']} times, cache {rec['cache']}")
+    check(root["policy_key"] == work1["policy_key"],
+          f"{label}: the ranks plan other kernel policies: {root['policy_key']} vs "
+          f"{work1['policy_key']}")
+    check(work1["obs_enabled"], f"{label}: the flight recorder left rank 1's spans off")
+
+    # (a) bras: bitwise one process of the same shards, and within the gate
+    bras = [c for c in root["oracle"] if c["stage"] == "bras"]
+    check(len(bras) >= FLEET_ROUNDS and all(c["bitwise"] for c in root["oracle"]),
+          f"{label}: a dispatch's rows differ from one process's: {root['oracle']}")
+    err = 0.0
+    for r, got in enumerate(root["answers"]):
+        check(not any(isinstance(a, Exception) for a in got), f"{label}: a request failed")
+        err = max(err, hold_amps(f"{label} round {r}", got, round_bits(rows, r), refs))
+
+    # (b) slices: the range partials' sum against phase 14's uninterrupted run
+    slices = np.asarray(root["slices"])
+    clean = np.asarray(sliced_clean)
+    s_err = float(np.max(np.abs(slices - clean)))
+    s_scale = float(np.max(np.abs(clean)))
+    check(slices.shape == clean.shape and np.all(np.isfinite(slices)) and s_err <= 1e-4 * s_scale,
+          f"{label} slices: off phase 14's uninterrupted value by {s_err} (gate 1e-4 x {s_scale})")
+    sliced_log = [e for e in root["log"] if e["stage"] == "slices"]
+    check(sliced_log[0]["ranges"] is None and work1["served"][0] == 1,
+          f"{label} slices: {sliced_log}, rank 1 served {work1['served']}")
+
+    # (c) trace propagation: rank 1's spans wear the root's riders and sequence
+    sent = {(e["stage"], e["seq"]): e["riders"] for e in root["log"] if e["stage"] == "bras"}
+    remote = [a for name, a in work1["spans"] if a.get("remote") == 1]
+    got_bras = {a["seq"]: a["riders"] for a in remote if a.get("kind") == "amplitude"}
+    check(got_bras == {seq: riders for (_, seq), riders in sent.items()},
+          f"{label}: rank 1's dispatch spans carry {got_bras}, the root sent {sent}")
+    # the dump's ring holds the most recent spans: the last round's at least
+    flown = {s["args"].get("seq"): s["args"].get("riders") for s in flight["spans"]
+             if s["name"] == "serve.dispatch" and s["args"].get("remote") == 1
+             and s["args"].get("kind") == "amplitude"}
+    check(max(got_bras) in flown and all(got_bras.get(k) == v for k, v in flown.items()),
+          f"{label}: rank 1's flight dump holds {flown}, its spans {got_bras}")
+
+    # (d) the federated view while both lived
+    view = root["view"]
+    key = "tnc_tpu_serve_cluster_worker_batches_total"
+    roster = {r["name"]: r["state"] for r in view["roster"]["replicas"]}
+    served = work1["served"][0] + work1["served"][1]
+    check(view["enabled"] and roster == {"p0": "live", "p1": "live"} and not view["unreachable"],
+          f"{label}: /fleet roster {roster}, unreachable {view['unreachable']}")
+    check(view["counters"].get(key) == served == 1 + len(bras),
+          f"{label}: /fleet sums {view['counters'].get(key)} worker batches, rank 1 served "
+          f"{work1['served']}, the root dispatched {1 + len(bras)}")
+
+    # (e) worker loss
+    loss = [e for e in root["log"] if e["stage"] == "loss"]
+    check(len(loss) == 2, f"{label}: {len(loss)} dispatches after the loss, expected 2")
+    kill, after = loss
+    n = len(after["bits"])
+    check(root["lost"] == [1] and root["reassigned"] == 1 and root["reassigned_after"] == 1,
+          f"{label}: lost {root['lost']}, reassigned {root['reassigned']} then "
+          f"{root['reassigned_after']}")
+    check(kill["ranges"] == [(0, 4), (4, n)] and after["ranges"] == [(0, n), (0, 0)],
+          f"{label}: ranges {kill['ranges']} then {after['ranges']}")
+    check(after["s"] < FLEET_TIMEOUT_S <= kill["s"],
+          f"{label}: the round after the loss took {after['s']:.3f} s, the lost one "
+          f"{kill['s']:.3f} s (gather bound {FLEET_TIMEOUT_S} s)")
+    for name, got, r in (("loss", root["loss_answers"], FLEET_ROUNDS),
+                         ("after", root["after_answers"], FLEET_ROUNDS + 1)):
+        check(not any(isinstance(a, Exception) for a in got), f"{label} {name}: a request failed")
+        hold_amps(f"{label} {name}", got, round_bits(rows, r), refs)
+    check(root["loss_stats"]["counts"]["failed"] == 0 and root["bras_stats"]["counts"]["failed"] == 0,
+          f"{label}: failed requests {root['loss_stats']['counts']}")
+    check(flight["name"] == "p1" and flight["spans"], f"{label}: rank 1's flight dump is empty")
+
+    # (f) elastic scheduling
+    sched = root["scheduling"]
+    check(sched["rejected"] and sched["tenants"] == {"b": 3, "a": 2, "c": 1},
+          f"{label} scheduling: quota rejection {sched['rejected']}, queue {sched['tenants']}")
+    check(sched["order"] == sched["expect"] and sched["expect"][0] == 5,
+          f"{label} scheduling: dispatched {sched['order']}, weighted_fair_order gives "
+          f"{sched['expect']}")
+    check(sched["preempted"] == 0 and sched["counts"]["failed"] == 0,
+          f"{label} scheduling: preempted {sched['preempted']}, {sched['counts']}")
+    hold_amps(f"{label} scheduling", sched["answers"], sched["bits"], refs)
+
+    # every launch of both ranks on a held chain; both ranks fit the card
+    for rank, rec in enumerate((root, work1)):
+        check_held(f"{label} rank {rank}", rec["rows"], rec["launches"])
+    launches = root["launches"] + work1["launches"]
+    card = torch.cuda.get_device_properties(0).total_memory
+    peaks = [root["peak_bytes"], work1["peak_bytes"]]
+    check(sum(peaks) <= card, f"{label}: the ranks' peaks {peaks} exceed the card's {card}")
+
+    seconds = time.perf_counter() - t_phase
+    print(f"[{label}] two gloo ranks on cuda:0, one plan cache (planned in the parent in "
+          f"{plan_s:.2f} s; the ranks bound it in {root['bind_s']:.2f} and "
+          f"{work1['bind_s']:.2f} s, caches {root['cache']} / {work1['cache']}, 0 planner "
+          f"calls), policy_key equal {root['policy_key']}", flush=True)
+    print(f"[check] {label} (a) bras: {len(bras)} dispatches of {FLEET_ROUNDS} rounds over 2 "
+          f"ranks, every row bitwise one process's amplitudes_det of its shard "
+          f"({[c['max_diff'] for c in bras]}); max|amp - complex128| {err:.3e}", flush=True)
+    print(f"[check] {label} (b) slices: {num // 2} slices a rank, range partials summed: |sum - "
+          f"phase 14's uninterrupted| {s_err:.3e} (gate {1e-4 * s_scale:.3e}) in "
+          f"{sliced_log[0]['s']:.3f} s", flush=True)
+    print(f"[check] {label} (c) rank 1's serve.dispatch spans carry the root's riders and "
+          f"seq {got_bras}; its flight dump ({flight['reason']}, {len(flight['spans'])} spans) "
+          f"holds them", flush=True)
+    print(f"[check] {label} (d) /fleet: roster {roster}, {key} {view['counters'].get(key)} = "
+          f"batches rank 1 served {work1['served']}; rank 1 joined in {root['join_s']:.2f} s",
+          flush=True)
+    print(f"[check] {label} (e) rank 1 SIGKILLed on command {kill['seq']}: GatherLost, lost "
+          f"{root['lost']}, reassigned {root['reassigned']}, rows bitwise; the round took "
+          f"{kill['s']:.3f} s (gather bound {FLEET_TIMEOUT_S} s); its heartbeat stale "
+          f"after {root['stale_wait_s']:.2f} s more; the next round {after['ranges']} (rank "
+          f"1 lost) in {after['s']:.3f} s; no request failed", flush=True)
+    print(f"[check] {label} (f) tenant b's 4th rejected {sched['rejected']}; dispatch order "
+          f"{sched['order']} = weighted_fair_order {sched['expect']} (priority 1 first); not "
+          f"preempted: TorchBackend has no slice hooks (preempted +{sched['preempted']})",
+          flush=True)
+    print(f"[{label}] fused_chain {launches} launches ({root['launches']} + "
+          f"{work1['launches']}), all on held chains; max_memory_allocated {peaks} bytes "
+          f"(together {sum(peaks)} of {card}); ranks {ranks_s:.1f} s from the gate", flush=True)
+    print(f"[fleet] phase 18 in {seconds:.1f} s", flush=True)
+    record = {"plan_s": plan_s, "bind_s": [root["bind_s"], work1["bind_s"]],
+              "policy_key": root["policy_key"], "bras_dispatches": len(bras),
+              "max_abs_err": err, "slices": num, "slices_abs_err": s_err,
+              "slices_s": sliced_log[0]["s"],
+              "trace": {str(k): v for k, v in got_bras.items()},
+              "worker_batches": view["counters"].get(key), "join_s": root["join_s"],
+              "kill_round_s": kill["s"], "stale_wait_s": root["stale_wait_s"],
+              "after_round_s": after["s"], "after_ranges": after["ranges"],
+              "reassigned": root["reassigned"], "scheduling_order": sched["order"],
+              "launches": [root["launches"], work1["launches"]], "peak_bytes": peaks,
+              "run_s": [root["run_s"], work1["run_s"]], "ranks_s": ranks_s,
+              "seconds": seconds}
+    rows_held = root["rows"] + work1["rows"]
+    return {"record": record, "chain_launches": {label: launches},
+            "chain_rows": {label: rows_held}}
+
+
 def main() -> int:
     if sys.argv[1:2] == [NORTHSTAR_PLAN_FLAG] and len(sys.argv) == 3:
         return make_northstar_plan(sys.argv[2])
@@ -6301,6 +6837,19 @@ def main() -> int:
                               k: chain_record(r) for k, r in part["chain_rows"].items()}},
                           "shapes": {"fused_chain": [
                               r for rows in part["chain_rows"].values() for r in rows]}}),
+              flush=True)
+        print(card_line(), flush=True)
+        return 0
+
+    if "--fleet" in sys.argv[1:]:
+        # the fleet on one card alone: phase 18, phase 14's references made here
+        fleet = run_fleet(*fleet_refs(serve_rows()))
+        print(json.dumps({"fleet": fleet["record"],
+                          "launches_by_path": {"fused_chain": fleet["chain_launches"]},
+                          "kernels_by_path": {"fused_chain": {
+                              k: chain_record(r) for k, r in fleet["chain_rows"].items()}},
+                          "shapes": {"fused_chain": [
+                              r for rows in fleet["chain_rows"].values() for r in rows]}}),
               flush=True)
         print(card_line(), flush=True)
         return 0
@@ -6553,7 +7102,17 @@ def main() -> int:
     # phase 8's amplitude in an NCCL rank, and two gloo ranks sharing the card
     par = run_parallel(part["cells"], m10)
     chain_launches.update(par["chain_launches"])
+    torch.cuda.empty_cache()
     phase_done(17)
+
+    # 18. the fleet on one card: two gloo ranks serving phase 14's rows through
+    # a ClusterDispatcher and serve_cluster, the federated view, a killed worker,
+    # elastic scheduling
+    fleet = run_fleet(serve["refs"], serve["sliced_clean"])
+    chain_launches.update(fleet["chain_launches"])
+    phase_done(18)
+
+    # 19. the records
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -6587,7 +7146,8 @@ def main() -> int:
                         **{k: chain_record(r) for k, r in serve["chain_rows"].items()},
                         **{k: chain_record(r) for k, r in planes["chain_rows"].items()},
                         **{k: chain_record(r) for k, r in part["chain_rows"].items()},
-                        **{k: chain_record(r) for k, r in par["chain_rows"].items()}},
+                        **{k: chain_record(r) for k, r in par["chain_rows"].items()},
+                        **{k: chain_record(r) for k, r in fleet["chain_rows"].items()}},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -6605,7 +7165,8 @@ def main() -> int:
                    + [r for rows in serve["chain_rows"].values() for r in rows]
                    + [r for rows in planes["chain_rows"].values() for r in rows]
                    + [r for rows in part["chain_rows"].values() for r in rows]
-                   + [r for rows in par["chain_rows"].values() for r in rows])
+                   + [r for rows in par["chain_rows"].values() for r in rows]
+                   + [r for rows in fleet["chain_rows"].values() for r in rows])
     # every path's rows weigh the launches it counted, so the record's times
     # are means over exactly the launches the line reports
     weighed = sum(r["launches"] for r in chain_rows)
@@ -6632,6 +7193,7 @@ def main() -> int:
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    phase_done(19)
     print(json.dumps({
         "main_path": {"qubits": QUBITS, "depth": DEPTH, "seed": SEED,
                       "steps": len(program.steps), "chains": len(policy.chains),
@@ -6649,6 +7211,7 @@ def main() -> int:
         "planes": planes["record"],
         "partitioned": part["record"],
         "parallel": par["record"],
+        "fleet": fleet["record"],
         "phase_seconds": phase_s,
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},

@@ -545,6 +545,30 @@ def test_partitioned_sliced_executor_prefix_sums(partitioned_case):
                      1e-10)
 
 
+@pytest.mark.parametrize("cap", [None, 1 << 40])
+def test_partitioned_sliced_executor_plans_with_its_cap(partitioned_case, monkeypatch, cap):
+    """``plan_max_slices`` reaches ``plan_global_slicing`` as the
+    reference's does (config #5's bench call passes the deep ranking cap,
+    2^40); left out, the executable default 2^24."""
+    ref_ptn, ref_ppath, ptn, ppath, _ = partitioned_case
+    seen = {}
+    for name, module in (("port", port_part), ("ref", ref_part)):
+        real = module.plan_global_slicing
+
+        def spy(*args, _real=real, _name=name, **kwargs):
+            seen[_name] = kwargs.get("max_slices")
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(module, "plan_global_slicing", spy)
+    kw = {} if cap is None else {"plan_max_slices": cap}
+    _, slicing, _ = port_part.partitioned_sliced_executor(
+        ptn, ppath, devices=cpus(4), dtype="complex128", target_size=2**12, **kw)
+    _, ref_slicing, _ = ref_part.partitioned_sliced_executor(
+        ref_ptn, ref_ppath, n_devices=4, dtype="complex128", target_size=2**12, **kw)
+    assert seen == {"port": cap or 1 << 24, "ref": cap or 1 << 24}
+    assert (slicing.legs, slicing.dims) == (ref_slicing.legs, ref_slicing.dims)
+
+
 def test_flatten_partitioned_path_is_valid():
     rng = np.random.default_rng(3)
     tn = simplify_network(random_circuit(12, 8, 0.4, 0.4, rng, ConnectivityLayout.LINE,

@@ -13,9 +13,12 @@ package on the CPU.
   numpy backend (converged, escalated, capped); on every ``TorchBackend``
   an escalated answer's error floor is ``COMPLEX64_ERR_REL``.
 - With no backend the service builds one ``TorchBackend()``, which raises
-  without CUDA; the fleet and elastic planes, not ported, raise
-  ``NotImplementedError`` (the in-process planes are held in
-  ``tests/test_torch_planes.py`` and ``tests/test_torch_telemetry.py``).
+  without CUDA; ``from_circuit(fleet_dir=, fleet_endpoints=)``,
+  ``attach_fleet`` and ``enable_elastic`` give the reference's fleet view
+  and elastic stats (the planes themselves are held in
+  ``tests/test_torch_fleet_obs.py`` and ``tests/test_torch_elastic.py``, the
+  in-process planes in ``tests/test_torch_planes.py`` and
+  ``tests/test_torch_telemetry.py``).
 
 Every wait has a timeout and every service stops in a ``with`` block.
 Configurations: ``sycamore_circuit(12, 4)`` (rng 42) and
@@ -431,10 +434,33 @@ def test_default_backend_is_the_card():
         ContractionService(bind_circuit(_circuit()))
 
 
+def _fleet_view(snap: dict) -> tuple:
+    """The parts of a ``/fleet`` body that do not depend on the process:
+    replica names, the roster's live names and the unreachable names."""
+    roster = snap.get("roster") or {"replicas": []}
+    return (snap["replicas"], sorted(r["name"] for r in roster["replicas"]
+                                     if r["state"] == "live"),
+            sorted(snap["unreachable"]))
+
+
 @pytest.mark.parametrize("option", [{"fleet_dir": "x"}, {"fleet_endpoints": ("x",)}])
-def test_planes_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        ContractionService.from_circuit(_circuit(), backend=NumpyBackend(), **option)
+def test_planes_not_ported_raise(option, tmp_path):
+    """``from_circuit``'s fleet options join the fleet plane as the
+    reference's do: a registry directory (here under ``tmp_path``) puts this
+    replica on the roster, an endpoint that cannot be scraped ("x", no
+    scheme: nothing leaves the host) is listed unreachable."""
+    views = []
+    for service, backend, circuit, sub in (
+            (ContractionService, NumpyBackend(), _circuit(), "port"),
+            (RefService, RefNumpyBackend(), _circuit(False), "ref")):
+        kw = dict(option)
+        if "fleet_dir" in kw:
+            kw["fleet_dir"] = str(tmp_path / sub)
+        with service.from_circuit(circuit, backend=backend, **kw) as svc:
+            views.append(_fleet_view(svc.fleet_snapshot()))
+    assert views[0] == views[1]
+    assert views[0][1] == (["p0"] if "fleet_dir" in option else [])
+    assert views[0][2] == ([] if "fleet_dir" in option else ["replica0"])
 
 
 @pytest.mark.parametrize("option", [
@@ -447,12 +473,27 @@ def test_cache_planes_need_a_plan_cache_as_the_reference(option):
 
 
 def test_service_methods_not_ported_raise():
-    with ContractionService(bind_circuit(_circuit()), backend=NumpyBackend()) as svc:
-        for method in ("attach_fleet", "enable_elastic"):
-            with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-                getattr(svc, method)()
-        with pytest.raises(ValueError, match="requires a plan_cache"):
-            svc.enable_plansvc()
+    """``attach_fleet()`` with no directory federates this replica alone and
+    ``enable_elastic()`` adds the reference's ``stats()["elastic"]`` block;
+    ``enable_plansvc`` still asks for a plan cache."""
+    from tnc_tpu.serve.rebind import bind_circuit as ref_bind
+
+    got = []
+    for service, bind, backend, circuit in (
+            (ContractionService, bind_circuit, NumpyBackend(), _circuit()),
+            (RefService, ref_bind, RefNumpyBackend(), _circuit(False))):
+        with service(bind(circuit), backend=backend) as svc:
+            assert svc.fleet_snapshot() is None
+            svc.attach_fleet()
+            assert svc.enable_elastic() is svc
+            snap = svc.fleet_snapshot()
+            elastic = svc.stats()["elastic"]
+            elastic.pop("counters")  # process-global tallies
+            got.append((snap["replicas"], snap["unreachable"], elastic))
+            with pytest.raises(ValueError, match="requires a plan_cache"):
+                svc.enable_plansvc()
+    assert got[0] == got[1]
+    assert got[0][0] == ["p0"]
 
 
 @pytest.mark.parametrize("module", [port_service, port_handlers], ids=["service", "handlers"])

@@ -413,8 +413,9 @@ def test_bound_fully_open_template_matches_reference():
 
 def test_unported_serving_options_raise(tmp_path):
     """``plan_cache`` and ``reuse_store`` bind (the same bits as a cold
-    binding on numpy); the fleet plane, not ported, raises naming A10b, and
-    the replanner asks for a plan cache as the reference's does."""
+    binding on numpy); ``fleet_dir`` puts the service on the fleet roster
+    until it stops, and the replanner asks for a plan cache as the
+    reference's does."""
     from tnc_tpu_torch.serve import ContractionService, IntermediateStore, PlanCache
 
     reqs = ["000", "111", "010"]
@@ -424,8 +425,14 @@ def test_unported_serving_options_raise(tmp_path):
         assert got.amplitudes(reqs, NumpyBackend()).tobytes() == want.tobytes()
         got = bind_circuit(_ghz(3), **kw)
         assert got.amplitudes(reqs, NumpyBackend()).tobytes() == want.tobytes()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        ContractionService.from_circuit(_ghz(3), backend=NumpyBackend(), fleet_dir="x")
+    from tnc_tpu_torch.obs.fleet import FleetRegistry
+
+    fleet = tmp_path / "fleet"
+    with ContractionService.from_circuit(_ghz(3), backend=NumpyBackend(),
+                                         fleet_dir=str(fleet)) as svc:
+        assert svc.amplitude("111") == pytest.approx(2 ** -0.5)
+        assert [r["name"] for r in svc.fleet_snapshot()["roster"]["replicas"]] == ["p0"]
+    assert FleetRegistry(fleet).roster()["replicas"] == []  # a clean leave
     with pytest.raises(ValueError, match="requires a plan_cache"):
         ContractionService.from_circuit(_ghz(3), backend=NumpyBackend(),
                                         background_replan=True)

@@ -111,8 +111,10 @@ def test_probe_reads_a_gloo_group_of_one_process():
     try:
         assert port_core.process_identity() == (1, 0)
         assert port_core.process_trace_path("/tmp/t.json") == "/tmp/t.json"
-        assert port_export.replica_identity()["process_count"] == 1
-        assert port_export.replica_name() == "p0"
+        from tnc_tpu_torch.obs import fleet as port_fleet  # the identity's home
+
+        assert port_fleet.replica_identity()["process_count"] == 1
+        assert port_fleet.replica_name() == "p0"
     finally:
         dist.destroy_process_group()
     assert port_core.process_identity() == (1, 0)

@@ -1,8 +1,7 @@
 """tnc_tpu_torch.obs — env-gated spans and metrics, their exporters, the
 calibrated cost model and the serving planes that read them (the port's
 counterpart of ``tnc_tpu.obs``: ``core``, ``export``, ``http``,
-``calibrate``, ``slo`` and ``cost_truth``; the fleet plane is not ported
-yet).
+``calibrate``, ``slo``, ``cost_truth`` and ``fleet``).
 
 ``TNC_TPU_TRACE`` gates recording: unset → every span is a near-zero-cost
 no-op; ``1`` → spans and counters record in-process; a path → they also
@@ -46,8 +45,6 @@ from tnc_tpu_torch.obs.export import (  # noqa: F401
     format_summary_table,
     load_trace_events,
     merge_trace_files,
-    replica_identity,
-    replica_name,
     serve_trace_rollup,
     trace_summary,
 )
@@ -85,10 +82,34 @@ _HTTP_EXPORTS = (
     "render_prometheus",
 )
 
+# the fleet plane (cross-host trace propagation, replica registry,
+# federation, flight recorder) re-exports lazily for the same reason
+_FLEET_EXPORTS = (
+    "FleetAggregator",
+    "FleetRegistry",
+    "FlightRecorder",
+    "Heartbeat",
+    "TraceContext",
+    "adopt_trace_context",
+    "current_dispatch_context",
+    "dispatch_context",
+    "flight_annotations",
+    "flight_recorder",
+    "maybe_flight_recorder",
+    "merge_fleet_metrics",
+    "replica_identity",
+    "replica_name",
+    "set_flight_annotation",
+)
+
 
 def __getattr__(name: str):
     if name in _HTTP_EXPORTS:
         from tnc_tpu_torch.obs import http as _http
 
         return getattr(_http, name)
+    if name in _FLEET_EXPORTS:
+        from tnc_tpu_torch.obs import fleet as _fleet
+
+        return getattr(_fleet, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

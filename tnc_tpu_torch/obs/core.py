@@ -301,6 +301,19 @@ class MetricsRegistry:
                 recs.extend(sp._record(now) for sp in self._active.values())
         return recs
 
+    def recent_spans(
+        self, n: int, include_open: bool = False
+    ) -> list[SpanRecord]:
+        """The last ``n`` completed spans (optionally with still-open spans
+        appended) — an O(n) slice under the lock, not a copy of the whole
+        store; the flight recorder polls this on a cadence."""
+        now = time.perf_counter_ns()
+        with self._lock:
+            recs = self._spans[-max(int(n), 0):]
+            if include_open:
+                recs = recs + [sp._record(now) for sp in self._active.values()]
+        return recs
+
     def dropped_spans(self) -> int:
         with self._lock:
             return self._dropped
@@ -578,11 +591,15 @@ def refresh_from_env() -> bool:
     raw = os.environ.get("TNC_TPU_TRACE", "").strip()
     if not raw or raw == "0" or raw.lower() in ("false", "off", "no"):
         _ENABLED = False
+        # the flight recorder needs span recording: arming it (env
+        # TNC_TPU_FLIGHT_RECORDER) turns the registry back on
+        _maybe_arm_flight_recorder()
         return _ENABLED
     _ENABLED = True
     if raw.lower() not in _TRUTHY:
         _TRACE_PATH = raw
         _register_atexit()
+    _maybe_arm_flight_recorder()
     return True
 
 
@@ -629,6 +646,27 @@ def process_trace_path(
         return path
     root, ext = os.path.splitext(path)
     return f"{root}.p{process_index}{ext or '.json'}"
+
+
+def _maybe_arm_flight_recorder() -> None:
+    """Arm the crash flight recorder when ``TNC_TPU_FLIGHT_RECORDER`` names
+    a directory (lazy import — the fleet module loads only when the
+    feature is on). The recorder needs span recording, so arming it also
+    enables the registry."""
+    global _ENABLED
+    if not os.environ.get("TNC_TPU_FLIGHT_RECORDER", "").strip():
+        return
+    try:
+        from tnc_tpu_torch.obs import fleet as _fleet
+
+        if _fleet.maybe_flight_recorder() is not None:
+            _ENABLED = True
+    except Exception:  # noqa: BLE001 — observability must not break import
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "obs: flight-recorder arming failed", exc_info=True
+        )
 
 
 def _register_atexit() -> None:

@@ -28,42 +28,11 @@ from __future__ import annotations
 
 import json
 import logging
-import os
-import socket
 from typing import Any, Iterable
 
-from tnc_tpu_torch.obs.core import MetricsRegistry, get_registry, process_identity
+from tnc_tpu_torch.obs.core import MetricsRegistry, get_registry
 
 logger = logging.getLogger(__name__)
-
-
-def replica_identity() -> dict:
-    """This process's identity: process index and count (from
-    :func:`~tnc_tpu_torch.obs.core.process_identity`, the
-    ``torch.distributed`` probe; process 0 of 1 without a process group),
-    hostname and pid. The reference takes it from its fleet module, which
-    the port does not have yet; the dict has the same keys.
-
-    >>> sorted(replica_identity())
-    ['host', 'pid', 'process', 'process_count']
-    """
-    n, me = process_identity()
-    return {
-        "process": me,
-        "process_count": n,
-        "host": socket.gethostname(),
-        "pid": os.getpid(),
-    }
-
-
-def replica_name(identity: dict | None = None) -> str:
-    """Short label of a replica, ``p<process index>``.
-
-    >>> replica_name({"process": 3})
-    'p3'
-    """
-    ident = identity if identity is not None else replica_identity()
-    return f"p{ident.get('process', 0)}"
 
 
 def _warn_if_truncated(reg: MetricsRegistry, sink: str) -> int:
@@ -116,6 +85,8 @@ def _process_meta(pids: set[int]) -> list[dict]:
     identity (process index / hostname / pid) — a merged multi-host
     timeline then names every process track after the replica that
     produced it."""
+    from tnc_tpu_torch.obs.fleet import replica_identity, replica_name
+
     ident = replica_identity()
     own_pid = ident["pid"]
     label = f"{replica_name(ident)} {ident['host']} pid={own_pid}"
@@ -144,6 +115,8 @@ def export_chrome_trace(
     # this file on a cross-process timeline; the replica identity names
     # which host/process produced it
     other["epoch_unix_ns"] = getattr(reg, "epoch_unix_ns", None)
+    from tnc_tpu_torch.obs.fleet import replica_identity
+
     other["replica"] = replica_identity()
     doc = {
         "traceEvents": chrome_trace_events(reg),

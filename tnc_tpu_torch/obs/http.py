@@ -263,8 +263,9 @@ class TelemetryServer:
       anything but ``"ok"`` answers 503);
     - ``slo_fn() -> dict`` — the ``/slo`` JSON body;
     - ``fleet_fn() -> dict`` — the ``/fleet`` JSON body (the federated
-      cross-replica view; the port has no fleet plane yet, and
-      without a provider the route answers ``{"enabled": false}``);
+      cross-replica view, :class:`~tnc_tpu_torch.obs.fleet.
+      FleetAggregator`; without a provider the route answers
+      ``{"enabled": false}``);
     - ``calibration_fn() -> dict`` — the ``/calibration`` JSON body
       (the cost-truth loop's state: live model generation, sampler
       fill, refit ledger, plan scoreboard; see

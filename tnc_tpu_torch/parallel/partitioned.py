@@ -1024,6 +1024,7 @@ def partitioned_sliced_executor(
     precision: str | None = "float32",
     hbm_bytes: int | None = None,
     target_size: float | None = None,
+    plan_max_slices: int = 1 << 24,
 ):
     """Plan the partitioned × globally-sliced pipeline once and return
     ``(run, slicing, final_meta)`` where ``run(max_slices=None)`` executes
@@ -1031,6 +1032,11 @@ def partitioned_sliced_executor(
     host array; the placed leaves, programs and kernel policies are reused
     across calls (a benchmark warms up with one slice, then times a
     subset).
+
+    ``plan_max_slices``: forwarded to :func:`plan_global_slicing` — a
+    benchmark passes its deep ranking cap (2^40) so that the slicing the
+    executor runs is the one its strategy ranking scored; interactive
+    callers keep the executable default.
 
     Per slice: each partition's leaves are pinned to the slice (a dense
     copy of each sliced leaf's slice), its program runs on its device on a
@@ -1055,7 +1061,9 @@ def partitioned_sliced_executor(
         if hbm_bytes is None:
             hbm_bytes = device_hbm_bytes(devices[0])
         target_size = global_slicing_target(hbm_bytes)
-    slicing = plan_global_slicing(flat_leaves, flat_pairs, target_size)
+    slicing = plan_global_slicing(
+        flat_leaves, flat_pairs, target_size, max_slices=plan_max_slices
+    )
     logger.debug(
         "global slicing: %d legs, %d slices (target %g elems)",
         len(slicing.legs), slicing.num_slices, target_size,
@@ -1159,6 +1167,8 @@ def partitioned_sliced_executor(
 # agree by construction.
 _KV_BCAST_SEQ = 0
 _KV_BCAST_TIMEOUT_MS = 120_000
+# how often a parked (``wait_forever``) receiver looks for its exclusion mark
+_KV_PARK_POLL_MS = 1_000
 
 
 def _coordination_client():
@@ -1197,18 +1207,57 @@ def _store_wait(store, keys: list[str], timeout_ms: int) -> None:
         ) from exc
 
 
-def _store_barrier(store, name: str, n: int, timeout_ms: int) -> None:
-    """Every one of ``n`` processes has arrived at ``name``: a counter
-    (``add``) whose last arrival opens a key all of them wait on."""
-    if store.add(f"{name}/count", 1) == n:
-        store.set(f"{name}/open", b"1")
-    _store_wait(store, [f"{name}/open"], timeout_ms)
+def _readers(n: int, root: int, members) -> list[int]:
+    """The processes besides ``root`` whose part a collective waits for:
+    every one of ``n``, or those of ``members`` (a process that left the
+    group's collectives is waited for no longer)."""
+    keep = range(n) if members is None else {int(p) for p in members}
+    return [p for p in sorted(keep) if p != root and 0 <= p < n]
+
+
+def _reclaim(store, keys: list[str], arrivals: list[str], timeout_ms: int, what: str) -> None:
+    """The root's cleanup of one collective: once every reader's arrival
+    key is there (each reader sets its own after it has read), delete the
+    payload keys and the arrivals. Best effort: on a wait or delete failure
+    the keys stay (leak, not break), and a reader that died stalls the root
+    here for ``timeout_ms`` at most."""
+    try:
+        if arrivals:
+            _store_wait(store, arrivals, timeout_ms)
+        for key in keys + arrivals:
+            store.delete_key(key)
+    except Exception:  # noqa: BLE001 — cleanup must never fail a collective
+        logger.debug("%s key cleanup skipped", what)
+
+
+class ProcessExcluded(RuntimeError):
+    """The root left this process out of its collectives
+    (:func:`exclude_process`): it stopped waiting on the process, whose
+    place in the group's sequence is gone. Raised by a ``wait_forever``
+    receiver of :func:`broadcast_object`; the process must leave."""
+
+
+def _excluded_key(root: int, process: int) -> str:
+    return f"tnc_tpu/excluded/{root}/{process}"
+
+
+def exclude_process(process: int, root: int = 0) -> None:
+    """Mark ``process`` as left out of ``root``'s collectives, for good (the
+    root's call once it stops waiting on the process, e.g. after its gather
+    slot was lost): the process's parked ``wait_forever``
+    :func:`broadcast_object` raises :class:`ProcessExcluded` instead of
+    waiting on a sequence that goes on without it. No-op without a store."""
+    store = _coordination_client()
+    if store is not None:
+        store.set(_excluded_key(root, process), b"1")
 
 
 def broadcast_object(
     obj,
     root: int = 0,
+    wait_forever: bool = False,
     timeout_s: float | None = None,
+    members=None,
 ):
     """Broadcast any picklable object from process ``root`` to all
     processes — the transport under :func:`broadcast_path` and the
@@ -1218,17 +1267,38 @@ def broadcast_object(
     Identity when running as one process; non-root processes pass any
     value (it is ignored) and receive root's object.
 
-    ``timeout_s``: bound every wait of this call (the payload and the
-    cleanup barrier) instead of the 120 s default; an expired wait raises
-    :class:`TimeoutError`.
+    ``wait_forever``: a receiver re-arms its store wait past the transport
+    timeout instead of raising — the serving fleet's command channel
+    (:mod:`tnc_tpu_torch.serve.multihost`), where a worker legitimately
+    blocks on the *next* command through idle periods of any length. The
+    per-call sequence key is taken once, so re-armed waits stay in
+    lockstep with the sender. Such a receiver looks for its exclusion mark
+    (:func:`exclude_process`) every second it waits and once the payload
+    is there, and raises :class:`ProcessExcluded` when the root has left it
+    out: a process that was only slow never parks on a key that the root
+    set and deleted without it.
 
-    Transport: the process group's **c10d store** (root ``set``\\ s the
-    pickled payload under a per-call sequence key; everyone else waits on
-    it and ``get``\\ s it; after a barrier built from ``add`` and ``wait``
-    the root deletes the key) — control-plane data on the store's TCP or
-    file channel, not the GPUs' data plane. Without a store, the
-    all-process ``torch.distributed.broadcast_object_list`` (under NCCL it
-    needs ``torch.cuda.set_device`` called first).
+    ``timeout_s``: bound every wait of this call (a receiver's wait for the
+    payload, the root's wait for the readers) instead of the 120 s
+    default; a receiver's expired wait raises :class:`TimeoutError`
+    (TRANSIENT under :func:`~tnc_tpu_torch.resilience.retry.
+    classify_exception`). Ignored by a ``wait_forever`` receiver.
+
+    ``members`` (the root's argument): the processes still taking part in
+    the group's collectives; the root waits for no other reader. The
+    serving fleet's dispatcher drops a process whose gather slot was lost
+    (:class:`GatherLost`), so that later rounds do not wait on it, and
+    tells it so (:func:`exclude_process`).
+
+    Transport: the process group's **c10d store**. The root ``set``\\ s the
+    pickled payload under a per-call sequence key; every other process
+    waits on it, ``get``\\ s it and sets an arrival key of its own; the
+    root waits for the readers' arrivals and deletes the keys. Control-plane
+    data on the store's TCP or file channel, not the GPUs' data plane. The
+    root does not block on a receiver that died past ``timeout_s`` (the
+    cleanup gives up and leaves the key). Without a store, the all-process
+    ``torch.distributed.broadcast_object_list`` (under NCCL it needs
+    ``torch.cuda.set_device`` called first).
     """
     from tnc_tpu_torch.obs.core import process_identity
 
@@ -1246,25 +1316,32 @@ def broadcast_object(
         seq = _KV_BCAST_SEQ
         _KV_BCAST_SEQ += 1
         key = f"tnc_tpu/bcast/{root}/{seq}"
+        done = f"tnc_tpu/bcast_done/{root}/{seq}"
         if is_root:
-            store.set(key, pickle.dumps(obj))
-        try:
-            _store_wait(store, [key], timeout_ms)
-        except TimeoutError as exc:
-            raise TimeoutError(
-                f"broadcast wait for {key} expired after {timeout_ms} ms "
-                "(sender dead or stalled)"
-            ) from exc
+            blob = pickle.dumps(obj)
+            store.set(key, blob)
+            arrivals = [f"{done}/{p}" for p in _readers(n, root, members)]
+            _reclaim(store, [key], arrivals, timeout_ms, key)
+            return pickle.loads(blob)
+        while True:
+            try:
+                _store_wait(store, [key], _KV_PARK_POLL_MS if wait_forever else timeout_ms)
+                arrived = True
+            except TimeoutError as exc:
+                if not wait_forever:
+                    raise TimeoutError(
+                        f"broadcast wait for {key} expired after {timeout_ms} ms "
+                        "(sender dead or stalled)"
+                    ) from exc
+                arrived = False  # the same key: the sender has not spoken yet
+            if wait_forever and store.check([_excluded_key(root, me)]):
+                raise ProcessExcluded(
+                    f"process {me} was left out of process {root}'s collectives"
+                )
+            if arrived:
+                break
         out = pickle.loads(store.get(key))
-        # reclaim the key once every process has read it; best effort — on
-        # a barrier or delete failure the key stays (leak, not break), and
-        # a dead peer stalls the others here for timeout_ms, not forever
-        try:
-            _store_barrier(store, f"tnc_tpu/bcast_done/{root}/{seq}", n, timeout_ms)
-            if is_root:
-                store.delete_key(key)
-        except Exception:  # noqa: BLE001 — cleanup must never fail a bcast
-            logger.debug("bcast key cleanup skipped for %s", key)
+        store.set(f"{done}/{me}", b"1")
         return out
 
     import torch.distributed as dist
@@ -1276,9 +1353,10 @@ def broadcast_object(
 
 class GatherLost:
     """Root-side placeholder for a gather slot whose sender never delivered
-    within the timeout (dead or stalled process). Carries the source
-    process index; only ever appears in :func:`gather_objects` output when
-    ``missing_ok=True``."""
+    within the timeout (dead or stalled process), or that the root did not
+    wait for (a process outside ``members``). Carries the source process
+    index; only ever appears in :func:`gather_objects` output when
+    ``missing_ok=True`` or ``members`` leaves a process out."""
 
     def __init__(self, process: int):
         self.process = int(process)
@@ -1298,19 +1376,21 @@ def gather_objects(
     root: int = 0,
     timeout_s: float | None = None,
     missing_ok: bool = False,
+    members=None,
 ) -> list | None:
     """Gather one picklable object per process at ``root``: returns the
     per-process list (index = rank) on the root, ``None`` elsewhere. The
     inverse of :func:`broadcast_object`: each sender ``set``\\ s its slot
-    of one shared sequence key and only the root reads them; one cleanup
-    barrier per call. Every process must call this in the same order.
+    of one shared sequence key and returns; only the root reads the slots,
+    and deletes them. Every process must call this in the same order.
 
     ``timeout_s`` bounds the root's whole collection (a shared deadline
-    across slots, floor 1 s per remaining slot) and the cleanup barrier on
-    every process. An expired slot raises :class:`TimeoutError` (TRANSIENT
-    under :func:`~tnc_tpu_torch.resilience.retry.classify_exception`) — or,
-    with ``missing_ok=True``, lands a :class:`GatherLost` in that slot so
-    the caller can reassign the lost work.
+    across slots, floor 1 s per remaining slot). An expired slot raises
+    :class:`TimeoutError` (TRANSIENT under :func:`~tnc_tpu_torch.
+    resilience.retry.classify_exception`) — or, with ``missing_ok=True``,
+    lands a :class:`GatherLost` in that slot so the caller can reassign the
+    lost work. ``members`` (the root's argument): the processes whose slots
+    the root waits for; any other slot is a :class:`GatherLost` at once.
 
     Identity as one process (returns ``[obj]``). Without a store, n
     :func:`broadcast_object` rounds.
@@ -1336,35 +1416,27 @@ def gather_objects(
     prefix = f"tnc_tpu/gather/{root}/{seq}"
     if me != root:
         store.set(f"{prefix}/{me}", pickle.dumps(obj))
-    parts = None
-    if me == root:
-        parts = [None] * n
-        parts[root] = obj
-        deadline = time.monotonic() + timeout_ms / 1000.0
-        for src in range(n):
-            if src == root:
-                continue
-            remaining_ms = max(int((deadline - time.monotonic()) * 1000.0), 1000)
-            try:
-                _store_wait(store, [f"{prefix}/{src}"], remaining_ms)
-            except TimeoutError as exc:
-                if not missing_ok:
-                    raise TimeoutError(
-                        f"gather wait for process {src} expired after "
-                        f"{remaining_ms} ms (process dead or stalled)"
-                    ) from exc
-                parts[src] = GatherLost(src)
-                continue
-            parts[src] = pickle.loads(store.get(f"{prefix}/{src}"))
-    # reclaim: the barrier proves the root has read every slot, then each
-    # sender deletes its own key (best effort, leak-not-break; a dead peer
-    # stalls everyone here only for timeout_ms)
-    try:
-        _store_barrier(store, f"tnc_tpu/gather_done/{root}/{seq}", n, timeout_ms)
-        if me != root:
-            store.delete_key(f"{prefix}/{me}")
-    except Exception:  # noqa: BLE001 — cleanup must never fail a gather
-        logger.debug("gather key cleanup skipped for %s", prefix)
+        return None
+    parts: list = [GatherLost(src) for src in range(n)]
+    parts[root] = obj
+    read = []
+    deadline = time.monotonic() + timeout_ms / 1000.0
+    for src in _readers(n, root, members):
+        remaining_ms = max(int((deadline - time.monotonic()) * 1000.0), 1000)
+        try:
+            _store_wait(store, [f"{prefix}/{src}"], remaining_ms)
+        except TimeoutError as exc:
+            if not missing_ok:
+                raise TimeoutError(
+                    f"gather wait for process {src} expired after "
+                    f"{remaining_ms} ms (process dead or stalled)"
+                ) from exc
+            continue
+        parts[src] = pickle.loads(store.get(f"{prefix}/{src}"))
+        read.append(f"{prefix}/{src}")
+    # the root is the slots' only reader: it deletes what it read (a slot
+    # written after its timeout stays: leak, not break)
+    _reclaim(store, read, [], timeout_ms, prefix)
     return parts
 
 

@@ -25,9 +25,15 @@ The serving pipeline, front to back:
   cross-request numeric reuse: every bound plan split into a
   content-addressed cached prefix plus a per-request residual.
 
-The reference's background replanner, multi-host and elastic layers, the
-planner fleet, and the SLO, cost-truth, telemetry and fleet planes of its
-service are not ported (ROADMAP A10).
+- :class:`ClusterDispatcher` / :func:`serve_cluster` (``multihost.py``)
+  — one queue served by every process of a ``torch.distributed`` group:
+  bras or slice ranges sharded across processes, rows gathered at the
+  root over the c10d store, a lost process's share recomputed there.
+- :class:`ElasticController`, :class:`LocalAutoscaler`,
+  :func:`weighted_fair_order` (``elastic.py``) — live membership, tenant
+  quotas and weights, priorities, scale decisions.
+- The background replanner and shared-cache watcher (``replan.py``), the
+  planner pod (``plansvc.py``).
 """
 
 from tnc_tpu_torch.serve.plancache import (  # noqa: F401
@@ -49,6 +55,22 @@ from tnc_tpu_torch.serve.reuse import (  # noqa: F401
     ReuseBinding,
     compute_split,
 )
+from tnc_tpu_torch.serve.elastic import (  # noqa: F401
+    ElasticConfig,
+    ElasticController,
+    LocalAutoscaler,
+    assign_ranges,
+    live_processes,
+    weighted_fair_order,
+)
+from tnc_tpu_torch.serve.multihost import (  # noqa: F401
+    ClusterDispatcher,
+    DispatcherStoppedError,
+    cluster_amplitudes,
+    cluster_amplitudes_sliced,
+    serve_cluster,
+    shard_ranges,
+)
 from tnc_tpu_torch.serve.service import (  # noqa: F401
     ApproxAnswer,
     ContractionService,
@@ -57,4 +79,5 @@ from tnc_tpu_torch.serve.service import (  # noqa: F401
     QueueFullError,
     ServeError,
     ServiceClosedError,
+    TenantQuotaError,
 )

@@ -74,8 +74,15 @@ adopted cost-model generation reaches the service's ``cost_model``, the
 kernel policies and ``policy_key()`` go on naming the fit they were
 planned from.
 
-Not ported (each raises ``NotImplementedError`` naming its queue): the
-fleet plane and elastic scheduling (tenants, priorities, preemption).
+The fleet and elastic planes: :meth:`attach_fleet` joins the replica
+registry (:mod:`tnc_tpu_torch.obs.fleet`: heartbeat, ``/fleet``
+federation), a :class:`~tnc_tpu_torch.serve.multihost.ClusterDispatcher`
+spreads each batch over the processes of a ``torch.distributed`` group,
+and :meth:`enable_elastic` (:mod:`tnc_tpu_torch.serve.elastic`) adds
+per-tenant quotas, weighted-fair window selection and priorities. A
+``TorchBackend`` has no slice hooks, so on the card a higher priority
+dispatches next but preempts nothing (on a ``NumpyBackend`` it preempts a
+sliced contraction at a checkpoint boundary, as in the reference).
 """
 
 from __future__ import annotations
@@ -92,6 +99,7 @@ from typing import Iterable
 import numpy as np
 
 from tnc_tpu_torch import obs
+from tnc_tpu_torch.obs import fleet as _fleet
 from tnc_tpu_torch.obs.core import QuantileSummary
 from tnc_tpu_torch.ops.backends import TorchBackend
 from tnc_tpu_torch.resilience import retry as _retry
@@ -115,10 +123,6 @@ batch_bucket = pow2_bucket
 #: exact traffic OR across base kinds)
 APPROX_KIND = "approx"
 
-_FLEET_LATER = "ROADMAP A10b (obs/fleet.py, serve/multihost.py)"
-_ELASTIC_LATER = "ROADMAP A10b (serve/elastic.py)"
-
-
 def tier_of(kind: str) -> str:
     """The fidelity tier a request kind serves from.
 
@@ -134,6 +138,12 @@ class ServeError(RuntimeError):
 
 class QueueFullError(ServeError):
     """Admission control rejected the request (queue at ``max_queue``)."""
+
+
+class TenantQuotaError(QueueFullError):
+    """Admission control rejected the request: its tenant is at its
+    per-tenant queued-request quota (elastic scheduling); subclasses
+    :class:`QueueFullError` so existing backpressure handling applies."""
 
 
 class DeadlineExceededError(ServeError):
@@ -158,6 +168,11 @@ class _Request:
     # that touches this request carries it
     rid: int = 0
     t_collect: float = 0.0  # when batch assembly pulled it off the queue
+    # elastic scheduling: weighted-fair tenant + priority class (higher
+    # wins; a strictly-higher priority may preempt a running sliced
+    # contraction at a checkpoint boundary, on a backend with slice hooks)
+    tenant: str = "default"
+    priority: int = 0
 
 
 _STATS_CAP = 4096  # bounded in-memory samples for stats()
@@ -196,10 +211,13 @@ class ContractionService:
 
         ``dispatcher``: optional batch-execution hook ``fn(bound, bits,
         backend) -> (B,)+result_shape array`` replacing the local
-        ``bound.amplitudes_det`` dispatch. Everything else (queueing,
-        deadlines, retry, degradation, plan swaps) is unchanged: the
-        dispatcher is only ever called with a batch and the CURRENT
-        bound.
+        ``bound.amplitudes_det`` dispatch — the multi-process fan-out
+        point (:class:`~tnc_tpu_torch.serve.multihost.ClusterDispatcher`
+        shards the micro-batch across processes and gathers at the root).
+        Everything else (queueing, deadlines, retry, degradation, plan
+        swaps) is unchanged: the dispatcher is only ever called with a
+        batch and the CURRENT bound, so plan swaps stay batch-atomic across
+        the fleet.
 
         ``slo``: an :class:`~tnc_tpu_torch.obs.slo.SLOEngine` (or an
         :class:`~tnc_tpu_torch.obs.slo.SLOConfig` to build one) — every
@@ -265,6 +283,11 @@ class ContractionService:
         self._plansvc = None  # attached PlannerFleet pod, if any
         self._watchers: list = []  # SharedCacheWatchers, ModelRegistryWatchers
         self._telemetry = None  # attached TelemetryServer, if any
+        # fleet plane (attach_fleet): replica-registry membership +
+        # heartbeat + the /fleet federation source
+        self._fleet_registry = None
+        self._fleet_heartbeat = None
+        self._fleet_aggregator = None
         self._slo = None
         self._slo_last_check = 0.0
         # cost-truth plane (enable_cost_truth): production sampling,
@@ -274,6 +297,14 @@ class ContractionService:
         # per-bound derived constants (program flops/bytes/steps, plan
         # key and signature), memoized by bound identity
         self._bound_profiles: dict[int, dict] = {}
+        # elastic plane (enable_elastic): tenant/priority scheduling
+        # config, advisory scale controller, preemption state (the
+        # priority of the batch currently dispatching, and a recursion
+        # guard so interlude work is itself never preempted)
+        self._elastic = None
+        self._elastic_controller = None
+        self._active_priority = 0
+        self._in_interlude = False
         self.attach_slo(slo)
 
     @classmethod
@@ -296,6 +327,7 @@ class ContractionService:
         telemetry_port: int | None = None,
         fleet_dir: str | None = None,
         fleet_endpoints=None,
+        fleet_heartbeat_s: float = 2.0,
         cost_truth: bool = False,
         cost_truth_options: dict | None = None,
         plansvc: bool = False,
@@ -344,10 +376,10 @@ class ContractionService:
         (:meth:`serve_telemetry`): ``/metrics``, ``/healthz``, ``/slo``,
         ``/calibration`` and ``/fleet``.
 
-        ``fleet_dir`` / ``fleet_endpoints`` (the reference's fleet plane)
-        raise ``NotImplementedError``."""
-        if fleet_dir is not None or fleet_endpoints:
-            raise NotImplementedError(f"from_circuit(fleet_dir=...) waits for {_FLEET_LATER}")
+        ``fleet_dir`` / ``fleet_endpoints`` join the fleet observability
+        plane (:meth:`attach_fleet`): this replica heartbeats into the
+        shared registry directory every ``fleet_heartbeat_s`` seconds and
+        the ``/fleet`` endpoint federates every replica's telemetry."""
         if background_replan and plan_cache is None:
             raise ValueError("background_replan requires a plan_cache")
         if shared_cache_watch and plan_cache is None:
@@ -395,6 +427,12 @@ class ContractionService:
                 svc.enable_cost_truth(**(cost_truth_options or {}))
             if telemetry_port is not None:
                 svc.serve_telemetry(port=telemetry_port)
+            if fleet_dir is not None or fleet_endpoints:
+                svc.attach_fleet(
+                    directory=fleet_dir,
+                    endpoints=fleet_endpoints or (),
+                    heartbeat_s=fleet_heartbeat_s,
+                )
         except Exception:
             # a bad option kwarg must not leak a running dispatcher thread
             # (or half the attachments) the caller cannot reach
@@ -420,7 +458,8 @@ class ContractionService:
         already queued, otherwise fail queued requests with
         :class:`ServiceClosedError`. The planner pod stops first (the
         replanner's delegate path blocks on it), then the replanner, the
-        watchers and the telemetry endpoint (which releases its port)."""
+        watchers, the fleet heartbeat (a clean leave) and the telemetry
+        endpoint (which releases its port)."""
         pod, self._plansvc = self._plansvc, None
         if pod is not None:
             pod.stop()
@@ -430,6 +469,9 @@ class ContractionService:
         watchers, self._watchers = list(self._watchers), []
         for watcher in watchers:
             watcher.stop()
+        heartbeat, self._fleet_heartbeat = self._fleet_heartbeat, None
+        if heartbeat is not None:
+            heartbeat.stop()  # retires the registry entry: clean leave
         telemetry, self._telemetry = self._telemetry, None
         if telemetry is not None:
             telemetry.stop()
@@ -559,11 +601,58 @@ class ContractionService:
         ).start()
         return self
 
-    def attach_fleet(self, *args, **kwargs):
-        raise NotImplementedError(f"attach_fleet waits for {_FLEET_LATER}")
+    # -- elastic scheduling (tenants / priority / scaling) -----------------
 
-    def enable_elastic(self, *args, **kwargs) -> "ContractionService":
-        raise NotImplementedError(f"enable_elastic waits for {_ELASTIC_LATER}")
+    def enable_elastic(
+        self, config=None, controller=None
+    ) -> "ContractionService":
+        """Turn on elastic scheduling: ``submit(tenant=, priority=)`` gains
+        weighted-fair window selection and per-tenant quotas (``config``,
+        an :class:`~tnc_tpu_torch.serve.elastic.ElasticConfig`; default
+        config = fair weights, no quotas), and local sliced dispatches
+        become priority-preemptible at checkpoint boundaries on a backend
+        with slice hooks (a ``TorchBackend`` has none: there a higher
+        priority dispatches next and preempts nothing). ``controller`` (an
+        :class:`~tnc_tpu_torch.serve.elastic.ElasticController`)
+        additionally arms :meth:`elastic_check` — the advisory
+        scale-decision step."""
+        from tnc_tpu_torch.serve import elastic as _elastic_mod
+
+        self._elastic = (
+            config if config is not None else _elastic_mod.ElasticConfig()
+        )
+        self._elastic_controller = controller
+        return self
+
+    def elastic_check(self) -> dict | None:
+        """One advisory controller step: fold the current queue depth, the
+        fleet roster's live count and the worst SLO burn rate into a scale
+        decision (None without a controller). The decision also lands in
+        ``stats()["elastic"]["controller"]`` and fans out to the
+        controller's ``on_decision`` hooks — actuate it with a
+        :class:`~tnc_tpu_torch.serve.elastic.LocalAutoscaler` or external
+        infrastructure."""
+        ctrl = self._elastic_controller
+        if ctrl is None:
+            return None
+        live = 1
+        if self._fleet_registry is not None:
+            try:
+                live = max(int(self._fleet_registry.roster()["live"]), 1)
+            except Exception:  # noqa: BLE001 — roster is advisory input
+                pass
+        burn = 0.0
+        if self._slo is not None:
+            burn = type(ctrl).burn_from_slo(self._slo.stats())
+        return ctrl.decide(self.queue_depth(), live, burn)
+
+    def _tenant_depths(self) -> dict[str, int]:
+        """Queued requests per tenant (stats / heartbeat surface)."""
+        with self._cond:
+            depths: dict[str, int] = {}
+            for req in self._queue:
+                depths[req.tenant] = depths.get(req.tenant, 0) + 1
+            return depths
 
     # -- query handlers ----------------------------------------------------
 
@@ -613,15 +702,22 @@ class ContractionService:
     # -- submission --------------------------------------------------------
 
     def _enqueue(
-        self, kind: str, key: tuple, payload, timeout_s: float | None
+        self,
+        kind: str,
+        key: tuple,
+        payload,
+        timeout_s: float | None,
+        tenant: str = "default",
+        priority: int = 0,
     ) -> concurrent.futures.Future:
         """Shared admission path for every query type: bounded queue,
-        deadline arming, request-id assignment, global + per-type
-        accounting."""
+        per-tenant quota (elastic), deadline arming, request-id
+        assignment, global + per-type accounting."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         deadline = (
             time.monotonic() + float(timeout_s) if timeout_s is not None else None
         )
+        tenant = str(tenant)
         with self._cond:
             if not self._running:
                 self._count("rejected")
@@ -637,9 +733,25 @@ class ContractionService:
                 raise QueueFullError(
                     f"queue at max_queue={self.max_queue}; retry later"
                 )
+            cfg = self._elastic
+            if cfg is not None and cfg.tenant_quotas:
+                quota = cfg.tenant_quotas.get(tenant)
+                if quota is not None and sum(
+                    1 for r in self._queue if r.tenant == tenant
+                ) >= int(quota):
+                    self._count("rejected")
+                    self._count_type(kind, "rejected")
+                    obs.counter_add(
+                        "serve.requests.rejected", reason="tenant_quota"
+                    )
+                    self._slo_request(kind, 0.0, "rejected")
+                    raise TenantQuotaError(
+                        f"tenant {tenant!r} at quota {quota}; retry later"
+                    )
             self._queue.append(
                 _Request(payload, fut, deadline, kind=kind, key=key,
-                         rid=next(self._rids))
+                         rid=next(self._rids),
+                         tenant=tenant, priority=int(priority))
             )
             depth = len(self._queue)
             self._cond.notify()
@@ -655,6 +767,8 @@ class ContractionService:
         bitstring: str | Iterable,
         timeout_s: float | None = None,
         rtol: float | None = None,
+        tenant: str = "default",
+        priority: int = 0,
     ) -> concurrent.futures.Future:
         """Enqueue one amplitude request; returns a ``Future`` resolving
         to the amplitude (complex scalar, or an ndarray over the
@@ -664,7 +778,13 @@ class ContractionService:
         approximate tier: the future resolves to an
         :class:`ApproxAnswer` whose error estimate meets
         ``rtol · max(|value|, 2^(-n/2))`` — or, when the chi-ladder
-        cannot meet it, to the escalated exact answer."""
+        cannot meet it, to the escalated exact answer.
+
+        ``tenant`` / ``priority`` engage the elastic scheduler
+        (:meth:`enable_elastic`): tenants share the window weighted-fair
+        under per-tenant quotas, and a strictly-higher ``priority`` jumps
+        the queue — preempting a running sliced contraction at its next
+        checkpoint boundary on a backend with slice hooks."""
         if rtol is not None:
             return self._submit_approx("amplitude", bitstring, rtol, timeout_s)
         # validate at admission: a malformed request must fail alone,
@@ -672,7 +792,10 @@ class ContractionService:
         # determined-position bits are what gets queued, and dispatch
         # never re-validates
         bitstring = self.bound.template.request_bits(bitstring)
-        return self._enqueue("amplitude", ("amplitude",), bitstring, timeout_s)
+        return self._enqueue(
+            "amplitude", ("amplitude",), bitstring, timeout_s,
+            tenant=tenant, priority=priority,
+        )
 
     def _submit_approx(
         self, base: str, payload, rtol, timeout_s: float | None
@@ -691,7 +814,8 @@ class ContractionService:
         return self._enqueue(APPROX_KIND, tuple(key), payload, timeout_s)
 
     def submit_query(
-        self, kind: str, payload, timeout_s: float | None = None
+        self, kind: str, payload, timeout_s: float | None = None,
+        tenant: str = "default", priority: int = 0,
     ) -> concurrent.futures.Future:
         """Enqueue one typed query request through its registered
         handler; the handler validates the payload at admission and
@@ -703,7 +827,10 @@ class ContractionService:
                 "(enable_queries / register_query_handler first)"
             )
         payload, key = handler.validate(payload)
-        return self._enqueue(kind, tuple(key), payload, timeout_s)
+        return self._enqueue(
+            kind, tuple(key), payload, timeout_s,
+            tenant=tenant, priority=priority,
+        )
 
     def submit_sample(
         self, n_samples: int = 1, seed=None, timeout_s: float | None = None
@@ -789,10 +916,31 @@ class ContractionService:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 or not self._cond.wait(timeout=remaining):
                     break
-            batch = [
-                self._queue.popleft()
-                for _ in range(min(self.max_batch, len(self._queue)))
-            ]
+            cfg = self._elastic
+            if cfg is not None and len(self._queue) > 1:
+                # elastic window selection: priority classes first,
+                # weighted-fair across tenants within a class, FIFO
+                # within a tenant (stride scheduling — see elastic.py)
+                from tnc_tpu_torch.serve import elastic as _elastic_mod
+
+                items = list(self._queue)
+                order = _elastic_mod.weighted_fair_order(
+                    items,
+                    lambda r: r.tenant,
+                    lambda r: r.priority,
+                    weights=cfg.tenant_weights,
+                )
+                picked = order[: self.max_batch]
+                taken = set(picked)
+                batch = [items[i] for i in picked]
+                self._queue = deque(
+                    items[i] for i in range(len(items)) if i not in taken
+                )
+            else:
+                batch = [
+                    self._queue.popleft()
+                    for _ in range(min(self.max_batch, len(self._queue)))
+                ]
             obs.gauge_set("serve.queue_depth", len(self._queue))
             return batch
 
@@ -845,10 +993,58 @@ class ContractionService:
 
     def _dispatch_amps(self, bound: BoundProgram, bits: list) -> np.ndarray:
         """One batch execution under ``bound`` — locally, or through the
-        pluggable ``dispatcher``."""
+        pluggable ``dispatcher`` (multi-process fan-out). With elastic
+        scheduling enabled, local sliced dispatches run preemptibly on a
+        backend with slice hooks: a strictly-higher-priority arrival
+        forces a checkpoint save at the next slice boundary, the priority
+        work runs in the interlude, and the contraction resumes
+        bit-identically."""
         if self.dispatcher is not None:
             return self.dispatcher(bound, bits, self.backend)
+        cfg = self._elastic
+        if cfg is not None and cfg.preempt_enabled and not self._in_interlude:
+            from tnc_tpu_torch.serve import elastic as _elastic_mod
+
+            return _elastic_mod.preemptible_amplitudes(
+                bound, bits, self.backend,
+                ckpt=cfg.ckpt_dir,
+                should_yield=self._should_preempt,
+                interlude=self._priority_interlude,
+                max_yields=cfg.max_yields,
+            )
         return bound.amplitudes_det(bits, self.backend)
+
+    def _should_preempt(self, cursor: int) -> bool:
+        """The ``on_slice`` gate: yield when any queued request outranks
+        the batch currently dispatching (never from inside an interlude —
+        priority work itself runs to completion)."""
+        if self._in_interlude:
+            return False
+        prio = self._active_priority
+        with self._cond:
+            return any(req.priority > prio for req in self._queue)
+
+    def _priority_interlude(self) -> None:
+        """Runs between a preempted contraction's yield and its resume:
+        pull every request outranking the preempted batch off the queue and
+        serve them as a nested batch (same plumbing — grouping, retry,
+        degrade, accounting — under a recursion guard so the interlude is
+        itself never preempted)."""
+        prio = self._active_priority
+        with self._cond:
+            higher = [req for req in self._queue if req.priority > prio]
+            for req in higher:
+                self._queue.remove(req)
+            if higher:
+                obs.gauge_set("serve.queue_depth", len(self._queue))
+        if not higher:
+            return
+        self._in_interlude = True
+        try:
+            self._run_batch(higher)
+        finally:
+            self._in_interlude = False
+            self._active_priority = prio
 
     def _per_request(self, amps: np.ndarray, i: int):
         out = amps[i]
@@ -911,6 +1107,10 @@ class ContractionService:
 
     def _run_group(self, group: list[_Request], bound: BoundProgram) -> None:
         kind = group[0].kind
+        # the running batch's priority class — what the preemption gate
+        # compares queued arrivals against (single dispatcher thread;
+        # interludes save/restore around their nested batch)
+        self._active_priority = max(req.priority for req in group)
         self._count("batches")
         self._count_type(kind, "batches")
         with self._lock:
@@ -950,8 +1150,13 @@ class ContractionService:
         t0 = time.monotonic()
         try:
             # the batch-level span carries the rider id list, so a trace
-            # attributes shared batch time back to request ids and types
-            with obs.span(
+            # attributes shared batch time back to request ids and types;
+            # the thread-local dispatch context carries the same identity
+            # to the pluggable dispatcher (whose signature has no rids) so
+            # a ClusterDispatcher can ship it to every worker's spans
+            with _fleet.dispatch_context(
+                riders=riders, kind=kind, generation=generation
+            ), obs.span(
                 "serve.dispatch",
                 batch=len(group), kind=kind, riders=riders,
                 generation=generation,
@@ -1000,9 +1205,13 @@ class ContractionService:
         with self._lock:
             generation = self._generation
         for req in batch:
+            self._active_priority = req.priority
             t0 = time.monotonic()
             try:
-                with obs.span(
+                with _fleet.dispatch_context(
+                    riders=f"r{req.rid}", kind=req.kind,
+                    generation=generation,
+                ), obs.span(
                     "serve.dispatch",
                     batch=1, kind=req.kind, riders=f"r{req.rid}",
                     generation=generation, degraded=1,
@@ -1209,6 +1418,8 @@ class ContractionService:
             # the registry's current generation outranks the constructor's
             # offline constants
             self._adopt_cost_model(ct.model_version, ct.model)
+        elif ct.model_version:
+            _fleet.set_flight_annotation(model_version=ct.model_version)
         if watch and registry is not None and cfg.enabled:
             watcher = _ct.ModelRegistryWatcher(
                 self, registry, poll_interval_s=poll_interval_s
@@ -1331,6 +1542,8 @@ class ContractionService:
             adopt = getattr(replanner, "adopt_cost_model", None)
             if adopt is not None:
                 adopt(model)
+        # stamped on every flight-recorder dump from now on
+        _fleet.set_flight_annotation(model_version=version)
         obs.counter_add("serve.cost_truth.model_adopted")
         logger.info(
             "adopted cost-model generation v%d (%.3e flops/s, "
@@ -1510,6 +1723,19 @@ class ContractionService:
             out["plansvc"] = self._plansvc.stats()
         if self._cost_truth is not None:
             out["calibration"] = self._cost_truth.stats()
+        if self._elastic is not None:
+            from tnc_tpu_torch.serve import elastic as _elastic_mod
+
+            out["elastic"] = {
+                "counters": _elastic_mod.counters(),
+                "tenants": self._tenant_depths(),
+                "weights": dict(self._elastic.tenant_weights),
+                "quotas": dict(self._elastic.tenant_quotas),
+                "controller": (
+                    dict(self._elastic_controller.last_decision)
+                    if self._elastic_controller is not None else None
+                ),
+            }
         return out
 
     def _effective_reuse_store(self):
@@ -1527,12 +1753,12 @@ class ContractionService:
         """Start (and own) the scrape endpoint of this service:
         ``/metrics`` (Prometheus text: the obs registry and the service's
         own families, percentile-identical to ``stats()``), ``/healthz``,
-        ``/slo``, ``/calibration`` and ``/fleet`` (``{"enabled": false}``:
-        no fleet plane yet). Returns the started
+        ``/slo``, ``/calibration`` and ``/fleet`` (the federated view once
+        :meth:`attach_fleet` ran, else ``{"enabled": false}``). Returns the
+        started
         :class:`~tnc_tpu_torch.obs.http.TelemetryServer` (``.port`` is the
         bound port when ``port=0``); :meth:`stop` shuts it down and
         releases the port. The server's thread reads host counters only."""
-        from tnc_tpu_torch.obs.export import replica_identity
         from tnc_tpu_torch.obs.http import TelemetryServer
 
         if self._telemetry is not None:
@@ -1540,12 +1766,17 @@ class ContractionService:
 
         def health() -> dict:
             running = self._running
-            return {
+            body = {
                 "status": "ok" if running else "stopped",
                 "running": running,
                 "queue_depth": self.queue_depth() if running else 0,
-                "replica": replica_identity(),
+                "replica": _fleet.replica_identity(),
             }
+            if self._fleet_registry is not None:
+                body["heartbeat_age_s"] = (
+                    self._fleet_registry.last_heartbeat_age_s()
+                )
+            return body
 
         def slo() -> dict:
             if self._slo is None:
@@ -1553,6 +1784,14 @@ class ContractionService:
             body = self._slo.stats()
             body["enabled"] = True
             body["recent_requests"] = self._slo.timelines()[-32:]
+            return body
+
+        def fleet() -> dict:
+            # late-bound: attach_fleet may run after serve_telemetry
+            if self._fleet_aggregator is None:
+                return {"enabled": False}
+            body = self._fleet_aggregator.snapshot()
+            body["enabled"] = True
             return body
 
         def calibration() -> dict:
@@ -1568,9 +1807,118 @@ class ContractionService:
             health_fn=health,
             slo_fn=slo,
             extra_metrics_fn=self._prometheus_families,
+            fleet_fn=fleet,
             calibration_fn=calibration,
         ).start()
         return self._telemetry
+
+    # -- fleet observability plane ------------------------------------------
+
+    def attach_fleet(
+        self,
+        directory: str | None = None,
+        endpoints=(),
+        heartbeat_s: float = 2.0,
+        name: str | None = None,
+        stale_after_s: float = 10.0,
+    ) -> None:
+        """Join the fleet observability plane (a re-attach replaces the
+        previous membership).
+
+        ``directory`` — the shared :class:`~tnc_tpu_torch.obs.fleet.
+        FleetRegistry` directory: this replica heartbeats its identity,
+        queue depth, SLO-alert/drift state, planner-pod state and scrape URL
+        every ``heartbeat_s`` seconds, and the roster (with
+        join/stale/leave transitions) rides the ``/fleet`` body.
+        ``endpoints`` — extra ``{name: url}`` scrape targets (replicas
+        outside the registry). The root's own metrics are read in-process
+        (no HTTP round-trip to itself). See
+        :class:`~tnc_tpu_torch.obs.fleet.FleetAggregator`."""
+        if self._fleet_heartbeat is not None:
+            self._fleet_heartbeat.stop()
+            self._fleet_heartbeat = None
+        registry = None
+        if directory is not None:
+            registry = _fleet.FleetRegistry(
+                directory, name=name, stale_after_s=stale_after_s
+            )
+
+            def provider() -> dict:
+                payload = {
+                    "role": "root",
+                    "queue_depth": self.queue_depth(),
+                    "url": (
+                        self._telemetry.url
+                        if self._telemetry is not None else None
+                    ),
+                }
+                if self._slo is not None:
+                    slo_stats = self._slo.stats()
+                    payload["slo_alerts"] = len(slo_stats.get("alerts", ()))
+                    payload["slo_alerts_total"] = slo_stats.get(
+                        "alerts_total", 0
+                    )
+                    drift = slo_stats.get("drift", {})
+                    payload["drift_alerting"] = sum(
+                        1 for row in drift.values()
+                        if isinstance(row, dict) and row.get("alerting")
+                    )
+                    # worst live measured/predicted ratio across drift
+                    # buckets: the fleet view's at-a-glance column
+                    ratios = [
+                        row["ratio"] for row in drift.values()
+                        if isinstance(row, dict)
+                        and row.get("ratio") is not None
+                    ]
+                    if ratios:
+                        payload["drift_ratio"] = round(
+                            max(ratios, key=lambda r: abs(r - 1.0)), 4
+                        )
+                if self._cost_truth is not None:
+                    payload["model_version"] = self._cost_truth.model_version
+                if self._plansvc is not None:
+                    # planner columns: role, trials completed here, last
+                    # merge's cost delta
+                    payload["plansvc"] = self._plansvc.heartbeat_payload()
+                if self._elastic is not None:
+                    from tnc_tpu_torch.serve import elastic as _elastic_mod
+
+                    payload["tenants"] = self._tenant_depths()
+                    payload["elastic"] = _elastic_mod.counters()
+                # the cluster dispatcher's last per-process range
+                # assignment (the fleet view's assignment column)
+                assignment = getattr(self.dispatcher, "last_ranges", None)
+                if assignment is not None:
+                    payload["assignment"] = [list(r) for r in assignment]
+                return payload
+
+            self._fleet_registry = registry
+            self._fleet_heartbeat = _fleet.Heartbeat(
+                registry, provider=provider, interval_s=heartbeat_s
+            ).start()
+
+        def local_render() -> str:
+            if self._telemetry is not None:
+                return self._telemetry.render_metrics()
+            from tnc_tpu_torch.obs.http import render_prometheus
+
+            return render_prometheus(
+                obs.get_registry(), self._prometheus_families()
+            )
+
+        local_name = name if name is not None else _fleet.replica_name()
+        self._fleet_aggregator = _fleet.FleetAggregator(
+            endpoints=endpoints,
+            registry=registry,
+            local=(local_name, local_render),
+        )
+
+    def fleet_snapshot(self) -> dict | None:
+        """The federated fleet view (same body as ``/fleet``), or None
+        before :meth:`attach_fleet`."""
+        if self._fleet_aggregator is None:
+            return None
+        return self._fleet_aggregator.snapshot()
 
     def _prometheus_families(self) -> list:
         """The service's own metric families for ``/metrics`` — computed
@@ -1645,6 +1993,23 @@ class ContractionService:
                 else:
                     fams.append(("counter", "serve.tier_requests",
                                  {"tier": tier, "outcome": key}, value))
+        if self._elastic is not None:
+            from tnc_tpu_torch.serve import elastic as _elastic_mod
+
+            # serve_elastic_*: the elastic event ledger (reassigned,
+            # preempted, scale decisions), per-tenant queue depths and the
+            # controller's target — the numbers of stats()["elastic"], so
+            # /metrics and /fleet federate them
+            for event, value in sorted(_elastic_mod.counters().items()):
+                fams.append(("counter", "serve.elastic.events", {"event": event},
+                             float(value)))
+            for tenant, depth in sorted(self._tenant_depths().items()):
+                fams.append(("gauge", "serve.elastic.tenant_queue", {"tenant": tenant},
+                             float(depth)))
+            ctrl = self._elastic_controller
+            if ctrl is not None:
+                fams.append(("gauge", "serve.elastic.scale_target", {},
+                             float(ctrl.last_decision.get("target", 0))))
         ct = self._cost_truth
         if ct is not None:
             # the live model generation, the loop's event ledger and the
