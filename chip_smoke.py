@@ -47,7 +47,7 @@ Phases, each of which raises on failure (nothing is caught):
    18/19, also against a float64 product beside cuBLAS's), timed beside
    the bound, the plain version and ``torch.einsum`` and weighted by the
    steps that have each shape; then the norm under the
-   default policy (one warm-up, three timed runs, the device-resident part
+   default policy (one warm-up, two timed runs, the device-resident part
    and a profile), under the forced ``fused_transpose`` rung (its launches
    and routed steps must equal the plan's gate), both against the norm in
    complex128 on the card; and ``peps(3, 3, 2, 16, 0)`` on the forced
@@ -62,7 +62,7 @@ Phases, each of which raises on failure (nothing is caught):
    2^29 elements: 128 slices of 169 steps. ``fused_chain`` against its
    plain version on the chain operands
    slice 0 builds; ``contract_tensor_network_sliced`` once to warm up and
-   twice timed (``fused_chain`` launched once per chain and slice);
+   once timed (``fused_chain`` launched once per chain and slice);
    the device-resident part, a profile of four eager slices and the CUDA-event
    time of every step of slice 0; slices 0-7 and the whole amplitude against
    complex128 on the card (the first 32 slices only if complex128 of all
@@ -75,7 +75,7 @@ Phases, each of which raises on failure (nothing is caught):
    stem hoisted (128 steps, once), the 41 residual steps chunked and
    batched over 8 slices at a time. The plan (prelude and residual, chunks,
    modes, the batch requested and run, the modeled peak); the amplitude
-   once to warm up and twice timed; the device-resident part, the
+   once to warm up and once timed; the device-resident part, the
    prelude timed apart and a profile of one eager batch of the residual;
    the amplitude against
    phase 8's complex128 partials and the loop's amplitude; the forced
@@ -104,7 +104,7 @@ Phases, each of which raises on failure (nothing is caught):
    each chain of the first batch held against its plain version; the
    first 24 of its 4096 slices (``NORTHSTAR_RUN``; all of them take ~11
    minutes) through ``TorchBackend().execute_sliced`` (a warm-up batch,
-   three timed runs), the device-resident part, the prelude apart and a
+   two timed runs), the device-resident part, the prelude apart and a
    profile of one batch; slices 0-15 one by one and the sum of the
    slices run against complex128 on the card; the forced ``fused`` rung
    on the first two batches, as in phase 9;
@@ -133,7 +133,7 @@ Phases, each of which raises on failure (nothing is caught):
    whose rungs (chains and chained steps, strassen, fused_transpose, gauss,
    ``high``) and chain ceiling are printed beside the no-model policy's;
    every chain the calibrated policy forms held against its plain version;
-   each cell under it, one warm-up and three timed runs, ``fused_chain``
+   each cell under it, one warm-up and two timed runs, ``fused_chain``
    launches held to the policy's chains and ``fused_transpose_dot``
    launches plus routed steps to its ``fused_transpose`` steps, results
    held to phase 3's statevector (the forced rung's tolerance), the four
@@ -149,7 +149,7 @@ Phases, each of which raises on failure (nothing is caught):
    ``amplitude_sweep`` — one ``TorchBackend().execute_batched``, the bras
    a leading batch axis of every buffer they reach: each distinct
    ``fused_chain`` launch held against its plain version (the chains on
-   the bra batch batched, the others once), one warm-up and three timed
+   the bra batch batched, the others once), one warm-up and two timed
    runs (wall, the CUDA-event span of ``execute_batched``, peak, launches
    by form held to the policy's chains), each amplitude against
    complex128 on the card within 1e-4 max|ref| and against the bitstrings
@@ -303,7 +303,27 @@ Phases, each of which raises on failure (nothing is caught):
    nothing preempted: the card's backend has no slice hooks). Every
    ``fused_chain`` launch of both ranks is held against its plain version;
    the ranks' peaks together must fit the card;
-19. one JSON line of path numbers (with each kernel's per-shape rows,
+19. the benchmark CLI (``python -m tnc_tpu_torch.benchmark``) on two
+   OpenQASM 2.0 circuits the phase writes from ``default_rng(42)``
+   (``qasm_text``: 28 and 24 qubits, 12 rounds on the Sycamore couplers;
+   qelib1 and registry gates, a user ``gate`` with parameter expressions, a
+   register broadcast), imported by the port's QASM importer: ``sweep``
+   with ``tree-temper`` (28 qubits) and ``greedy`` over 2 partitions (24
+   qubits) in a process of its own beside phases 2-9 (``python3
+   chip_smoke.py --qasm-sweep-to DIR``), which also sweeps both again (every
+   cell skipped) and computes the observable network's complex128 numpy
+   value; then one ``run`` process over both artifacts (``--repeats 2``,
+   ``--backend torch``, ``TNC_TPU_PLATFORM`` unset), held to its outputs
+   (one ``OptimizationResult`` and one ``RunResult`` a cell, ``Done`` for
+   every id, no ``ERROR`` log record), not its exit code; each artifact
+   loaded with ``ArtifactCache.load`` and contracted once on
+   ``TorchBackend()``, synchronised and timed, every chain recorded and
+   held after the run against its plain version: the norm within 1e-4 of
+   1 and four amplitudes against complex128 amplitude networks on the card
+   (one tree-tempered path for the four);
+   and ``random_circuit_with_observable(16, 8, 0.4, 0.4, 0.5,
+   default_rng(42), SYCAMORE)`` on the card within 1e-5 of numpy;
+20. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -335,7 +355,10 @@ its plans), makes phase 8's plan and complex128 slices, runs phase 17, and
 ends with its JSON record and the card line. ``python3 chip_smoke.py
 --fleet`` builds the kernels, makes phase 14's complex128 amplitudes of the
 rows phase 18 serves and its sliced cell's uninterrupted value, runs phase
-18 alone, and ends with its JSON record and the card line.
+18 alone, and ends with its JSON record and the card line. ``python3
+chip_smoke.py --qasm`` builds the kernels, makes phase 19's sweeps (waiting
+for them), runs phase 19 alone, and ends with its JSON record and the card
+line.
 """
 
 from __future__ import annotations
@@ -365,7 +388,7 @@ PEPS_SMALL = (3, 3, 2, 16, 0)
 # the sliced cell: a Sycamore single amplitude (qubits, depth, rng seed, log2 of
 # the slicing target), and a small one checked against the host oracle
 SLICED = (53, 10, 42, 29)
-MAIN_SLICED_REPS = 2  # timed runs of its 128 slices in phases 8 and 9
+MAIN_SLICED_REPS = 1  # timed runs of its 128 slices in phases 8 and 9
 SLICED_SMALL = (20, 6, 7, 7)
 # the small amplitudes whose residuals keep chains on the default sliced path
 # (the cell's residual has none): 4 slices in one batch, 2 chains; 16 slices
@@ -490,6 +513,20 @@ FLEET_ROUNDS = 3
 FLEET_HEARTBEAT_S = 0.5
 FLEET_STALE_S = 2.0
 FLEET_TIMEOUT_S = 3.0
+# phase 19: the benchmark CLI (python -m tnc_tpu_torch.benchmark sweep|run) on two
+# QASM circuits the phase writes: (name, qubits, sweep method, partitions), each
+# QASM_ROUNDS rounds on the Sycamore layout's couplers from default_rng(QASM_SEED)
+QASM_CELLS = (("qasm28_d12", 28, "tree-temper", 4), ("qasm24_d12", 24, "greedy", 2))
+QASM_ROUNDS = 12
+QASM_SEED = 42
+QASM_P1 = QASM_P2 = 0.4  # single- and two-qubit gate probabilities, as random28's
+QASM_REPEATS = 2  # the run process's --repeats
+QASM_AMPLITUDES = 4  # amplitudes of each circuit held to complex128 on the card
+QASM_SWEEP_FLAG = "--qasm-sweep-to"
+QASM_RUN_TIMEOUT_S = 300.0
+# the observable network held to numpy: random_circuit_with_observable(qubits,
+# rounds, p1, p2, p_observable, default_rng(seed), SYCAMORE)
+OBSERVABLE = (16, 8, 0.4, 0.4, 0.5, 42)
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # CUDA-core FMA rates
@@ -636,6 +673,14 @@ def max_err(got, want) -> tuple[float, float]:
     return err, scale
 
 
+def statevector_norm(sv: np.ndarray) -> float:
+    """⟨ψ|ψ⟩ of a host statevector, summed in its memory order, so the
+    canonical result's transposed layout is read in place, not copied. One
+    non-finite amplitude makes it non-finite."""
+    flat = sv.ravel(order="K")
+    return float(np.vdot(flat, flat).real)
+
+
 def statevector_stats(sv: np.ndarray, ref: np.ndarray) -> dict:
     """The checks of a host statevector against another over their 2^28
     elements, computed on the card (numpy took 10-15 s for them on the
@@ -644,6 +689,10 @@ def statevector_stats(sv: np.ndarray, ref: np.ndarray) -> dict:
     ``allclose(sv, ref, rtol=1e-4, atol=1e-4 * scale)``)."""
     import torch
 
+    if sv.shape == ref.shape and sv.strides == ref.strides:
+        # one layout (the same program's canonical result): read both in
+        # memory order, element for element, without a transposing copy
+        sv, ref = sv.ravel(order="K"), ref.ravel(order="K")
     a = torch.from_numpy(np.ascontiguousarray(sv)).to("cuda").reshape(-1)
     b = torch.from_numpy(np.ascontiguousarray(ref)).to("cuda").reshape(-1)
     scale = float(b.abs().max())
@@ -778,6 +827,14 @@ def hold_chain(first_ops, link_ops, links, label: str, launches: int) -> dict:
             "one_slice_ms": row_ms}
 
 
+def chain_key(first, link_ops, links) -> tuple:
+    """What makes two chain launches the same chain: its operands' shapes,
+    its links and its batch."""
+    return (tuple(tuple(t.shape) for t in first),
+            tuple(tuple(t.shape) for pair in link_ops for t in pair),
+            tuple(link.key() for link in links))
+
+
 def hold_chain_run(label_of, launches: int, rows: list, seen: dict | None = None):
     """A hold for :func:`holding` of ``split_complex.run_chain_split``: the
     chain the path is about to run, on its own operands, through
@@ -794,9 +851,7 @@ def hold_chain_run(label_of, launches: int, rows: list, seen: dict | None = None
         first, link_ops, links = chain_operands(steps, buffers,
                                                 set() if batched is None else batched)
         if seen is not None:
-            key = (tuple(tuple(t.shape) for t in first),
-                   tuple(tuple(t.shape) for pair in link_ops for t in pair),
-                   tuple(link.key() for link in links))
+            key = chain_key(first, link_ops, links)
             if key in seen:
                 rows[seen[key]]["launches"] += launches
                 return
@@ -1502,7 +1557,7 @@ def run_peps(backend) -> dict:
           f"steps {stems} carry {stem_flops:.4e} ({stem_flops / sum(flops):.3f}); "
           f"fused_transpose gate admits {admitted}, routes {routed}", flush=True)
 
-    default = run_main_path(tn, path, backend, "peps default", reps=3)
+    default = run_main_path(tn, path, backend, "peps default", reps=2)
     z = scalar(default.pop("out"))
     prof = profile_device_path(device_run(tn, path, backend), "peps", reps=2)
     steps = timed_steps(backend, program, device_buffers(backend, tn), "peps")
@@ -2189,26 +2244,23 @@ def run_sliced_chunked(backend, cell) -> dict:
             "dot_launches": fused["record"]["fused_launches"]["fused_complex_dot"]}
 
 
-class BackgroundPlan:
-    """The north star's plan made by ``python3 chip_smoke.py
-    --northstar-plan-to DIR`` in a process group of its own, which keeps the
-    plan in ``DIR`` (the port's ``plan_northstar`` cache). Its trial pool
-    has one worker fewer than the host's cores, so the card's phases keep a
-    core; the trials' merge is the same at any worker count. ``stop()``
-    (also run at exit) ends the group and removes ``DIR``."""
+class HostJob:
+    """``python3 chip_smoke.py FLAG DIR``: host work in a process group of
+    its own beside the card's phases, its output in ``DIR/job.log``.
+    ``wait()`` waits for it (at most ``NORTHSTAR_PLAN_WAIT_S``) and checks
+    its exit; ``stop()`` (also run at exit) ends the group, pools included,
+    and removes ``DIR``."""
 
-    def __init__(self) -> None:
+    def __init__(self, flag: str, what: str, env: dict | None = None) -> None:
         import atexit
         import tempfile
 
-        self.dir = tempfile.mkdtemp(prefix="northstar-plan-")
-        self.log = open(os.path.join(self.dir, "plan.log"), "w+")
-        env = dict(os.environ)
-        env.setdefault("TNC_TPU_HYPER_WORKERS", str(max(1, len(os.sched_getaffinity(0)) - 1)))
-        self.workers = env["TNC_TPU_HYPER_WORKERS"]
+        self.what = what
+        self.dir = tempfile.mkdtemp(prefix=flag.strip("-") + "-")
+        self.log = open(os.path.join(self.dir, "job.log"), "w+")
         self.stopped = False
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), NORTHSTAR_PLAN_FLAG, self.dir],
+            [sys.executable, os.path.abspath(__file__), flag, self.dir],
             stdout=self.log, stderr=subprocess.STDOUT, env=env, start_new_session=True)
         atexit.register(self.stop)
 
@@ -2220,10 +2272,36 @@ class BackgroundPlan:
             return
         self.stopped = True
         with contextlib.suppress(ProcessLookupError):
-            os.killpg(self.proc.pid, signal.SIGKILL)  # the planner and its trial pool
+            os.killpg(self.proc.pid, signal.SIGKILL)
         self.proc.wait()
         self.log.close()
         shutil.rmtree(self.dir, ignore_errors=True)
+
+    def wait(self) -> float:
+        """This process's seconds waiting for the job."""
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=NORTHSTAR_PLAN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"{self.what} took over {NORTHSTAR_PLAN_WAIT_S:g} s")
+        wait_s = time.perf_counter() - t0
+        self.log.seek(0)
+        check(rc == 0, f"{self.what} exited with {rc}: {self.log.read()[-4000:]}")
+        return wait_s
+
+
+class BackgroundPlan(HostJob):
+    """The north star's plan made by ``python3 chip_smoke.py
+    --northstar-plan-to DIR``, which keeps the plan in ``DIR`` (the port's
+    ``plan_northstar`` cache). Its trial pool has one worker fewer than the
+    host's cores, so the card's phases keep a core; the trials' merge is the
+    same at any worker count."""
+
+    def __init__(self) -> None:
+        env = dict(os.environ)
+        env.setdefault("TNC_TPU_HYPER_WORKERS", str(max(1, len(os.sched_getaffinity(0)) - 1)))
+        self.workers = env["TNC_TPU_HYPER_WORKERS"]
+        super().__init__(NORTHSTAR_PLAN_FLAG, "the north-star plan process", env)
 
     def result(self):
         """Wait for the plan and load it; the record keeps the child's
@@ -2231,15 +2309,7 @@ class BackgroundPlan:
         from tnc_tpu_torch.benchmark.northstar import plan_northstar
 
         qubits, depth, seed, ntrials, target = NORTHSTAR
-        t0 = time.perf_counter()
-        try:
-            rc = self.proc.wait(timeout=NORTHSTAR_PLAN_WAIT_S)
-        except subprocess.TimeoutExpired:
-            fail(f"the north-star plan took over {NORTHSTAR_PLAN_WAIT_S:g} s")
-        wait_s = time.perf_counter() - t0
-        self.log.seek(0)
-        check(rc == 0, f"the north-star plan process exited with {rc}: "
-              f"{self.log.read()[-4000:]}")
+        wait_s = self.wait()
         kept = [f for f in os.listdir(self.dir) if f.endswith(".json")]
         check(len(kept) == 1, f"the north-star plan process kept {kept}")
         with open(os.path.join(self.dir, kept[0])) as f:
@@ -2656,7 +2726,7 @@ def strassen_crossover(model, peps_program, gen) -> dict:
                          for _ in range(2))
 
         a, b = pair(st.a_view), pair(st.b_view)
-        reps = 5 if m * k * nn <= 2 ** 39 else 2
+        reps = 5 if m * k * nn <= 2 ** 39 else 1
         ms = {"gauss": event_ms(lambda: apply_step_split(a, b, st, mode="gauss"), reps),
               "strassen": event_ms(lambda: strassen(a, b, st), reps)}
         got = strassen(a, b, st)
@@ -2781,7 +2851,7 @@ def run_calibrated(refs: dict, gen) -> dict:
                 row["label"] = f"{name} calibrated {row['label']}"
             chain_rows += rows
         torch.cuda.empty_cache()
-        run = run_main_path(cell_tn, cell_path, backend, f"{name} calibrated")
+        run = run_main_path(cell_tn, cell_path, backend, f"{name} calibrated", reps=2)
         check(run["launches"]["fused_chain"] == len(policy.chains),
               f"{name} calibrated: fused_chain launched {run['launches']['fused_chain']} "
               f"times for {len(policy.chains)} chains")
@@ -2791,7 +2861,7 @@ def run_calibrated(refs: dict, gen) -> dict:
               f"{name} calibrated: {run['launches']['fused_transpose_dot']} fused_transpose_dot "
               f"launches and {routed} routed steps for {promoted} promoted steps")
         out = run.pop("out")
-        dev = device_times(device_run(cell_tn, cell_path, backend))
+        dev = device_times(device_run(cell_tn, cell_path, backend), reps=2)
         records[name] = {
             "policy": rung_counts(policy, dict(run["chain_forms"])),
             "no_model_policy": rung_counts(plan_kernels(cell_program)),
@@ -2965,7 +3035,7 @@ def run_sweep() -> dict:
     ``sycamore_circuit(53, 8)`` amplitude network through one
     ``TorchBackend().execute_batched``: every distinct ``fused_chain``
     launch held against its plain version (batched chains on the bra
-    batch, the others once), one warm-up and three timed runs (wall,
+    batch, the others once), one warm-up and two timed runs (wall,
     CUDA-event span of ``execute_batched``, peak, launches by form held to
     the policy's chains); each amplitude against complex128 on the card
     (``TorchBackend(dtype="complex128", split_complex=False).execute`` per
@@ -3032,7 +3102,8 @@ def run_sweep() -> dict:
           == len(batched_chains), f"{label}: batched chain launches differ from the plan")
     torch.cuda.empty_cache()
     spans.clear()
-    run = run_counted(lambda: amplitude_sweep(sycamore(SWEEP), bits, backend=backend), label)
+    run = run_counted(lambda: amplitude_sweep(sycamore(SWEEP), bits, backend=backend), label,
+                      reps=2)
     device_s = spans[1:]  # the warm-up's span first
     amps = np.asarray(run["out"])
     check(amps.shape == (len(bits),) and np.all(np.isfinite(amps)),
@@ -6728,9 +6799,413 @@ def run_fleet(refs: dict, sliced_clean) -> dict:
             "chain_rows": {label: rows_held}}
 
 
+def qasm_text(name: str, qubits: int, rounds: int) -> str:
+    """An OpenQASM 2.0 circuit on the Sycamore layout's couplers: an H layer
+    by register broadcast, then ``rounds - 1`` rounds placed as
+    ``random_circuit`` places them, from ``default_rng(QASM_SEED)`` in its
+    order (a single-qubit gate with probability ``QASM_P1`` on each qubit,
+    then a two-qubit gate with probability ``QASM_P2`` on each coupler), with
+    a ``barrier`` between the two. The gates' kinds and angles come from
+    ``default_rng(QASM_SEED + 1)``: ``sx``, ``sy``, and for the third choice
+    ``t`` from the registry, a parameterised ``u3`` from qelib1, or the user
+    gate ``zxz``, whose body folds parameter expressions; ``fsim`` at fixed
+    angles or ``cz`` on a coupler. Angles are written exactly (``repr``), so
+    both packages import the same network from the text."""
+    from tnc_tpu_torch.builders.connectivity import Connectivity, ConnectivityLayout
+
+    rng = np.random.default_rng(QASM_SEED)
+    flavour = np.random.default_rng(QASM_SEED + 1)
+    pairs = [(u, v) for u, v in Connectivity.new(ConnectivityLayout.SYCAMORE, qubits).connectivity
+             if u < qubits and v < qubits]
+    lines = ["OPENQASM 2.0;", 'include "qelib1.inc";',
+             f"// {name}: {qubits} qubits, {rounds} rounds on the Sycamore couplers",
+             "gate zxz(a, b) q { rz(a) q; sx q; rz(-b/2 + pi*a^2) q; }",
+             f"qreg q[{qubits}];", f"creg c[{qubits}];", "h q;"]
+
+    def angle() -> str:
+        return repr(float(flavour.uniform(0.0, 2.0 * math.pi)))
+
+    for _ in range(1, rounds):
+        for i in range(qubits):
+            if rng.random() < QASM_P1:
+                kind = int(rng.integers(0, 3))
+                if kind < 2:
+                    lines.append(f"{('sx', 'sy')[kind]} q[{i}];")
+                else:
+                    third = int(flavour.integers(0, 3))
+                    lines.append(("t q[{i}];", f"u3({angle()}, {angle()}, {angle()}) q[{{i}}];",
+                                  f"zxz({angle()}, {angle()}) q[{{i}}];")[third].format(i=i))
+        lines.append("barrier q;")
+        for u, v in pairs:
+            if rng.random() < QASM_P2:
+                gate = "fsim(0.3, 0.2)" if flavour.random() < 0.5 else "cz"
+                lines.append(f"{gate} q[{u}], q[{v}];")
+    return "\n".join(lines) + "\n"
+
+
+def qasm_cli(mode: str, directory: str, circuits: str, methods, partitions, *extra):
+    """The argument list of ``python -m tnc_tpu_torch.benchmark <mode>`` with
+    its outputs under ``directory``: the artifact cache, results, protocol
+    and JSON logs."""
+    return [sys.executable, "-m", "tnc_tpu_torch.benchmark", mode,
+            "--circuits-dir", os.path.join(directory, "circuits", circuits),
+            "--cache-dir", os.path.join(directory, "cache"),
+            "--out", os.path.join(directory, "results.jsonl"),
+            "--protocol", os.path.join(directory, "protocol.jsonl"),
+            "--log-dir", os.path.join(directory, "logs"),
+            "--methods", *methods, "--partitions", *[str(p) for p in partitions], *extra]
+
+
+# the cells in the "both" directory as the CLI enumerates them: circuits sorted
+# (qasm24_d12, qasm28_d12), then partitions (2, 4), then methods (greedy,
+# tree-temper); the two cells are indices 0 and 7, the rest excluded
+QASM_BOTH = (("greedy", "tree-temper"), (2, 4), ("--include", "0", "8", "--exclude", "1", "7"))
+
+
+def qasm_env() -> dict:
+    """The CLI processes' environment: this one, the repository first on the
+    path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([here] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def make_qasm_sweep(directory: str) -> int:
+    """``--qasm-sweep-to DIR``: write the two circuits, sweep each with its
+    method through ``python -m tnc_tpu_torch.benchmark sweep``, then sweep
+    both again (every cell must be skipped), and compute the observable
+    network's value on the complex128 numpy oracle; keep the seconds in
+    ``DIR/sweep.json``. Host work only, no torch."""
+    from tnc_tpu_torch.builders.connectivity import ConnectivityLayout
+    from tnc_tpu_torch.builders.random_circuit import random_circuit_with_observable
+    from tnc_tpu_torch.ops.backends import NumpyBackend
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    both = os.path.join(directory, "circuits", "both")
+    os.makedirs(both, exist_ok=True)
+    texts = {}
+    for name, qubits, _, _ in QASM_CELLS:
+        texts[name] = qasm_text(name, qubits, QASM_ROUNDS)
+        os.makedirs(os.path.join(directory, "circuits", name), exist_ok=True)
+        for sub in (name, "both"):
+            with open(os.path.join(directory, "circuits", sub, f"{name}.qasm"), "w") as f:
+                f.write(texts[name])
+    out = {"sweep_s": {}, "rc": {}}
+    for name, _, method, parts in QASM_CELLS:
+        t0 = time.perf_counter()
+        rc = subprocess.run(qasm_cli("sweep", directory, name, [method], [parts]),
+                            cwd=here, env=qasm_env()).returncode
+        out["sweep_s"][name], out["rc"][name] = time.perf_counter() - t0, rc
+    methods, parts, pick = QASM_BOTH
+    t0 = time.perf_counter()
+    out["rc"]["again"] = subprocess.run(qasm_cli("sweep", directory, "both", methods, parts, *pick),
+                                        cwd=here, env=qasm_env()).returncode
+    out["again_s"] = time.perf_counter() - t0
+    qubits, rounds, p1, p2, p_obs, seed = OBSERVABLE
+    tn = random_circuit_with_observable(qubits, rounds, p1, p2, p_obs,
+                                        np.random.default_rng(seed), ConnectivityLayout.SYCAMORE)
+    t0 = time.perf_counter()
+    value = complex(contract_tensor_network(tn, plan(tn), NumpyBackend()).data.into_data())
+    out["observable"] = [value.real, value.imag]
+    out["observable_numpy_s"] = time.perf_counter() - t0
+    with open(os.path.join(directory, "sweep.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class QasmSweep(HostJob):
+    """Phase 19's host work, made by ``python3 chip_smoke.py --qasm-sweep-to
+    DIR`` (:func:`make_qasm_sweep`) beside the card's phases."""
+
+    def __init__(self) -> None:
+        super().__init__(QASM_SWEEP_FLAG, "the QASM sweep process")
+
+    def result(self) -> dict:
+        """Wait for the sweeps; their record with ``wait_s`` added."""
+        wait_s = self.wait()
+        with open(os.path.join(self.dir, "sweep.json")) as f:
+            out = json.load(f)
+        check(all(v == 0 for v in out["rc"].values()), f"a sweep exited with {out['rc']}")
+        out["wait_s"] = wait_s
+        return out
+
+
+def record_chain_run(recorded: dict):
+    """A hold for :func:`holding` of ``split_complex.run_chain_split`` that
+    only records: a clone of each distinct chain's operands (its shapes,
+    links and batch; the layout of a view is kept) and how many times the
+    path ran it. :func:`hold_recorded` holds them after the run, so the run
+    itself is timed as a user runs it."""
+    from tnc_tpu_torch.ops.split_complex import chain_operands
+
+    def hold(steps, buffers, batched=None, *_):
+        first, link_ops, links = chain_operands(steps, buffers,
+                                                set() if batched is None else batched)
+        key = chain_key(first, link_ops, links)
+        if key in recorded:
+            recorded[key][3] += 1
+        else:
+            recorded[key] = [tuple(t.clone() for t in first),
+                             [tuple(t.clone() for t in pair) for pair in link_ops], links, 1]
+
+    return hold
+
+
+def hold_recorded(label: str, recorded: dict) -> list:
+    """Each recorded chain through :func:`hold_chain` (two launches bitwise
+    equal, against the plain version and float64), its row weighing the
+    launches the path made on it; the holds' own launches are taken back out
+    of the counts."""
+    from tnc_tpu_torch.ops.cuda_complex import CHAIN_FORMS, LAUNCHES
+
+    counts = dict(LAUNCHES), dict(CHAIN_FORMS)
+    rows = [hold_chain(first, link_ops, links, f"{label} chain {i}", n)
+            for i, (first, link_ops, links, n) in enumerate(recorded.values())]
+    for live, saved in zip((LAUNCHES, CHAIN_FORMS), counts):
+        live.clear()
+        live.update(saved)
+    return rows
+
+
+def recorded_contraction(label: str, tn, path, backend) -> dict:
+    """``contract_tensor_network(tn, path, backend)`` once, synchronised
+    and timed, its chains recorded (:func:`record_chain_run`) and held after
+    it; the program's chains must all have launched, and the rows weigh
+    exactly the launches."""
+    import torch
+
+    from tnc_tpu_torch.ops import split_complex
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+    from tnc_tpu_torch.ops.program import build_program
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    chains = len(backend.kernel_policy(build_program(tn, path)).chains)
+    recorded: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with holding("run_chain_split", record_chain_run(recorded), split_complex):
+        out = contract_tensor_network(tn, path, backend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = LAUNCHES["fused_chain"], torch.cuda.max_memory_allocated()
+    check(launches == chains, f"{label}: fused_chain launched {launches} times for "
+          f"{chains} chains")
+    t0 = time.perf_counter()
+    rows = hold_recorded(label, recorded)
+    holds_s = time.perf_counter() - t0
+    if launches:
+        check_held(label, rows, launches)
+    print(f"[{label}] contract_tensor_network wall {wall:.4f} s (synchronised), "
+          f"max_memory_allocated {peak} bytes; {launches} fused_chain launches on "
+          f"{len(rows)} distinct chains, each held after the run (in {holds_s:.2f} s)",
+          flush=True)
+    return {"out": out, "wall_s": wall, "peak_bytes": peak, "launches": launches,
+            "holds_s": holds_s, "rows": rows}
+
+
+def qasm_outputs(directory: str, cells: list) -> dict:
+    """Hold the CLI to its outputs, not its exit code: one
+    ``OptimizationResult`` and one ``RunResult`` per cell (backend
+    ``torch``, ``time_to_solution`` > 0), ``Done`` in the protocol for every
+    id, no ``ERROR`` record in any JSON log, and the second sweep skipping
+    both cells."""
+    from tnc_tpu_torch.benchmark.results import ResultWriter
+
+    records = ResultWriter(os.path.join(directory, "results.jsonl")).read_all()
+    with open(os.path.join(directory, "protocol.jsonl")) as f:
+        journal = [json.loads(line) for line in f if line.strip()]
+    done = {r["id"] for r in journal if r["state"] == "done"}
+    out = {}
+    for name, sc in cells:
+        opt = [r for r in records if r["kind"] == "OptimizationResult"
+               and r["id"] == f"sweep/{sc.run_id}"]
+        run = [r for r in records if r["kind"] == "RunResult"
+               and r["id"] == f"run-torch/{sc.run_id}"]
+        check(len(opt) == 1 and len(run) == 1,
+              f"{name}: {len(opt)} OptimizationResult and {len(run)} RunResult records")
+        check(run[0]["backend"] == "torch" and run[0]["time_to_solution"] > 0,
+              f"{name}: RunResult {run[0]}")
+        for rid in (opt[0]["id"], run[0]["id"]):
+            check(rid in done, f"{name}: the protocol has no Done for {rid}")
+        out[name] = {"sweep": opt[0], "run": run[0]}
+    check(len(records) == 2 * len(cells), f"results.jsonl holds {len(records)} records")
+    check(len(done) == len({r["id"] for r in journal}),
+          f"protocol ids without Done: {sorted({r['id'] for r in journal} - done)}")
+    logs = []
+    for file in sorted(os.listdir(os.path.join(directory, "logs"))):
+        with open(os.path.join(directory, "logs", file)) as f:
+            logs += [json.loads(line) for line in f if line.strip()]
+    errors = [r for r in logs if r["level"] in ("ERROR", "CRITICAL")]
+    check(not errors, f"the CLI logged {errors[:2]}")
+    skipped = [r["msg"] for r in logs if r["msg"].startswith("skipping sweep/")]
+    check(sorted(skipped) == sorted(f"skipping sweep/{sc.run_id} (already done or failed)"
+                                    for _, sc in cells),
+          f"the second sweep skipped {skipped}")
+    print(f"[qasm] results.jsonl {len(records)} records, protocol {len(done)} ids Done, "
+          f"{len(logs)} JSON log records (no ERROR), the second sweep skipped "
+          f"{len(skipped)} cells", flush=True)
+    return out
+
+
+def run_qasm(sweeps: "QasmSweep") -> dict:
+    """Phase 19: the benchmark CLI on the card. The two circuits were written
+    and swept beside phases 2-9 (:class:`QasmSweep`); one ``python -m
+    tnc_tpu_torch.benchmark run`` process (``--repeats 2``, the default
+    ``--backend torch``, no ``TNC_TPU_PLATFORM``) contracts both artifacts,
+    and its outputs are checked (:func:`qasm_outputs`). Then, in this
+    process, each artifact loaded with ``ArtifactCache.load`` is contracted
+    once on ``TorchBackend()`` (:func:`recorded_contraction`, every chain
+    held): the statevector's norm within 1e-4 of 1 and four amplitudes of
+    the imported circuit's amplitude networks, contracted natively in
+    complex128 on the card, within 1e-4·max(|ref|, 2^-14); and the
+    observable network against the numpy value, within 1e-5."""
+    import torch
+
+    from tnc_tpu_torch.benchmark.cache import ArtifactCache
+    from tnc_tpu_torch.benchmark.driver import Scenario
+    from tnc_tpu_torch.builders.connectivity import ConnectivityLayout
+    from tnc_tpu_torch.builders.random_circuit import random_circuit_with_observable
+    from tnc_tpu_torch.contractionpath.paths import TreeTempering
+    from tnc_tpu_torch.io.qasm import import_qasm
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    t_phase = time.perf_counter()
+    check("TNC_TPU_PLATFORM" not in os.environ,
+          "phase 19 runs the CLI on the card: TNC_TPU_PLATFORM must be unset")
+    swept = sweeps.result()
+    directory = sweeps.dir
+    print(f"[qasm] sweeps {', '.join(f'{k} {v:.2f} s' for k, v in swept['sweep_s'].items())}, "
+          f"the second {swept['again_s']:.2f} s, the observable's numpy value in "
+          f"{swept['observable_numpy_s']:.2f} s, beside the card's phases; waited "
+          f"{swept['wait_s']:.2f} s", flush=True)
+    methods, parts, pick = QASM_BOTH
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(qasm_cli("run", directory, "both", methods, parts, *pick,
+                                     "--repeats", str(QASM_REPEATS)),
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=qasm_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # meanwhile, host work only: the circuits imported, their amplitude
+    # networks planned, the observable network built and planned
+    cells, refs = [], {}
+    for name, qubits, method, n_parts in QASM_CELLS:
+        with open(os.path.join(directory, "circuits", name, f"{name}.qasm")) as f:
+            text = f.read()
+        sc = Scenario(name, text, n_parts, 0, method)
+        _, permutor = import_qasm(text).into_statevector_network()
+        amps = []
+        for bits in np.random.default_rng(7).integers(0, 2, size=(QASM_AMPLITUDES, qubits)):
+            bitstring = "".join(str(int(b)) for b in bits)
+            amp_tn, _ = import_qasm(text).into_amplitude_network(bitstring)
+            amps.append((bits, bitstring, amp_tn))
+        # the amplitude networks differ in their bras' data only: one
+        # tree-tempered path serves the four (Greedy's takes 164x its flops
+        # at 28 qubits); planned on the host while the run process runs
+        amp_path = TreeTempering(seed=0).find_path(amps[0][2]).replace_path()
+        check(all([t.legs for t in tn.tensors] == [t.legs for t in amps[0][2].tensors]
+                  for _, _, tn in amps), f"{name}: amplitude networks of other legs")
+        amps = [(bits, bitstring, tn, amp_path) for bits, bitstring, tn in amps]
+        cells.append((name, sc))
+        refs[name] = (permutor, amps)
+    qubits, rounds, p1, p2, p_obs, seed = OBSERVABLE
+    obs_tn = random_circuit_with_observable(qubits, rounds, p1, p2, p_obs,
+                                            np.random.default_rng(seed),
+                                            ConnectivityLayout.SYCAMORE)
+    obs_path = plan(obs_tn)
+    try:
+        log, _ = proc.communicate(timeout=QASM_RUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"the CLI run process took over {QASM_RUN_TIMEOUT_S:g} s")
+    run_s = time.perf_counter() - t0
+    print(f"[qasm] python -m tnc_tpu_torch.benchmark run: exit {proc.returncode} in "
+          f"{run_s:.2f} s (the exit code is not the check); its stderr:\n"
+          + "\n".join("  " + line for line in log.splitlines()[-8:]), flush=True)
+    outputs = qasm_outputs(directory, cells)
+    cache = ArtifactCache(os.path.join(directory, "cache"))
+    backend = TorchBackend()
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    card = card_line()
+    record, launches, rows = {}, {}, {}
+    for name, sc in cells:
+        label = {"qasm28_d12": "qasm28_d12_treetemper_cli",
+                 "qasm24_d12": "qasm24_d12_p2_greedy_cli"}[name]
+        t0 = time.perf_counter()
+        tn, path = cache.load(sc.key())
+        load_s = time.perf_counter() - t0
+        res = recorded_contraction(label, tn, path, backend)
+        permutor, amps = refs[name]
+        qubit_of = {leg: q for q, leg in enumerate(permutor.target_leg_order)}
+        leaf = res.pop("out")
+        check(sorted(leaf.legs) == sorted(qubit_of),
+              f"{label}: the artifact's open legs are not the imported circuit's")
+        t0 = time.perf_counter()
+        sv = np.asarray(leaf.data.into_data())
+        norm = statevector_norm(sv)
+        check(sv.shape == (2,) * len(qubit_of) and math.isfinite(norm),
+              f"{label}: statevector of shape {sv.shape} or not finite")
+        check(abs(norm - 1.0) <= 1e-4, f"{label}: norm {norm} not within 1e-4 of 1")
+        norm_s = time.perf_counter() - t0
+        worst = 0.0
+        t0 = time.perf_counter()
+        for bits, bitstring, amp_tn, amp_path in amps:
+            ref = complex(contract_tensor_network(amp_tn, amp_path, oracle).data.into_data())
+            got = complex(sv[tuple(int(bits[qubit_of[leg]]) for leg in leaf.legs)])
+            tol = 1e-4 * max(abs(ref), 2.0 ** -14)
+            check(abs(got - ref) <= tol, f"{label}: amplitude {bitstring} {got} against "
+                  f"complex128 {ref}, |diff| {abs(got - ref)} > {tol}")
+            worst = max(worst, abs(got - ref) / tol)
+        amps_s = time.perf_counter() - t0
+        del sv, leaf
+        sweep_rec, run_rec = outputs[name]["sweep"], outputs[name]["run"]
+        print(f"[check] {label}: norm {norm:.8f} (the host's checks {norm_s:.2f} s); "
+              f"{len(amps)} amplitudes against complex128 on the card (in {amps_s:.2f} s) "
+              f"within {worst:.3f} of their tolerance", flush=True)
+        print(f"[{label}] {sc.method}, {sc.partitions} partitions: plan "
+              f"{sweep_rec['optimization_time']:.3f} s, peak 2^"
+              f"{math.log2(sweep_rec['memory']):.2f} B (complex128), flops "
+              f"{sweep_rec['flops']:.4e} (serial Greedy {sweep_rec['serial_flops']:.4e}); "
+              f"time_to_solution {run_rec['time_to_solution']:.4f} s (best of "
+              f"{QASM_REPEATS}); in process {res['wall_s']:.4f} s (artifact loaded in "
+              f"{load_s:.3f} s); fused_chain {res['launches']} launches; {card}", flush=True)
+        launches[label], rows[label] = res["launches"], res.pop("rows")
+        record[label] = {"method": sc.method, "partitions": sc.partitions,
+                         "plan_s": sweep_rec["optimization_time"],
+                         "plan_peak_bytes": sweep_rec["memory"], "flops": sweep_rec["flops"],
+                         "flops_sum": sweep_rec["flops_sum"],
+                         "serial_flops": sweep_rec["serial_flops"],
+                         "sweep_wall_s": swept["sweep_s"][name],
+                         "time_to_solution": run_rec["time_to_solution"],
+                         "load_s": load_s, "norm": norm, "amplitude_worst": worst,
+                         "amplitudes_s": amps_s, "norm_s": norm_s, **res}
+    label = "observable16_m8"
+    res = recorded_contraction(label, obs_tn, obs_path, backend)
+    got = complex(res.pop("out").data.into_data())
+    want = complex(*swept["observable"])
+    check(abs(got - want) <= 1e-5, f"{label}: {got} against numpy {want}")
+    print(f"[check] {label}: {got:.10f} against numpy {want:.10f}, |diff| "
+          f"{abs(got - want):.3e} (gate 1e-5)", flush=True)
+    if res["launches"]:
+        launches[label], rows[label] = res["launches"], res.pop("rows")
+    record[label] = {"value": [got.real, got.imag], "numpy": swept["observable"], **{
+        k: v for k, v in res.items() if k != "rows"}}
+    torch.cuda.empty_cache()
+    check("h5py" not in sys.modules, "phase 19 imported h5py, which the card's machine lacks")
+    record["run_process_s"] = run_s
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"[qasm] phase 19 in {record['seconds']:.1f} s", flush=True)
+    return {"record": record, "chain_launches": launches, "chain_rows": rows}
+
+
 def main() -> int:
     if sys.argv[1:2] == [NORTHSTAR_PLAN_FLAG] and len(sys.argv) == 3:
         return make_northstar_plan(sys.argv[2])
+    if sys.argv[1:2] == [QASM_SWEEP_FLAG] and len(sys.argv) == 3:
+        return make_qasm_sweep(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -6870,6 +7345,19 @@ def main() -> int:
         print(card_line(), flush=True)
         return 0
 
+    if "--qasm" in sys.argv[1:]:
+        # the benchmark CLI on QASM circuits alone: phase 19, its sweeps waited for
+        qasm = run_qasm(QasmSweep())
+        print(json.dumps({"qasm": qasm["record"],
+                          "launches_by_path": {"fused_chain": qasm["chain_launches"]},
+                          "kernels_by_path": {"fused_chain": {
+                              k: chain_record(r) for k, r in qasm["chain_rows"].items()}},
+                          "shapes": {"fused_chain": [
+                              r for rows in qasm["chain_rows"].values() for r in rows]}}),
+              flush=True)
+        print(card_line(), flush=True)
+        return 0
+
     if "--sweep" in sys.argv[1:]:
         # the batched sweep and the query path alone: phase 12
         sweep = run_sweep()
@@ -6879,8 +7367,10 @@ def main() -> int:
         print(card_line(), flush=True)
         return 0
 
-    # the north star's plan (phase 10) is made beside phases 2-9
+    # the north star's plan (phase 10) and phase 19's QASM sweeps are made
+    # beside phases 2-9
     northstar_plan = BackgroundPlan()
+    qasm_sweeps = QasmSweep()
     phase_done(1)
 
     # 2. plan + kernels against their plain versions
@@ -6922,9 +7412,9 @@ def main() -> int:
 
     # 4. correctness
     sv = np.asarray(sv_leaf.data.into_data())
-    check(sv.shape == (2,) * QUBITS and np.all(np.isfinite(sv)),
+    norm = statevector_norm(sv)
+    check(sv.shape == (2,) * QUBITS and math.isfinite(norm),
           f"statevector has shape {sv.shape} or non-finite values")
-    norm = float(np.vdot(sv.reshape(-1), sv.reshape(-1)).real)
     print(f"[check] statevector norm {norm:.8f}", flush=True)
     check(abs(norm - 1.0) <= 1e-4, f"norm {norm} not within 1e-4 of 1")
     qubit_of = {leg: q for q, leg in enumerate(permutor.target_leg_order)}
@@ -7021,7 +7511,7 @@ def main() -> int:
 
     # 10. the north star: sycamore(53, 14) planned by the port's hyper-optimizer
     # and slice_and_reconfigure, all its slices on the default path
-    northstar = run_northstar(backend, planned=northstar_plan)
+    northstar = run_northstar(backend, reps=2, planned=northstar_plan)
     chain_launches["sycamore53_m14_hyper"] = northstar["chain_launches"]
     chain_forms["sycamore53_m14_hyper"] = northstar["record"]["chain_forms"]
     dot_launches["sycamore53_m14_hyper fused rung"] = northstar["dot_launches"]
@@ -7112,7 +7602,13 @@ def main() -> int:
     chain_launches.update(fleet["chain_launches"])
     phase_done(18)
 
-    # 19. the records
+    # 19. the benchmark CLI: two QASM circuits swept beside phases 2-9, one
+    # run process over both artifacts, then each artifact contracted here
+    qasm = run_qasm(qasm_sweeps)
+    chain_launches.update(qasm["chain_launches"])
+    phase_done(19)
+
+    # 20. the records
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -7147,7 +7643,8 @@ def main() -> int:
                         **{k: chain_record(r) for k, r in planes["chain_rows"].items()},
                         **{k: chain_record(r) for k, r in part["chain_rows"].items()},
                         **{k: chain_record(r) for k, r in par["chain_rows"].items()},
-                        **{k: chain_record(r) for k, r in fleet["chain_rows"].items()}},
+                        **{k: chain_record(r) for k, r in fleet["chain_rows"].items()},
+                        **{k: chain_record(r) for k, r in qasm["chain_rows"].items()}},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -7166,7 +7663,8 @@ def main() -> int:
                    + [r for rows in planes["chain_rows"].values() for r in rows]
                    + [r for rows in part["chain_rows"].values() for r in rows]
                    + [r for rows in par["chain_rows"].values() for r in rows]
-                   + [r for rows in fleet["chain_rows"].values() for r in rows])
+                   + [r for rows in fleet["chain_rows"].values() for r in rows]
+                   + [r for rows in qasm["chain_rows"].values() for r in rows])
     # every path's rows weigh the launches it counted, so the record's times
     # are means over exactly the launches the line reports
     weighed = sum(r["launches"] for r in chain_rows)
@@ -7193,7 +7691,7 @@ def main() -> int:
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    phase_done(19)
+    phase_done(20)
     print(json.dumps({
         "main_path": {"qubits": QUBITS, "depth": DEPTH, "seed": SEED,
                       "steps": len(program.steps), "chains": len(policy.chains),
@@ -7212,6 +7710,7 @@ def main() -> int:
         "partitioned": part["record"],
         "parallel": par["record"],
         "fleet": fleet["record"],
+        "qasm": qasm["record"],
         "phase_seconds": phase_s,
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},

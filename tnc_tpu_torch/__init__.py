@@ -7,7 +7,19 @@ of JAX. Contraction runs through
 :class:`~tnc_tpu_torch.ops.backends.TorchBackend` on an NVIDIA GPU, with the
 TPU's Pallas kernels replaced by CUDA kernels written by hand for Hopper
 (:mod:`tnc_tpu_torch.ops.cuda_complex`).
+
+At import, ``TNC_TPU_LOG`` attaches a stderr handler to the
+``tnc_tpu_torch`` logger and ``TNC_TPU_PLATFORM=cpu`` pins the host as the
+device that ``device=None`` means (:mod:`tnc_tpu_torch.utils.logging_config`).
 """
+
+from tnc_tpu_torch.utils.logging_config import (
+    configure_from_env as _configure_logging,
+    pin_platform_from_env as _pin_platform,
+)
+
+_configure_logging()
+_pin_platform()
 
 # the serving and resilience surface, importable from the top level without
 # importing it (and torch) with the package

@@ -23,8 +23,10 @@ This module is host code: it imports no ``torch``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import pickle
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -66,6 +68,25 @@ def northstar_plan_key(
         f"{PLAN_SCHEME}_sycamore-{qubits}-m{depth}-seed{seed}-trials{ntrials}"
         f"_hyper-target2^{target_log2:g}"
     )
+
+
+def oracle_key(plan_key: str) -> str:
+    """The key of the oracle artifacts computed from the plan kept under
+    ``plan_key``.
+
+    >>> oracle_key(northstar_plan_key(53, 14, 42, 128, 29.0))
+    'northstar-oracle-v2-json_sycamore-53-m14-seed42-trials128_hyper-target2^29'
+    """
+    return plan_key.replace("northstar-plan", "northstar-oracle")
+
+
+def plan_fingerprint(sp) -> str:
+    """Content fingerprint of a sliced plan (the compiled program and
+    slicing signature of a :class:`~tnc_tpu_torch.ops.sliced.SlicedProgram`):
+    oracle artifacts are valid only for the exact plan they were computed
+    from. The digest pickles the port's own signature objects, so it names
+    a plan within this package."""
+    return hashlib.sha256(pickle.dumps((sp.signature(),))).hexdigest()[:16]
 
 
 def default_cache_dir() -> Path:

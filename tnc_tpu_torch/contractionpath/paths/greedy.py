@@ -218,3 +218,7 @@ class Greedy(Pathfinder):
                 best_path = candidate
         assert best_path is not None
         return best_path
+
+
+# The reference names this finder `Cotengrust` too.
+Cotengrust = Greedy

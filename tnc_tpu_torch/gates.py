@@ -296,5 +296,15 @@ def load_gate_adjoint(name: str, angles: Sequence[float] = ()) -> np.ndarray:
     return _GATES[name].adjoint(angles)
 
 
+def gate_arity(name: str) -> int | None:
+    """Qubit count of a registered gate, if declared.
+
+    >>> gate_arity("h"), gate_arity("fsim"), gate_arity("nonsense")
+    (1, 2, None)
+    """
+    gate = _GATES.get(name)
+    return gate.arity if gate is not None else None
+
+
 def gate_names() -> list[str]:
     return sorted(_GATES)

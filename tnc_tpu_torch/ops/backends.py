@@ -278,13 +278,17 @@ def place_buffers(
 
 def resolve_device(device=None, who: str = "TorchBackend"):
     """The ``torch.device`` an entry point runs on: ``None`` means
-    ``"cuda"``. A CUDA device raises ``RuntimeError`` when CUDA is absent
-    (nothing falls back to the host) and turns TF32 off for matmuls and
-    cuDNN, so complex64 products keep full FP32. ``who`` names the
-    caller in the error."""
+    ``"cuda"``, or the host when the caller asked for it with
+    ``TNC_TPU_PLATFORM=cpu`` (:mod:`tnc_tpu_torch.utils.logging_config`).
+    A CUDA device raises ``RuntimeError`` when CUDA is absent (nothing
+    falls back to the host) and turns TF32 off for matmuls and cuDNN, so
+    complex64 products keep full FP32. ``who`` names the caller in the
+    error."""
     import torch
 
-    device = torch.device("cuda" if device is None else device)
+    from tnc_tpu_torch.utils.logging_config import pinned_device
+
+    device = torch.device(pinned_device() if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

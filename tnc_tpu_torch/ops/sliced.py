@@ -15,11 +15,14 @@ on the card and the partial results are summed with Kahan compensation.
 :func:`execute_sliced_numpy` is the complex128 host oracle; it and the
 chunked executor checkpoint their cursor and accumulator under
 ``TNC_TPU_CKPT`` (:mod:`tnc_tpu_torch.resilience.checkpoint`) and resume
-bit-identically.
+bit-identically. :func:`sliced_partials_numpy` and
+:func:`execute_sliced_numpy_parallel` are the same oracle fanned out over a
+spawn-safe process pool on the host.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -282,3 +285,114 @@ def execute_sliced_numpy(
     if mgr is not None:
         mgr.finalize()
     return acc.reshape(sp.program.result_shape)
+
+
+_PAR_STATE: dict = {}
+
+
+def _par_init(blob):
+    import pickle
+    import zlib
+
+    _PAR_STATE["sp"], _PAR_STATE["arrays"] = pickle.loads(zlib.decompress(blob))
+
+
+def _par_slice(s: int):
+    sp = _PAR_STATE["sp"]
+    indices = _slice_indices(sp.slicing, s)
+    buffers = [
+        index_buffer(arr, info, indices)
+        for arr, info in zip(_PAR_STATE["arrays"], sp.slot_slices)
+    ]
+    return np.asarray(_run_steps(sp.program, buffers))
+
+
+def sliced_partials_numpy(
+    sp: SlicedProgram,
+    arrays: Sequence[np.ndarray],
+    dtype=np.complex128,
+    slice_ids: Sequence[int] | None = None,
+    workers: int | None = None,
+    hoist: bool = False,
+) -> np.ndarray:
+    """Per-slice host-oracle results, stacked ``(n,) + result_shape``.
+
+    Slices are independent, so on a many-core host they fan out over a
+    spawn-safe process pool (the workers import only host modules, no
+    torch); on a 1-core host, or when the pool fails, the loop runs
+    serially and gives the same values. Returning per-slice results (not
+    the sum) lets a caller keep the oracle on disk and serve any
+    prefix-sum parity sample later. ``hoist=True`` runs the invariant stem
+    once in this process and ships only the residual program (plus the
+    stem's intermediates) to the workers.
+
+    >>> from tnc_tpu_torch.contractionpath.slicing import Slicing
+    >>> from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
+    >>> a = LeafTensor([0, 1], [2, 2]); b = LeafTensor([1, 0], [2, 2])
+    >>> sp = build_sliced_program(CompositeTensor([a, b]),
+    ...     ContractionPath.simple([(0, 1)]), Slicing((1,), (2,)))
+    >>> x, y = np.arange(4.0).reshape(2, 2), np.ones((2, 2))
+    >>> sliced_partials_numpy(sp, [x, y], workers=1).real.tolist()
+    [2.0, 4.0]
+    """
+    import concurrent.futures
+    import multiprocessing
+    import pickle
+    import zlib
+
+    ids = (
+        list(slice_ids)
+        if slice_ids is not None
+        else list(range(sp.slicing.num_slices))
+    )
+    full = [np.asarray(a, dtype=dtype) for a in arrays]
+    if hoist:
+        from tnc_tpu_torch.ops.hoist import hoisted
+
+        sp, full = hoisted(sp, full)
+        full = [np.asarray(a) for a in full]
+    if workers is None:
+        workers = min(os.cpu_count() or 1, len(ids))
+    parts: list[np.ndarray] | None = None
+    if workers > 1 and len(ids) > 1:
+        blob = zlib.compress(pickle.dumps((sp, full)), 1)
+        try:
+            ctx = multiprocessing.get_context("spawn")
+            with concurrent.futures.ProcessPoolExecutor(
+                max_workers=workers, mp_context=ctx, initializer=_par_init,
+                initargs=(blob,),
+            ) as pool:
+                parts = list(pool.map(_par_slice, ids))
+        except Exception:  # a pool or pickle failure: the serial loop gives the same values
+            parts = None
+    if parts is None:
+        parts = []
+        for s in ids:
+            indices = _slice_indices(sp.slicing, s)
+            buffers = [
+                index_buffer(arr, info, indices)
+                for arr, info in zip(full, sp.slot_slices)
+            ]
+            parts.append(np.asarray(_run_steps(sp.program, buffers)))
+    shape = (len(ids),) + tuple(sp.program.result_shape)
+    return np.stack(parts).reshape(shape)
+
+
+def execute_sliced_numpy_parallel(
+    sp: SlicedProgram,
+    arrays: Sequence[np.ndarray],
+    dtype=np.complex128,
+    max_slices: int | None = None,
+    workers: int | None = None,
+    hoist: bool = False,
+) -> np.ndarray:
+    """Sum of :func:`sliced_partials_numpy` over the first ``max_slices``
+    slices — the process-parallel analogue of :func:`execute_sliced_numpy`."""
+    num = sp.slicing.num_slices
+    if max_slices is not None:
+        num = max(1, min(num, max_slices))
+    parts = sliced_partials_numpy(
+        sp, arrays, dtype=dtype, slice_ids=range(num), workers=workers,
+        hoist=hoist,
+    )
+    return np.sum(parts, axis=0, dtype=dtype)

@@ -5,11 +5,13 @@ one of
 
 - ``NONE``   — metadata-only tensor (pathfinding, cost models)
 - ``GATE``   — (name, angles, adjoint) resolved through the gate registry
+- ``FILE``   — (path, tensor-id, adjoint) resolved through HDF5 loading
+  (:mod:`tnc_tpu_torch.io.hdf5`, host only: ``h5py`` is imported when a
+  payload is materialized)
 - ``MATRIX`` — an actual ndarray
 
 ``adjoint()`` is symbolic (flips a flag) except for ``MATRIX``, where it is
-an eager conjugate-transpose. The reference's HDF5-backed ``FILE`` payload
-is not part of this port.
+an eager conjugate-transpose.
 
 Materialized data is ``numpy.complex128`` on host; the torch backend moves
 it to the device and optionally down-casts to ``complex64``.
@@ -22,10 +24,14 @@ from typing import Any
 
 import numpy as np
 
+# Materialized tensor payload type.
+DataTensor = np.ndarray
+
 
 class DataKind(enum.Enum):
     NONE = "none"
     GATE = "gate"
+    FILE = "file"
     MATRIX = "matrix"
 
 
@@ -76,6 +82,12 @@ class TensorData:
         return cls(DataKind.GATE, (name, tuple(angles), adjoint))
 
     @classmethod
+    def file(cls, path: str, tensor_id: int, adjoint: bool = False) -> "TensorData":
+        """Lazy HDF5 payload: dataset ``tensor_id`` of the file at ``path``
+        (:func:`tnc_tpu_torch.io.hdf5.load_data`), read when materialized."""
+        return cls(DataKind.FILE, (path, tensor_id, adjoint))
+
+    @classmethod
     def matrix(cls, array: np.ndarray) -> "TensorData":
         return cls(DataKind.MATRIX, np.asarray(array, dtype=np.complex128))
 
@@ -90,6 +102,12 @@ class TensorData:
 
             name, angles, adj = self.payload
             return load_gate_adjoint(name, angles) if adj else load_gate(name, angles)
+        if self.kind is DataKind.FILE:
+            from tnc_tpu_torch.io.hdf5 import load_data
+
+            path, tensor_id, adj = self.payload
+            data = load_data(path, tensor_id)
+            return matrix_adjoint(data) if adj else data
         raise ValueError("Cannot materialize TensorData.none()")
 
     def adjoint(self) -> "TensorData":
@@ -99,6 +117,9 @@ class TensorData:
         if self.kind is DataKind.GATE:
             name, angles, adj = self.payload
             return TensorData(DataKind.GATE, (name, angles, not adj))
+        if self.kind is DataKind.FILE:
+            path, tensor_id, adj = self.payload
+            return TensorData(DataKind.FILE, (path, tensor_id, not adj))
         return TensorData.none()
 
     def __eq__(self, other: object) -> bool:
