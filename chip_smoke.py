@@ -321,9 +321,20 @@ Phases, each of which raises on failure (nothing is caught):
    held after the run against its plain version: the norm within 1e-4 of
    1 and four amplitudes against complex128 amplitude networks on the card
    (one tree-tempered path for the four);
-   and ``random_circuit_with_observable(16, 8, 0.4, 0.4, 0.5,
+   the 24-qubit cell's 2-partition plan once more through the CLI's
+   ``--distributed`` (``benchmark.driver.do_run(..., distributed=True)``
+   in this process: one device slot a partition on ``cuda:0``, its
+   statevector within 1e-5 relative of the in-process contraction, its
+   chains held); and ``random_circuit_with_observable(16, 8, 0.4, 0.4, 0.5,
    default_rng(42), SYCAMORE)`` on the card within 1e-5 of numpy;
-20. one JSON line of path numbers (with each kernel's per-shape rows,
+20. the port's examples (``tnc_tpu_torch/examples/``): the seven that touch
+   the device (``repartitioning`` is host-only) through their ``main()``,
+   with the reference's sizes and seeds, the multi-device ones on
+   ``[cuda:0] * 4``, ``* 4`` and ``* 8``; each synchronised and timed, its
+   own asserts met, its returned values held to the complex128 host oracle
+   at the gates above, and every ``fused_chain`` launch it made (CUDA-graph
+   replays included) held after it against the plain version;
+21. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
    the launches of every path, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -358,7 +369,8 @@ rows phase 18 serves and its sliced cell's uninterrupted value, runs phase
 18 alone, and ends with its JSON record and the card line. ``python3
 chip_smoke.py --qasm`` builds the kernels, makes phase 19's sweeps (waiting
 for them), runs phase 19 alone, and ends with its JSON record and the card
-line.
+line. ``python3 chip_smoke.py --examples`` builds the kernels, runs phase 20
+alone, and ends with its JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -459,6 +471,7 @@ GRAD_SWEEP_BITS = 16
 # default per-leaf scale puts the 8x8 value near 1e-43, under float32's
 # normal range), (L, chis, dtype)
 APPROX_QAOA_CAP = 64
+APPROX_QAOA_START = 4  # the QAOA ladders' first rung
 APPROX_PEPS = ((6, (16, 32, 64, 128, 256, 512), "complex128"),
                (8, (16, 32, 64, 128, 256), "complex64"))
 APPROX_PROFILE_CHI = 64  # the 8x8 rung profiled for the card's busy share
@@ -3876,7 +3889,7 @@ def run_approx(cost_model, qaoa_ref: float) -> dict:
     """Phase 13 (d): the approximate tier on the card, ``backend="torch"``.
 
     The QAOA ⟨Z…Z⟩ grid (``ApproxProgram.sandwich_from_circuit(...)
-    .rebind_pauli``) up ``ChiLadder(chi_cap=64)`` at ``rtol=1e-6,
+    .rebind_pauli``) up ``ChiLadder(chi_start=4, chi_cap=64)`` at ``rtol=1e-6,
     scale=1.0`` in complex128 (it must converge; every rung's err at least
     its distance from (a)'s complex128 value), then in complex64 on the
     top two of those rungs, half the chi at which complex128 converged and
@@ -3908,7 +3921,9 @@ def run_approx(cost_model, qaoa_ref: float) -> dict:
     print(f"[{label}] grid {len(prog.grid)} x {len(prog.grid[0])}, exact chi bound "
           f"{exact_chi_bound(prog)}", flush=True)
     record: dict = {}
-    ladder = ChiLadder(chi_cap=APPROX_QAOA_CAP)
+    # from chi 4: the chi-2 boundary of this grid keeps nothing of the value
+    # (1e-125 against 1.17e-6) and costs a rung of ~6 s
+    ladder = ChiLadder(chi_start=APPROX_QAOA_START, chi_cap=APPROX_QAOA_CAP)
     for dtype in ("complex128", "complex64"):
         res, run, times = traced_ladder(
             ladder, prog, f"{label} {dtype} ladder", rtol=1e-6,
@@ -4621,7 +4636,7 @@ def run_serve_mixed() -> dict:
 def run_serve_approx() -> dict:
     """Phase 14 (d): ``qaoa30_p2_approx``. BASELINE config #4's circuit
     (``qaoa_circuit(30, 2, rng 42)``) served with ``queries=True`` and
-    ``approx=True, approx_options={"chi_cap": 8}`` on one
+    ``approx=True, approx_options={"chi_start": 4, "chi_cap": 8}`` on one
     ``TorchBackend()``: the exact ⟨Z…Z⟩ within 1e-5 absolute and 1e-3
     relative of complex128 numpy (phase 13's gate), its chains held against
     their plain versions on a warm-up request; ``rtol=1e-2`` met by the
@@ -4644,8 +4659,11 @@ def run_serve_approx() -> dict:
 
     ref = complex(pauli_expectation(circuit(), zz, backend=NumpyBackend()))
     t0 = time.perf_counter()
-    svc = ContractionService.from_circuit(circuit(), backend=TorchBackend(), queries=True,
-                                          approx=True, approx_options={"chi_cap": 8})
+    # the ladder from chi 4, as phase 13's: the chi-2 rung costs each
+    # request ~6.5 s and holds nothing of the value
+    svc = ContractionService.from_circuit(
+        circuit(), backend=TorchBackend(), queries=True, approx=True,
+        approx_options={"chi_start": APPROX_QAOA_START, "chi_cap": 8})
     bind_s = time.perf_counter() - t0
     seconds = {}
     held, seen = [], {}
@@ -6932,12 +6950,14 @@ class QasmSweep(HostJob):
         return out
 
 
-def record_chain_run(recorded: dict):
+def record_chain_run(recorded: dict, counts: dict | None = None):
     """A hold for :func:`holding` of ``split_complex.run_chain_split`` that
     only records: a clone of each distinct chain's operands (its shapes,
     links and batch; the layout of a view is kept) and how many times the
-    path ran it. :func:`hold_recorded` holds them after the run, so the run
-    itself is timed as a user runs it."""
+    path ran it, in ``counts`` when given (:func:`recording_chains`). The
+    clone is taken at a chain's first run, which every graphed executor
+    runs eagerly. :func:`hold_recorded` holds them after the run, so the
+    run itself is timed as a user runs it."""
     from tnc_tpu_torch.ops.split_complex import chain_operands
 
     def hold(steps, buffers, batched=None, *_):
@@ -6949,23 +6969,46 @@ def record_chain_run(recorded: dict):
         else:
             recorded[key] = [tuple(t.clone() for t in first),
                              [tuple(t.clone() for t in pair) for pair in link_ops], links, 1]
+        if counts is not None:
+            counts[key] = counts.get(key, 0) + 1
 
     return hold
 
 
-def hold_recorded(label: str, recorded: dict) -> list:
+@contextlib.contextmanager
+def recording_chains(recorded: dict):
+    """:func:`record_chain_run` on every ``run_chain_split`` call while
+    active, its counts in a dict (yielded) that the port's CUDA graphs
+    treat as one of their host counters (``graphs._counters``): a capture
+    takes back what it counted and each replay adds it again, as for
+    ``cuda_complex.LAUNCHES``. So the counts weigh every launch of a
+    graphed run, replays included."""
+    from tnc_tpu_torch.ops import graphs, split_complex
+
+    counts: dict = {}
+    real = graphs._counters
+    graphs._counters = lambda: real() + (counts,)
+    try:
+        with holding("run_chain_split", record_chain_run(recorded, counts), split_complex):
+            yield counts
+    finally:
+        graphs._counters = real
+
+
+def hold_recorded(label: str, recorded: dict, counts: dict | None = None) -> list:
     """Each recorded chain through :func:`hold_chain` (two launches bitwise
     equal, against the plain version and float64), its row weighing the
-    launches the path made on it; the holds' own launches are taken back out
-    of the counts."""
+    launches the path made on it (``counts``, when the recording had them);
+    the holds' own launches are taken back out of the counts."""
     from tnc_tpu_torch.ops.cuda_complex import CHAIN_FORMS, LAUNCHES
 
-    counts = dict(LAUNCHES), dict(CHAIN_FORMS)
-    rows = [hold_chain(first, link_ops, links, f"{label} chain {i}", n)
-            for i, (first, link_ops, links, n) in enumerate(recorded.values())]
-    for live, saved in zip((LAUNCHES, CHAIN_FORMS), counts):
+    saved = dict(LAUNCHES), dict(CHAIN_FORMS)
+    rows = [hold_chain(first, link_ops, links, f"{label} chain {i}",
+                       n if counts is None else counts.get(key, 0))
+            for i, (key, (first, link_ops, links, n)) in enumerate(recorded.items())]
+    for live, before in zip((LAUNCHES, CHAIN_FORMS), saved):
         live.clear()
-        live.update(saved)
+        live.update(before)
     return rows
 
 
@@ -7160,6 +7203,16 @@ def run_qasm(sweeps: "QasmSweep") -> dict:
                   f"complex128 {ref}, |diff| {abs(got - ref)} > {tol}")
             worst = max(worst, abs(got - ref) / tol)
         amps_s = time.perf_counter() - t0
+        distributed = None
+        if path.nested:
+            # the CLI's --distributed on the partitioned plan (the 24-qubit
+            # cell's; the tree-tempered one is flat), one device slot a
+            # partition, against this contraction
+            dist_label = f"{label} --distributed"
+            distributed = distributed_cli(dist_label, sc, cache, directory, leaf)
+            dist_rows = distributed.pop("rows")
+            if distributed["launches"]:
+                launches[dist_label], rows[dist_label] = distributed["launches"], dist_rows
         del sv, leaf
         sweep_rec, run_rec = outputs[name]["sweep"], outputs[name]["run"]
         print(f"[check] {label}: norm {norm:.8f} (the host's checks {norm_s:.2f} s); "
@@ -7181,7 +7234,8 @@ def run_qasm(sweeps: "QasmSweep") -> dict:
                          "sweep_wall_s": swept["sweep_s"][name],
                          "time_to_solution": run_rec["time_to_solution"],
                          "load_s": load_s, "norm": norm, "amplitude_worst": worst,
-                         "amplitudes_s": amps_s, "norm_s": norm_s, **res}
+                         "amplitudes_s": amps_s, "norm_s": norm_s, "distributed": distributed,
+                         **res}
     label = "observable16_m8"
     res = recorded_contraction(label, obs_tn, obs_path, backend)
     got = complex(res.pop("out").data.into_data())
@@ -7198,6 +7252,234 @@ def run_qasm(sweeps: "QasmSweep") -> dict:
     record["run_process_s"] = run_s
     record["seconds"] = time.perf_counter() - t_phase
     print(f"[qasm] phase 19 in {record['seconds']:.1f} s", flush=True)
+    return {"record": record, "chain_launches": launches, "chain_rows": rows}
+
+
+def recorded_call(label: str, fn) -> dict:
+    """``fn()`` once, synchronised and timed, every ``fused_chain`` launch
+    it makes recorded (:func:`recording_chains`, graphed replays included)
+    and held after it against its plain version; the rows weigh exactly
+    the launches it made."""
+    import torch
+
+    from tnc_tpu_torch.ops.cuda_complex import LAUNCHES, reset_launches
+
+    recorded: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with recording_chains(recorded) as counts:
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = LAUNCHES["fused_chain"], torch.cuda.max_memory_allocated()
+    check(sum(counts.values()) == launches, f"{label}: recorded {sum(counts.values())} chain "
+          f"runs, fused_chain launched {launches} times")
+    t0 = time.perf_counter()
+    rows = hold_recorded(label, recorded, counts)
+    holds_s = time.perf_counter() - t0
+    if launches:
+        check_held(label, rows, launches)
+    return {"out": out, "wall_s": wall, "peak_bytes": peak, "launches": launches,
+            "holds_s": holds_s, "rows": rows}
+
+
+def distributed_cli(label: str, sc, cache, directory: str, leaf) -> dict:
+    """Phase 19's ``--distributed`` run: ``benchmark.driver.do_run(...,
+    distributed=True)`` in this process (a run process of its own would pay
+    the card's start-up again) on the cell's artifact, into results and a
+    protocol of its own; its ``distributed_partitioned_contraction`` must
+    place one device slot a partition on ``cuda:0`` and give the in-process
+    contraction ``leaf`` within 1e-5 relative (2-norm); every chain held."""
+    import torch
+
+    from tnc_tpu_torch import parallel
+    from tnc_tpu_torch.benchmark.driver import do_run
+    from tnc_tpu_torch.benchmark.protocol import Protocol
+    from tnc_tpu_torch.benchmark.results import ResultWriter
+
+    out_dir = os.path.join(directory, "distributed")
+    os.makedirs(out_dir, exist_ok=True)
+    seen = []
+    real = parallel.distributed_partitioned_contraction
+
+    def spy(tn, path, **kw):
+        result = real(tn, path, **kw)
+        seen.append((kw.get("devices"), result))
+        return result
+
+    parallel.distributed_partitioned_contraction = spy
+    try:
+        res = recorded_call(label, lambda: do_run(
+            sc, cache, ResultWriter(os.path.join(out_dir, "results.jsonl")),
+            Protocol(os.path.join(out_dir, "protocol.jsonl")), distributed=True))
+    finally:
+        parallel.distributed_partitioned_contraction = real
+    record = res.pop("out")
+    check(record is not None and record.time_to_solution > 0 and record.backend == "torch",
+          f"{label}: RunResult {record}")
+    check(len(seen) == 1, f"{label}: {len(seen)} distributed contractions")
+    devices, dist = seen[0]
+    check(devices == [torch.device("cuda", 0)] * sc.partitions,
+          f"{label}: device slots {devices} for {sc.partitions} partitions")
+    check(sorted(dist.legs) == sorted(leaf.legs), f"{label}: open legs differ")
+    got = np.transpose(np.asarray(dist.data.into_data()), [dist.legs.index(g) for g in leaf.legs])
+    want = np.asarray(leaf.data.into_data())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    check(rel <= 1e-5, f"{label}: {rel} relative (2-norm) off the in-process contraction")
+    print(f"[check] {label}: do_run(distributed=True) on {len(devices)} device slots "
+          f"{sorted({str(d) for d in devices})}: time_to_solution "
+          f"{record.time_to_solution:.4f} s (wall {res['wall_s']:.4f} s), {rel:.3e} relative "
+          f"(2-norm) off the in-process contraction (gate 1e-5); {res['launches']} fused_chain "
+          f"launches, held after the run", flush=True)
+    return {**res, "time_to_solution": record.time_to_solution, "rel_err": rel,
+            "devices": [str(d) for d in devices]}
+
+
+#: the examples that touch the device; ``repartitioning`` is host-only (SA
+#: with a 10 s ``max_time``) and runs in the CPU tests
+DEVICE_EXAMPLES = ("local_contraction", "amplitude_sweep", "autodiff_gradients",
+                   "approximate_peps", "distributed_contraction", "sliced_partitioning",
+                   "strategy_selection")
+
+
+def example_oracle(name: str, out: dict) -> dict:
+    """Hold one example's returned values against the complex128 host
+    oracle (``NumpyBackend``, or the numpy contraction the example returns)
+    at the existing tolerances: amplitudes within 1e-4·max(|ref|, 2^-14),
+    a small statevector within 1e-5 of numpy with its norm within 1e-4 of
+    1, complex128 results on the card within 1e-10, the gradients within
+    1e-10 of the port's complex128 host gradient, a served approximate
+    amplitude within its request's rtol. Returns the errors."""
+    from tnc_tpu_torch.ops.backends import NumpyBackend
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    def amp_err(got, want) -> float:
+        got, want = np.asarray(got), np.asarray(want)
+        ratio = float(np.max(np.abs(got - want) / (1e-4 * np.maximum(np.abs(want), 2.0 ** -14))))
+        check(ratio <= 1.0, f"example {name}: amplitudes off complex128 ({ratio} of the gate)")
+        return ratio
+
+    if name == "local_contraction":
+        from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+        from tnc_tpu_torch.examples.local_contraction import QASM
+        from tnc_tpu_torch.io.qasm import import_qasm
+
+        tn, permutor = import_qasm(QASM).into_statevector_network()
+        path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+        want = np.asarray(permutor.apply(contract_tensor_network(tn, path, NumpyBackend()))
+                          .data.into_data()).reshape(-1)
+        diff = float(np.max(np.abs(out["statevector"] - want)))
+        norm = statevector_norm(out["statevector"])
+        check(diff <= 1e-5 and abs(norm - 1.0) <= 1e-4,
+              f"example {name}: max|diff| {diff} (gate 1e-5), norm {norm}")
+        return {"max_abs_diff": diff, "norm": norm}
+    if name == "amplitude_sweep":
+        from tnc_tpu_torch.builders.connectivity import ConnectivityLayout
+        from tnc_tpu_torch.builders.random_circuit import random_open_circuit
+        from tnc_tpu_torch.tensornetwork import amplitude_sweep
+
+        circuit = random_open_circuit(16, 10, 0.4, 0.4, np.random.default_rng(7),
+                                      ConnectivityLayout.LINE)
+        want = amplitude_sweep(circuit, out["bitstrings"], backend=NumpyBackend())
+        return {"amplitudes_of_gate": amp_err(out["amplitudes"], want)}
+    if name == "autodiff_gradients":
+        from tnc_tpu_torch.builders.circuit_builder import Circuit
+        from tnc_tpu_torch.contractionpath.paths import Greedy, OptMethod
+        from tnc_tpu_torch.examples.autodiff_gradients import BITSTRINGS, THETA
+        from tnc_tpu_torch.ops.autodiff import contraction_value_and_grad
+        from tnc_tpu_torch.tensornetwork import amplitude_sweep
+        from tnc_tpu_torch.tensornetwork.sweep import amplitude_sweep_value_and_grad
+        from tnc_tpu_torch.tensornetwork.tensordata import TensorData
+
+        def rx():
+            c = Circuit()
+            c.append_gate(TensorData.gate("rx", [THETA]), [c.allocate_register(1).qubit(0)])
+            return c.into_expectation_value_network()
+
+        def bell():
+            c = Circuit()
+            reg = c.allocate_register(3)
+            c.append_gate(TensorData.gate("h"), [reg.qubit(0)])
+            c.append_gate(TensorData.gate("cx"), [reg.qubit(0), reg.qubit(1)])
+            c.append_gate(TensorData.gate("ry", [0.3]), [reg.qubit(2)])
+            return c
+
+        tn = rx()
+        path = Greedy(OptMethod.GREEDY).find_path(tn).replace_path()
+        z = complex(contract_tensor_network(tn, path, NumpyBackend()).data.into_data()).real
+        _, grads = contraction_value_and_grad(rx(), path, wrt=out["slots"],
+                                              dtype="complex128", device="cpu")
+        amps = amplitude_sweep(bell(), BITSTRINGS, backend=NumpyBackend())
+        _, sweep_grads = amplitude_sweep_value_and_grad(bell(), BITSTRINGS, dtype="complex128",
+                                                        device="cpu")
+        errs = {"z": abs(out["z"] - z),
+                "grads": max(float(np.max(np.abs(g - w))) for g, w in zip(out["grads"], grads)),
+                "sweep_amplitudes": float(np.max(np.abs(out["sweep_amplitudes"] - amps))),
+                "sweep_grads": max(float(np.max(np.abs(g - w)))
+                                   for g, w in zip(out["sweep_grads"], sweep_grads)),
+                "dz_dtheta": abs(out["dz_dtheta"] + math.sin(THETA))}
+        check(all(v <= 1e-10 for k, v in errs.items() if k != "dz_dtheta")
+              and errs["dz_dtheta"] <= 1e-5, f"example {name}: {errs}")
+        return errs
+    if name == "approximate_peps":
+        from tnc_tpu_torch.builders.random_circuit import brickwork_circuit
+        from tnc_tpu_torch.tensornetwork import amplitude_sweep
+
+        exact = out["exact"]
+        sweep_rel = abs(out["sweep"][64] - exact) / abs(exact)
+        want = complex(amplitude_sweep(brickwork_circuit(8, 5, np.random.default_rng(0)),
+                                       ["10100110"], backend=NumpyBackend())[0])
+        served = out["service"]
+        served_rel = abs(served["value"] - want) / abs(want)
+        ladder = out["ladder"]
+        check(sweep_rel <= 1e-8 and ladder["converged"] and ladder["err"] >= ladder["true_err"]
+              and served_rel <= 1e-2 and served["approx_completed"] == 1,
+              f"example {name}: chi=64 {sweep_rel}, ladder {ladder}, served {served_rel}")
+        return {"chi64_rel": sweep_rel, "ladder_true_err": ladder["true_err"],
+                "ladder_err": ladder["err"], "served_rel": served_rel}
+    return {"amplitude_of_gate": amp_err(out["amplitude"], out["oracle"])}
+
+
+def run_examples() -> dict:
+    """Phase 20: the port's examples (``tnc_tpu_torch/examples/``), each
+    that touches the device run here through its ``main()`` on the card
+    (their printed lines shown), with the reference's sizes and seeds and
+    the reference's device counts as slots on ``cuda:0`` (4, 4 and 8).
+    Each run is synchronised and timed, its ``fused_chain`` launches
+    recorded (graphed replays included) and held after it against the
+    plain version (:func:`recorded_call`); each example's own asserts run
+    inside it, and its returned values are then held to the complex128
+    host oracle (:func:`example_oracle`)."""
+    import importlib
+
+    import torch
+
+    t_phase = time.perf_counter()
+    check("TNC_TPU_PLATFORM" not in os.environ,
+          "phase 20 runs the examples on the card: TNC_TPU_PLATFORM must be unset")
+    record, launches, rows = {}, {}, {}
+    for name in DEVICE_EXAMPLES:
+        label = f"example {name}"
+        module = importlib.import_module(f"tnc_tpu_torch.examples.{name}")
+        print(f"[{label}] python -m tnc_tpu_torch.examples.{name}:", flush=True)
+        res = recorded_call(label, module.main)
+        t0 = time.perf_counter()
+        errs = example_oracle(name, res.pop("out"))
+        oracle_s = time.perf_counter() - t0
+        print(f"[check] {label}: {res['wall_s']:.3f} s on the card (synchronised), peak "
+              f"{res['peak_bytes']} bytes, {res['launches']} fused_chain launches on "
+              f"{len(res['rows'])} distinct chains held after it (in {res['holds_s']:.2f} s); "
+              f"against complex128 {errs} (in {oracle_s:.2f} s)", flush=True)
+        if res["launches"]:
+            launches[label], rows[label] = res["launches"], res["rows"]
+        res.pop("rows")
+        record[name] = {**res, "oracle": errs, "oracle_s": oracle_s}
+        torch.cuda.empty_cache()
+    check(sum(launches.values()) > 0, "phase 20: no example launched fused_chain")
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"[examples] phase 20 in {record['seconds']:.1f} s", flush=True)
     return {"record": record, "chain_launches": launches, "chain_rows": rows}
 
 
@@ -7354,6 +7636,19 @@ def main() -> int:
                               k: chain_record(r) for k, r in qasm["chain_rows"].items()}},
                           "shapes": {"fused_chain": [
                               r for rows in qasm["chain_rows"].values() for r in rows]}}),
+              flush=True)
+        print(card_line(), flush=True)
+        return 0
+
+    if "--examples" in sys.argv[1:]:
+        # the port's examples that touch the device alone: phase 20
+        ex = run_examples()
+        print(json.dumps({"examples": ex["record"],
+                          "launches_by_path": {"fused_chain": ex["chain_launches"]},
+                          "kernels_by_path": {"fused_chain": {
+                              k: chain_record(r) for k, r in ex["chain_rows"].items()}},
+                          "shapes": {"fused_chain": [
+                              r for rows in ex["chain_rows"].values() for r in rows]}}),
               flush=True)
         print(card_line(), flush=True)
         return 0
@@ -7608,7 +7903,13 @@ def main() -> int:
     chain_launches.update(qasm["chain_launches"])
     phase_done(19)
 
-    # 20. the records
+    # 20. the port's examples that touch the device, each main() on the card
+    examples = run_examples()
+    chain_launches.update(examples["chain_launches"])
+    torch.cuda.empty_cache()
+    phase_done(20)
+
+    # 21. the records
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -7644,7 +7945,8 @@ def main() -> int:
                         **{k: chain_record(r) for k, r in part["chain_rows"].items()},
                         **{k: chain_record(r) for k, r in par["chain_rows"].items()},
                         **{k: chain_record(r) for k, r in fleet["chain_rows"].items()},
-                        **{k: chain_record(r) for k, r in qasm["chain_rows"].items()}},
+                        **{k: chain_record(r) for k, r in qasm["chain_rows"].items()},
+                        **{k: chain_record(r) for k, r in examples["chain_rows"].items()}},
         "fused_complex_dot": {"random28 fused rung": launch_weighted(dot_rec["shapes"]),
                               "sycamore53_m10_sliced fused rung":
                                   launch_weighted(sliced["dot_rows"]),
@@ -7664,7 +7966,8 @@ def main() -> int:
                    + [r for rows in part["chain_rows"].values() for r in rows]
                    + [r for rows in par["chain_rows"].values() for r in rows]
                    + [r for rows in fleet["chain_rows"].values() for r in rows]
-                   + [r for rows in qasm["chain_rows"].values() for r in rows])
+                   + [r for rows in qasm["chain_rows"].values() for r in rows]
+                   + [r for rows in examples["chain_rows"].values() for r in rows])
     # every path's rows weigh the launches it counted, so the record's times
     # are means over exactly the launches the line reports
     weighed = sum(r["launches"] for r in chain_rows)
@@ -7691,7 +7994,7 @@ def main() -> int:
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    phase_done(20)
+    phase_done(21)
     print(json.dumps({
         "main_path": {"qubits": QUBITS, "depth": DEPTH, "seed": SEED,
                       "steps": len(program.steps), "chains": len(policy.chains),
@@ -7711,6 +8014,7 @@ def main() -> int:
         "parallel": par["record"],
         "fleet": fleet["record"],
         "qasm": qasm["record"],
+        "examples": examples["record"],
         "phase_seconds": phase_s,
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},

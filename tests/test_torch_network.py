@@ -21,15 +21,16 @@ import tnc_tpu.ops.split_complex as ref_sc
 import tnc_tpu.tensornetwork.tensordata as ref_td
 import tnc_tpu_torch.builders.circuit_builder as port_cb
 import tnc_tpu_torch.builders.connectivity as port_conn
-import tnc_tpu_torch.builders.random_circuit as port_rc
 import tnc_tpu_torch.contractionpath.paths as port_paths
 import tnc_tpu_torch.ops.program as port_prog
 import tnc_tpu_torch.ops.split_complex as port_sc
 import tnc_tpu_torch.tensornetwork.tensordata as port_td
 from tnc_tpu_torch.interop import network_from_arrays, path_from_pairs
 
-# ``tnc_tpu.builders`` re-exports a function of the module's own name
+# ``tnc_tpu.builders`` (and, as the reference does, ``tnc_tpu_torch.builders``)
+# re-exports a function of the module's own name
 ref_rc = importlib.import_module("tnc_tpu.builders.random_circuit")
+port_rc = importlib.import_module("tnc_tpu_torch.builders.random_circuit")
 
 LAYOUTS = ["SYCAMORE", "LINE", "ALL"]
 

@@ -13,6 +13,7 @@ At import, ``TNC_TPU_LOG`` attaches a stderr handler to the
 device that ``device=None`` means (:mod:`tnc_tpu_torch.utils.logging_config`).
 """
 
+from tnc_tpu_torch.utils.lazy import lazy_getattr
 from tnc_tpu_torch.utils.logging_config import (
     configure_from_env as _configure_logging,
     pin_platform_from_env as _pin_platform,
@@ -21,8 +22,9 @@ from tnc_tpu_torch.utils.logging_config import (
 _configure_logging()
 _pin_platform()
 
-# the serving and resilience surface, importable from the top level without
-# importing it (and torch) with the package
+# the reference's top-level names and the serving and resilience surface,
+# importable from the top level without importing them (and torch) with the
+# package: ``from tnc_tpu_torch import SliceYield``
 _LAZY = {
     "ContractionService": "tnc_tpu_torch.serve.service",
     "FidelityRouter": "tnc_tpu_torch.serve.service",
@@ -34,20 +36,13 @@ _LAZY = {
     "faults": "tnc_tpu_torch.resilience.faultinject",
     "SliceCheckpoint": "tnc_tpu_torch.resilience.checkpoint",
     "SliceYield": "tnc_tpu_torch.ops.sliced",
+    # the reference's top-level names: tensors and paths
+    "CompositeTensor": "tnc_tpu_torch.tensornetwork.tensor",
+    "LeafTensor": "tnc_tpu_torch.tensornetwork.tensor",
+    "Tensor": "tnc_tpu_torch.tensornetwork.tensor",
+    "TensorData": "tnc_tpu_torch.tensornetwork.tensordata",
+    "ContractionPath": "tnc_tpu_torch.contractionpath.contraction_path",
+    "path": "tnc_tpu_torch.contractionpath.contraction_path",
 }
 
-
-def __getattr__(name: str):
-    """``from tnc_tpu_torch import ContractionService`` (and the other
-    names of ``_LAZY``), imported on first use.
-
-    >>> from tnc_tpu_torch import SliceYield
-    >>> SliceYield(3).cursor
-    3
-    """
-    module = _LAZY.get(name)
-    if module is None:
-        raise AttributeError(f"module 'tnc_tpu_torch' has no attribute {name!r}")
-    import importlib
-
-    return getattr(importlib.import_module(module), name)
+__getattr__ = lazy_getattr(__name__, _LAZY)

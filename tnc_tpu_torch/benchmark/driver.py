@@ -9,7 +9,9 @@ default) is :class:`~tnc_tpu_torch.ops.backends.TorchBackend` on the card,
 whose default policy sends chains through the ``fused_chain`` kernel, or
 on the host under ``TNC_TPU_PLATFORM=cpu``; ``"numpy"`` the complex128
 host oracle — or, with ``distributed``, through
-:func:`~tnc_tpu_torch.parallel.distributed_partitioned_contraction`.
+:func:`~tnc_tpu_torch.parallel.distributed_partitioned_contraction` with
+one device slot a partition (:func:`~tnc_tpu_torch.parallel._devices.
+device_slots`: one card runs every partition on ``cuda:0``).
 """
 
 from __future__ import annotations
@@ -236,11 +238,16 @@ def do_run(
         for _ in range(max(1, repeats)):
             t0 = time.monotonic()
             if distributed and path.nested:
+                from tnc_tpu_torch.obs.core import process_identity
                 from tnc_tpu_torch.parallel import (
                     distributed_partitioned_contraction,
                 )
+                from tnc_tpu_torch.parallel._devices import device_slots
 
-                distributed_partitioned_contraction(tn, path)
+                # one device slot a partition, the visible devices in turn;
+                # a group of several ranks shards the partitions itself
+                devices = None if process_identity()[0] > 1 else device_slots(len(tn.tensors))
+                distributed_partitioned_contraction(tn, path, devices=devices)
             else:
                 contract_tensor_network(tn, path, backend=backend)
             times.append(time.monotonic() - t0)

@@ -37,6 +37,7 @@ import random
 from typing import Sequence
 
 from tnc_tpu_torch.contractionpath.contraction_cost import (
+    PathObjective,
     contract_path_cost,
     greedy_cost_fn,
 )
@@ -182,11 +183,13 @@ class Greedy(Pathfinder):
         temperature: float = 1.0,
         cost_fn: str | None = None,
         alpha: float = 1.0,
+        objective: PathObjective | None = None,
     ) -> None:
         """``cost_fn``/``alpha`` select the pair heuristic
         (:func:`~tnc_tpu_torch.contractionpath.contraction_cost.greedy_cost_fn`
-        names, default memory-removed); ``RANDOM_GREEDY`` keeps the
-        trial with the lowest naive-op flops."""
+        names, default memory-removed); ``objective`` ranks
+        ``RANDOM_GREEDY`` trials (default: naive-op flops; a calibrated
+        objective keeps the trial whose *predicted seconds* are lowest)."""
         self.method = method
         self.ntrials = ntrials
         self.seed = seed
@@ -194,6 +197,7 @@ class Greedy(Pathfinder):
         self.cost_fn = (
             greedy_cost_fn(cost_fn, alpha) if cost_fn is not None else None
         )
+        self.objective = objective
 
     def _solve_toplevel(self, inputs: list[LeafTensor]) -> list[tuple[int, int]]:
         if self.method is OptMethod.GREEDY:
@@ -208,11 +212,14 @@ class Greedy(Pathfinder):
             rng = random.Random(self.seed + trial)
             temp = 0.0 if trial == 0 else self.temperature
             candidate = _ssa_greedy(leaf_tensors, rng, temp, self.cost_fn)
-            cost, _ = contract_path_cost(
-                leaf_tensors,
-                ssa_replace_ordering(ContractionPath.simple(candidate)),
-                True,
-            )
+            if self.objective is not None:
+                cost = self.objective.ssa_path_cost(leaf_tensors, candidate)
+            else:
+                cost, _ = contract_path_cost(
+                    leaf_tensors,
+                    ssa_replace_ordering(ContractionPath.simple(candidate)),
+                    True,
+                )
             if cost < best_cost:
                 best_cost = cost
                 best_path = candidate

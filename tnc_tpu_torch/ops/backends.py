@@ -91,27 +91,48 @@ def _run_steps(program: ContractionProgram, buffers: list[Any]) -> Any:
     return buffers[program.result_slot]
 
 
+def dtype_width(dtype) -> float:
+    """Element width in bytes of a backend dtype (a name, a numpy dtype,
+    anything ``np.dtype`` accepts, or a torch dtype): the one rule the
+    predicted-bytes counts share (step spans, prelude and residual bytes).
+    Split-complex pairs carry the bytes of the complex dtype they stand
+    for, so no special case.
+
+    >>> dtype_width("complex64"), dtype_width(np.complex128)
+    (8.0, 16.0)
+    """
+    try:
+        return float(np.dtype(dtype).itemsize)
+    except TypeError:
+        return 16.0 if "128" in str(dtype) else 8.0
+
+
 def run_steps_timed(
     program: ContractionProgram,
     buffers: list[Any],
     policy=None,
     sync: bool = False,
     precision=None,
+    dtype_bytes: float | None = None,
+    split_complex: bool | None = None,
 ) -> tuple[Any, list[dict]]:
     """Run a program one launch unit at a time, timing each: one record per
     step, and one per fused chain (whose record sums its steps' flops).
     Returns ``(result, records)``; the result in stored shape. Buffers are
     (real, imag) pairs, run through :func:`~tnc_tpu_torch.ops.split_complex.
     run_steps_split` under ``policy``, or native complex tensors or numpy
-    arrays, run step by step (``policy`` then ignored).
+    arrays, run step by step (``policy`` then ignored). ``split_complex``
+    says which of the two the buffers are; ``None`` reads it from them, and
+    a value that disagrees with them raises.
 
     A record holds ``label`` (``step[i] MxK·KxN``, or ``step[s..e] chain
     xN``), ``mode`` (the arithmetic that ran: ``chain``, or what
     :func:`~tnc_tpu_torch.ops.split_complex.resolved_step_mode` gives;
     ``naive`` for native complex), the predicted ``flops`` (complex
-    multiply-adds), ``bytes_in`` and ``bytes_out`` at the buffers' bytes per
-    complex element (operands read, their prep pass, the result written; a
-    chain reads its operands and writes its last result), ``ms`` and
+    multiply-adds), ``bytes_in`` and ``bytes_out`` at ``dtype_bytes`` bytes
+    per complex element (``None``: the buffers' own width; operands read,
+    their prep pass, the result written; a chain reads its operands and
+    writes its last result), ``ms`` and
     ``host_ms``. ``host_ms`` is the host's time to issue the unit. On a CUDA
     buffer ``ms`` is the time between CUDA events recorded on the current
     stream before and after the unit — device time when the stream is ahead
@@ -156,10 +177,16 @@ def run_steps_timed(
 
         executor, on_cuda = "torch", part.device.type == "cuda"
         complex_bytes = float(part.element_size())
+    if split_complex is not None and bool(split_complex) != split:
+        raise ValueError(
+            f"split_complex={split_complex} but the buffers are "
+            f"{'(real, imag) pairs' if split else 'complex arrays'}")
     if split:
         complex_bytes *= 2
     else:
         policy = None
+    if dtype_bytes is not None:
+        complex_bytes = float(dtype_bytes)
     steps = program.steps
     chains = set(policy.chains) if policy is not None else set()
 
@@ -321,10 +348,13 @@ def _batched_slots(batched: Sequence[int]) -> list[int]:
 
 
 class NumpyBackend(Backend):
-    """The host oracle: every step a complex128 numpy matmul."""
+    """The host oracle: every step a numpy matmul in ``dtype`` (complex128
+    by default; ``np.complex64`` gives a single-precision oracle)."""
 
     name = "numpy"
-    dtype = np.dtype(np.complex128)
+
+    def __init__(self, dtype=np.complex128):
+        self.dtype = np.dtype(dtype)
 
     def execute(
         self,
@@ -338,9 +368,9 @@ class NumpyBackend(Backend):
         costs no sync); ``False`` turns them off."""
         from tnc_tpu_torch import obs
 
-        buffers = [np.asarray(a, dtype=np.complex128) for a in arrays]
+        buffers = [np.asarray(a, dtype=self.dtype) for a in arrays]
         if obs.enabled() and (step_spans is None or step_spans):
-            out, _ = run_steps_timed(program, buffers)
+            out, _ = run_steps_timed(program, buffers, dtype_bytes=dtype_width(self.dtype))
         else:
             out = _run_steps(program, buffers)
         return np.asarray(out).reshape(program.result_shape)
@@ -366,7 +396,7 @@ class NumpyBackend(Backend):
         b = int(np.asarray(arrays[batched[0]]).shape[0])
         flags, threadable = thread_batch(program, batched)
         if threadable:
-            buffers = [np.asarray(a, dtype=np.complex128) for a in arrays]
+            buffers = [np.asarray(a, dtype=self.dtype) for a in arrays]
             out = run_steps_batched(program, buffers, flags)
             return np.asarray(out).reshape((b,) + tuple(program.result_shape))
         return stacked_rows(
@@ -387,7 +417,7 @@ class NumpyBackend(Backend):
         ckpt: str | None = None,
         on_slice=None,
     ) -> np.ndarray:
-        """The complex128 oracle of a sliced program
+        """The oracle of a sliced program, in ``dtype``
         (:func:`~tnc_tpu_torch.ops.sliced.execute_sliced_numpy`).
         ``host=False`` returns the result in **stored** shape, as the
         device backend does. ``hoist`` defaults to off, as in the
@@ -397,7 +427,7 @@ class NumpyBackend(Backend):
         from tnc_tpu_torch.ops.sliced import execute_sliced_numpy
 
         out = execute_sliced_numpy(
-            sp, arrays, max_slices=max_slices, hoist=bool(hoist),
+            sp, arrays, dtype=self.dtype, max_slices=max_slices, hoist=bool(hoist),
             slice_range=slice_range, ckpt=ckpt, on_slice=on_slice,
         )
         if not host:
@@ -569,7 +599,8 @@ class TorchBackend(Backend):
                 with torch.inference_mode():
                     out, _ = run_steps_timed(
                         program, list(buffers), self.kernel_policy(program), sync=True,
-                        precision=self.precision,
+                        precision=self.precision, dtype_bytes=dtype_width(self.dtype),
+                        split_complex=self.split_complex,
                     )
                 return out
 

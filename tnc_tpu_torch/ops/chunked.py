@@ -274,6 +274,7 @@ def run_sliced_chunked_placed(
     graphs: bool = True,
     ckpt: str | None = None,
     ckpt_data_digest: str | None = None,
+    enforce_budget: bool = True,
 ):
     """Chunked slice-batched execution over already-placed device buffers
     (:func:`~tnc_tpu_torch.ops.backends.place_buffers`, never consumed);
@@ -282,8 +283,9 @@ def run_sliced_chunked_placed(
 
     ``hoist=True`` computes the slice-invariant stem once (eagerly) and
     runs the chunked slice loop over the residual program only. ``batch``
-    is clamped to the device's memory and then to the largest divisor of
-    the summed slice count at or under it. ``max_slices`` keeps the first
+    is clamped to the device's memory (``enforce_budget=False`` skips that
+    clamp: the caller has sized the batch) and then to the largest divisor
+    of the summed slice count at or under it. ``max_slices`` keeps the first
     slices; ``slice_range=(lo, hi)`` sums the shard ``[lo, hi)``; the two
     exclude each other. ``graphs`` (on the card): replay one CUDA graph
     per chunk for every batch after the first; ``False`` runs every batch
@@ -315,7 +317,7 @@ def run_sliced_chunked_placed(
             sp, device_full = hoisted(sp, device_full, split_complex, precision)
         return _run_chunked(sp, list(device_full), batch, chunk_steps, split_complex,
                             precision, dtype, device, max_slices, slice_range, graphs,
-                            ckpt, ckpt_data_digest)
+                            ckpt, ckpt_data_digest, enforce_budget)
 
 
 def resolve_batch(
@@ -326,21 +328,24 @@ def resolve_batch(
     device=None,
     max_slices: int | None = None,
     slice_range: tuple[int, int] | None = None,
+    enforce_budget: bool = True,
 ) -> tuple[int, int, int]:
     """``(batch, lo, hi)``: the slice batch a chunked run of ``sp`` uses
     for the slices ``[lo, hi)`` it sums — the request clamped to the
-    device's memory, then to the largest divisor of ``hi - lo`` at or
-    under it."""
+    device's memory (unless not ``enforce_budget``), then to the largest
+    divisor of ``hi - lo`` at or under it."""
+    from tnc_tpu_torch.ops.backends import dtype_width
     from tnc_tpu_torch.ops.budget import clamp_slice_batch
 
     num = sp.slicing.num_slices
-    batch = clamp_slice_batch(
-        sp.program,
-        batch,
-        device=device,
-        split_complex=split_complex,
-        dtype_bytes=8 if "128" in str(dtype) else 4,
-    )
+    if enforce_budget:
+        batch = clamp_slice_batch(
+            sp.program,
+            batch,
+            device=device,
+            split_complex=split_complex,
+            dtype_bytes=int(dtype_width(dtype)) // 2,  # one real part
+        )
     lo = 0
     if slice_range is not None:
         if max_slices is not None:
@@ -379,7 +384,7 @@ def _restore_acc(acc, arrays) -> None:
 
 def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
                  dtype, device, max_slices, slice_range, graphs=True, ckpt=None,
-                 ckpt_data_digest=None):
+                 ckpt_data_digest=None, enforce_budget=True):
     import torch
 
     from tnc_tpu_torch import obs
@@ -400,7 +405,7 @@ def _run_chunked(sp, device_full, batch, chunk_steps, split_complex, precision,
     if slice_range is not None and ckpt is not None:
         raise ValueError("slice_range and ckpt are exclusive")
     batch, lo, num = resolve_batch(sp, batch, split_complex, dtype, device,
-                                   max_slices, slice_range)
+                                   max_slices, slice_range, enforce_budget)
     first = device_full[0][0] if split_complex else device_full[0]
     rows_all = torch.from_numpy(slice_index_rows(sp.slicing, lo, num)).to(first.device)
     stored_shape = sp.program.stored_result_shape

@@ -30,7 +30,7 @@ import numpy as np
 
 from tnc_tpu_torch.contractionpath.contraction_path import ContractionPath
 from tnc_tpu_torch.contractionpath.slicing import Slicing
-from tnc_tpu_torch.ops.backends import _run_steps
+from tnc_tpu_torch.ops.backends import _run_steps, run_steps_timed
 from tnc_tpu_torch.ops.program import ContractionProgram, build_program
 from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
 
@@ -208,14 +208,16 @@ def slice_bounds(
 def execute_sliced_numpy(
     sp: SlicedProgram,
     arrays: Sequence[np.ndarray],
+    dtype=np.complex128,
     max_slices: int | None = None,
     hoist: bool = False,
     slice_range: tuple[int, int] | None = None,
     ckpt: str | None = None,
     on_slice=None,
+    step_spans: bool | None = None,
 ) -> np.ndarray:
-    """CPU oracle: python loop over slices, sum of the program's complex128
-    results.
+    """CPU oracle: python loop over slices, sum of the program's results in
+    ``dtype`` (complex128 by default).
 
     ``max_slices`` caps the loop (partial sum over the first slices).
     ``slice_range=(lo, hi)``: partial sum over slice ids ``[lo, hi)``
@@ -234,17 +236,24 @@ def execute_sliced_numpy(
     armed) and raises :class:`SliceYield` — cooperative preemption at a
     slice boundary. The fault point ``sliced.slice`` (``s=``) precedes
     every slice.
+
+    ``step_spans``: a loop over all the slices (no ``slice_range``) runs
+    each slice through :func:`~tnc_tpu_torch.ops.backends.run_steps_timed`,
+    one span a step. Default (``None``): on whenever tracing is on; a
+    caller that wall-clocks this function passes ``False``.
     """
+    from tnc_tpu_torch import obs
     from tnc_tpu_torch.resilience import checkpoint as _ckpt
     from tnc_tpu_torch.resilience.faultinject import fault_point
 
+    dtype = np.dtype(dtype)
     lo, hi = slice_bounds(sp.slicing.num_slices, max_slices, slice_range)
-    full = [np.asarray(a, dtype=np.complex128) for a in arrays]
+    full = [np.asarray(a, dtype=dtype) for a in arrays]
     if hoist:
         from tnc_tpu_torch.ops.hoist import hoisted
 
         sp, full = hoisted(sp, full)
-    acc = np.zeros(sp.program.stored_result_shape, dtype=np.complex128)
+    acc = np.zeros(sp.program.stored_result_shape, dtype=dtype)
     mgr = None
     start = lo
     ckpt_path = _ckpt.resolve_ckpt(ckpt)
@@ -254,12 +263,12 @@ def execute_sliced_numpy(
         # cross-resume; a range shard carries its bounds
         if slice_range is not None:
             sig = _ckpt.signature_hash(
-                "numpy-range-v1", sp.signature(), "complex128", lo, hi, hoist,
+                "numpy-range-v1", sp.signature(), str(dtype), lo, hi, hoist,
                 _ckpt.arrays_digest(arrays),
             )
         else:
             sig = _ckpt.signature_hash(
-                "numpy-v1", sp.signature(), "complex128", hi, hoist,
+                "numpy-v1", sp.signature(), str(dtype), hi, hoist,
                 _ckpt.arrays_digest(arrays),
             )
         mgr = _ckpt.SliceCheckpoint(ckpt_path, sig)
@@ -267,7 +276,10 @@ def execute_sliced_numpy(
         if loaded is not None:
             start, (saved,) = loaded
             start = max(lo, min(int(start), hi))
-            acc = np.asarray(saved, dtype=np.complex128)
+            acc = np.asarray(saved, dtype=dtype)
+    # per-step spans (predicted flops and bytes beside measured wall time):
+    # the richest host sample for the calibration fit
+    step_timed = slice_range is None and obs.enabled() and (step_spans is None or step_spans)
     for s in range(start, hi):
         fault_point("sliced.slice", s=s)
         indices = _slice_indices(sp.slicing, s)
@@ -275,7 +287,11 @@ def execute_sliced_numpy(
             index_buffer(arr, info, indices)
             for arr, info in zip(full, sp.slot_slices)
         ]
-        acc = acc + _run_steps(sp.program, buffers)
+        if step_timed:
+            contrib, _ = run_steps_timed(sp.program, buffers)
+        else:
+            contrib = _run_steps(sp.program, buffers)
+        acc = acc + contrib
         if mgr is not None:
             mgr.maybe_save(s + 1, lambda _a=acc: [_a])
         if on_slice is not None and s + 1 < hi and on_slice(s + 1):

@@ -45,6 +45,13 @@ from tnc_tpu_torch.ops.program import ContractionProgram, batch_rows, prep_kl
 
 logger = logging.getLogger(__name__)
 
+#: kernel modes a single step can execute under. ``chain`` is not a
+#: per-step mode — chained steps run ``naive`` arithmetic inside one fused
+#: multi-step launch (see :class:`KernelPolicy`).
+KERNEL_MODES = (
+    "naive", "gauss", "fused", "fused_transpose", "strassen", "chain", "auto",
+)
+
 #: real-multiply credit of each kernel mode relative to the naive 4-dot
 #: complex lowering: Gauss runs 3 of the 4 dots, one Strassen level on top
 #: of Gauss runs 21 half-size sub-GEMMs against naive's 32 half-units.

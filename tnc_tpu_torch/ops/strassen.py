@@ -84,7 +84,7 @@ def strassen_eligible(
     return hi <= max_aspect * lo
 
 
-def strassen_dot_kl(a, b):
+def strassen_dot_kl(a, b, dot=None):
     """One Strassen level of ``aᵀ @ b`` with ``a: (K, M)``, ``b: (K, N)``
     torch tensors, either of which may carry a leading slice-batch axis
     (``(B, K, M)``): quadrants are cut from the last two dimensions and
@@ -94,7 +94,9 @@ def strassen_dot_kl(a, b):
     logical Strassen operand, ``X[i][j] == a[j][i]ᵀ``, so every block
     sum is a sum of contiguous ``a`` quadrants and the only transposes
     are the 7 sub-products' ``xᵀ @ y`` (a transposed view, which the
-    matmul takes without a copy).
+    matmul takes without a copy). ``dot(x, y)`` overrides the sub-product
+    kernel (``xᵀ @ y`` over the last two dimensions, a hand kernel could
+    slot in here); the default is that matmul.
 
     >>> import torch
     >>> g = torch.Generator().manual_seed(0)
@@ -105,6 +107,9 @@ def strassen_dot_kl(a, b):
     >>> a3 = torch.randn(3, 8, 6, dtype=torch.float64, generator=g)
     >>> torch.allclose(strassen_dot_kl(a3, b), a3.mT @ b)
     True
+    >>> torch.allclose(strassen_dot_kl(a, b, dot=lambda x, y: torch.einsum("km,kn->mn", x, y)),
+    ...                a.T @ b)
+    True
     """
     import torch
 
@@ -112,9 +117,9 @@ def strassen_dot_kl(a, b):
     n = b.shape[-1]
     if k % 2 or m % 2 or n % 2:
         raise ValueError(f"shape (K={k}, M={m}, N={n}) does not halve")
-
-    def dot(x, y):
-        return x.mT @ y
+    if dot is None:
+        def dot(x, y):
+            return x.mT @ y
 
     k2, m2, n2 = k // 2, m // 2, n // 2
     # X = aᵀ is (M, K); X[row block i][col block j] = a[col block j][row block i]ᵀ:

@@ -54,6 +54,30 @@ def resolve_devices(devices=None, n_devices: int | None = None) -> list:
     return devices
 
 
+def device_slots(k: int) -> list:
+    """``k`` device slots placed on the visible CUDA devices in turn: one
+    card runs ``[cuda:0] * k``, two run ``[cuda:0, cuda:1, cuda:0, ...]``.
+    Under the host pin (``TNC_TPU_PLATFORM=cpu``) every slot is the host;
+    without the pin and without CUDA it raises, as
+    :func:`~tnc_tpu_torch.ops.backends.resolve_device` does.
+
+    >>> from tnc_tpu_torch.utils import logging_config
+    >>> saved, logging_config._PINNED = logging_config._PINNED, "cpu"
+    >>> device_slots(3)
+    [device(type='cpu'), device(type='cpu'), device(type='cpu')]
+    >>> logging_config._PINNED = saved
+    """
+    import torch
+
+    from tnc_tpu_torch.ops.backends import resolve_device
+
+    first = resolve_device(None, "device slots")
+    if first.type != "cuda":
+        return [first] * k
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(k)]
+
+
 def rank_device(device=None):
     """This rank's device under a process group: ``device`` when given,
     else ``cuda:{LOCAL_RANK}`` (or ``cuda:{rank % device_count()}``),

@@ -71,6 +71,10 @@ from tnc_tpu_torch.serve.multihost import (  # noqa: F401
     serve_cluster,
     shard_ranges,
 )
+from tnc_tpu_torch.serve.replan import (  # noqa: F401
+    BackgroundReplanner,
+    SharedCacheWatcher,
+)
 from tnc_tpu_torch.serve.service import (  # noqa: F401
     ApproxAnswer,
     ContractionService,

@@ -372,7 +372,8 @@ class ClusterDispatcher:
     Every call broadcasts one command to the worker processes parked in
     :func:`serve_cluster` and runs the matching collective: batched bras
     shard across processes; a sliced bound program shards its slice ranges
-    instead. Calls are serialized by an internal lock — the fleet's
+    instead (``mode="auto"``; ``"bras"`` or ``"slices"`` forces one). Calls
+    are serialized by an internal lock — the fleet's
     collective sequence must never interleave two batches (or a batch with
     :meth:`stop`).
 
@@ -385,7 +386,8 @@ class ClusterDispatcher:
     Elastic operation (all optional):
 
     - ``registry`` (a :class:`~tnc_tpu_torch.obs.fleet.FleetRegistry` on
-      the fleet's shared directory, judged by its ``stale_after_s``): the
+      the fleet's shared directory, judged by its ``stale_after_s`` unless
+      the dispatcher's own ``stale_after_s`` is given): the
       dispatcher consults the live roster **per collective round** instead
       of the frozen process list — a worker whose heartbeat went stale
       stays in the collectives with an empty assignment, and is assigned
@@ -407,13 +409,19 @@ class ClusterDispatcher:
 
     def __init__(
         self,
+        mode: str = "auto",
         root: int = 0,
         registry=None,
+        stale_after_s: float | None = None,
         timeout_s: float | None = None,
         ckpt_dir: str | None = None,
     ):
+        if mode not in ("auto", "bras", "slices"):
+            raise ValueError(f"unknown dispatch mode {mode!r}")
+        self.mode = mode
         self.root = int(root)
         self.registry = registry
+        self.stale_after_s = stale_after_s
         self.timeout_s = timeout_s
         self.ckpt_dir = ckpt_dir
         self._lock = threading.Lock()
@@ -427,6 +435,11 @@ class ClusterDispatcher:
         # (weakref to bound, sig): an `is` check on the live object —
         # never id(), which CPython recycles across swap generations
         self._sig_cache: tuple | None = None
+
+    def _resolve(self, bound: BoundProgram) -> str:
+        if self.mode != "auto":
+            return self.mode
+        return "slices" if bound.sliced is not None else "bras"
 
     def _members(self, n: int) -> set[int] | None:
         """The processes still in the fleet's collectives (None: all)."""
@@ -446,7 +459,9 @@ class ClusterDispatcher:
         from tnc_tpu_torch.serve import elastic as _elastic
 
         live = (
-            _elastic.live_processes(self.registry, n, root=self.root)
+            _elastic.live_processes(
+                self.registry, n, root=self.root, stale_after_s=self.stale_after_s,
+            )
             if self.registry is not None else set(range(n))
         )
         n_items = (
@@ -473,7 +488,7 @@ class ClusterDispatcher:
                 "ClusterDispatcher must run on the root process; workers "
                 "belong in serve_cluster()"
             )
-        mode = "slices" if bound.sliced is not None else "bras"
+        mode = self._resolve(bound)
         with self._lock:
             if self._stopped:
                 raise DispatcherStoppedError("ClusterDispatcher is stopped")

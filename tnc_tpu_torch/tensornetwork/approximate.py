@@ -78,9 +78,11 @@ def elem_bytes(backend: str = "torch", dtype: str = "complex64") -> int:
     >>> elem_bytes(), elem_bytes("torch", "complex128"), elem_bytes("numpy")
     (8, 16, 16)
     """
+    from tnc_tpu_torch.ops.backends import dtype_width
+
     if backend != "torch":
         return _ELEM_BYTES
-    return np.dtype(str(dtype).removeprefix("torch.")).itemsize
+    return int(dtype_width(dtype))
 
 
 def attach_random_data(

@@ -114,6 +114,12 @@ class LeafTensor:
     def kind(self) -> TensorType:
         return TensorType.LEAF
 
+    def is_leaf(self) -> bool:
+        return True
+
+    def is_composite(self) -> bool:
+        return False
+
     def copy(self) -> "LeafTensor":
         return LeafTensor(self.legs, self.bond_dims, self.data)
 
@@ -252,6 +258,12 @@ class CompositeTensor:
 
     def kind(self) -> TensorType:
         return TensorType.COMPOSITE
+
+    def is_leaf(self) -> bool:
+        return False
+
+    def is_composite(self) -> bool:
+        return True
 
     def copy(self) -> "CompositeTensor":
         """Deep copy of the nesting structure (leaf data shared)."""

@@ -91,6 +91,15 @@ class TensorData:
     def matrix(cls, array: np.ndarray) -> "TensorData":
         return cls(DataKind.MATRIX, np.asarray(array, dtype=np.complex128))
 
+    @classmethod
+    def from_values(cls, shape: tuple[int, ...], values: list[complex]) -> "TensorData":
+        return cls.matrix(np.asarray(values, dtype=np.complex128).reshape(shape))
+
+    # -- queries -----------------------------------------------------------
+
+    def is_none(self) -> bool:
+        return self.kind is DataKind.NONE
+
     # -- lazy resolution ---------------------------------------------------
 
     def into_data(self) -> np.ndarray:

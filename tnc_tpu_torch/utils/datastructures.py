@@ -43,3 +43,6 @@ class UnionFind:
         if self.rank[ra] == self.rank[rb]:
             self.rank[ra] += 1
         return True
+
+    def num_sets(self) -> int:
+        return sum(1 for i, p in enumerate(self.parent) if self.find(i) == i)
