@@ -29,7 +29,7 @@ Phases, each of which raises on failure (nothing is caught):
    graph (its calls captured by the port's ``graphs.GraphSet`` and
    replayed), whose output must have the eager launch's bits;
 3. the main path: ``contract_tensor_network(tn, path, TorchBackend())``
-   once to warm up and three times timed, launch counts (and the chain's
+   once to warm up and twice timed, launch counts (and the chain's
    launches by form) reset just before each timed run and read just
    after it;
 4. correctness: statevector norm, four amplitudes against complex128
@@ -47,7 +47,7 @@ Phases, each of which raises on failure (nothing is caught):
    18/19, also against a float64 product beside cuBLAS's), timed beside
    the bound, the plain version and ``torch.einsum`` and weighted by the
    steps that have each shape; then the norm under the
-   default policy (one warm-up, two timed runs, the device-resident part
+   default policy (one warm-up, one timed run, the device-resident part
    and a profile), under the forced ``fused_transpose`` rung (its launches
    and routed steps must equal the plan's gate), both against the norm in
    complex128 on the card; and ``peps(3, 3, 2, 16, 0)`` on the forced
@@ -104,7 +104,7 @@ Phases, each of which raises on failure (nothing is caught):
    each chain of the first batch held against its plain version; the
    first 24 of its 4096 slices (``NORTHSTAR_RUN``; all of them take ~11
    minutes) through ``TorchBackend().execute_sliced`` (a warm-up batch,
-   two timed runs), the device-resident part, the prelude apart and a
+   one timed run), the device-resident part, the prelude apart and a
    profile of one batch; slices 0-15 one by one and the sum of the
    slices run against complex128 on the card; the forced ``fused`` rung
    on the first two batches, as in phase 9;
@@ -133,7 +133,7 @@ Phases, each of which raises on failure (nothing is caught):
    whose rungs (chains and chained steps, strassen, fused_transpose, gauss,
    ``high``) and chain ceiling are printed beside the no-model policy's;
    every chain the calibrated policy forms held against its plain version;
-   each cell under it, one warm-up and two timed runs, ``fused_chain``
+   each cell under it, one warm-up and one timed run, ``fused_chain``
    launches held to the policy's chains and ``fused_transpose_dot``
    launches plus routed steps to its ``fused_transpose`` steps, results
    held to phase 3's statevector (the forced rung's tolerance), the four
@@ -334,9 +334,39 @@ Phases, each of which raises on failure (nothing is caught):
    own asserts met, its returned values held to the complex128 host oracle
    at the gates above, and every ``fused_chain`` launch it made (CUDA-graph
    replays included) held after it against the plain version;
-21. one JSON line of path numbers (with each kernel's per-shape rows,
+21. the dot-precision rungs ``high`` (3xTF32) and ``default`` (one TF32
+   pass) on the card. At a TF32 rung every step outside the chains and
+   the admitted ``fused_transpose`` steps runs ``fused_complex_dot``'s
+   tensor-core tile, whatever its mode. Each kernel at each rung against
+   its plain version at that rung (1e-5·max|plain|; where two FP32 orders
+   of a long, cancelling sum differ by more, the kernel as near a float64
+   product as twice the plain version), on an exact single-product probe
+   (each rung's own bits, which FP32 arithmetic does not give), and
+   against a float64 computation from the same FP32 inputs (relative
+   Frobenius: ``high`` within 2^-20 a product or twice the plain float32
+   version's error, ``default`` at least 10x ``high``'s), timed beside its
+   float32 time, its plain version, the bound at the tensor cores' TF32
+   rate (494.7 TFLOP/s, or the bytes) and the library call (a complex64
+   ``matmul`` / ``einsum`` with TF32 on at ``default``, none at ``high``):
+   ``fused_transpose_dot`` at every layout the PEPS cell's forced
+   ``fused_transpose`` rung launches and ``fused_chain`` on each of
+   random28's chains, with random operands; every ``fused_complex_dot``
+   launch of the runs below recorded (each distinct shape's operands once,
+   a large one's leading block) and held after its run. Then at each rung,
+   counts reset just before each run and read just after: random28 under
+   the forced ``fused`` rung and through ``contract_tensor_network`` with
+   ``TorchBackend(precision=r)`` (its chains through ``fused_chain`` at the
+   rung), the PEPS norm under the forced ``fused_transpose`` rung (each
+   run's ``fused_complex_dot`` launches equal to its steps and to the
+   recorded count), and at ``high`` the m10 amplitude on the chunked path
+   (its chains recorded and held after the run). ``high`` meets the
+   complex64 gates against phases 4, 7 and 8's complex128 values; the
+   ``default`` errors are printed and must be finite and larger;
+22. one JSON line of path numbers (with each kernel's per-shape rows,
    float64 errors and launches by path), one of per-kernel numbers over
-   the launches of every path, the card line, and the last line
+   the launches of every path (each kernel's top-level numbers the float32
+   paths', ``launches`` every rung's, ``by_rung`` each rung's launches,
+   times, bound and library time), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a result when CUDA is unavailable or the
@@ -370,7 +400,10 @@ rows phase 18 serves and its sliced cell's uninterrupted value, runs phase
 chip_smoke.py --qasm`` builds the kernels, makes phase 19's sweeps (waiting
 for them), runs phase 19 alone, and ends with its JSON record and the card
 line. ``python3 chip_smoke.py --examples`` builds the kernels, runs phase 20
-alone, and ends with its JSON record and the card line.
+alone, and ends with its JSON record and the card line. ``python3
+chip_smoke.py --precision`` builds the kernels, makes phase 21's complex128
+references (random28's four amplitudes, the PEPS norm, m10's slices), runs
+phase 21 alone, and ends with its JSON record and the card line.
 """
 
 from __future__ import annotations
@@ -636,12 +669,16 @@ def graph_ms(fn, want, label: str, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: the rung of each kernel instantiation's code (``tnc::gemm::Rung``)
+RUNG_NAMES = {0: "float32", 1: "high", 2: "default"}
+
+
 def kernel_instances(log: str) -> list[tuple[str, int, int]]:
     """``(label, registers, spill store bytes)`` of every kernel in a
     ``ptxas -v`` log, labelled by its template arguments: element type,
     the tile variant's integers (``Variant<T, GM, TM, TN, BK, stages, fold,
-    unroll>``), and for the transpose kernel the offset type and
-    pipeline."""
+    unroll, pad A, pad B>``), for the transpose kernel the offset type and
+    pipeline, and the dot-precision rung."""
     out = []
     name, spill = "", 0
     for line in log.splitlines():
@@ -656,18 +693,22 @@ def kernel_instances(log: str) -> list[tuple[str, int, int]]:
         if m and name:
             t = re.search(r"VariantI([fd])((?:Li\d+E)+)", name)
             label = name[:40]
-            c = re.search(r"chain_(resident|grid)I([fd])(?:Lb([01])E)?E", name)
+            c = re.search(r"chain_(resident|grid)I([fd])(?:Lb([01])E)?(?:Li([012])E)?E", name)
             if c:
                 label = f"{c.group(1)}<{'float' if c.group(2) == 'f' else 'double'}>"
                 if c.group(3) is not None:
                     label += " full" if c.group(3) == "1" else " lean"
+                if c.group(4) is not None:
+                    label += f" {RUNG_NAMES[int(c.group(4))]}"
             if t:
                 ints = ",".join(re.findall(r"Li(\d+)E", t.group(2)))
                 label = f"{'float' if t.group(1) == 'f' else 'double'}<{ints}>"
-                tail = re.match(r"EE([ix])Lb([01])E", name[t.end():])
-                if tail:
+                tail = re.match(r"EE(?:([ix])Lb([01])E)?(?:Li([012])E)?", name[t.end():])
+                if tail and tail.group(1):
                     label += " int32" if tail.group(1) == "i" else " int64"
                     label += " staged" if tail.group(2) == "1" else " direct"
+                if tail and tail.group(3):
+                    label += f" {RUNG_NAMES[int(tail.group(3))]}"
             out.append((label, int(m.group(1)), spill))
             name = ""
     return out
@@ -1570,9 +1611,9 @@ def run_peps(backend) -> dict:
           f"steps {stems} carry {stem_flops:.4e} ({stem_flops / sum(flops):.3f}); "
           f"fused_transpose gate admits {admitted}, routes {routed}", flush=True)
 
-    default = run_main_path(tn, path, backend, "peps default", reps=2)
+    default = run_main_path(tn, path, backend, "peps default", reps=1)
     z = scalar(default.pop("out"))
-    prof = profile_device_path(device_run(tn, path, backend), "peps", reps=2)
+    prof = profile_device_path(device_run(tn, path, backend), "peps", reps=1)
     steps = timed_steps(backend, program, device_buffers(backend, tn), "peps")
     ft = forced(tn, path, "peps fused_transpose rung")
     z_ft = scalar(ft.pop("out"))
@@ -1739,20 +1780,20 @@ def holding(name: str, hold, module=None):
     """While active, every call the port makes to ``<module>.<name>``
     (default ``cuda_complex``; the split-complex step glue looks the
     wrappers, and ``split_complex.run_chain_split``, up at each call) first
-    goes to ``hold(*args)`` with the real function in place, which holds
-    the kernel against its plain version on exactly those operands."""
+    goes to ``hold(*args, **kw)`` with the real function in place, which
+    holds the kernel against its plain version on exactly those operands."""
     if module is None:
         from tnc_tpu_torch.ops import cuda_complex as module
 
     real = getattr(module, name)
 
-    def wrapper(*args):
+    def wrapper(*args, **kw):
         setattr(module, name, real)
         try:
-            hold(*args)
+            hold(*args, **kw)
         finally:
             setattr(module, name, wrapper)
-        return real(*args)
+        return real(*args, **kw)
 
     setattr(module, name, wrapper)
     try:
@@ -2855,6 +2896,7 @@ def run_calibrated(refs: dict, gen) -> dict:
 
     # 4. both cells under the calibrated policy
     chain_rows, records = [], {}
+    rung_dots = rung_dot_state()
     for name, cell_tn, cell_path, cell_program in cells:
         policy = policies[name]
         if policy.chains:
@@ -2864,7 +2906,10 @@ def run_calibrated(refs: dict, gen) -> dict:
                 row["label"] = f"{name} calibrated {row['label']}"
             chain_rows += rows
         torch.cuda.empty_cache()
-        run = run_main_path(cell_tn, cell_path, backend, f"{name} calibrated", reps=2)
+        # a stem step the model promotes to high launches fused_complex_dot
+        # at the rung: every such launch held (none when nothing promotes)
+        with holding_rung_dots(rung_dots, f"{name} calibrated"):
+            run = run_main_path(cell_tn, cell_path, backend, f"{name} calibrated", reps=1)
         check(run["launches"]["fused_chain"] == len(policy.chains),
               f"{name} calibrated: fused_chain launched {run['launches']['fused_chain']} "
               f"times for {len(policy.chains)} chains")
@@ -2874,7 +2919,8 @@ def run_calibrated(refs: dict, gen) -> dict:
               f"{name} calibrated: {run['launches']['fused_transpose_dot']} fused_transpose_dot "
               f"launches and {routed} routed steps for {promoted} promoted steps")
         out = run.pop("out")
-        dev = device_times(device_run(cell_tn, cell_path, backend), reps=2)
+        with holding_rung_dots(rung_dots, f"{name} calibrated"):
+            dev = device_times(device_run(cell_tn, cell_path, backend), reps=1)
         records[name] = {
             "policy": rung_counts(policy, dict(run["chain_forms"])),
             "no_model_policy": rung_counts(plan_kernels(cell_program)),
@@ -2924,6 +2970,8 @@ def run_calibrated(refs: dict, gen) -> dict:
               f"fused_chain by form {run['chain_forms']}", flush=True)
         torch.cuda.empty_cache()
 
+    hold_rung_dots(rung_dots)  # the promoted stem steps' launches, if any
+
     # 5. the Strassen crossover on this card
     print("[strassen] gauss against one Strassen level, FP32 split products", flush=True)
     strassen = strassen_crossover(cost_model, peps_program, gen)
@@ -2942,7 +2990,8 @@ def run_calibrated(refs: dict, gen) -> dict:
             "chain_launches": {f"{n} calibrated": r["launches"]["fused_chain"]
                                for n, r in records.items()},
             "transpose_launches": sum(r["launches"]["fused_transpose_dot"]
-                                      for r in records.values())}
+                                      for r in records.values()),
+            "rung_dots": rung_dots}
 
 
 def sweep_bits(seed: int = SWEEP_BITS_SEED) -> list[str]:
@@ -3889,7 +3938,7 @@ def run_approx(cost_model, qaoa_ref: float) -> dict:
     """Phase 13 (d): the approximate tier on the card, ``backend="torch"``.
 
     The QAOA ⟨Z…Z⟩ grid (``ApproxProgram.sandwich_from_circuit(...)
-    .rebind_pauli``) up ``ChiLadder(chi_start=4, chi_cap=64)`` at ``rtol=1e-6,
+    .rebind_pauli``) up ``ChiLadder(chi_start=8, chi_cap=64)`` at ``rtol=1e-6,
     scale=1.0`` in complex128 (it must converge; every rung's err at least
     its distance from (a)'s complex128 value), then in complex64 on the
     top two of those rungs, half the chi at which complex128 converged and
@@ -3921,9 +3970,10 @@ def run_approx(cost_model, qaoa_ref: float) -> dict:
     print(f"[{label}] grid {len(prog.grid)} x {len(prog.grid[0])}, exact chi bound "
           f"{exact_chi_bound(prog)}", flush=True)
     record: dict = {}
-    # from chi 4: the chi-2 boundary of this grid keeps nothing of the value
-    # (1e-125 against 1.17e-6) and costs a rung of ~6 s
-    ladder = ChiLadder(chi_start=APPROX_QAOA_START, chi_cap=APPROX_QAOA_CAP)
+    # from chi 8: the chi-2 boundary of this grid keeps nothing of the value
+    # (1e-125 against 1.17e-6), the chi-4 one misses it by 84% (9.8e-7), and
+    # each costs a rung of ~5 s
+    ladder = ChiLadder(chi_start=2 * APPROX_QAOA_START, chi_cap=APPROX_QAOA_CAP)
     for dtype in ("complex128", "complex64"):
         res, run, times = traced_ladder(
             ladder, prog, f"{label} {dtype} ladder", rtol=1e-6,
@@ -7483,6 +7533,798 @@ def run_examples() -> dict:
     return {"record": record, "chain_launches": launches, "chain_rows": rows}
 
 
+# -- phase 21: the dot-precision rungs ----------------------------------------------
+
+#: the TF32 rungs phase 21 runs (``float32`` is every other phase's)
+PRECISION_RUNGS = ("high", "default")
+#: tensor-core passes a real product takes at each rung
+RUNG_PASSES = {"float32": 1, "high": 3, "default": 1}
+#: the H100 SXM's dense TF32 rate on the tensor cores (half the data sheet's
+#: 989 TFLOP/s, which counts sparsity), FLOP/s
+TF32_PEAK_FLOPS = 494.7e12
+#: each kernel's ``high`` rung against a float64 product of its FP32 inputs:
+#: a quarter of the reference's ``HIGH_PRECISION_STEP_REL`` (2^-18), relative
+#: Frobenius error, per product (a chain of s stages: s products)
+HIGH_F64_REL = 2.0 ** -20
+#: ``default``'s error must be at least this many times ``high``'s (the TF32
+#: path ran)
+DEFAULT_OVER_HIGH = 10.0
+
+
+def rung_reps(macs: float) -> int:
+    """Timed calls of one rung case: fewer where a call is long."""
+    return 1 if 8.0 * macs > 1e13 else 3 if 8.0 * macs > 1e12 else 10
+
+
+def rung_bound_ms(nbytes: float, macs: float, rung: str) -> tuple[float, str]:
+    """The least time of a product at a rung: the larger of its bytes over
+    3.35 TB/s and its operations over the tensor cores' TF32 rate (the naive
+    four real products, 8 flops a complex multiply-add, times the rung's
+    passes); at ``float32`` the CUDA cores' FP32 bound of the other phases."""
+    if rung == "float32":
+        return bound_ms(nbytes, COMPLEX_MAC_FLOPS * macs, "float32")
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 8.0 * macs * RUNG_PASSES[rung] / TF32_PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def frob_rel(got, exact, chunk: int = 1 << 24) -> float:
+    """``||got - exact||_F / ||exact||_F`` over both parts, in float64,
+    ``chunk`` elements at a time (a large output's float64 copy would not
+    fit beside it)."""
+    num = den = 0.0
+    for g, e in zip(got, exact):
+        g, e = g.reshape(-1), e.reshape(-1)
+        for i in range(0, g.numel(), chunk):
+            gd, ed = g[i:i + chunk].double(), e[i:i + chunk].double()
+            num += float(((gd - ed) ** 2).sum())
+            den += float((ed ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def hold_rungs(what: str, kernel, plain, exact, nbytes: float, macs: float,
+               launches: int, library=None, stages: int = 1, reps: int = 10,
+               probe=None) -> dict:
+    """One kernel case at each rung: ``kernel(rung)`` against ``plain(rung)``
+    within 1e-5·max|plain| (``float32``, a baseline the rung's path does
+    not launch, is printed, not held), or, where the
+    two FP32 orders of a long, cancelling contraction differ by more, no
+    further from ``exact`` than twice the plain version's distance. On the
+    ``probe`` (:func:`hold_probe`) each rung must give its own exact bits,
+    so the rung's own arithmetic ran. On the case's random data the distances of the rung's
+    and the float32 output to the rung's plain version are printed, and
+    whether their bits differ: 3xTF32 lies within FP32's own rounding of
+    FP32, so neither is ordered (a K = 2, M = 1, N = 4 product gave the
+    float32 bits at ``high``). Each rung's relative
+    Frobenius error against ``exact`` (a float64 computation from the same
+    FP32 inputs; ``None``: not formed, the operands too large): ``high``
+    within ``HIGH_F64_REL`` a product (``stages`` products) or twice the
+    plain float32 version's own error, whichever is larger (a result that
+    cancels leaves FP32 itself further off), ``default`` at least
+    ``DEFAULT_OVER_HIGH`` times ``high``'s. Each rung timed (CUDA
+    events) beside its plain version, the bound and ``library(rung)``
+    (``None``: no PyTorch call computes it). A row per TF32 rung, weighted
+    by ``launches``."""
+    import torch
+
+    rows, errs, f32_ms, f32_out = {}, {}, None, None
+    for rung in ("float32",) + PRECISION_RUNGS:
+        got, k_reps = timed_once(lambda: kernel(rung), reps)
+        want, p_reps = timed_once(lambda: plain(rung), reps)
+        err, scale = max_err(got, want)
+        if rung == "float32":
+            # the baseline: a launch the rung's path does not make (at
+            # float32 such a step may run cuBLAS), printed, not held
+            if err > F32_REL_TOL * scale:
+                k64 = None if exact is None else max_err(got, exact)[0]
+                p64 = None if exact is None else max_err(want, exact)[0]
+                print(f"  {what}: the float32 baseline is {err:.3e} off its plain version "
+                      f"(scale {scale:.3e}; against float64 kernel {k64}, plain {p64})",
+                      flush=True)
+        elif err > F32_REL_TOL * scale and exact is not None:
+            # two FP32 orders of a long contraction whose result cancels
+            # part away can differ by more than 1e-5 of it: then the
+            # kernel must be as near the float64 product as the plain
+            # version is (within 2x, phase 2's rule)
+            k64, p64 = max_err(got, exact)[0], max_err(want, exact)[0]
+            print(f"  {what} at {rung}: max|err| against the plain version {err:.3e} > "
+                  f"{F32_REL_TOL} * {scale:.3e}; against float64 the kernel {k64:.3e}, the "
+                  f"plain version {p64:.3e}", flush=True)
+            check(k64 <= 2 * p64, f"{what} at {rung}: max|err| against float64 {k64} is "
+                  f"over twice the plain version's {p64}")
+        else:
+            check(err <= F32_REL_TOL * scale,
+                  f"{what} at {rung}: max|err| against the plain version {err} > "
+                  f"{F32_REL_TOL} * {scale}")
+        if exact is not None:
+            errs[rung] = frob_rel(got, exact)
+            if rung == "float32":
+                plain32 = frob_rel(want, exact)
+        if rung == "float32":
+            f32_out = got
+        else:
+            nearness = (frob_rel(got, want), frob_rel(f32_out, want),
+                        not all(torch.equal(g, f) for g, f in zip(got, f32_out)))
+        del got, want
+        ms, wall = time_ms(lambda: kernel(rung), k_reps, 0)  # timed_once warmed both
+        if rung == "float32":
+            f32_ms = ms
+            continue
+        plain_ms, _ = time_ms(lambda: plain(rung), p_reps, 0)
+        lib = None if library is None or library(rung) is None else \
+            time_ms(library(rung), p_reps, 1)[0]
+        b_ms, b_by = rung_bound_ms(nbytes, macs, rung)
+        rows[rung] = {"label": what, "rung": rung, "launches": launches, "err": err,
+                      "scale": scale, "f64_rel": errs.get(rung), "plain_rel": nearness[0],
+                      "float32_plain_rel": nearness[1], "bits_differ": nearness[2],
+                      "ms": ms, "wall_ms": wall,
+                      "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b_ms,
+                      "bound_by": b_by, "float32_ms": f32_ms}
+    del f32_out
+    if probe is not None:
+        hold_probe(what, probe)
+    if exact is not None:
+        # where the result cancels, FP32 itself (the plain float32 version)
+        # may lie further from float64 than 2^-20: high then holds to twice that
+        high_gate = max(HIGH_F64_REL * stages, 2 * plain32)
+        check(errs["high"] <= high_gate,
+              f"{what}: high's error against float64 {errs['high']:.3e} > {high_gate:.3e} "
+              f"(2^-20 x {stages}, or twice the plain float32 version's {plain32:.3e})")
+        check(errs["default"] >= DEFAULT_OVER_HIGH * errs["high"],
+              f"{what}: default's error against float64 {errs['default']:.3e} is not "
+              f"{DEFAULT_OVER_HIGH:g}x high's {errs['high']:.3e}")
+    for rung, row in rows.items():
+        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        f64 = "not formed" if exact is None else \
+            f"{row['f64_rel']:.3e} (float32 {errs['float32']:.3e}, plain float32 {plain32:.3e})"
+        print(f"  {what} {rung}: err {row['err']:.3e} (scale {row['scale']:.3e}); off the "
+              f"rung's plain version {row['plain_rel']:.3e}, the float32 kernel "
+              f"{row['float32_plain_rel']:.3e} (bits differ: {row['bits_differ']}); against "
+              f"float64 {f64}; device: kernel "
+              f"{row['ms']:.5f} ms (float32 {f32_ms:.5f} ms) plain {row['plain_ms']:.5f} ms "
+              f"library {lib}; bound {row['bound_ms']:.3e} ms ({row['bound_by']}, "
+              f"{RUNG_PASSES[rung]} TF32 pass{'es' if RUNG_PASSES[rung] > 1 else ''} at "
+              f"494.7 TFLOP/s)", flush=True)
+    return rows
+
+
+#: the probe's operand value: hi = rna_tf32 = 1 and lo = 2^-11 - 2^-21, so
+#: one product is 1 + 2^-10 - 2^-20 at ``high`` (lo·lo dropped, every sum
+#: exact), 1 at ``default`` and 1 + 2^-10 - 2^-20 + 2^-22 in FP32
+PROBE_VALUE = 1.0 + 2.0 ** -11 - 2.0 ** -21
+
+
+def probe_parts(parts, first: int = 4, to_kf=None) -> list:
+    """Operands shaped as ``parts`` ((real, imag) pairs, each ``(..., K,
+    F)``) for :func:`hold_probe`: zero but for contract index 0 of the real
+    parts, :data:`PROBE_VALUE` on the first ``first`` parts (the product's
+    two operands) and 1 on the rest (a chain's links, whose products then
+    keep the carried value exact at every rung). ``to_kf(i, t)``: part
+    ``i`` as its ``(K, F)`` matrix where it is stored otherwise (the
+    transpose kernel's layouts)."""
+    import torch
+
+    out = []
+    for i, t in enumerate(parts):
+        z = torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+        if i % 2 == 0:
+            value = PROBE_VALUE if i < first else 1.0
+            if to_kf is None:
+                z[..., 0, :] = value
+            else:
+                idx = torch.arange(z.numel(), device=z.device).reshape(z.shape)
+                z.view(-1)[to_kf(i, idx)[0]] = value
+        out.append(z)
+    return out
+
+
+#: the one product every probe output is, exactly, at each rung, as the
+#: plain versions compute it (tests/test_torch_precision.py): FP32's
+#: rounding of the square; 3xTF32 drops lo·lo and sums exactly; one TF32
+#: pass multiplies 1 by 1
+PROBE_OUT = {"float32": float(np.float32(PROBE_VALUE) * np.float32(PROBE_VALUE)),
+             "high": 1.0 + 2.0 ** -10 - 2.0 ** -20, "default": 1.0}
+
+
+def hold_probe(what: str, probe) -> None:
+    """``probe(rung)`` is the kernel's output on :func:`probe_parts`
+    operands, every output one product (the rest of each contraction
+    zero) whose value each rung fixes exactly (:data:`PROBE_OUT`, three
+    distinct values): at each rung the kernel gives its rung's value bit
+    for bit and a zero imaginary part, so a launch that ran another rung's
+    arithmetic (FP32 under ``high``) cannot pass."""
+    for rung in ("float32",) + PRECISION_RUNGS:
+        re, im = probe(rung)
+        check(bool((re == PROBE_OUT[rung]).all()) and not bool(im.any()),
+              f"{what} at {rung}: the probe's output is not {PROBE_OUT[rung]!r} + 0i "
+              f"everywhere (values {re.unique()[:4].tolist()})")
+    print(f"  {what}: the probe gives each rung's bits", flush=True)
+
+
+#: device milliseconds one timed case of :func:`hold_rungs` may take
+RUNG_TIMING_MS = 100.0
+
+
+def timed_once(fn, reps: int):
+    """``(fn(), n)``: one call, its device time read through CUDA events,
+    and the timed repetitions to make of it: ``reps``, fewer where
+    ``reps`` calls would pass ``RUNG_TIMING_MS``."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, max(1, min(reps, int(RUNG_TIMING_MS / max(start.elapsed_time(end), 1e-3))))
+
+
+@contextlib.contextmanager
+def tf32_matmul():
+    """cuBLAS TF32 on while active: the library time of the ``default``
+    rung (a complex64 product with TF32 on). The port never turns it on."""
+    import torch
+
+    matmul = torch.backends.cuda.matmul
+    was = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = was
+
+
+#: a recorded rung launch whose parts pass this many elements keeps its
+#: first batch row only, and one whose output passes RUNG_RECORD_OUT
+#: elements a part a leading block of its rows and columns, its
+#: contraction whole: its operands are copied while the contraction's own
+#: buffers are live, and its hold (the plain version's split copies, the
+#: float64 product, each rung's outputs) and timings run on what was kept
+RUNG_RECORD_ELEMS = 1 << 28
+RUNG_RECORD_OUT = 1 << 26
+#: past this many output elements a part, a held launch forms no float64
+#: product
+RUNG_F64_ELEMS = 1 << 28
+
+
+def rung_dot_state() -> dict:
+    """Where :func:`rung_dot_hold` keeps what it saw: the operands of each
+    distinct launch shape (``recorded``, held by :func:`hold_rung_dots`),
+    ``rows`` by rung and the launches ``counts`` per (shape, rung)."""
+    return {"recorded": {}, "rows": {rung: [] for rung in PRECISION_RUNGS}, "counts": {}}
+
+
+def rung_dot_hold(label: str, state: dict):
+    """A hold for :func:`holding` of ``cuda_complex.fused_complex_dot`` that
+    records every launch at a TF32 rung: the operands of each distinct pair
+    of operand shapes, copied at its first launch (the first batch row
+    where a part passes ``RUNG_RECORD_ELEMS``, a leading block of rows and
+    columns where the output passes ``RUNG_RECORD_OUT``), and every launch
+    counted in
+    ``state["counts"]`` under its shapes and rung (a graph host counter:
+    replays count)."""
+    def hold(ar, ai, br, bi, precision=None):
+        if precision in (None, "float32"):
+            return
+        key = (tuple(ar.shape), tuple(br.shape))
+        if key not in state["recorded"]:
+            parts = (ar, ai, br, bi)
+            if max(t.numel() for t in parts) > RUNG_RECORD_ELEMS:
+                parts = tuple(t[:1] if t.dim() == 3 else t for t in parts)
+            rows = max(t.shape[0] if t.dim() == 3 else 1 for t in parts)
+            m, n = ar.shape[-1], br.shape[-1]
+            while rows * m * n > RUNG_RECORD_OUT:
+                m, n = (-(-m // 2), n) if m > n else (m, -(-n // 2))
+            parts = (parts[0][..., :m], parts[1][..., :m], parts[2][..., :n], parts[3][..., :n])
+            state["recorded"][key] = (label, tuple(t.clone() for t in parts))
+        state["counts"][(key, precision)] = state["counts"].get((key, precision), 0) + 1
+
+    return hold
+
+
+def hold_rung_dots(state: dict) -> None:
+    """Each recorded launch shape not yet held, after the run that made it:
+    :func:`hold_rungs` at every rung on its recorded operands (with the
+    probe), the library a complex64 ``matmul`` with TF32 on at
+    ``default``; its rows weigh the launches counted at its shapes (set by
+    :func:`rung_dot_rows`). The holds' own launches are taken back out of
+    the kernels' counts."""
+    import torch
+
+    from tnc_tpu_torch.ops import cuda_complex as cc
+
+    held = {row["key"] for rows in state["rows"].values() for row in rows}
+    for key, (label, parts) in list(state["recorded"].items()):
+        if key in held:
+            continue
+        (k, m), n = parts[0].shape[-2:], parts[2].shape[-1]
+        rows = max(t.shape[0] if t.dim() == 3 else 1 for t in parts)
+        exact = None if rows * m * n > RUNG_F64_ELEMS else \
+            cc.fused_complex_dot_reference(*(t.double() for t in parts))
+        a_c, b_c = torch.complex(parts[0], parts[1]), torch.complex(parts[2], parts[3])
+
+        def library(rung):
+            if rung != "default":
+                return None
+
+            def call():
+                with tf32_matmul():
+                    return a_c.mT @ b_c
+            return call
+
+        saved = dict(cc.LAUNCHES), dict(cc.RUNG_LAUNCHES)
+        batch = f" batch {rows}" if rows > 1 else ""
+        cut = "" if (parts[0].shape, parts[2].shape) == key else \
+            f" (held on a block of {key[0]} x {key[1]})"
+        probe = probe_parts(parts)
+        out = hold_rungs(
+            f"fused_complex_dot {label}{batch} K={k} M={m} N={n}{cut}",
+            lambda rung: cc.fused_complex_dot(*parts, precision=rung),
+            lambda rung: cc.fused_complex_dot_reference(*parts, rung), exact,
+            4.0 * 2 * (parts[0].numel() + parts[2].numel() + rows * m * n),
+            rows * k * m * n, 0, library, reps=rung_reps(rows * k * m * n),
+            probe=lambda rung: cc.fused_complex_dot(*probe, precision=rung))
+        for live, before in zip((cc.LAUNCHES, cc.RUNG_LAUNCHES), saved):
+            live.clear()
+            live.update(before)
+        for rung, row in out.items():
+            row.update(k=k, m=m, n=n, batch=rows, key=key)
+            state["rows"][rung].append(row)
+        state["recorded"][key] = (label, None)  # held: the copies go
+        del parts, probe, exact, a_c, b_c
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def holding_rung_dots(state: dict, label: str):
+    """:func:`rung_dot_hold` on every ``fused_complex_dot`` call while
+    active, its counts joined to the graphs' host counters (the recorded
+    shapes are held after, by :func:`hold_rung_dots`)."""
+    from tnc_tpu_torch.ops import graphs
+
+    real = graphs._counters
+    graphs._counters = lambda: real() + (state["counts"],)
+    try:
+        with holding("fused_complex_dot", rung_dot_hold(label, state)):
+            yield
+    finally:
+        graphs._counters = real
+
+
+def held_rung_launches(state: dict, rung: str) -> int:
+    """The ``fused_complex_dot`` launches at ``rung`` the holds counted."""
+    return sum(n for (_, r), n in state["counts"].items() if r == rung)
+
+
+def rung_dot_rows(state: dict) -> dict:
+    """The held rows by rung, each weighed by the launches counted at its
+    shapes and rung; every recorded shape must have been held."""
+    check(all(parts is None for _, parts in state["recorded"].values()),
+          "a recorded fused_complex_dot rung launch was never held")
+    for rung, rows in state["rows"].items():
+        for row in rows:
+            row["launches"] = state["counts"].get((row["key"], rung), 0)
+    return state["rows"]
+
+
+def rung_transpose_rows(program, gen) -> dict:
+    """``fused_transpose_dot`` at every distinct admitted layout of the PEPS
+    plan, at each rung (the library a complex64 ``einsum`` with TF32 on at
+    ``default``), each weighted by the steps that have it."""
+    import torch
+
+    from tnc_tpu_torch.ops import cuda_complex as cc
+
+    rows = {rung: [] for rung in PRECISION_RUNGS}
+    for first, second, steps in sorted(transpose_cases(program),
+                                       key=lambda c: -c[0].k_size * c[0].f_size * c[1].f_size):
+        k, m, n = first.k_size, first.f_size, second.f_size
+        ops = [torch.randn(v, generator=gen, device="cuda")
+               for v in (first.view, first.view, second.view, second.view)]
+        exact = cc.fused_transpose_reference(*(t.double() for t in ops), first, second)
+        a_c, b_c = torch.complex(ops[0], ops[1]), torch.complex(ops[2], ops[3])
+        try:
+            spec = einsum_spec(first, second)
+        except RuntimeError:  # contract digits grouped otherwise: no one call
+            spec = None
+
+        def library(rung):
+            if rung != "default" or spec is None:
+                return None
+
+            def call():
+                with tf32_matmul():
+                    return torch.einsum(spec, a_c, b_c)
+            return call
+
+        probe = probe_parts(ops, to_kf=lambda i, t: cc._as_kf(t, first if i < 2 else second))
+        held = hold_rungs(
+            f"fused_transpose_dot steps {steps} K={k} M={m} N={n}",
+            lambda rung: cc.fused_transpose_dot(*ops, first, second, rung),
+            lambda rung: cc.fused_transpose_reference(*ops, first, second, rung), exact,
+            4.0 * 2 * (ops[0].numel() + ops[2].numel() + m * n), k * m * n, len(steps),
+            library, reps=rung_reps(k * m * n),
+            probe=lambda rung: cc.fused_transpose_dot(*probe, first, second, rung))
+        del probe
+        for rung, row in held.items():
+            rows[rung].append({**row, "k": k, "m": m, "n": n, "steps": steps})
+        del ops, exact, a_c, b_c
+        torch.cuda.empty_cache()
+    return rows
+
+
+def hold_chain_rungs(first_ops, link_ops, links, label: str, launches: int,
+                     rungs=PRECISION_RUNGS) -> dict:
+    """One chain through ``fused_chain`` at each rung: planned at the rung,
+    two launches bitwise equal, then :func:`hold_rungs` (a chain of s
+    stages is s products against float64). The holds' launches are taken
+    back out of the counts."""
+    import torch
+
+    from tnc_tpu_torch.ops import cuda_complex as cc
+
+    saved = dict(cc.LAUNCHES), dict(cc.CHAIN_FORMS), dict(cc.RUNG_LAUNCHES)
+    plans = {rung: cc.chain_plan(first_ops, link_ops, links, precision=rung)
+             for rung in ("float32",) + PRECISION_RUNGS}
+    for rung, plan_r in plans.items():
+        a = cc.fused_chain(first_ops, link_ops, links, plan_r, rung)
+        b = cc.fused_chain(first_ops, link_ops, links, plan_r, rung)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"fused_chain {label} at {rung}: two launches differ")
+    exact = cc.fused_chain_reference(tuple(t.double() for t in first_ops),
+                                     [tuple(t.double() for t in pair) for pair in link_ops],
+                                     links)
+    ops = list(first_ops) + [t for pair in link_ops for t in pair]
+    flat = probe_parts(ops)
+    p_first, p_links = tuple(flat[:4]), [tuple(flat[i:i + 2]) for i in range(4, len(flat), 2)]
+
+    def probe(rung):
+        plan_p = cc.chain_plan(p_first, p_links, links, precision=rung)
+        return cc.fused_chain(p_first, p_links, links, plan_p, rung)
+
+    rows = hold_rungs(
+        f"fused_chain {label} ({','.join(plans['high'].forms)})",
+        lambda rung: cc.fused_chain(first_ops, link_ops, links, plans[rung], rung),
+        lambda rung: cc.fused_chain_reference(first_ops, link_ops, links, rung), exact,
+        sum(t.numel() for t in ops) * 4 + 2 * exact[0].numel() * 4,
+        chain_macs(first_ops, link_ops, links), launches, stages=len(links) + 1, reps=20,
+        probe=probe)
+    del flat, p_first, p_links
+    for live, before in zip((cc.LAUNCHES, cc.CHAIN_FORMS, cc.RUNG_LAUNCHES), saved):
+        live.clear()
+        live.update(before)
+    return {rung: rows[rung] for rung in rungs}
+
+
+def chain_macs(first_ops, link_ops, links) -> float:
+    """Complex multiply-adds of a chain (every batch row)."""
+    rows = max([t.shape[0] for t in list(first_ops) + [p[0] for p in link_ops]
+                if t.dim() == 3], default=1)
+    shape = (first_ops[0].shape[-1], first_ops[2].shape[-1])
+    macs = rows * first_ops[0].shape[-2] * shape[0] * shape[1]
+    for (cr, _), link in zip(link_ops, links):
+        x = cr.shape[-1]
+        macs += rows * shape[0] * shape[1] * x
+        shape = link.out_shape(x)
+    return float(macs)
+
+
+def record_rung_chain_run(recorded: dict, counts: dict):
+    """A hold for :func:`holding` of ``split_complex.run_chain_split`` that
+    records, as :func:`record_chain_run` does, each distinct chain's operands
+    and its rung (the chain's own: the backend's precision and the policy's
+    entry), and counts its runs in ``counts`` (a graph host counter: replays
+    count)."""
+    from tnc_tpu_torch.ops.split_complex import _resolve_step_precision, chain_operands
+
+    def hold(steps, buffers, batched=None, runs=None, key=None, precision=None,
+             precision_mode="", *_):
+        rung = _resolve_step_precision(precision, precision_mode)
+        first, link_ops, links = chain_operands(steps, buffers,
+                                                set() if batched is None else batched)
+        k = (rung, chain_key(first, link_ops, links))
+        if k not in recorded:
+            recorded[k] = [tuple(t.clone() for t in first),
+                           [tuple(t.clone() for t in pair) for pair in link_ops], links]
+        counts[k] = counts.get(k, 0) + 1
+
+    return hold
+
+
+@contextlib.contextmanager
+def recording_rung_chains(recorded: dict):
+    """:func:`record_rung_chain_run` on every ``run_chain_split`` call while
+    active; yields the counts, which CUDA-graph replays add to."""
+    from tnc_tpu_torch.ops import graphs, split_complex
+
+    counts: dict = {}
+    real = graphs._counters
+    graphs._counters = lambda: real() + (counts,)
+    try:
+        with holding("run_chain_split", record_rung_chain_run(recorded, counts),
+                     split_complex):
+            yield counts
+    finally:
+        graphs._counters = real
+
+
+def rung_statevector_errors(leaf, refs) -> dict:
+    """A random28 statevector's norm error and its four amplitudes' errors
+    against complex128 (phase 4's), each over its gate: ``norm`` |<ψ|ψ> - 1|
+    over 1e-4, ``amps`` |Δ| over 1e-4·max(|ref|, 2^-14)."""
+    sv = np.asarray(leaf.data.into_data())
+    norm = statevector_norm(sv)
+    check(sv.shape == (2,) * QUBITS and math.isfinite(norm),
+          f"statevector of shape {sv.shape} or a non-finite value")
+    amps = []
+    for bits, ref in refs["amplitudes"]:
+        got = complex(sv[tuple(int(bits[refs["qubit_of"][leg]]) for leg in leaf.legs)])
+        check(math.isfinite(got.real) and math.isfinite(got.imag), "non-finite amplitude")
+        amps.append(abs(got - ref) / (1e-4 * max(abs(ref), 2.0 ** -14)))
+    return {"norm": abs(norm - 1.0) / 1e-4, "amps": amps,
+            "worst": max([abs(norm - 1.0) / 1e-4] + amps)}
+
+
+def precision_refs(backend) -> dict:
+    """What phase 21 holds its results to when it runs alone: phase 4's
+    complex128 amplitudes of random28, phase 7's complex128 PEPS norm and
+    phase 8's complex128 slices of m10, made here."""
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.tensornetwork.contraction import contract_tensor_network
+
+    tn, permutor = build_config(QUBITS)
+    oracle = TorchBackend(dtype="complex128", split_complex=False)
+    amplitudes = []
+    for bits in np.random.default_rng(7).integers(0, 2, size=(4, QUBITS)):
+        amp_tn, _ = build_config(QUBITS, "".join(str(int(b)) for b in bits))
+        amplitudes.append((bits, complex(contract_tensor_network(
+            amp_tn, plan(amp_tn), oracle).data.into_data())))
+    peps_tn = build_peps(PEPS)
+    z128 = scalar(contract_tensor_network(peps_tn, plan(peps_tn), oracle))
+    return {"amplitudes": amplitudes,
+            "qubit_of": {leg: q for q, leg in enumerate(permutor.target_leg_order)},
+            "peps_norm_complex128": z128, "m10": m10_cell()}
+
+
+def tf32_dot_steps(program, policy) -> int:
+    """Steps of ``program`` that launch ``fused_complex_dot`` at a TF32
+    rung under ``policy``: every step outside its chains but the
+    ``fused_transpose`` steps whose gate admits them
+    (``split_complex.apply_step_split``)."""
+    from tnc_tpu_torch.ops.split_complex import fused_transpose_ineligible_reason
+
+    chained = policy.chained_steps()
+    return sum(1 for i, st in enumerate(program.steps) if i not in chained
+               and not (policy.modes[i] == "fused_transpose"
+                        and fused_transpose_ineligible_reason(st) is None))
+
+
+def run_precision(refs: dict, gen) -> dict:
+    """Phase 21: the dot-precision rungs ``high`` (3xTF32) and ``default``
+    (one TF32 pass) on the card. At a TF32 rung every step outside the
+    chains and the admitted ``fused_transpose`` steps launches
+    ``fused_complex_dot`` at the rung, whatever its mode. Each kernel at
+    each rung against its plain version at that rung and a float64
+    product, timed beside its float32 time, the bound at the TF32 rate and
+    the library call: every layout the PEPS cell's forced
+    ``fused_transpose`` rung launches and each of random28's chains, with
+    random operands; every ``fused_complex_dot`` launch of the runs below
+    on its own operands, each distinct shape once (:func:`rung_dot_hold`).
+    Then, at each rung: random28 under the forced ``fused`` rung and
+    through ``contract_tensor_network`` with ``TorchBackend(precision=r)``
+    (its chains through ``fused_chain`` at the rung), the PEPS norm under
+    the forced ``fused_transpose`` rung, each launch count held to the
+    steps and the holds; and m10 chunked at ``high``. ``high`` meets the
+    complex64 gates against complex128; ``default``'s errors are printed,
+    finite and larger."""
+    import torch
+
+    from tnc_tpu_torch.ops import cuda_complex as cc
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.program import build_program
+    from tnc_tpu_torch.ops.split_complex import chain_operands, plan_kernels
+    from tnc_tpu_torch.tensornetwork.contraction import (
+        contract_tensor_network,
+        contract_tensor_network_sliced,
+    )
+
+    def forced(mode, fn):
+        os.environ["TNC_TPU_COMPLEX_MULT"] = mode
+        try:
+            return fn()
+        finally:
+            del os.environ["TNC_TPU_COMPLEX_MULT"]
+
+    tn, _ = build_config(QUBITS)
+    path = plan(tn)
+    program = build_program(tn, path)
+    policy = plan_kernels(program)
+    peps_tn = build_peps(PEPS)
+    peps_path = plan(peps_tn)
+    peps_program = build_program(peps_tn, peps_path)
+    admitted, _ = transpose_gate(peps_program)
+    steps_of = {"random28": tf32_dot_steps(program, policy),
+                "random28 forced fused": forced("fused", lambda: tf32_dot_steps(
+                    program, plan_kernels(program))),
+                "peps44_b32 forced fused_transpose": forced(
+                    "fused_transpose", lambda: tf32_dot_steps(
+                        peps_program, plan_kernels(peps_program)))}
+
+    t0 = time.perf_counter()
+    print("[precision] fused_transpose_dot at the PEPS cell's admitted layouts", flush=True)
+    transpose_rows = rung_transpose_rows(peps_program, gen)
+    print("[precision] fused_chain on random28's chains", flush=True)
+    chain_rows = {rung: [] for rung in PRECISION_RUNGS}
+    for s, e in policy.chains:
+        steps = program.steps[s:e]
+        buffers = random_buffers(program, chain_slot_sizes(steps), torch.float32, gen)
+        for rung, row in hold_chain_rungs(*chain_operands(steps, buffers),
+                                          f"random28 steps {s}..{e - 1}", 1).items():
+            chain_rows[rung].append(row)
+    torch.cuda.empty_cache()
+    holds_s = time.perf_counter() - t0
+    print(f"[precision] the transpose and chain rung holds in {holds_s:.1f} s", flush=True)
+
+    dots = rung_dot_state()
+
+    def counted(fn, label, rung, steps=None):
+        """One synchronised, timed call with every count reset just before;
+        its ``fused_complex_dot`` launches at ``rung`` equal to the holds'
+        count and to ``steps``, and each shape first seen in it held after
+        it."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cc.reset_launches()
+        seen, before = len(dots["recorded"]), held_rung_launches(dots, rung)
+        t0 = time.perf_counter()
+        with holding_rung_dots(dots, label):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"out": out, "wall_s": wall, "launches": dict(cc.RUNG_LAUNCHES),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "shapes_recorded": len(dots["recorded"]) - seen}
+        got = run["launches"].get(f"fused_complex_dot {rung}", 0)
+        print(f"[precision {label}] wall {wall:.4f} s ({run['shapes_recorded']} launch "
+              f"shapes first recorded in it), max_memory_allocated {run['peak_bytes']} "
+              f"bytes, launches by rung {run['launches']}", flush=True)
+        check(got == held_rung_launches(dots, rung) - before,
+              f"{label}: {got} fused_complex_dot launches at {rung}, the holds counted "
+              f"{held_rung_launches(dots, rung) - before}")
+        check(steps is None or got == steps,
+              f"{label}: {got} fused_complex_dot launches at {rung} for {steps} steps")
+        t0 = time.perf_counter()
+        hold_rung_dots(dots)
+        run["holds_s"] = time.perf_counter() - t0
+        print(f"[precision {label}] its {run['shapes_recorded']} new launch shapes held in "
+              f"{run['holds_s']:.1f} s", flush=True)
+        return run
+
+    errors, records = {}, {}
+    m10 = refs["m10"]
+    chain_recorded: dict = {}
+    m10_counts: dict = {}
+    for rung in PRECISION_RUNGS:
+        backend = TorchBackend(precision=rung)
+        # the forced rung first: it records the shapes the default
+        # policy's run then reuses
+        fused = counted(lambda: forced("fused", lambda: contract_tensor_network(
+            tn, path, backend)), f"random28 forced fused {rung}", rung,
+            steps_of["random28 forced fused"])
+        fused_err = rung_statevector_errors(fused.pop("out"), refs)
+        main = counted(lambda: contract_tensor_network(tn, path, backend),
+                       f"random28 {rung}", rung, steps_of["random28"])
+        check(main["launches"].get(f"fused_chain {rung}", 0) == len(policy.chains),
+              f"random28 at {rung}: fused_chain at the rung launched "
+              f"{main['launches']} for {len(policy.chains)} chains")
+        main_err = rung_statevector_errors(main.pop("out"), refs)
+        ft = counted(lambda: forced("fused_transpose", lambda: contract_tensor_network(
+            peps_tn, peps_path, backend)), f"peps44_b32 forced fused_transpose {rung}", rung,
+            steps_of["peps44_b32 forced fused_transpose"])
+        check(ft["launches"].get(f"fused_transpose_dot {rung}", 0) == admitted,
+              f"peps forced fused_transpose at {rung}: {ft['launches']} for {admitted} "
+              f"admitted steps")
+        z, z128 = scalar(ft.pop("out")), refs["peps_norm_complex128"]
+        peps_rel = abs(z - z128) / abs(z128)
+        errors[rung] = {"random28": main_err, "random28_fused": fused_err,
+                        "peps44_b32_fused_transpose": peps_rel / 1e-4}
+        records[rung] = {"random28_wall_s": main["wall_s"],
+                         "random28_shapes_recorded": main["shapes_recorded"],
+                         "random28_peak_bytes": main["peak_bytes"],
+                         "random28_launches": main["launches"],
+                         "random28_fused_wall_s": fused["wall_s"],
+                         "random28_fused_launches": fused["launches"],
+                         "peps44_b32_fused_transpose_wall_s": ft["wall_s"],
+                         "peps44_b32_fused_transpose_launches": ft["launches"],
+                         "peps_norm": [z.real, z.imag], "peps_rel": peps_rel,
+                         "errors_over_gate": errors[rung]}
+        print(f"[precision {rung}] against complex128, over each gate: random28 norm "
+              f"{main_err['norm']:.3e}, amplitudes "
+              f"{[round(a, 4) for a in main_err['amps']]}; forced fused norm "
+              f"{fused_err['norm']:.3e}, amplitudes {[round(a, 4) for a in fused_err['amps']]}; "
+              f"peps44_b32 forced fused_transpose relative {peps_rel:.3e} (gate 1e-4)",
+              flush=True)
+        if rung == "high":
+            # m10 chunked at high: every chain recorded and held after the
+            # run, every fused_complex_dot launch held in it
+            with recording_rung_chains(chain_recorded) as m10_counts:
+                sl = counted(lambda: contract_tensor_network_sliced(
+                    m10["tn"], m10["path"], m10["slicing"], backend), "m10 chunked high",
+                    rung)
+            got, want = scalar(sl.pop("out")), sum(m10["refs"])
+            abs_sum = sum(abs(r) for r in m10["refs"])
+            m10_over = abs(got - want) / (1e-4 * abs_sum)
+            print(f"[precision high] sycamore53_m10 chunked: {got!r} vs complex128 {want!r}, "
+                  f"|diff| over its gate (1e-4 x sum|ref_s|) {m10_over:.3e}", flush=True)
+            check(m10_over <= 1.0, f"m10 chunked at high off complex128 by {abs(got - want)}")
+            check(sl["launches"].get("fused_chain high", 0) == sum(m10_counts.values()),
+                  f"m10 at high: {sl['launches']} against {sum(m10_counts.values())} recorded")
+            records[rung].update(m10_wall_s=sl["wall_s"], m10_peak_bytes=sl["peak_bytes"],
+                                 m10_launches=sl["launches"], m10_over_gate=m10_over,
+                                 m10_shapes_recorded=sl["shapes_recorded"],
+                                 amplitude_m10=[got.real, got.imag])
+            for over in (main_err["worst"], fused_err["worst"], peps_rel / 1e-4):
+                check(over <= 1.0, f"high misses a complex64 gate: {errors['high']}")
+        torch.cuda.empty_cache()
+    for key in ("random28", "random28_fused"):
+        check(errors["default"][key]["worst"] > errors["high"][key]["worst"],
+              f"{key}: default's error {errors['default'][key]['worst']} is not above "
+              f"high's {errors['high'][key]['worst']}")
+    check(errors["default"]["peps44_b32_fused_transpose"]
+          > errors["high"]["peps44_b32_fused_transpose"],
+          "peps44_b32: default's error is not above high's")
+    # m10's chains at high, held after the run
+    for i, (key, (first, link_ops, links)) in enumerate(chain_recorded.items()):
+        rung = key[0]
+        held = hold_chain_rungs(first, link_ops, links, f"m10 chunked chain {i}",
+                                m10_counts.get(key, 0), rungs=(rung,))
+        chain_rows[rung].append(held[rung])
+    records["holds_s"] = holds_s
+    records["tf32_dot_steps"] = steps_of
+    return {"record": records, "dot_rows": rung_dot_rows(dots),
+            "transpose_rows": transpose_rows, "chain_rows": chain_rows}
+
+
+def precision_kernels(prec: dict, calibrated_dots: dict | None = None) -> dict:
+    """Each kernel's record at each TF32 rung (:func:`rung_record`), the
+    rows weighing exactly the launches phase 21's paths counted, and
+    ``fused_complex_dot``'s also those of the stem steps phase 11's fitted
+    model promoted to ``high`` (``calibrated_dots``, its hold state)."""
+    rows = {name: dict(prec[key]) for name, key in (
+        ("fused_complex_dot", "dot_rows"), ("fused_transpose_dot", "transpose_rows"),
+        ("fused_chain", "chain_rows"))}
+    if calibrated_dots is not None:
+        for rung, extra in rung_dot_rows(calibrated_dots).items():
+            rows["fused_complex_dot"][rung] = rows["fused_complex_dot"][rung] + extra
+    return {name: {rung: rung_record(by[rung]) for rung in PRECISION_RUNGS}
+            for name, by in rows.items()}
+
+
+def rung_record(rows) -> dict:
+    """A kernel's record at one rung over its rows, each time a mean over
+    the rows' launches."""
+    n = sum(r["launches"] for r in rows)
+
+    def mean(key):
+        vals = [r[key] for r in rows]
+        if n == 0 or any(v is None for v in vals):
+            return None
+        return sum(r["launches"] * r[key] for r in rows) / n
+
+    if not n:
+        return {"launches": 0}
+    by_bytes = sum(r["launches"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    return {"launches": n, "max_abs_err": max(r["err"] for r in rows),
+            "max_f64_rel": max(r["f64_rel"] for r in rows if r["f64_rel"] is not None),
+            "max_plain_rel": max(r["plain_rel"] for r in rows),
+            "ms": mean("ms"), "float32_ms": mean("float32_ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": "bytes" if 2 * by_bytes > n * mean("bound_ms") else "operations",
+            "library_ms": mean("library_ms")}
+
+
 def main() -> int:
     if sys.argv[1:2] == [NORTHSTAR_PLAN_FLAG] and len(sys.argv) == 3:
         return make_northstar_plan(sys.argv[2])
@@ -7653,6 +8495,15 @@ def main() -> int:
         print(card_line(), flush=True)
         return 0
 
+    if "--precision" in sys.argv[1:]:
+        # the dot-precision rungs alone: phase 21, its references made here
+        prec = run_precision(precision_refs(backend),
+                             torch.Generator(device="cuda").manual_seed(SEED))
+        print(json.dumps({"precision": prec["record"],
+                          "kernels_by_rung": precision_kernels(prec)}), flush=True)
+        print(card_line(), flush=True)
+        return 0
+
     if "--sweep" in sys.argv[1:]:
         # the batched sweep and the query path alone: phase 12
         sweep = run_sweep()
@@ -7692,7 +8543,7 @@ def main() -> int:
     phase_done(2)
 
     # 3. main path
-    main = run_main_path(tn, path, backend, "main path")
+    main = run_main_path(tn, path, backend, "main path", reps=2)
     sv_leaf, walls, launches = main["out"], main["walls"], main["launches"]
     main_forms = main["chain_forms"]
     del main
@@ -7806,7 +8657,7 @@ def main() -> int:
 
     # 10. the north star: sycamore(53, 14) planned by the port's hyper-optimizer
     # and slice_and_reconfigure, all its slices on the default path
-    northstar = run_northstar(backend, reps=2, planned=northstar_plan)
+    northstar = run_northstar(backend, reps=1, planned=northstar_plan)
     chain_launches["sycamore53_m14_hyper"] = northstar["chain_launches"]
     chain_forms["sycamore53_m14_hyper"] = northstar["record"]["chain_forms"]
     dot_launches["sycamore53_m14_hyper fused rung"] = northstar["dot_launches"]
@@ -7909,7 +8760,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(20)
 
-    # 21. the records
+    # 21. the dot-precision rungs: each kernel at high (3xTF32) and default
+    # (TF32) against its plain version and float64; random28, its forced
+    # fused rung, the PEPS cell's forced fused_transpose rung at both, m10
+    # chunked at high, against phase 4's, 7's and 8's complex128 values
+    prec = run_precision({"amplitudes": amplitudes, "qubit_of": qubit_of,
+                          "peps_norm_complex128": complex(*peps_rec["norm_complex128"]),
+                          "m10": {**m10, "refs": sliced_refs(m10)}}, gen)
+    by_rung = precision_kernels(prec, calibrated["rung_dots"])
+    torch.cuda.empty_cache()
+    phase_done(21)
+
+    # 22. the records
 
     # each kernel's record over the launches of every path: a row's times
     # weigh as many launches as that path makes at the row's operands
@@ -7992,9 +8854,16 @@ def main() -> int:
              source="tnc_tpu_torch/ops/csrc/fused_transpose_dot.cu",
              replaces="tnc_tpu/ops/pallas_complex.py:391", **transpose_rec),
     ]
+    # the top-level numbers are the float32 paths' (phases 2-20); launches
+    # count every rung's, and by_rung gives each rung's launches and times
+    for rec in kernels:
+        float32 = {k: rec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
+        rec["by_rung"] = {"float32": float32, **by_rung[rec["name"]]}
+        rec["launches"] = sum(r["launches"] for r in rec["by_rung"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    phase_done(21)
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_rung")
+    phase_done(22)
     print(json.dumps({
         "main_path": {"qubits": QUBITS, "depth": DEPTH, "seed": SEED,
                       "steps": len(program.steps), "chains": len(policy.chains),
@@ -8015,6 +8884,7 @@ def main() -> int:
         "fleet": fleet["record"],
         "qasm": qasm["record"],
         "examples": examples["record"],
+        "precision": prec["record"],
         "phase_seconds": phase_s,
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},

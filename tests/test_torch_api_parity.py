@@ -50,10 +50,6 @@ EXCEPTIONS = {
     ("ops/split_complex.py", "run_steps_split(xp)"): "`xp`",
     ("ops/strassen.py", "gauss_strassen_dot_kl(xp)"): "`xp`",
     ("ops/strassen.py", "strassen_dot_kl(xp)"): "`xp`",
-    ("ops/split_complex.py", "run_chain_split(precision)"): "`run_chain_split(precision, precision_mode)`",
-    ("ops/split_complex.py", "run_chain_split(precision_mode)"): "`run_chain_split(precision, precision_mode)`",
-    ("ops/strassen.py", "gauss_strassen_dot_kl(precision)"): "`strassen_dot_kl(precision)`",
-    ("ops/strassen.py", "strassen_dot_kl(precision)"): "`strassen_dot_kl(precision)`",
     ("parallel/sliced_parallel.py", "distributed_sliced_contraction(unroll)"): "`unroll`",
 }
 

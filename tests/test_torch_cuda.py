@@ -1188,3 +1188,182 @@ def test_fanin_between_repeated_devices_is_bitwise_a_one_device_run():
     root = next(h for h in held if h is not None)
     want = torch.complex(*root).cpu().numpy().reshape(meta.bond_dims)
     assert np.array_equal(got.data.into_data(), want)
+
+
+# -- the dot-precision rungs ----------------------------------------------------
+
+RUNG_SHAPES = {
+    # (K, M, N, batch): each float tile variant, ragged edges, a batch, a
+    # long contraction
+    "wide": (1024, 2048, 2048, None), "narrow_ragged": (300, 100, 200, None),
+    "flat": (512, 4, 4096, None), "batched": (256, 128, 192, 3),
+    "long": (16384, 1024, 1024, None),
+}
+
+
+def _frob(got, exact) -> float:
+    num = sum(float(((g.double() - e) ** 2).sum()) for g, e in zip(got, exact))
+    return (num / sum(float((e ** 2).sum()) for e in exact)) ** 0.5
+
+
+#: hi = rna_tf32 = 1, lo = 2^-11 - 2^-21: one product is 1 + 2^-10 - 2^-20
+#: at ``high`` (every sum exact), 1 at ``default``, FP32's 2^-22 above ``high``
+PROBE_VALUE = 1.0 + 2.0 ** -11 - 2.0 ** -21
+
+
+def _probe(parts, first=4, to_kf=None):
+    """Zero operands shaped as ``parts`` ((real, imag) pairs of ``(..., K,
+    F)`` matrices, or stored as ``to_kf(i, t)`` reads them) but for contract
+    index 0 of the real parts: ``PROBE_VALUE`` on the first ``first``, 1 on
+    a chain's links."""
+    out = []
+    for i, t in enumerate(parts):
+        z = torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+        if i % 2 == 0:
+            value = PROBE_VALUE if i < first else 1.0
+            if to_kf is None:
+                z[..., 0, :] = value
+            else:
+                idx = torch.arange(z.numel(), device=z.device).reshape(z.shape)
+                z.view(-1)[to_kf(i, idx)[0]] = value
+        out.append(z)
+    return out
+
+
+def _ran_the_rung(got, float32, rung, probe) -> None:
+    """A TF32 rung's kernel output is not the float32 kernel's bit for bit,
+    and on the probe (``probe(rung)`` = kernel and plain outputs) the rung
+    gives its plain version's bits where the float32 kernel does not: the
+    rung's own arithmetic ran, not an FP32 one."""
+    assert not all(torch.equal(a, b) for a, b in zip(got, float32))
+    kernel, plain = probe(rung)
+    assert all(torch.equal(a, b) for a, b in zip(kernel, plain))
+    f32, _ = probe("float32")
+    assert not all(torch.equal(a, b) for a, b in zip(f32, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["high", "default"])
+@pytest.mark.parametrize("case", list(RUNG_SHAPES))
+def test_complex_dot_rungs_on_the_card(case, rung):
+    """``fused_complex_dot`` at a TF32 rung against its plain version at
+    that rung (1e-5·max|plain|) and against float64 (``high`` within 2^-20
+    relative Frobenius, ``default`` at least ten times that), counted by
+    rung."""
+    _card()
+    k, m, n, batch = RUNG_SHAPES[case]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    lead = () if batch is None else (batch,)
+    ops = [torch.randn(*lead, k, m, generator=g, device="cuda") for _ in range(2)]
+    ops += [torch.randn(k, n, generator=g, device="cuda") for _ in range(2)]
+    cc.reset_launches()
+    got = cc.fused_complex_dot(*ops, precision=rung)
+    assert cc.RUNG_LAUNCHES == {f"fused_complex_dot {rung}": 1}
+    plain = cc.fused_complex_dot_reference(*ops, rung)
+    assert _max_rel_err(got, plain) <= 1e-5
+    probe = _probe(ops)
+    _ran_the_rung(got, cc.fused_complex_dot(*ops), rung,
+                  lambda r: (cc.fused_complex_dot(*probe, precision=r),
+                             cc.fused_complex_dot_reference(*probe, r)))
+    err = _frob(got, cc.fused_complex_dot_reference(*(t.double() for t in ops)))
+    if rung == "high":
+        assert err <= 2.0 ** -20
+    else:
+        assert err >= 10 * 2.0 ** -22
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["high", "default"])
+@pytest.mark.parametrize("layouts", PEPS_LAYOUTS, ids=["steps0_4", "steps11_15_cut"])
+def test_transpose_kernel_rungs_on_the_card(layouts, rung):
+    """``fused_transpose_dot`` at a TF32 rung on the PEPS layouts (the
+    direct and staged pipelines) against its plain version at that rung
+    and against float64."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a_lay, b_lay = cc.OperandLayout(*layouts[0]), cc.OperandLayout(*layouts[1])
+    ops = [torch.randn(v, generator=g, device="cuda")
+           for v in (a_lay.view, a_lay.view, b_lay.view, b_lay.view)]
+    got = cc.fused_transpose_dot(*ops, a_lay, b_lay, rung)
+    plain = cc.fused_transpose_reference(*ops, a_lay, b_lay, rung)
+    assert _max_rel_err(got, plain) <= 1e-5
+    probe = _probe(ops, to_kf=lambda i, t: cc._as_kf(t, a_lay if i < 2 else b_lay))
+    _ran_the_rung(got, cc.fused_transpose_dot(*ops, a_lay, b_lay), rung,
+                  lambda r: (cc.fused_transpose_dot(*probe, a_lay, b_lay, r),
+                             cc.fused_transpose_reference(*probe, a_lay, b_lay, r)))
+    err = _frob(got, cc.fused_transpose_reference(*(t.double() for t in ops), a_lay, b_lay))
+    assert err <= 2.0 ** -20 if rung == "high" else err >= 10 * 2.0 ** -22
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["high", "default"])
+@pytest.mark.parametrize("form", ["resident", "grid"])
+def test_chain_rungs_on_the_card(form, rung):
+    """``fused_chain`` at a TF32 rung in each form: two launches bitwise
+    equal, against the plain chain at that rung; a plan keeps its rung."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    if form == "resident":
+        first = (rnd(16, 8), rnd(16, 8), rnd(16, 32), rnd(16, 32))
+        link_ops = [(rnd(32, 4), rnd(32, 4))]
+        links = [cc.ChainLink(True, (8, 32), 1)]
+    else:
+        first = (rnd(16, 256), rnd(16, 256), rnd(16, 256), rnd(16, 256))
+        link_ops = [(rnd(65536, 1), rnd(65536, 1))]
+        links = [cc.ChainLink(True, (65536, 1), 0)]
+    plan = cc.chain_plan(first, link_ops, links, precision=rung)
+    assert plan.forms == (form,) and plan.rung == rung
+    got = cc.fused_chain(first, link_ops, links, plan, rung)
+    again = cc.fused_chain(first, link_ops, links, plan, rung)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = cc.fused_chain_reference(first, link_ops, links, rung)
+    # a chain rounds each carried value again for its next product, so at
+    # default an FP32 sum order that differs by an ulp can move a carried
+    # value a whole TF32 step: the grid form's 65536-long link read 1.1e-5
+    # on an H100, and the host tests hold a chain to two products' error
+    tol = 2 * 2.0 ** -10 if (form, rung) == ("grid", "default") else 1e-5
+    assert _max_rel_err(got, want) <= tol
+    f32 = cc.fused_chain(first, link_ops, links, cc.chain_plan(first, link_ops, links))
+    flat = _probe(list(first) + [t for pair in link_ops for t in pair])
+    p_first, p_links = tuple(flat[:4]), [tuple(flat[i:i + 2]) for i in range(4, len(flat), 2)]
+
+    def probe(r):
+        p_plan = cc.chain_plan(p_first, p_links, links, precision=r)
+        return (cc.fused_chain(p_first, p_links, links, p_plan, r),
+                cc.fused_chain_reference(p_first, p_links, links, r))
+
+    _ran_the_rung(got, f32, rung, probe)
+    with pytest.raises(ValueError, match="rung"):
+        cc.fused_chain(first, link_ops, links, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["gauss", "naive", "strassen", "fused"])
+def test_tf32_steps_run_the_tile_and_leave_cublas_alone_on_the_card(mode):
+    """At ``high`` a step of every mode launches ``fused_complex_dot`` at
+    the rung, once, and matches its plain version; cuBLAS's TF32 switch
+    stays off, and a float32 product keeps its bits."""
+    _card()
+    from tnc_tpu_torch.ops import split_complex as sc
+    from tnc_tpu_torch.ops.backends import TorchBackend
+    from tnc_tpu_torch.ops.program import PairStep
+
+    TorchBackend()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    k, m, n = 512, 256, 384
+    step = PairStep(lhs=0, rhs=1, a_view=(k, m), a_perm=None, a_dot=(k, m),
+                    a_cfirst=True, b_view=(k, n), b_perm=None, b_dot=(k, n),
+                    b_cfirst=True, swap=False, out_store=(m, n))
+    a = tuple(torch.randn(k, m, generator=g, device="cuda") for _ in range(2))
+    b = tuple(torch.randn(k, n, generator=g, device="cuda") for _ in range(2))
+    before = a[0].mT @ b[0]
+    cc.reset_launches()
+    got = sc.apply_step_split(a, b, step, precision="high", mode=mode)
+    assert cc.RUNG_LAUNCHES == {"fused_complex_dot high": 1}
+    assert _max_rel_err(got, cc.fused_complex_dot_reference(*a, *b, "high")) <= 1e-5
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.equal(a[0].mT @ b[0], before)

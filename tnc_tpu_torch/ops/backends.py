@@ -435,9 +435,12 @@ class NumpyBackend(Backend):
         return out
 
 
-#: precision names the backend accepts. ``float32`` is the reference's
-#: HIGHEST; ``high`` and ``default`` also run full FP32 in this port
-#: (never TF32 — 3xTF32 for ``high`` is later work).
+#: precision names the backend accepts: the dot-precision rung of the
+#: split-complex path's float32 products (``split_complex.RUNGS``).
+#: ``float32`` and ``highest`` (the reference's HIGHEST) run full FP32,
+#: ``high`` 3xTF32 and ``default`` one TF32 pass on the H100's tensor cores;
+#: ``None`` runs FP32 (the reference's ``None`` is DEFAULT: ROADMAP,
+#: Divergences). The native complex path and complex128 ignore it.
 PRECISIONS = (None, "default", "high", "float32", "highest")
 
 
@@ -459,8 +462,15 @@ class TorchBackend(Backend):
 
     On CUDA the constructor turns TF32 off for matmuls and cuDNN
     (``torch.backends.cuda.matmul.allow_tf32 = False``,
-    ``torch.backends.cudnn.allow_tf32 = False``): every ``precision`` runs
-    true FP32, the hand kernels FP32 FMA.
+    ``torch.backends.cudnn.allow_tf32 = False``). ``precision`` is the
+    rung of the split path's float32 products (:data:`PRECISIONS`):
+    ``float32`` keeps true FP32 and the hand kernels' FP32 FMA; at ``high``
+    (3xTF32) and ``default`` (one TF32 pass) every float32 step runs a hand
+    kernel's tensor-core rung (``fused_complex_dot`` whatever the step's
+    mode, ``fused_transpose_dot`` where admitted, the chains' FMA loop on
+    rounded operands), and cuBLAS's TF32 switch stays off. A policy's
+    per-step rung (the calibrated ladder's ``high`` stem steps,
+    ``TNC_TPU_DOT_PRECISION``) takes precedence for its step.
 
     >>> from tnc_tpu_torch.tensornetwork.tensor import CompositeTensor, LeafTensor
     >>> from tnc_tpu_torch.tensornetwork.tensordata import TensorData

@@ -77,10 +77,36 @@
 //   1e-5 gate against cuBLAS at K = 16384; chip_smoke.py prints the
 //   kernel's and cuBLAS's error against a float64 product there).
 //
-// FP32 (or FP64) FMA only: no tensor cores, no TF32.
+// The dot-precision rungs (the reference's lax.Precision levels; a float
+// launch's template argument R, cuda_complex.RUNG_CODES):
+//
+//   kFp32    FP32 (or FP64) FMA on the CUDA cores, the pipelines above;
+//   kTf32x3  `high`: each operand x split as hi = rna(x), lo = rna(x - hi)
+//            (rna: cvt.rna.tf32.f32, round to nearest with ties away, 10
+//            mantissa bits), a.b ~ hi_a lo_b + lo_a hi_b + hi_a hi_b, the
+//            small terms first, on the tensor cores;
+//   kTf32    `default`: one TF32 product of rna(a) and rna(b).
+//
+// The TF32 rungs run complex_gemm_tile_tc: the same sources, ring and
+// staged pipeline, but naive four-product arithmetic (the plain version's:
+// each part rounded on its own, so the kernel and its plain version round
+// the same values; Gauss sums would round other ones) through
+// mma.sync.m16n8k8 TF32 with FP32 accumulation. The tiles are the float
+// variants' with wider row padding (the *Tc variants): a warp's fragment
+// loads read element (k, f) at k * P + f for 4 contract indices x 8 free
+// indices, on 32 distinct banks only when P = 8 (mod 32); the FMA
+// variants' P = 132 and 68 (4 mod 32) put two lanes on a bank. A tile of
+// fewer than 16 rows (Flat, 8 x 512) is computed transposed, C^T = B^T A:
+// its 512 columns take the mma rows. Accumulation is three-level: each
+// k8 step's tensor-core products start from zero (the tensor cores' sum
+// is not rounded to nearest, so a long chain of them in one accumulator
+// drifts), are added to partial sums with FP32 adds, and the partials of
+// kFold stages folded into the running totals.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace tnc {
 namespace gemm {
@@ -97,8 +123,12 @@ enum Mode : int { kVec = 0, kWalkK = 1, kWalkF = 2, kVecK = 3 };
 // GM = 16 arranges a warp as 4 x 8 threads (fragment loads of at most 128
 // distinct bytes); GM = 2 as 1 x 32, a flat tile for products with a few
 // rows.
+// PadM_ / PadN_: the row padding of the A and B tiles, one vector unless
+// given (the tensor-core variants pad so that fragment loads are free of
+// bank conflicts).
 template <typename T_, int GM_, int TM_, int TN_, int BK_, int kStages_,
-          int kFold_, int kUnroll_>
+          int kFold_, int kUnroll_, int PadM_ = 16 / static_cast<int>(sizeof(T_)),
+          int PadN_ = 16 / static_cast<int>(sizeof(T_))>
 struct Variant {
   using T = T_;
   static constexpr int V = 16 / static_cast<int>(sizeof(T));  // elements per 16 B
@@ -118,8 +148,8 @@ struct Variant {
   static constexpr int kUnroll = kUnroll_;  // contract indices per unrolled step
   static constexpr int RV = TM / V;  // row vectors per thread
   static constexpr int CV = TN / V;  // column vectors per thread
-  static constexpr int PM = BM + V;  // padded row lengths
-  static constexpr int PN = BN + V;
+  static constexpr int PM = BM + PadM_;  // padded row lengths
+  static constexpr int PN = BN + PadN_;
   static constexpr int kSlotElems = 2 * BK * PM + 2 * BK * PN;  // ar ai br bi
   // the direct pipeline's Gauss sums of two stages: br + bi, ar + ai
   static constexpr int kSumElems = 2 * BK * PN + 2 * BK * PM;
@@ -131,7 +161,14 @@ struct Variant {
   static constexpr int kComputeElems = 2 * BK * PM + 3 * BK * PN;
   static constexpr size_t kStagedBytes =
       sizeof(T) * 2 * static_cast<size_t>(kSlotElems + kComputeElems);
+  // the tensor-core rungs form no Gauss sums: the direct ring alone, and in
+  // the staged pipeline compute slots of the four parts (ar ai; br bi)
+  static constexpr size_t kTcTileBytes =
+      sizeof(T) * static_cast<size_t>(kStages) * kSlotElems;
+  static constexpr size_t kTcStagedBytes =
+      sizeof(T) * 4 * static_cast<size_t>(kSlotElems);
   static_assert(TM % V == 0 && TN % V == 0, "micro-tile in whole vectors");
+  static_assert(PadM_ % V == 0 && PadN_ % V == 0, "16-byte aligned rows");
   static_assert(LM * WM == GM && LN * WN == GN, "warp layout");
   static_assert(kStages >= 3, "the ring overlaps two stages with one");
   static_assert(BK % kUnroll == 0, "whole unrolled steps");
@@ -739,6 +776,271 @@ __device__ __forceinline__ void complex_gemm_tile(
   store_tile<Cfg>(re, im, M, N, m0, n0, tm, tn, cr, ci);
 }
 
+// ---- the tensor-core rungs -----------------------------------------------
+
+enum Rung : int { kFp32 = 0, kTf32x3 = 1, kTf32 = 2 };
+
+// x rounded to TF32: to nearest, ties away from zero, the low 13 bits zero
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi = rna(x) and, for kTf32x3, lo = rna(x - hi) (x - hi is exact in FP32;
+// lo is 0 at kTf32)
+template <int R>
+__device__ __forceinline__ void tf32_split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  if constexpr (R == kTf32x3) {
+    lo = tf32_rna(x - __uint_as_float(hi));
+  } else {
+    lo = 0u;
+  }
+}
+
+__device__ __forceinline__ unsigned tf32_neg(unsigned x) { return x ^ 0x80000000u; }
+
+// d += a b over one m16n8k8 tile: a (16 x 8, row), b (8 x 8, col), TF32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// How the 8 warps of a block cover a tile with m16n8 tensor-core tiles. The
+// "X" operand gives the mma rows (A, or B for a tile of fewer than 16 rows,
+// which is computed transposed), the "Y" operand the mma columns. A warp
+// owns WRows x WCols: MT x NT mma tiles.
+template <class Cfg>
+struct TcLayout {
+  static constexpr bool kSwap = Cfg::BM < 16;
+  static constexpr int XR = kSwap ? Cfg::BN : Cfg::BM;
+  static constexpr int YC = kSwap ? Cfg::BM : Cfg::BN;
+  static constexpr int PX = kSwap ? Cfg::PN : Cfg::PM;
+  static constexpr int PY = kSwap ? Cfg::PM : Cfg::PN;
+  static constexpr int WX = XR / 32 < 8 ? XR / 32 : 8;  // warps along the rows
+  static constexpr int WY = 8 / WX;
+  static constexpr int WRows = XR / WX;
+  static constexpr int WCols = YC / WY;
+  static constexpr int MT = WRows / 16;
+  static constexpr int NT = WCols / 8;
+  static_assert(WX * WY == 8 && MT * 16 == WRows && NT * 8 == WCols && MT >= 1 &&
+                    NT >= 1, "tensor-core warp tiling");
+  static_assert(Cfg::BK % 8 == 0, "whole k8 steps");
+};
+
+// One stage's products into the partial sums (pre, pim) of this warp's
+// tiles: X = (xr, xi) and Y = (yr, yi) are [k][P] tiles of the stage, all BK
+// contract indices (past K the tiles hold zeros). Each k8 step's products
+// start from zero and are then added to the partials.
+template <class Cfg, int R>
+__device__ __forceinline__ void tc_stage(
+    const float* xr, const float* xi, const float* yr, const float* yi, int wr,
+    int wc, int gid, int tig,
+    float (&pre)[TcLayout<Cfg>::MT][TcLayout<Cfg>::NT][4],
+    float (&pim)[TcLayout<Cfg>::MT][TcLayout<Cfg>::NT][4]) {
+  using L = TcLayout<Cfg>;
+  constexpr int PX = L::PX, PY = L::PY, MT = L::MT, NT = L::NT;
+#pragma unroll 1
+  for (int k0 = 0; k0 < Cfg::BK; k0 += 8) {
+    // the Y fragments of every column tile: (k0 + tig, c) and (k0 + tig + 4, c)
+    unsigned bh[NT][2][2], bl[NT][2][2];  // [tile][re, im][register]
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = wc + nt * 8 + gid;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float* y = p ? yi : yr;
+        tf32_split<R>(y[(k0 + tig) * PY + c], bh[nt][p][0], bl[nt][p][0]);
+        tf32_split<R>(y[(k0 + tig + 4) * PY + c], bh[nt][p][1], bl[nt][p][1]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // the X fragment: rows r, r + 8 at contract indices k0 + tig, + 4
+      const int r = wr + mt * 16 + gid;
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float* x = p ? xi : xr;
+        tf32_split<R>(x[(k0 + tig) * PX + r], ah[p][0], al[p][0]);
+        tf32_split<R>(x[(k0 + tig) * PX + r + 8], ah[p][1], al[p][1]);
+        tf32_split<R>(x[(k0 + tig + 4) * PX + r], ah[p][2], al[p][2]);
+        tf32_split<R>(x[(k0 + tig + 4) * PX + r + 8], ah[p][3], al[p][3]);
+      }
+      // -xi, for re = xr yr - xi yi
+      unsigned nh[4], nl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        nh[i] = tf32_neg(ah[1][i]);
+        nl[i] = tf32_neg(al[1][i]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float tr[4] = {0.f, 0.f, 0.f, 0.f};
+        float ti[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (R == kTf32x3) {
+          mma_tf32(tr, ah[0], bl[nt][0]);
+          mma_tf32(tr, al[0], bh[nt][0]);
+          mma_tf32(tr, nh, bl[nt][1]);
+          mma_tf32(tr, nl, bh[nt][1]);
+          mma_tf32(ti, ah[0], bl[nt][1]);
+          mma_tf32(ti, al[0], bh[nt][1]);
+          mma_tf32(ti, ah[1], bl[nt][0]);
+          mma_tf32(ti, al[1], bh[nt][0]);
+        }
+        mma_tf32(tr, ah[0], bh[nt][0]);
+        mma_tf32(tr, nh, bh[nt][1]);
+        mma_tf32(ti, ah[0], bh[nt][1]);
+        mma_tf32(ti, ah[1], bh[nt][0]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pre[mt][nt][i] += tr[i];
+          pim[mt][nt][i] += ti[i];
+        }
+      }
+    }
+  }
+}
+
+// complex_gemm_tile at a TF32 rung R (Cfg a float *Tc variant): the same
+// sources, ring and pipelines, no Gauss sums, the stage's products on the
+// tensor cores (tc_stage), and this warp's m16n8 accumulator tiles stored.
+template <class Cfg, bool kStaged, int R, class SrcA, class SrcB>
+__device__ __forceinline__ void complex_gemm_tile_tc(
+    const SrcA& a, const SrcB& b, long long K, long long M, long long N,
+    long long m0, long long n0, float* cr, float* ci, float* smem) {
+  static_assert(std::is_same<typename Cfg::T, float>::value && R != kFp32,
+                "the tensor-core rungs are float");
+  using L = TcLayout<Cfg>;
+  constexpr int BM = Cfg::BM, BN = Cfg::BN, BK = Cfg::BK, PM = Cfg::PM,
+                PN = Cfg::PN, MT = L::MT, NT = L::NT;
+  // within a raw, ring or compute slot: ar, ai (BK x PM) then br, bi (BK x PN)
+  constexpr int kRing = kStaged ? 2 : Cfg::kStages;
+  auto slot = [&](long long t) { return smem + (t % kRing) * Cfg::kSlotElems; };
+  const long long nk = (K + BK - 1) / BK;
+  auto fetch = [&](long long t) {
+    if (t < nk) {
+      float* p = slot(t);
+      stage_source<float, BM, PM, BK>(a, p, p + BK * PM, t * BK);
+      stage_source<float, BN, PN, BK>(b, p + 2 * BK * PM,
+                                      p + 2 * BK * PM + BK * PN, t * BK);
+    }
+    cp_async_commit();  // an empty group keeps the count uniform
+  };
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+  const int wr = (warp / L::WY) * L::WRows;
+  const int wc = (warp % L::WY) * L::WCols;
+
+  float re[MT][NT][4], im[MT][NT][4];    // running totals
+  float pre[MT][NT][4], pim[MT][NT][4];  // partial sums of kFold stages
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        re[mt][nt][i] = im[mt][nt][i] = pre[mt][nt][i] = pim[mt][nt][i] = 0.f;
+    }
+  }
+  auto compute = [&](const float* p) {
+    const float* ar = p;
+    const float* ai = p + BK * PM;
+    const float* br = p + 2 * BK * PM;
+    const float* bi = br + BK * PN;
+    if constexpr (L::kSwap) {
+      tc_stage<Cfg, R>(br, bi, ar, ai, wr, wc, gid, tig, pre, pim);
+    } else {
+      tc_stage<Cfg, R>(ar, ai, br, bi, wr, wc, gid, tig, pre, pim);
+    }
+  };
+  auto fold_tc = [&](long long t) {
+    if ((t + 1) % Cfg::kFold != 0 && t + 1 != nk) return;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          re[mt][nt][i] += pre[mt][nt][i];
+          im[mt][nt][i] += pim[mt][nt][i];
+          pre[mt][nt][i] = pim[mt][nt][i] = 0.f;
+        }
+      }
+    }
+  };
+
+  if constexpr (kStaged) {
+    float* const comp = smem + 2 * Cfg::kSlotElems;
+    auto comp_of = [&](long long t) { return comp + (t % 2) * Cfg::kSlotElems; };
+    auto transform = [&](long long t) {
+      if (t < nk) {
+        const float* p = slot(t);
+        float* c = comp_of(t);
+        transform_stage<float, BM, PM, BK, false>(a.mode, p, p + BK * PM, c,
+                                                  c + BK * PM, nullptr);
+        transform_stage<float, BN, PN, BK, false>(
+            b.mode, p + 2 * BK * PM, p + 2 * BK * PM + BK * PN, c + 2 * BK * PM,
+            c + 2 * BK * PM + BK * PN, nullptr);
+      }
+    };
+    fetch(0);
+    fetch(1);
+    cp_async_wait<1>();  // stage 0 landed
+    __syncthreads();
+    transform(0);
+    // one barrier per stage, as in complex_gemm_tile's staged pipeline
+    for (long long t = 0; t < nk; ++t) {
+      cp_async_wait<0>();
+      __syncthreads();
+      fetch(t + 2);
+      compute(comp_of(t));
+      fold_tc(t);
+      transform(t + 1);
+    }
+  } else {
+    constexpr int S = Cfg::kStages;
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) fetch(s);
+    // One barrier per stage. Before it: this thread's copies of stage t
+    // landed. After it: every copy of stage t is visible and every thread
+    // is done with stage t - 1, whose slot is refilled with stage t + S - 1.
+    for (long long t = 0; t < nk; ++t) {
+      cp_async_wait<S - 2>();
+      __syncthreads();
+      fetch(t + S - 1);
+      compute(slot(t));
+      fold_tc(t);
+    }
+  }
+  cp_async_wait<0>();  // no copy may outlive the tile (empty groups only)
+  // accumulator i of a tile: row gid (+ 8 for i >= 2), column 2 tig + i % 2
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = wr + mt * 16 + gid + (i >= 2 ? 8 : 0);
+        const int col = wc + nt * 8 + 2 * tig + (i & 1);
+        const long long m = L::kSwap ? m0 + col : m0 + row;
+        const long long n = L::kSwap ? n0 + row : n0 + col;
+        if (m < M && n < N) {
+          cr[m * N + n] = re[mt][nt][i];
+          ci[m * N + n] = im[mt][nt][i];
+        }
+      }
+    }
+  }
+}
+
 // (m0, n0) of tile `tile`, rastered in groups of kGroupM tile rows so the
 // blocks resident at one time share operand panels in L2
 template <class Cfg>
@@ -763,11 +1065,35 @@ __host__ __device__ inline long long tile_count(long long M, long long N) {
 // The tile variants the host chooses between (mirrored by
 // cuda_complex.GEMM_VARIANTS): 0 = float 128 x 64, 1 = float 64 x 64,
 // 2 = float 8 x 512 (a few rows, long columns: the outer-product steps),
-// 3 = double 64 x 64.
+// 3 = double 64 x 64; the float ones padded otherwise at the TF32 rungs.
 using Wide = Variant<float, 16, 8, 4, 32, 3, 4, 8>;
 using Narrow = Variant<float, 16, 4, 4, 16, 3, 2, 4>;
 using Flat = Variant<float, 2, 4, 4, 8, 3, 4, 1>;
 using Double = Variant<double, 16, 4, 4, 16, 3, 2, 2>;
+// the float variants' tiles at the TF32 rungs, rows padded to 8 (mod 32)
+// floats: 128 x 64 (P 136, 72), 64 x 64 (72, 72), 8 x 512 (24, 520)
+using WideTc = Variant<float, 16, 8, 4, 32, 3, 4, 8, 8, 8>;
+using NarrowTc = Variant<float, 16, 4, 4, 16, 3, 2, 4, 8, 8>;
+using FlatTc = Variant<float, 2, 4, 4, 8, 3, 4, 1, 16, 8>;
+
+// A block's opt-in shared memory on an H100 (cuda_complex.MAX_SMEM_BYTES).
+// Every TF32 tile fits it in both pipelines, beside fused_transpose_dot's
+// offset tables of 8-byte entries (BM + BN of them).
+constexpr size_t kMaxSmemBytes = 232448;
+template <class Cfg>
+constexpr bool kTcFits =
+    Cfg::kTcTileBytes + 8 * (Cfg::BM + Cfg::BN) <= kMaxSmemBytes &&
+    Cfg::kTcStagedBytes + 8 * (Cfg::BM + Cfg::BN) <= kMaxSmemBytes;
+static_assert(kTcFits<WideTc> && kTcFits<NarrowTc> && kTcFits<FlatTc>,
+              "a TF32 tile exceeds a block's shared memory");
+
+// The float tile variants a launch at rung R takes (0 / 1 / 2 as above)
+template <int R>
+struct FloatTiles {
+  using Wide = std::conditional_t<R == kFp32, gemm::Wide, WideTc>;
+  using Narrow = std::conditional_t<R == kFp32, gemm::Narrow, NarrowTc>;
+  using Flat = std::conditional_t<R == kFp32, gemm::Flat, FlatTc>;
+};
 
 // Sets the kernel's dynamic shared memory limit to its `bytes`, once per
 // device (`done`: the caller's flags for this kernel). Returns a CUDA error

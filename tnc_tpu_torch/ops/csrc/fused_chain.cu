@@ -53,6 +53,20 @@
 // Every reduction runs in a fixed order, so the same inputs give the same
 // bits on every launch: no atomics.
 //
+// Dot-precision rungs (the reference's `precision`; a launch argument of
+// the float entry, tnc::gemm::Rung): the chain computes its rung in the
+// FMA loop above, not on the tensor cores. Its stages are steps under the
+// fused kernel's flop floor, many smaller than one m16n8k8 tile, and a
+// chain is bound by its launch and dependent reads (0.0079 ms a launch
+// against an empty launch's 0.0019-0.0020 ms), so the rung changes what
+// each multiply-add rounds, not how it is issued: at `default` every
+// operand value is rounded with cvt.rna.tf32.f32 before its FMAs (one TF32
+// product, exact in FP32, added in FP32); at `high` it is split as hi =
+// rna(x), lo = rna(x - hi), and a real product takes three FMAs,
+// hi_a lo_b + lo_a hi_b + hi_a hi_b, the small terms first (3xTF32). The
+// carried value is rounded again where the next stage reads it, as the
+// plain version rounds each product's operands. Double ignores the rung.
+//
 // The host table (one int64 row per stage, built once per chain shape by the
 // Python wrapper) says where every operand and result lives: a global pointer
 // pair (an index into the pointer array, which is the only thing that
@@ -207,13 +221,39 @@ __device__ __forceinline__ void load_fast(const T* fr, const T* fi,
   }
 }
 
+// NV operand values at rung R, in place: unchanged at kFp32; rounded to
+// TF32 at kTf32 (lo 0); split into hi (in place) and lo at kTf32x3.
+template <int R, typename T, int NV>
+__device__ __forceinline__ void rung_values(T (&hi)[NV], T (&lo)[NV]) {
+  if constexpr (R != tnc::gemm::kFp32) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      unsigned h, l;
+      tnc::gemm::tf32_split<R>(hi[v], h, l);
+      hi[v] = __uint_as_float(h);
+      lo[v] = __uint_as_float(l);
+    }
+  }
+}
+
+// p += x y at rung R, from the values rung_values made (x = xh + xl, y =
+// yh + yl at kTf32x3: the three products, the small terms first)
+template <int R, typename T>
+__device__ __forceinline__ T rung_fma(T xh, T xl, T yh, T yl, T p) {
+  if constexpr (R == tnc::gemm::kTf32x3) {
+    p = fma(xh, yl, p);
+    p = fma(xl, yh, p);
+  }
+  return fma(xh, yh, p);
+}
+
 // accr/acci += one partial sum over the kFold contract indices k, k + ks, ...
-// (those below k_hi when GUARD) of this thread's TM x TN outputs; y(j, yr,
-// yi) gives the fast operand's TN values at the j-th of them. The indices
-// are unrolled UNROLL at a time (all kFold where y reads an array of
-// registers).
+// (those below k_hi when GUARD) of this thread's TM x TN outputs at rung R;
+// y(j, yr, yi) gives the fast operand's TN values at the j-th of them. The
+// indices are unrolled UNROLL at a time (all kFold where y reads an array
+// of registers).
 template <typename T, int TM, int TN, bool VEC, bool CG, bool GUARD,
-          int UNROLL, class Y>
+          int UNROLL, int R, class Y>
 __device__ __forceinline__ void fold(const Y& y, const T* sr, const T* si,
                                      long long s_sk, long long s_sf, int rows,
                                      int k, int k_hi, int ks,
@@ -248,14 +288,32 @@ __device__ __forceinline__ void fold(const Y& y, const T* sr, const T* si,
             xi[r] = ok ? ld<T, CG>(si + kk * s_sk + r * s_sf) : T(0);
           }
         }
+        if constexpr (R == tnc::gemm::kFp32) {
 #pragma unroll
-        for (int r = 0; r < TM; ++r) {
+          for (int r = 0; r < TM; ++r) {
 #pragma unroll
-          for (int t = 0; t < TN; ++t) {
-            pr[r][t] = fma(xr[r], yr[t], pr[r][t]);
-            pr[r][t] = fma(-xi[r], yi[t], pr[r][t]);
-            pi[r][t] = fma(xr[r], yi[t], pi[r][t]);
-            pi[r][t] = fma(xi[r], yr[t], pi[r][t]);
+            for (int t = 0; t < TN; ++t) {
+              pr[r][t] = fma(xr[r], yr[t], pr[r][t]);
+              pr[r][t] = fma(-xi[r], yi[t], pr[r][t]);
+              pi[r][t] = fma(xr[r], yi[t], pi[r][t]);
+              pi[r][t] = fma(xi[r], yr[t], pi[r][t]);
+            }
+          }
+        } else {
+          T xrl[TM], xil[TM], yrl[TN], yil[TN];
+          rung_values<R>(xr, xrl);
+          rung_values<R>(xi, xil);
+          rung_values<R>(yr, yrl);
+          rung_values<R>(yi, yil);
+#pragma unroll
+          for (int r = 0; r < TM; ++r) {
+#pragma unroll
+            for (int t = 0; t < TN; ++t) {
+              pr[r][t] = rung_fma<R>(xr[r], xrl[r], yr[t], yrl[t], pr[r][t]);
+              pr[r][t] = rung_fma<R>(-xi[r], -xil[r], yi[t], yil[t], pr[r][t]);
+              pi[r][t] = rung_fma<R>(xr[r], xrl[r], yi[t], yil[t], pi[r][t]);
+              pi[r][t] = rung_fma<R>(xi[r], xil[r], yr[t], yrl[t], pi[r][t]);
+            }
           }
         }
       }
@@ -279,7 +337,7 @@ __device__ __forceinline__ void fold(const Y& y, const T* sr, const T* si,
 // threads of a group split its K and fold their sums by a fixed tree in
 // `red` (2 * TM * TN * kThreads values). Every thread of the block calls it
 // with the same arguments.
-template <typename T, int TM, int TN, bool VEC, bool CG>
+template <typename T, int TM, int TN, bool VEC, bool CG, int R>
 __device__ void stage_groups(const Src<T> slow, const Src<T> fast, int S, int F,
                              int g_lo, int g_hi, int k_lo, int k_hi, int ks,
                              const Dst<T> c, T* red) {
@@ -319,7 +377,7 @@ __device__ void stage_groups(const Src<T> slow, const Src<T> fast, int S, int F,
         for (; k + step - ks < k_hi; k += step) {
           T yr[kFold], yi[kFold];
           load_fast<T, CG, false>(fr, fm, fast.sk, k, k_hi, ks, yr, yi);
-          fold<T, TM, TN, VEC, CG, false, kFold>(
+          fold<T, TM, TN, VEC, CG, false, kFold, R>(
               [&](int j, T (&r)[TN], T (&i)[TN]) {
                 r[0] = yr[j];
                 i[0] = yi[j];
@@ -329,7 +387,7 @@ __device__ void stage_groups(const Src<T> slow, const Src<T> fast, int S, int F,
         if (k < k_hi) {
           T yr[kFold], yi[kFold];
           load_fast<T, CG, true>(fr, fm, fast.sk, k, k_hi, ks, yr, yi);
-          fold<T, TM, TN, VEC, CG, true, kFold>(
+          fold<T, TM, TN, VEC, CG, true, kFold, R>(
               [&](int j, T (&r)[TN], T (&i)[TN]) {
                 r[0] = yr[j];
                 i[0] = yi[j];
@@ -349,11 +407,11 @@ __device__ void stage_groups(const Src<T> slow, const Src<T> fast, int S, int F,
           }
         };
         for (; k + step - ks < k_hi; k += step) {
-          fold<T, TM, TN, VEC, CG, false, 4>(y, sr, sm, slow.sk, slow.sf, rows,
+          fold<T, TM, TN, VEC, CG, false, 4, R>(y, sr, sm, slow.sk, slow.sf, rows,
                                              k, k_hi, ks, accr, acci);
         }
         if (k < k_hi) {
-          fold<T, TM, TN, VEC, CG, true, 4>(y, sr, sm, slow.sk, slow.sf, rows,
+          fold<T, TM, TN, VEC, CG, true, 4, R>(y, sr, sm, slow.sk, slow.sf, rows,
                                             k, k_hi, ks, accr, acci);
         }
       }
@@ -410,7 +468,7 @@ __host__ __device__ inline int group_count(const StageDesc& st) {
 // (m, n) strides): orients the operands and picks the instantiation. FULL
 // false: only one output a thread and no vector reads (a lean kernel for
 // launches whose stages all have that shape).
-template <typename T, bool CG, bool FULL>
+template <typename T, bool CG, bool FULL, int R>
 __device__ void run_stage(const StageDesc& st, const Src<T> a, const Src<T> b,
                           const Dst<T> c, int g_lo, int g_hi, int k_lo,
                           int k_hi, T* red) {
@@ -421,7 +479,7 @@ __device__ void run_stage(const StageDesc& st, const Src<T> a, const Src<T> b,
   const int F = st.slow_b ? st.M : st.N;
   const Dst<T> o{c.re, c.im, st.slow_b ? c.sf : c.ss, st.slow_b ? c.ss : c.sf};
 #define TNC_STAGE(TM_, TN_, VEC_)                                        \
-  stage_groups<T, TM_, TN_, VEC_, CG>(slow, fast, S, F, g_lo, g_hi, k_lo, \
+  stage_groups<T, TM_, TN_, VEC_, CG, R>(slow, fast, S, F, g_lo, g_hi, k_lo, \
                                       k_hi, st.ks, o, red)
   if constexpr (!FULL) {
     TNC_STAGE(1, 1, false);
@@ -468,7 +526,7 @@ __device__ __forceinline__ void prefetch(const Params& p, const View& v, int K,
 }
 
 // The resident form: block z runs the whole chain of batch row z.
-template <typename T, bool FULL>
+template <typename T, bool FULL, int R>
 __global__ void __launch_bounds__(kThreads, 1)
     chain_resident(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -484,7 +542,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   for (int i = 0; i < p.n_stages; ++i) {
     const StageDesc& st = p.stage[i];
-    run_stage<T, false, FULL>(st, source<T>(p, st.a, z, st.M, sm),
+    run_stage<T, false, FULL, R>(st, source<T>(p, st.a, z, st.M, sm),
                         source<T>(p, st.b, z, st.N, sm), dest<T>(p, st.c, z, sm),
                         0, group_count(st), 0, st.K, sm + p.red);
     __syncthreads();
@@ -492,7 +550,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // The grid form: a persistent cooperative grid walks the stages in order.
-template <typename T>
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads, 1)
     chain_grid(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -522,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       const int g_lo = tile * per;
       const int k_lo = kbi * kc;
-      run_stage<T, true, true>(st, source<T>(p, st.a, z, st.M, nullptr),
+      run_stage<T, true, true, R>(st, source<T>(p, st.a, z, st.M, nullptr),
                          source<T>(p, st.b, z, st.N, nullptr), c, g_lo,
                          g_lo + per < groups ? g_lo + per : groups, k_lo,
                          k_lo + kc < st.K ? k_lo + kc : st.K, red);
@@ -562,13 +620,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 __global__ void chain_empty() {}
 
-template <typename T>
+template <typename T, int R>
 int grid_blocks(int device, size_t smem) {
   static int cached[64] = {0};
   if (device >= 0 && device < 64 && cached[device] > 0) return cached[device];
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, chain_grid<T>, kThreads, smem);
+      &per_sm, chain_grid<T, R>, kThreads, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int sms = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -580,7 +638,7 @@ int grid_blocks(int device, size_t smem) {
 
 // Lets the resident kernel use all the shared memory a block of this device
 // may opt in to (once per device and instantiation).
-template <typename T, bool FULL>
+template <typename T, bool FULL, int R>
 int allow_smem() {
   static bool ready[64] = {false};
   int device = 0;
@@ -591,7 +649,7 @@ int allow_smem() {
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(chain_resident<T, FULL>,
+  e = cudaFuncSetAttribute(chain_resident<T, FULL, R>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (device >= 0 && device < 64) ready[device] = true;
@@ -607,7 +665,7 @@ void read_view(const long long* f, View* v) {
   v->im = static_cast<int>(f[5]);
 }
 
-template <typename T>
+template <typename T, int R>
 int launch(const void* const* ptrs, int n_ptrs, const long long* table,
            void* stream) {
   const int form = static_cast<int>(table[0]);
@@ -662,24 +720,24 @@ int launch(const void* const* ptrs, int n_ptrs, const long long* table,
       const StageDesc& st = p.stage[i];
       full = full || st.tm > 1 || st.tn > 1 || st.vec;
     }
-    const int rc = full ? allow_smem<T, true>() : allow_smem<T, false>();
+    const int rc = full ? allow_smem<T, true, R>() : allow_smem<T, false, R>();
     if (rc != 0) return rc;
     const dim3 g(static_cast<unsigned int>(batch));
     if (full) {
-      chain_resident<T, true><<<g, kThreads, static_cast<size_t>(smem), s>>>(p);
+      chain_resident<T, true, R><<<g, kThreads, static_cast<size_t>(smem), s>>>(p);
     } else {
-      chain_resident<T, false><<<g, kThreads, static_cast<size_t>(smem), s>>>(p);
+      chain_resident<T, false, R><<<g, kThreads, static_cast<size_t>(smem), s>>>(p);
     }
   } else {
     int device = 0;
     e = cudaGetDevice(&device);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int resident = grid_blocks<T>(device, static_cast<size_t>(smem));
+    const int resident = grid_blocks<T, R>(device, static_cast<size_t>(smem));
     if (resident < 0) return -resident;
     if (resident == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     const long long g = grid < resident ? grid : resident;
     void* args[] = {&p};
-    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chain_grid<T>),
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chain_grid<T, R>),
                                     dim3(static_cast<unsigned int>(g)),
                                     dim3(kThreads), args,
                                     static_cast<size_t>(smem), s);
@@ -701,15 +759,23 @@ int tnc_chain_header_fields() { return kHeader; }
 int tnc_chain_max_ptrs() { return kMaxPtrs; }
 
 // ptrs: n_ptrs device pointers (operand, output and scratch parts, each pair
-// re then im); table: the header and one row per stage
+// re then im); table: the header and one row per stage; rung: 0 = float32,
+// 1 = high (3xTF32), 2 = default (TF32) (tnc::gemm::Rung)
 int tnc_fused_chain_f32(const void* const* ptrs, int n_ptrs,
-                        const long long* table, void* stream) {
-  return launch<float>(ptrs, n_ptrs, table, stream);
+                        const long long* table, int rung, void* stream) {
+  if (rung == tnc::gemm::kFp32)
+    return launch<float, tnc::gemm::kFp32>(ptrs, n_ptrs, table, stream);
+  if (rung == tnc::gemm::kTf32x3)
+    return launch<float, tnc::gemm::kTf32x3>(ptrs, n_ptrs, table, stream);
+  if (rung == tnc::gemm::kTf32)
+    return launch<float, tnc::gemm::kTf32>(ptrs, n_ptrs, table, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// double ignores the rung: it takes none
 int tnc_fused_chain_f64(const void* const* ptrs, int n_ptrs,
                         const long long* table, void* stream) {
-  return launch<double>(ptrs, n_ptrs, table, stream);
+  return launch<double, tnc::gemm::kFp32>(ptrs, n_ptrs, table, stream);
 }
 
 // One launch of an empty kernel of kThreads threads on `grid` blocks,

@@ -56,8 +56,13 @@
 //
 // Ragged edges are bounds-checked (a free offset of -1 marks a row or
 // column past the end; such elements copy 0 bytes and are not stored).
-// TF32 and tensor cores stay off; wgmma with TMA boxes for the gather is
-// later work.
+//
+// Dot-precision rungs (a launch argument of the float entry, as in
+// fused_complex_dot.cu): float32 runs the FMA engine; `high` (3xTF32) and
+// `default` (one TF32 pass) the engine's tensor-core tile on the same
+// sources and pipelines (complex_gemm_tile_tc: the staged pipeline's
+// compute slots then hold the four parts, no Gauss sums). wgmma with TMA
+// boxes for the gather is later work; double ignores the rung.
 #include <cuda_runtime.h>
 
 #include "complex_gemm.cuh"
@@ -66,12 +71,13 @@ namespace {
 
 namespace g = tnc::gemm;
 
-template <class Cfg, bool kStaged>
+template <class Cfg, bool kStaged, int R>
 __host__ __device__ constexpr size_t tile_bytes() {
-  return kStaged ? Cfg::kStagedBytes : Cfg::kTileBytes;
+  if (R == g::kFp32) return kStaged ? Cfg::kStagedBytes : Cfg::kTileBytes;
+  return kStaged ? Cfg::kTcStagedBytes : Cfg::kTcTileBytes;
 }
 
-template <class Cfg, typename Off, bool kStaged>
+template <class Cfg, typename Off, bool kStaged, int R>
 __global__ void __launch_bounds__(g::kThreads, 1)
     fused_transpose_dot_kernel(g::Gathered<typename Cfg::T, Off> a,
                                g::Gathered<typename Cfg::T, Off> b,
@@ -80,7 +86,7 @@ __global__ void __launch_bounds__(g::kThreads, 1)
   using T = typename Cfg::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  Off* a_off = reinterpret_cast<Off*>(smem_raw + tile_bytes<Cfg, kStaged>());
+  Off* a_off = reinterpret_cast<Off*>(smem_raw + tile_bytes<Cfg, kStaged, R>());
   Off* b_off = a_off + Cfg::BM;
   a.tile_off = a_off;
   b.tile_off = b_off;
@@ -99,12 +105,17 @@ __global__ void __launch_bounds__(g::kThreads, 1)
       }
     }
     __syncthreads();
-    g::complex_gemm_tile<Cfg, kStaged>(a, b, K, M, N, m0, n0, cr, ci, smem);
+    if constexpr (R == g::kFp32) {
+      g::complex_gemm_tile<Cfg, kStaged>(a, b, K, M, N, m0, n0, cr, ci, smem);
+    } else {
+      g::complex_gemm_tile_tc<Cfg, kStaged, R>(a, b, K, M, N, m0, n0, cr, ci,
+                                               smem);
+    }
     __syncthreads();  // the next tile refills the ring and the tables
   }
 }
 
-template <class Cfg, typename Off, bool kStaged>
+template <class Cfg, typename Off, bool kStaged, int R>
 int launch(const typename Cfg::T* ar, const typename Cfg::T* ai,
            const void* a_off_k, const void* a_off_f, int a_mode,
            const typename Cfg::T* br, const typename Cfg::T* bi,
@@ -114,9 +125,9 @@ int launch(const typename Cfg::T* ar, const typename Cfg::T* ai,
   static bool done[64] = {false};
   // the operand tiles, then the free offsets of the tile's rows and columns
   constexpr size_t bytes =
-      tile_bytes<Cfg, kStaged>() + sizeof(Off) * (Cfg::BM + Cfg::BN);
+      tile_bytes<Cfg, kStaged, R>() + sizeof(Off) * (Cfg::BM + Cfg::BN);
   const int rc =
-      g::prepare(fused_transpose_dot_kernel<Cfg, Off, kStaged>, bytes, done);
+      g::prepare(fused_transpose_dot_kernel<Cfg, Off, kStaged, R>, bytes, done);
   if (rc != 0) return rc;
   const long long tiles = g::tile_count<Cfg>(M, N);
   if (tiles == 0) return 0;
@@ -126,13 +137,13 @@ int launch(const typename Cfg::T* ar, const typename Cfg::T* ai,
             static_cast<const Off*>(a_off_f), K, M, a_mode, nullptr};
   const G b{br, bi, static_cast<const Off*>(b_off_k),
             static_cast<const Off*>(b_off_f), K, N, b_mode, nullptr};
-  fused_transpose_dot_kernel<Cfg, Off, kStaged>
+  fused_transpose_dot_kernel<Cfg, Off, kStaged, R>
       <<<static_cast<unsigned int>(grid), g::kThreads, bytes,
          static_cast<cudaStream_t>(stream)>>>(a, b, K, M, N, cr, ci);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Cfg>
+template <class Cfg, int R>
 int launch_any(const typename Cfg::T* ar, const typename Cfg::T* ai,
                const void* a_off_k, const void* a_off_f, int a_mode,
                const typename Cfg::T* br, const typename Cfg::T* bi,
@@ -144,16 +155,39 @@ int launch_any(const typename Cfg::T* ar, const typename Cfg::T* ai,
   const bool staged = a_mode == g::kVecK || b_mode == g::kVecK;
   if (off64 && staged) return static_cast<int>(cudaErrorInvalidValue);
   if (off64)
-    return launch<Cfg, long long, false>(ar, ai, a_off_k, a_off_f, a_mode, br,
+    return launch<Cfg, long long, false, R>(ar, ai, a_off_k, a_off_f, a_mode, br,
                                          bi, b_off_k, b_off_f, b_mode, cr, ci,
                                          K, M, N, stream);
   if (staged)
-    return launch<Cfg, int, true>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+    return launch<Cfg, int, true, R>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
                                   b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
                                   stream);
-  return launch<Cfg, int, false>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+  return launch<Cfg, int, false, R>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
                                  b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
                                  stream);
+}
+
+// A float launch at rung R on tile variant `variant`
+template <int R>
+int launch_float(const float* ar, const float* ai, const void* a_off_k,
+                 const void* a_off_f, int a_mode, const float* br,
+                 const float* bi, const void* b_off_k, const void* b_off_f,
+                 int b_mode, float* cr, float* ci, long long K, long long M,
+                 long long N, int off64, int variant, void* stream) {
+  using Tiles = g::FloatTiles<R>;
+  if (variant == 0)
+    return launch_any<typename Tiles::Wide, R>(ar, ai, a_off_k, a_off_f, a_mode,
+                                               br, bi, b_off_k, b_off_f, b_mode,
+                                               cr, ci, K, M, N, off64, stream);
+  if (variant == 1)
+    return launch_any<typename Tiles::Narrow, R>(
+        ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k, b_off_f, b_mode, cr,
+        ci, K, M, N, off64, stream);
+  if (variant == 2)
+    return launch_any<typename Tiles::Flat, R>(ar, ai, a_off_k, a_off_f, a_mode,
+                                               br, bi, b_off_k, b_off_f, b_mode,
+                                               cr, ci, K, M, N, off64, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -164,26 +198,27 @@ extern "C" {
 // tables; b_off_k/b_off_f the second's (K, N), int64 when off64 else int32.
 // The first operand gives the output rows. a_mode / b_mode: copy modes
 // (tnc::gemm::Mode; kVecK on either selects the staged pipeline); variant:
-// 0 = 128 x 64 tiles, 1 = 64 x 64, 2 = 8 x 512.
+// 0 = 128 x 64 tiles, 1 = 64 x 64, 2 = 8 x 512; rung: 0 = float32 (FMA),
+// 1 = high (3xTF32), 2 = default (TF32) (tnc::gemm::Rung).
 int tnc_fused_transpose_dot_f32(const float* ar, const float* ai,
                                 const void* a_off_k, const void* a_off_f,
                                 int a_mode, const float* br, const float* bi,
                                 const void* b_off_k, const void* b_off_f,
                                 int b_mode, float* cr, float* ci, long long K,
                                 long long M, long long N, int off64,
-                                int variant, void* stream) {
-  if (variant == 0)
-    return launch_any<g::Wide>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
-                               b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
-                               off64, stream);
-  if (variant == 1)
-    return launch_any<g::Narrow>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
-                                 b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
-                                 off64, stream);
-  if (variant == 2)
-    return launch_any<g::Flat>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
-                               b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
-                               off64, stream);
+                                int variant, int rung, void* stream) {
+  if (rung == g::kFp32)
+    return launch_float<g::kFp32>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                                  b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                                  off64, variant, stream);
+  if (rung == g::kTf32x3)
+    return launch_float<g::kTf32x3>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                                    b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                                    off64, variant, stream);
+  if (rung == g::kTf32)
+    return launch_float<g::kTf32>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
+                                  b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
+                                  off64, variant, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -196,9 +231,9 @@ int tnc_fused_transpose_dot_f64(const double* ar, const double* ai,
                                 long long K, long long M, long long N,
                                 int off64, int variant, void* stream) {
   if (variant == 3)
-    return launch_any<g::Double>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
-                                 b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
-                                 off64, stream);
+    return launch_any<g::Double, g::kFp32>(ar, ai, a_off_k, a_off_f, a_mode, br,
+                                           bi, b_off_k, b_off_f, b_mode, cr, ci,
+                                           K, M, N, off64, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -43,7 +43,15 @@ version. :data:`LAUNCHES` counts the kernel launches per kernel (plain
 versions are not counted), so a run can show it went through the kernels;
 :data:`CHAIN_FORMS` counts the chain's launches per form.
 
-The arithmetic is FP32 (or FP64) FMA on the CUDA cores; TF32 is never used.
+Every wrapper and plain version takes the reference's ``precision``: the
+dot-precision rung (``split_complex.RUNGS``) a float32 call computes. At
+``float32`` (the default) the arithmetic is FP32 (or FP64) FMA on the CUDA
+cores; at ``high`` (3xTF32) and ``default`` (one TF32 pass) the two
+single-product kernels run the tile engine's tensor-core tile (``mma.sync``
+TF32 on operands rounded with ``cvt.rna.tf32.f32``) and the chain kernel
+its FMA loop on rounded operands; the plain versions round the same values
+in FP32 torch ops (``split_complex.rung_matmul``). float64 ignores the rung.
+:data:`RUNG_LAUNCHES` counts the launches per kernel and rung.
 """
 
 from __future__ import annotations
@@ -74,6 +82,13 @@ LAUNCHES: dict[str, int] = {
     "fused_chain": 0, "fused_complex_dot": 0, "fused_transpose_dot": 0,
 }
 
+#: the kernels' code of each dot-precision rung (``tnc::gemm::Rung``)
+RUNG_CODES = {"float32": 0, "high": 1, "default": 2}
+
+#: kernel launches per ``"<kernel> <rung>"`` since the last
+#: :func:`reset_launches` (float64 launches count as ``float32``)
+RUNG_LAUNCHES: dict[str, int] = {}
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 _SOURCES = {
     "fused_complex_dot": "fused_complex_dot.cu",
@@ -85,6 +100,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # each source instantiates its kernel at every tile variant and rung:
+    # optimise and assemble them on every core, not one per source
+    "--split-compile=0",
 )
 
 #: ``ptxas -v`` output (registers, shared memory, spills) of each kernel's
@@ -102,12 +120,30 @@ _CAPTURED_TABLES: set[tuple] = set()
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, and the chain's count per form,
-    to 0."""
+    """Set every kernel's launch count, the chain's count per form and the
+    counts per rung to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     for form in CHAIN_FORMS:
         CHAIN_FORMS[form] = 0
+    RUNG_LAUNCHES.clear()
+
+
+def _rung(precision, dtype) -> str:
+    """The rung a call of ``dtype`` parts runs at: the resolved
+    ``precision`` for float32, ``float32`` for anything else (float64
+    ignores the rung)."""
+    import torch
+
+    from tnc_tpu_torch.ops.split_complex import _resolve_precision
+
+    return _resolve_precision(precision) if dtype == torch.float32 else "float32"
+
+
+def _count(name: str, rung: str, n: int = 1) -> None:
+    LAUNCHES[name] += n
+    key = f"{name} {rung}"
+    RUNG_LAUNCHES[key] = RUNG_LAUNCHES.get(key, 0) + n
 
 
 def ineligible_reason(k: int, m: int, n: int) -> str | None:
@@ -232,21 +268,25 @@ def _library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.tnc_error_string.argtypes = [_I]
         lib.tnc_error_string.restype = ctypes.c_char_p
+        # the float entries take the rung before the stream; double takes none
         if name == "fused_complex_dot":
-            for fn in (lib.tnc_fused_complex_dot_f32, lib.tnc_fused_complex_dot_f64):
-                fn.argtypes = [_P, _P, _LL, _LL, _LL, _I, _P, _P, _LL, _LL, _LL, _I,
-                               _P, _P, _I, _LL, _LL, _LL, _I, _P]
-                fn.restype = _I
+            head = [_P, _P, _LL, _LL, _LL, _I, _P, _P, _LL, _LL, _LL, _I,
+                    _P, _P, _I, _LL, _LL, _LL, _I]
+            lib.tnc_fused_complex_dot_f32.argtypes = head + [_I, _P]
+            lib.tnc_fused_complex_dot_f64.argtypes = head + [_P]
+            fns = (lib.tnc_fused_complex_dot_f32, lib.tnc_fused_complex_dot_f64)
         elif name == "fused_transpose_dot":
-            for fn in (lib.tnc_fused_transpose_dot_f32,
-                       lib.tnc_fused_transpose_dot_f64):
-                fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
-                               _LL, _LL, _LL, _I, _I, _P]
-                fn.restype = _I
+            head = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _LL, _LL, _I, _I]
+            lib.tnc_fused_transpose_dot_f32.argtypes = head + [_I, _P]
+            lib.tnc_fused_transpose_dot_f64.argtypes = head + [_P]
+            fns = (lib.tnc_fused_transpose_dot_f32, lib.tnc_fused_transpose_dot_f64)
         else:
-            for fn in (lib.tnc_fused_chain_f32, lib.tnc_fused_chain_f64):
-                fn.argtypes = [_P, _I, _P, _P]
-                fn.restype = _I
+            lib.tnc_fused_chain_f32.argtypes = [_P, _I, _P, _I, _P]
+            lib.tnc_fused_chain_f64.argtypes = [_P, _I, _P, _P]
+            fns = (lib.tnc_fused_chain_f32, lib.tnc_fused_chain_f64)
+        for fn in fns:
+            fn.restype = _I
+        if name == "fused_chain":
             lib.tnc_chain_empty_launch.argtypes = [_I, _I, _P]
             lib.tnc_chain_empty_launch.restype = _I
             abi = (lib.tnc_chain_header_fields, lib.tnc_chain_table_fields,
@@ -377,7 +417,9 @@ class GemmConfig(NamedTuple):
     """A launch of the engine: the variant, its tile (``bm x bn``, ``bk``
     deep), ring depth, elements per 16-byte copy (``vec``) and dynamic
     shared memory in bytes (the kernel sizes its launch from its own
-    ``kTileBytes`` / ``kStagedBytes``, which this count mirrors)."""
+    ``kTileBytes`` / ``kStagedBytes``, which this count mirrors; the TF32
+    rungs' tiles, ``kTcTileBytes`` / ``kTcStagedBytes``, are checked
+    against the limit where they are defined)."""
 
     variant: int
     bm: int
@@ -483,13 +525,24 @@ def strided_copy_mode(re, im) -> int:
 # -- single-step fused complex product -------------------------------------
 
 
-def fused_complex_dot_reference(ar, ai, br, bi):
+def fused_complex_dot_reference(ar, ai, br, bi, precision=None):
     """Plain version of :func:`fused_complex_dot`: the naive four
-    ``torch.matmul`` lowering (a 2-D operand broadcast over the batch)."""
-    return ar.mT @ br - ai.mT @ bi, ar.mT @ bi + ai.mT @ br
+    ``torch.matmul`` lowering (a 2-D operand broadcast over the batch),
+    each product at the rung ``precision``
+    (``split_complex.rung_matmul``; ``None`` is full FP32)."""
+    rung = _rung(precision, ar.dtype)
+    if rung == "float32":
+        return ar.mT @ br - ai.mT @ bi, ar.mT @ bi + ai.mT @ br
+    from tnc_tpu_torch.ops.split_complex import rung_matmul
+
+    re = rung_matmul(ar.mT, br, rung)
+    re -= rung_matmul(ai.mT, bi, rung)
+    im = rung_matmul(ar.mT, bi, rung)
+    im += rung_matmul(ai.mT, br, rung)
+    return re, im
 
 
-def fused_complex_dot(ar, ai, br, bi):
+def fused_complex_dot(ar, ai, br, bi, precision=None):
     """``(re, im)`` of the complex product ``(ar+i·ai)ᵀ · (br+i·bi)``.
 
     ``ar, ai: (K, M)``; ``br, bi: (K, N)``, float32 or float64 (any
@@ -497,10 +550,13 @@ def fused_complex_dot(ar, ai, br, bi):
     same dtype. Either side may carry a leading slice-batch axis (``(B, K,
     M)`` / ``(B, K, N)``): the outputs are then ``(B, M, N)``, every batch
     row in one launch, a 2-D side read by every row (batch stride 0) —
-    the reference's ``vmap`` of ``fused_complex_dot_kl``. CPU tensors run
-    :func:`fused_complex_dot_reference`; CUDA tensors launch the kernel on
-    the current stream, with the tile variant of :func:`gemm_config` and
-    each operand's :func:`strided_copy_mode`.
+    the reference's ``vmap`` of ``fused_complex_dot_kl``. ``precision``:
+    the dot-precision rung of a float32 call (``float32`` / ``None``, the
+    FMA engine; ``high``, 3xTF32; ``default``, one TF32 pass, both on the
+    tensor cores). CPU tensors run :func:`fused_complex_dot_reference` at
+    that rung; CUDA tensors launch the kernel at it on the current stream,
+    with the tile variant of :func:`gemm_config` and each operand's
+    :func:`strided_copy_mode`.
     """
     _check_parts("fused_complex_dot", (ar, ai, br, bi))
     _check_pair("fused_complex_dot", ar, ai)
@@ -510,13 +566,72 @@ def fused_complex_dot(ar, ai, br, bi):
     kb, n = br.shape[-2:]
     if kb != k:
         raise ValueError(f"fused_complex_dot: contract dims differ ({k} vs {kb})")
+    rung = _rung(precision, ar.dtype)
     if ar.device.type == "cpu":
-        return fused_complex_dot_reference(ar, ai, br, bi)
+        return fused_complex_dot_reference(ar, ai, br, bi, rung)
     if batch is not None and not 0 < batch < 65536:
         raise ValueError(f"fused_complex_dot: batch {batch} outside 1..65535")
-    out = _launch_complex_dot(ar, ai, br, bi, batch)
-    LAUNCHES["fused_complex_dot"] += 1
+    pieces = 1
+    if rung != "float32":
+        tiles = gemm_config(m, n, 4).tiles(m, n)
+        pieces = split_k_pieces(k, tiles, batch or 1, _sm_count(ar.device))
+    if pieces == 1:
+        out = _launch_complex_dot(ar, ai, br, bi, batch, rung)
+    else:
+        parts = split_contraction((ar, ai, br, bi), batch, pieces)
+        re, im = _launch_complex_dot(*parts, (batch or 1) * pieces, rung)
+        out = tuple(merge_pieces(t, batch, pieces) for t in (re, im))
+    _count("fused_complex_dot", rung)
     return out
+
+
+#: a split contraction's pieces are at least this many contract indices
+SPLIT_K_MIN = 2048
+
+
+def split_k_pieces(k: int, tiles: int, batch: int, sms: int = H100_SMS) -> int:
+    """Pieces a TF32-rung :func:`fused_complex_dot` cuts its contraction
+    into, each a row of one batched launch: 1 when the output's ``tiles``
+    times the ``batch`` already give every SM four blocks, else the least
+    power of two that does, while it divides ``k``, leaves pieces of at
+    least :data:`SPLIT_K_MIN` indices and keeps the grid's rows within
+    65535. A block walks its whole contraction one stage after another, so
+    a long dot to a small output (the sliced m10's ``(K=2^23, M=1, N=1)``)
+    would otherwise run on a few SMs. (``float32`` launches are never cut:
+    their bits stay what they were.)
+
+    >>> split_k_pieces(2**23, 1, 8)
+    128
+    >>> split_k_pieces(16384, 128 * 256, 1), split_k_pieces(1024, 1, 1)
+    (1, 1)
+    """
+    pieces = 1
+    while (tiles * batch * pieces < 4 * sms and k % (2 * pieces) == 0
+           and k // (2 * pieces) >= SPLIT_K_MIN and batch * 2 * pieces <= 65535):
+        pieces *= 2
+    return pieces
+
+
+def split_contraction(parts, batch: int | None, pieces: int):
+    """``(ar, ai, br, bi)`` with the contraction cut into ``pieces``: each
+    part ``(batch * pieces, K / pieces, free)``, row ``b * pieces + p``
+    piece ``p`` of batch row ``b`` (a 2-D side is read by every batch row,
+    so it is expanded first). A view where the strides allow, else a
+    copy."""
+    out = []
+    for t in parts:
+        k, f = t.shape[-2:]
+        if batch is not None and t.dim() == 2:
+            t = t.expand(batch, k, f)
+        out.append(t.reshape(-1, k // pieces, f))
+    return tuple(out)
+
+
+def merge_pieces(t, batch: int | None, pieces: int):
+    """The sum over the pieces of a split launch's output ``t``, ``(batch *
+    pieces, M, N)``, in FP32: ``(M, N)``, or ``(batch, M, N)``."""
+    t = t.reshape(batch or 1, pieces, *t.shape[-2:]).sum(1)
+    return t if batch is not None else t[0]
 
 
 def _outputs(m: int, n: int, like, batch: int | None = None):
@@ -528,29 +643,29 @@ def _outputs(m: int, n: int, like, batch: int | None = None):
                  for _ in range(2))
 
 
-def _launch_complex_dot(ar, ai, br, bi, batch: int | None = None):
-    """One launch of the kernel on checked operands; raises on a CUDA
-    error."""
+def _launch_complex_dot(ar, ai, br, bi, batch: int | None = None,
+                        rung: str = "float32"):
+    """One launch of the kernel on checked operands at ``rung`` (float32
+    parts; float64 takes ``float32``); raises on a CUDA error."""
     import torch
 
     (k, m), n = ar.shape[-2:], br.shape[-1]
     lib = _library("fused_complex_dot")
-    fn = (
-        lib.tnc_fused_complex_dot_f32
-        if ar.dtype == torch.float32
-        else lib.tnc_fused_complex_dot_f64
-    )
     cfg = gemm_config(m, n, ar.element_size(), sms=_sm_count(ar.device))
     re, im = _outputs(m, n, ar, batch)
+    args = (
+        ar.data_ptr(), ai.data_ptr(), _batch_stride(ar), ar.stride(-2),
+        ar.stride(-1), strided_copy_mode(ar, ai),
+        br.data_ptr(), bi.data_ptr(), _batch_stride(br), br.stride(-2),
+        br.stride(-1), strided_copy_mode(br, bi),
+        re.data_ptr(), im.data_ptr(), 1 if batch is None else batch, k, m, n,
+        cfg.variant,
+    )
     with torch.cuda.device(ar.device):
-        rc = fn(
-            ar.data_ptr(), ai.data_ptr(), _batch_stride(ar), ar.stride(-2),
-            ar.stride(-1), strided_copy_mode(ar, ai),
-            br.data_ptr(), bi.data_ptr(), _batch_stride(br), br.stride(-2),
-            br.stride(-1), strided_copy_mode(br, bi),
-            re.data_ptr(), im.data_ptr(), 1 if batch is None else batch, k, m, n,
-            cfg.variant, _stream(ar.device),
-        )
+        if ar.dtype == torch.float32:
+            rc = lib.tnc_fused_complex_dot_f32(*args, RUNG_CODES[rung], _stream(ar.device))
+        else:
+            rc = lib.tnc_fused_complex_dot_f64(*args, _stream(ar.device))
     _check(lib, rc, "fused_complex_dot")
     return re, im
 
@@ -723,13 +838,13 @@ def _as_kf(t, lay: OperandLayout):
     )
 
 
-def fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout):
+def fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout, precision=None):
     """Plain version of :func:`fused_transpose_dot`: each operand viewed,
     permuted and reshaped to ``(K, F)``, then the four products of
-    :func:`fused_complex_dot_reference`."""
+    :func:`fused_complex_dot_reference` at the rung ``precision``."""
     return fused_complex_dot_reference(
         _as_kf(ar, a_layout), _as_kf(ai, a_layout),
-        _as_kf(br, b_layout), _as_kf(bi, b_layout),
+        _as_kf(br, b_layout), _as_kf(bi, b_layout), precision,
     )
 
 
@@ -836,7 +951,7 @@ def gather_copy_mode(re, im, lay: OperandLayout, table_dtype: str = "int32") -> 
     return COPY_WALK_K if k_unit else COPY_WALK_F
 
 
-def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
+def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout, precision=None):
     """``(re, im)`` of the complex product ``Aᵀ·B`` where ``A`` and ``B``
     are the logical ``(K, M)`` / ``(K, N)`` matrices of two stored operands.
 
@@ -846,8 +961,10 @@ def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
     Returns the flat ``(M, N)`` pair of the operands' dtype, rows iterating
     the first operand's free digits and columns the second's — the prep +
     dot path's order, so a step reshapes it to ``out_store`` unchanged.
-    CPU tensors run :func:`fused_transpose_reference`; CUDA tensors
-    (float32 or float64) launch the kernel on the current stream, with the
+    ``precision``: the dot-precision rung of a float32 call, as for
+    :func:`fused_complex_dot`. CPU tensors run
+    :func:`fused_transpose_reference` at that rung; CUDA tensors (float32
+    or float64) launch the kernel at it on the current stream, with the
     offset tables of :func:`offset_dtype`'s width and each operand's
     :func:`gather_copy_mode`.
     """
@@ -872,16 +989,17 @@ def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
         raise ValueError(
             f"{what}: contract sizes differ ({k} vs {b_layout.k_size})"
         )
+    rung = _rung(precision, ar.dtype)
     if ar.device.type == "cpu":
-        return fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout)
-    out = _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout)
-    LAUNCHES[what] += 1
+        return fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout, rung)
+    out = _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout, rung)
+    _count(what, rung)
     return out
 
 
-def _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
-    """One launch of the kernel on checked operands; raises on a CUDA
-    error."""
+def _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout, rung: str = "float32"):
+    """One launch of the kernel on checked operands at ``rung`` (float32
+    parts; float64 takes ``float32``); raises on a CUDA error."""
     import torch
 
     k, m, n = a_layout.k_size, a_layout.f_size, b_layout.f_size
@@ -892,24 +1010,23 @@ def _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout):
     a_k, a_f = _gather_tables(ar, a_layout, off)
     b_k, b_f = _gather_tables(br, b_layout, off)
     lib = _library("fused_transpose_dot")
-    fn = (
-        lib.tnc_fused_transpose_dot_f32
-        if ar.dtype == torch.float32
-        else lib.tnc_fused_transpose_dot_f64
-    )
     off_bytes = 8 if off == "int64" else 4
     a_mode = gather_copy_mode(ar, ai, a_layout, off)
     b_mode = gather_copy_mode(br, bi, b_layout, off)
     cfg = gemm_config(m, n, ar.element_size(), off_bytes, _sm_count(ar.device),
                       staged=COPY_VEC_K in (a_mode, b_mode))
     re, im = _outputs(m, n, ar)
+    args = (
+        ar.data_ptr(), ai.data_ptr(), a_k.data_ptr(), a_f.data_ptr(), a_mode,
+        br.data_ptr(), bi.data_ptr(), b_k.data_ptr(), b_f.data_ptr(), b_mode,
+        re.data_ptr(), im.data_ptr(), k, m, n, int(off == "int64"), cfg.variant,
+    )
     with torch.cuda.device(ar.device):
-        rc = fn(
-            ar.data_ptr(), ai.data_ptr(), a_k.data_ptr(), a_f.data_ptr(), a_mode,
-            br.data_ptr(), bi.data_ptr(), b_k.data_ptr(), b_f.data_ptr(), b_mode,
-            re.data_ptr(), im.data_ptr(), k, m, n, int(off == "int64"), cfg.variant,
-            _stream(ar.device),
-        )
+        if ar.dtype == torch.float32:
+            rc = lib.tnc_fused_transpose_dot_f32(*args, RUNG_CODES[rung],
+                                                 _stream(ar.device))
+        else:
+            rc = lib.tnc_fused_transpose_dot_f64(*args, _stream(ar.device))
     _check(lib, rc, "fused_transpose_dot")
     return re, im
 
@@ -963,40 +1080,42 @@ def chain_out_shape(
     return shape
 
 
-def _cdot(xr, xi, yr, yi, xk: int, yk: int):
+def _cdot(xr, xi, yr, yi, xk: int, yk: int, precision=None):
     """Naive split-complex product contracting axis ``xk`` of ``x`` with
     axis ``yk`` of ``y`` (axes of the last two dimensions, after any batch
-    axis): output rows are ``x``'s free axis."""
+    axis) at the rung ``precision``: output rows are ``x``'s free axis."""
     x2r, x2i = (xr, xi) if xk == 0 else (xr.mT, xi.mT)
     y2r, y2i = (yr, yi) if yk == 0 else (yr.mT, yi.mT)
-    return fused_complex_dot_reference(x2r, x2i, y2r, y2i)
+    return fused_complex_dot_reference(x2r, x2i, y2r, y2i, precision)
 
 
-def _chain_compute(vals, links):
+def _chain_compute(vals, links, precision=None):
     """The chain's arithmetic on plain tensors, in the reference's order
     (``tnc_tpu.ops.pallas_complex._chain_compute``): accumulation in the
-    operand dtype. A leading batch axis on any operand carries through."""
-    zr, zi = _cdot(vals[0], vals[1], vals[2], vals[3], 0, 0)
+    operand dtype, every product at the rung ``precision`` (the carried
+    value rounded again where the next step reads it). A leading batch
+    axis on any operand carries through."""
+    zr, zi = _cdot(vals[0], vals[1], vals[2], vals[3], 0, 0, precision)
     for i, link in enumerate(links):
         cr = vals[4 + 2 * i]
         ci = vals[5 + 2 * i]
         zr = zr.reshape(zr.shape[:-2] + link.carried_shape)
         zi = zi.reshape(zi.shape[:-2] + link.carried_shape)
         if link.carried_first:
-            zr, zi = _cdot(zr, zi, cr, ci, link.k_axis, 0)
+            zr, zi = _cdot(zr, zi, cr, ci, link.k_axis, 0, precision)
         else:
-            zr, zi = _cdot(cr, ci, zr, zi, 0, link.k_axis)
+            zr, zi = _cdot(cr, ci, zr, zi, 0, link.k_axis, precision)
     return zr, zi
 
 
-def fused_chain_reference(first_ops, link_ops, links):
+def fused_chain_reference(first_ops, link_ops, links, precision=None):
     """Plain version of :func:`fused_chain`: the steps one after another
-    as ``torch.matmul`` calls (the reference's ``vmap`` of it when an
-    operand has a batch axis)."""
+    as ``torch.matmul`` calls at the rung ``precision`` (the reference's
+    ``vmap`` of it when an operand has a batch axis)."""
     vals = list(first_ops)
     for cr, ci in link_ops:
         vals.extend((cr, ci))
-    return _chain_compute(vals, links)
+    return _chain_compute(vals, links, precision)
 
 
 # the chain kernel's table and block (csrc/fused_chain.cu: kHeader,
@@ -1127,13 +1246,15 @@ class _ChainPlan:
     ``out_shape``: the shape of each returned part (default ``(rows,
     cols)``, after the batch when there is one); any shape of as many
     elements. ``sms``: SMs the grid form plans for; ``smem``: shared
-    memory of one block, in bytes."""
+    memory of one block, in bytes. ``precision``: the dot-precision rung
+    every launch of the plan computes (``rung``; ``float32`` for float64
+    operands), a launch argument of the kernel."""
 
     __slots__ = ("launches", "n_stages", "out_shape", "alloc_shape", "batch",
-                 "dtype", "device", "stages")
+                 "dtype", "device", "stages", "rung")
 
     def __init__(self, first_ops, link_ops, links, out_shape=None,
-                 sms: int = H100_SMS, smem: int = MAX_SMEM_BYTES):
+                 sms: int = H100_SMS, smem: int = MAX_SMEM_BYTES, precision=None):
         if len(links) != len(link_ops):
             raise ValueError("links and link_ops must pair up")
         flat = list(first_ops) + [t for pair in link_ops for t in pair]
@@ -1145,6 +1266,7 @@ class _ChainPlan:
             raise ValueError("fused_chain: head contract dims differ")
         self.batch = _batch_of("fused_chain", flat)
         self.dtype, self.device = fr.dtype, fr.device
+        self.rung = _rung(precision, fr.dtype)
         isz = fr.element_size()
         rows = 1 if self.batch is None else self.batch
 
@@ -1239,13 +1361,18 @@ class _ChainPlan:
         bases = list(bases)
         bases.append(buf.data_ptr())
         lib = _LIBS.get("fused_chain") or _library("fused_chain")
-        fn = lib.tnc_fused_chain_f32 if self.dtype == torch.float32 else lib.tnc_fused_chain_f64
         stream = _raw_stream(self.device)
+        single = self.dtype == torch.float32
         for lc in self.launches:
             ptrs = array("Q", [bases[b] + off for b, off in lc.recipe])
-            _check(lib, fn(ptrs.buffer_info()[0], len(lc.recipe), lc.table_addr, stream),
-                   "fused_chain")
-            LAUNCHES["fused_chain"] += 1
+            if single:
+                rc = lib.tnc_fused_chain_f32(ptrs.buffer_info()[0], len(lc.recipe),
+                                             lc.table_addr, RUNG_CODES[self.rung], stream)
+            else:
+                rc = lib.tnc_fused_chain_f64(ptrs.buffer_info()[0], len(lc.recipe),
+                                             lc.table_addr, stream)
+            _check(lib, rc, "fused_chain")
+            _count("fused_chain", self.rung)
             CHAIN_FORMS[lc.form] += 1
         return buf[0], buf[1]
 
@@ -1359,16 +1486,18 @@ def _plan_chain_launch(seg, shapes, rows, isz, hand_in, hand_out, region, sms, s
     return _ChainLaunch(table, table.ctypes.data, tuple(recipe), form, tuple(shapes))
 
 
-def chain_plan(first_ops, link_ops, links, out_shape=None) -> _ChainPlan:
-    """The validated plan of a chain on these operands (see
-    :class:`_ChainPlan`), for the card the operands lie on: build it once
-    per chain shape and pass it to every :func:`fused_chain` call."""
+def chain_plan(first_ops, link_ops, links, out_shape=None, precision=None) -> _ChainPlan:
+    """The validated plan of a chain on these operands at the rung
+    ``precision`` (see :class:`_ChainPlan`), for the card the operands lie
+    on: build it once per chain shape and rung and pass it to every
+    :func:`fused_chain` call."""
     dev = first_ops[0].device
     sms = _sm_count(dev) if dev.type == "cuda" else H100_SMS
-    return _ChainPlan(first_ops, link_ops, links, out_shape, sms=sms)
+    return _ChainPlan(first_ops, link_ops, links, out_shape, sms=sms, precision=precision)
 
 
-def fused_chain(first_ops, link_ops, links, plan: _ChainPlan | None = None):
+def fused_chain(first_ops, link_ops, links, plan: _ChainPlan | None = None,
+                precision=None):
     """Execute a whole chain of steps as ONE kernel launch.
 
     ``first_ops = (fr, fi, sr, si)``: the head step's two operands,
@@ -1386,16 +1515,22 @@ def fused_chain(first_ops, link_ops, links, plan: _ChainPlan | None = None):
 
     ``plan``: the chain's :func:`chain_plan`, built once by the caller for
     operands of these shapes, strides, dtype and device (not checked
-    again); without it the call plans (and validates) anew.
+    again); without it the call plans (and validates) anew. ``precision``:
+    the dot-precision rung (``float32`` / ``None``, ``high``, ``default``;
+    a given plan must have been planned at it).
 
-    CPU tensors run :func:`fused_chain_reference`. CUDA tensors launch the
-    chain kernel once, in the plan's form (a chain of more than
-    ``CHAIN_STAGES_PER_LAUNCH`` stages takes one launch per that many).
+    CPU tensors run :func:`fused_chain_reference` at that rung. CUDA
+    tensors launch the chain kernel once, in the plan's form (a chain of
+    more than ``CHAIN_STAGES_PER_LAUNCH`` stages takes one launch per that
+    many), at the plan's rung.
     """
     if plan is None:
-        plan = chain_plan(first_ops, link_ops, links)
+        plan = chain_plan(first_ops, link_ops, links, precision=precision)
+    elif plan.rung != _rung(precision, plan.dtype):
+        raise ValueError(f"fused_chain: a plan at rung {plan.rung} called at "
+                         f"{_rung(precision, plan.dtype)}")
     if first_ops[0].device.type == "cpu":
-        return fused_chain_reference(first_ops, link_ops, links)
+        return fused_chain_reference(first_ops, link_ops, links, plan.rung)
     return plan.launch(list(first_ops) + [t for pair in link_ops for t in pair])
 
 

@@ -27,7 +27,7 @@ issues one graph launch where it issued every step, copy and kernel.
   replays; each call returns a fresh copy of the output.
 
 Counters. The kernel wrappers and the step glue count on the host as a
-unit is issued (``cuda_complex.LAUNCHES``, ``CHAIN_FORMS``,
+unit is issued (``cuda_complex.LAUNCHES``, ``CHAIN_FORMS``, ``RUNG_LAUNCHES``,
 ``split_complex.FUSED_ROUTED``, ``FUSED_TRANSPOSE_ROUTED``): under a graph
 they would count at capture only. A capture records what it added and
 takes it back; each replay adds it again. :data:`STATS` counts the graphs
@@ -70,7 +70,7 @@ def reset_stats() -> None:
 def _counters() -> tuple[dict, ...]:
     from tnc_tpu_torch.ops import cuda_complex, split_complex
 
-    return (cuda_complex.LAUNCHES, cuda_complex.CHAIN_FORMS,
+    return (cuda_complex.LAUNCHES, cuda_complex.CHAIN_FORMS, cuda_complex.RUNG_LAUNCHES,
             split_complex.FUSED_ROUTED, split_complex.FUSED_TRANSPOSE_ROUTED)
 
 

@@ -26,8 +26,18 @@ choice for every step under the same model. ``fused`` runs only when
 ``TNC_TPU_COMPLEX_MULT`` forces it; ``fused_transpose`` also where a fitted
 bandwidth term says it pays.
 
-Products outside the hand kernels are ``torch.matmul`` in full FP32:
-:class:`~tnc_tpu_torch.ops.backends.TorchBackend` turns TF32 off.
+Every product runs at its step's dot-precision rung (the reference's
+``lax.Precision``; :func:`_resolve_step_precision`): ``float32`` in full
+FP32, ``high`` as 3xTF32 and ``default`` as one TF32 pass (:data:`RUNGS`).
+At ``float32`` the products outside the hand kernels are ``torch.matmul``
+in full FP32 (:class:`~tnc_tpu_torch.ops.backends.TorchBackend` turns TF32
+off). At a TF32 rung every float32 step runs a hand kernel's tensor-core
+tile: ``fused_transpose_dot`` where its gate admits the step, chains
+``fused_chain``, every other step ``fused_complex_dot`` at the rung,
+whatever its mode (:func:`apply_step_split`); cuBLAS's TF32 switch is never
+touched. On the CPU the wrappers' plain versions emulate the same rounding
+in FP32 torch ops (:func:`rung_matmul`), so each rung's numerics are the
+card's up to the order of FP32 sums.
 """
 
 from __future__ import annotations
@@ -63,14 +73,24 @@ EFFECTIVE_FLOP_FACTOR = {
     "strassen": 21.0 / 32.0,  # gauss × one Strassen level
 }
 
-#: dot-precision rungs a policy can record per step. The reference maps
-#: them onto bf16 MXU passes; on the GPU every rung runs full FP32 (TF32
-#: stays off), so in this port the rung is carried but changes nothing.
+#: dot-precision rungs a policy can record per step (``highest`` = the
+#: backend's ``float32``, ``high``); the reference maps them onto bf16 MXU
+#: passes, the port onto the H100's FP32 and TF32 arithmetic (:data:`RUNGS`).
 DOT_PRECISION_MODES = ("highest", "high")
+
+#: the rungs a product runs at on the card, each the counterpart of one of
+#: the reference's ``lax.Precision`` levels: ``float32`` (HIGHEST, bf16x6
+#: there) in full FP32; ``high`` (HIGH, bf16x3) as 3xTF32, each operand
+#: split into ``hi = rna_tf32(x)`` and ``lo = rna_tf32(x - hi)`` and a
+#: product taken as ``hi·lo + lo·hi + hi·hi``; ``default`` (DEFAULT, one
+#: bf16 pass) as one TF32 product of ``rna_tf32`` operands (10 mantissa
+#: bits, ~2^-11 relative).
+RUNGS = ("float32", "high", "default")
 
 #: the reference's documented per-dot relative error of its ``high`` rung;
 #: :func:`plan_precision_modes` promotes only when the run's parity budget
-#: clears it with 2× headroom (the port runs the rung in FP32 all the same).
+#: clears it with 2× headroom. The port's 3xTF32 keeps each product within
+#: it (the dropped ``lo·lo`` term and ``lo``'s own rounding are ~2^-22).
 HIGH_PRECISION_STEP_REL = 2.0 ** -18
 
 #: steps routed away from the fused kernel by their shape, per reason —
@@ -133,6 +153,102 @@ def dot_precision_forced() -> str | None:
 def dot_precision_key() -> str:
     """Cache-key form of ``TNC_TPU_DOT_PRECISION``."""
     return os.environ.get("TNC_TPU_DOT_PRECISION", "auto")
+
+
+def _resolve_precision(precision) -> str:
+    """The rung (:data:`RUNGS`) the backend's precision knob runs a dot at:
+    ``high`` and ``default`` as named, anything else (``float32``,
+    ``highest``, ``None``) full FP32. The reference maps the knob to a
+    ``lax.Precision`` and ``None`` to DEFAULT; the port keeps ``None`` at
+    FP32, so no default changes (ROADMAP, Divergences).
+
+    >>> [_resolve_precision(p) for p in ("high", "default", "float32", None)]
+    ['high', 'default', 'float32', 'float32']
+    """
+    if precision in ("high", "default"):
+        return precision
+    return "float32"
+
+
+def _resolve_step_precision(precision, precision_mode) -> str:
+    """The rung one step's dots run at: the per-step :class:`KernelPolicy`
+    rung when set (``high`` / ``highest``), else the
+    ``TNC_TPU_DOT_PRECISION`` forcing override, else the backend-level
+    ``precision`` knob (:func:`_resolve_precision`), as in the reference.
+
+    >>> _resolve_step_precision("float32", "high"), _resolve_step_precision("default", "")
+    ('high', 'default')
+    """
+    if not precision_mode:
+        precision_mode = dot_precision_forced()
+    if not precision_mode:
+        return _resolve_precision(precision)
+    return _resolve_precision("high" if precision_mode == "high" else "float32")
+
+
+def rna_tf32(x):
+    """``x`` (a float32 tensor) rounded to TF32 as PTX ``cvt.rna.tf32.f32``
+    rounds it on the card: to nearest with ties away from zero, keeping 10
+    mantissa bits (the low 13 bits zero). Exact for every finite ``x``
+    (a carry into the exponent rounds up a binade, to infinity past the
+    largest finite TF32 value).
+
+    >>> import torch
+    >>> rna_tf32(torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 3 * 2.0 ** -12)])).tolist()
+    [1.0009765625, 1.0, -1.0009765625]
+    """
+    return _rna_(x.clone())
+
+
+def _rna_(t):
+    """``t`` (a float32 tensor of the caller's own) rounded to TF32 in
+    place, as :func:`rna_tf32` rounds."""
+    import torch
+
+    t.view(torch.int32).add_(0x1000).bitwise_and_(~0x1FFF)
+    return t
+
+
+def split_tf32(x):
+    """``(hi, lo)`` with ``hi = rna_tf32(x)`` and ``lo = rna_tf32(x - hi)``
+    (``x - hi`` is exact in FP32): the 3xTF32 split of the ``high`` rung."""
+    hi = rna_tf32(x)
+    return hi, _rna_(x - hi)
+
+
+def _rung_kw(rung) -> dict:
+    """A kernel wrapper's keyword for a step's rung: none at ``float32``,
+    the wrappers' default, so a float32 call is the call it always was."""
+    return {} if rung in (None, "float32") else {"precision": rung}
+
+
+def rung_matmul(x, y, rung: str = "float32"):
+    """``x @ y`` at a dot-precision rung (:data:`RUNGS`), in plain torch:
+    the plain version of a rung product, which the hand kernels' rungs are
+    held to. ``float32``, and any operand that is not float32 (complex128's
+    float64 parts ignore the rung), is the plain product, bit for bit.
+    ``default`` multiplies ``rna_tf32(x) @ rna_tf32(y)``; ``high`` sums
+    ``hi_x @ lo_y + lo_x @ hi_y + hi_x @ hi_y`` over the :func:`split_tf32`
+    parts, the small terms first. Each product is FP32 arithmetic on TF32
+    values (a product of two is exact in FP32), on the CPU and on the card
+    alike, so no TF32 switch is touched. The main path's TF32 products run
+    the hand kernels' tensor-core tiles (:func:`apply_step_split`); this
+    runs where the reference's own precision-taking functions are called
+    directly (the Strassen dots) and as the kernels' plain versions."""
+    import torch
+
+    if rung == "float32" or x.dtype != torch.float32:
+        return x @ y
+    if rung not in RUNGS:
+        raise ValueError(f"unknown rung {rung!r}: one of {RUNGS}")
+    if rung == "default":
+        return rna_tf32(x) @ rna_tf32(y)
+    xh, xl = split_tf32(x)
+    yh, yl = split_tf32(y)
+    out = xh @ yl
+    out += xl @ yh
+    out += xh @ yh
+    return out
 
 
 def resolved_step_mode(step, mode: str | None = None) -> str:
@@ -208,9 +324,15 @@ def apply_step_split(
     contraction of (real, imag) tensor pairs, the single step kernel of
     every split-mode executor. ``mode`` overrides the env mode for this
     step — the :class:`KernelPolicy` hook; ``None`` falls back to
-    :func:`complex_mult_env` (``gauss``). ``precision`` and
-    ``precision_mode`` are accepted for the reference's signature; every
-    rung runs full FP32 here.
+    :func:`complex_mult_env` (``gauss``). ``precision`` (the backend's
+    knob) and ``precision_mode`` (the policy's rung for this step) set the
+    rung every product of the step runs at (:func:`_resolve_step_precision`).
+    At a TF32 rung a float32 step that ``fused_transpose`` does not take
+    runs :func:`~tnc_tpu_torch.ops.cuda_complex.fused_complex_dot` at the
+    rung, whatever its mode, with no flop floor: the four naive products on
+    the tensor cores. The Gauss and Strassen identities save FP32 flops at
+    the cost of sums the plain version would round otherwise; at a TF32
+    rung the tile is the product.
 
     ``a_batched`` / ``b_batched``: that side's buffers are ``(B,
     *stored)``, a leading slice-batch axis (the reference's ``vmap``,
@@ -220,19 +342,26 @@ def apply_step_split(
     or reads it with a zero batch stride)."""
     if mode is None:
         mode = complex_mult_env()
+    rung = _resolve_step_precision(precision, precision_mode)
     lead = ((batch_rows(apair[0], bpair[0], a_batched, b_batched),)
             if a_batched or b_batched else ())
     out_shape = lead + tuple(step.out_store)
     if mode == "fused_transpose":
         # the kernel reads the RAW stored pairs, so it runs before any
         # operand is prepped (the transposed copy is what it avoids)
-        out = _try_fused_transpose_step(apair, bpair, step, a_batched, b_batched)
+        out = _try_fused_transpose_step(apair, bpair, step, a_batched, b_batched, rung)
         if out is not None:
             return out
         mode = "naive"  # routed: the prep + naive dots below
     if mode == "strassen" and not _strassen_step_eligible(step):
         mode = "gauss"  # forced-strassen steps below the crossover
     ar, ai, br, bi = _step_operands(apair, bpair, step, a_batched, b_batched)
+    if rung != "float32" and ar.element_size() == 4:
+        from tnc_tpu_torch.ops.cuda_complex import fused_complex_dot
+
+        first, second = ((br, bi), (ar, ai)) if step.swap else ((ar, ai), (br, bi))
+        re, im = fused_complex_dot(*first, *second, precision=rung)
+        return re.reshape(out_shape), im.reshape(out_shape)
 
     def dot(x, y):
         # x from the a side, y from the b side; swap issues (y, x)
@@ -303,13 +432,14 @@ def _note_fused_routed(reason: str, k: int, m: int, n: int, slices: int = 1) -> 
 
 
 def _try_fused_step(ar, ai, br, bi, step, slices: int = 1):
-    """Route one step through the fused kernel when its gate admits it
-    (both operands contract-first, over the flop floor — judged on one
-    slice's ``(K, M, N)``, as under the reference's ``vmap``); ``None``
-    means 'run the naive dots'. Every routed step is counted in
-    :data:`FUSED_ROUTED` with its reason, ``slices`` times (the batch it
-    stands for). Batched operands launch the kernel once for the whole
-    batch. A kernel error propagates."""
+    """Route one ``float32``-rung step through the fused kernel when its
+    gate admits it (both operands contract-first, over the flop floor —
+    judged on one slice's ``(K, M, N)``, as under the reference's
+    ``vmap``); ``None`` means 'run the naive dots'. Every routed step is
+    counted in :data:`FUSED_ROUTED` with its reason, ``slices`` times (the
+    batch it stands for). Batched operands launch the kernel once for the
+    whole batch. A kernel error propagates. (A TF32 rung's step runs the
+    kernel with no gate: :func:`apply_step_split`.)"""
     from tnc_tpu_torch.ops.cuda_complex import fused_complex_dot, ineligible_reason
     from tnc_tpu_torch.ops.program import step_dims
 
@@ -393,12 +523,14 @@ def _note_fused_transpose_routed(reason: str, k: int, m: int, n: int,
     )
 
 
-def _try_fused_transpose_step(apair, bpair, step, a_batched=False, b_batched=False):
+def _try_fused_transpose_step(apair, bpair, step, a_batched=False, b_batched=False,
+                              precision=None):
     """Route one step through :func:`~tnc_tpu_torch.ops.cuda_complex.
     fused_transpose_dot` on its RAW stored (real, imag) pairs when the gate
-    admits it; ``None`` means 'run the prep + naive dots'. Every routed
-    step is counted in :data:`FUSED_TRANSPOSE_ROUTED` with its reason. A
-    kernel error propagates."""
+    admits it, at the rung ``precision``; ``None`` means 'run the prep +
+    naive dots'. Every routed step is counted in
+    :data:`FUSED_TRANSPOSE_ROUTED` with its reason. A kernel error
+    propagates."""
     from tnc_tpu_torch.ops.cuda_complex import fused_transpose_dot
     from tnc_tpu_torch.ops.program import step_dims
 
@@ -415,7 +547,8 @@ def _try_fused_transpose_step(apair, bpair, step, a_batched=False, b_batched=Fal
     a = tuple(p.reshape(step.a_view) for p in apair)
     b = tuple(p.reshape(step.b_view) for p in bpair)
     first, second = (b, a) if step.swap else (a, b)
-    re, im = fused_transpose_dot(*first, *second, first_lay, second_lay)
+    re, im = fused_transpose_dot(*first, *second, first_lay, second_lay,
+                                 **_rung_kw(precision))
     return re.reshape(step.out_store), im.reshape(step.out_store)
 
 
@@ -561,9 +694,9 @@ def plan_precision_modes(
       default) clears the documented ``high`` rung
       (:data:`HIGH_PRECISION_STEP_REL`) with 2× headroom.
 
-    Returns ``()`` (no rungs) when nothing promotes. The rung is the
-    reference's decision; in the port every rung runs FP32, so a ``high``
-    step changes the policy's key, not its numbers.
+    Returns ``()`` (no rungs) when nothing promotes. A ``high`` step runs
+    3xTF32 on the card (:data:`RUNGS`): the rung changes the policy's key
+    and the step's numbers together.
     """
     steps = tuple(steps)
     if force is None:
@@ -845,12 +978,13 @@ class _ChainRun:
     the kernel reads, the buffer part it is a view of and the byte offset
     there, or ``None`` where its prep copies (then redone each call).
     ``layout`` is every source part's ``(shape, stride, dtype, device)`` and
-    ``batched`` whether its slot is batched, when planned; a call whose
-    buffers differ is planned anew."""
+    ``batched`` whether its slot is batched, when planned; the plan's
+    ``rung`` is part of its key: a call whose buffers or rung differ is
+    planned anew."""
 
     __slots__ = ("plan", "specs", "reads", "sources", "layout", "batched")
 
-    def __init__(self, steps, buffers, batched):
+    def __init__(self, steps, buffers, batched, rung: str = "float32"):
         from tnc_tpu_torch.ops.cuda_complex import chain_plan
 
         self.specs, links = _chain_specs(steps)
@@ -858,7 +992,8 @@ class _ChainRun:
         first_ops = (ops[0][0], ops[0][1], ops[1][0], ops[1][1])
         lead = next((tuple(op[0].shape[:1]) for op in ops if op[0].dim() == 3), ())
         self.plan = chain_plan(first_ops, [tuple(op) for op in ops[2:]], links,
-                               out_shape=lead + tuple(steps[-1].out_store))
+                               out_shape=lead + tuple(steps[-1].out_store),
+                               precision=rung)
         self.sources = tuple(sorted({spec[0] for spec in self.specs}))
         self.layout = tuple((t.shape, t.stride(), t.dtype, t.device)
                             for slot in self.sources for t in buffers[slot])
@@ -872,8 +1007,11 @@ class _ChainRun:
                          if view else None)
         self.reads = tuple(reads)
 
-    def matches(self, buffers, batched) -> bool:
-        """Whether ``buffers`` hold the source parts the run was planned for."""
+    def matches(self, buffers, batched, rung: str = "float32") -> bool:
+        """Whether ``buffers`` hold the source parts the run was planned for,
+        at its rung."""
+        if rung != self.plan.rung:
+            return False
         at = 0
         for slot, was in zip(self.sources, self.batched):
             if (slot in batched) != was:
@@ -900,7 +1038,8 @@ class _ChainRun:
         return self.plan.launch_ptrs(ptrs)
 
 
-def run_chain_split(steps, buffers, batched=None, runs=None, key=None):
+def run_chain_split(steps, buffers, batched=None, runs=None, key=None, precision=None,
+                    precision_mode=""):
     """Execute one chain group as ONE :func:`~tnc_tpu_torch.ops.
     cuda_complex.fused_chain` launch, with the sequential loop's buffer
     bookkeeping (every consumed slot freed, the result in the last step's
@@ -911,20 +1050,25 @@ def run_chain_split(steps, buffers, batched=None, runs=None, key=None):
     ``runs``: where CUDA launches are kept planned (a policy's
     ``chain_runs``), under ``key`` (the span's start): a call then only
     checks its buffers' layout and fills pointers. Without it, or on the
-    CPU, the call preps the operands and calls ``fused_chain``."""
+    CPU, the call preps the operands and calls ``fused_chain``.
+    ``precision`` (the backend's knob) and ``precision_mode`` (the chain's
+    rung: the policy's entry for its head step) set the rung the chain
+    runs at (:func:`_resolve_step_precision`), as in the reference."""
     from tnc_tpu_torch.ops import cuda_complex
 
     batched = set() if batched is None else batched
+    rung = _resolve_step_precision(precision, precision_mode)
     first = buffers[steps[0].lhs][0]
     if runs is not None and first.device.type == "cuda":
         run = runs.get(key)
-        if run is None or not run.matches(buffers, batched):
-            run = _ChainRun(steps, buffers, batched)
+        if run is None or not run.matches(buffers, batched, rung):
+            run = _ChainRun(steps, buffers, batched, rung)
             runs[key] = run
         re, im = run(buffers, batched)
         lead = () if run.plan.batch is None else (run.plan.batch,)
     else:
-        re, im = cuda_complex.fused_chain(*chain_operands(steps, buffers, batched))
+        re, im = cuda_complex.fused_chain(*chain_operands(steps, buffers, batched),
+                                          **_rung_kw(rung))
         lead = tuple(re.shape[:1]) if re.dim() == 3 else ()
         out_store = lead + tuple(steps[-1].out_store)
         re, im = re.reshape(out_store), im.reshape(out_store)
@@ -959,8 +1103,8 @@ def run_split_units(
 
     def run_unit(start: int, end: int) -> None:
         if start in chain_end:
-            run_chain_split(steps[start:end], buffers, batched,
-                            policy.chain_runs, start)
+            run_chain_split(steps[start:end], buffers, batched, policy.chain_runs, start,
+                            precision, policy.precision_mode(start))
             return
         step = steps[start]
         a_b, b_b = step.lhs in batched, step.rhs in batched

@@ -6,8 +6,15 @@ square-ish, power-of-two dims) a single Strassen recursion level trades
 an eighth of the multiplies for a few extra elementwise passes
 (arXiv:1704.03092). This is plain torch, not a hand kernel: the seven
 sub-products are ``torch.matmul`` calls, as the reference left them to
-XLA. The crossover below is the reference's TPU value; the port keeps it
-so both packages plan the same steps as ``stem``.
+XLA, each at the step's dot-precision rung
+(:func:`~tnc_tpu_torch.ops.split_complex.rung_matmul`: the quadrant and
+Gauss sums are formed in FP32, then each sub-product's operands are rounded
+or split, and the products run in FP32, on the card too). The executors
+reach these functions at ``float32`` only: a step at a TF32 rung runs the
+tensor-core tile of ``fused_complex_dot`` whatever its mode
+(:func:`~tnc_tpu_torch.ops.split_complex.apply_step_split`). The
+crossover below is the reference's TPU value; the port keeps it so both
+packages plan the same steps as ``stem``.
 
 Composition with split-complex arithmetic: a complex product lowers to
 3 real GEMMs via the Gauss identity (``ops/split_complex.gauss_matmul``)
@@ -84,7 +91,7 @@ def strassen_eligible(
     return hi <= max_aspect * lo
 
 
-def strassen_dot_kl(a, b, dot=None):
+def strassen_dot_kl(a, b, dot=None, precision=None):
     """One Strassen level of ``aᵀ @ b`` with ``a: (K, M)``, ``b: (K, N)``
     torch tensors, either of which may carry a leading slice-batch axis
     (``(B, K, M)``): quadrants are cut from the last two dimensions and
@@ -96,7 +103,9 @@ def strassen_dot_kl(a, b, dot=None):
     are the 7 sub-products' ``xᵀ @ y`` (a transposed view, which the
     matmul takes without a copy). ``dot(x, y)`` overrides the sub-product
     kernel (``xᵀ @ y`` over the last two dimensions, a hand kernel could
-    slot in here); the default is that matmul.
+    slot in here); the default is that matmul at the rung ``precision``
+    (:func:`~tnc_tpu_torch.ops.split_complex.rung_matmul`; ``None`` is
+    full FP32).
 
     >>> import torch
     >>> g = torch.Generator().manual_seed(0)
@@ -118,8 +127,12 @@ def strassen_dot_kl(a, b, dot=None):
     if k % 2 or m % 2 or n % 2:
         raise ValueError(f"shape (K={k}, M={m}, N={n}) does not halve")
     if dot is None:
+        from tnc_tpu_torch.ops.split_complex import _resolve_precision, rung_matmul
+
+        rung = _resolve_precision(precision)
+
         def dot(x, y):
-            return x.mT @ y
+            return rung_matmul(x.mT, y, rung)
 
     k2, m2, n2 = k // 2, m // 2, n // 2
     # X = aᵀ is (M, K); X[row block i][col block j] = a[col block j][row block i]ᵀ:
@@ -160,11 +173,12 @@ def strassen_dot_kl(a, b, dot=None):
     return out
 
 
-def gauss_strassen_dot_kl(ar, ai, br, bi):
+def gauss_strassen_dot_kl(ar, ai, br, bi, precision=None):
     """``(re, im)`` of ``(ar + i·ai)ᵀ @ (br + i·bi)`` via the Gauss
     3-mult complex identity with one Strassen level per real product:
     3×7 = 21 half-size real sub-GEMMs against the naive lowering's 4
-    full dots. Same kl layout as :func:`strassen_dot_kl`.
+    full dots, each sub-product at the rung ``precision``. Same kl layout
+    as :func:`strassen_dot_kl`.
 
     >>> import torch
     >>> g = torch.Generator().manual_seed(1)
@@ -175,9 +189,9 @@ def gauss_strassen_dot_kl(ar, ai, br, bi):
     >>> torch.allclose(torch.complex(re, im), want)
     True
     """
-    k1 = strassen_dot_kl(ar + ai, br)
-    im = strassen_dot_kl(ar, bi - br)
+    k1 = strassen_dot_kl(ar + ai, br, precision=precision)
+    im = strassen_dot_kl(ar, bi - br, precision=precision)
     im += k1  # k1 + k2: the sum commutes, so the bits are the same
-    k3 = strassen_dot_kl(ai, br + bi)
+    k3 = strassen_dot_kl(ai, br + bi, precision=precision)
     k1 -= k3  # k1 - k3, in k1's buffer
     return k1, im
