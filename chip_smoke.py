@@ -419,6 +419,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -677,8 +678,11 @@ def kernel_instances(log: str) -> list[tuple[str, int, int]]:
     """``(label, registers, spill store bytes)`` of every kernel in a
     ``ptxas -v`` log, labelled by its template arguments: element type,
     the tile variant's integers (``Variant<T, GM, TM, TN, BK, stages, fold,
-    unroll, pad A, pad B>``), for the transpose kernel the offset type and
-    pipeline, and the dot-precision rung."""
+    unroll, pads>``), for the transpose kernel the offset type and pipeline,
+    and the dot-precision rung (the mma.sync tiles at the TF32 rungs); the
+    wgmma kernels by their tile (``tf32::Tile<XR, YC, BK, raw slots>``) and
+    rung. A wgmma kernel's registers are its entry allocation; setmaxnreg
+    moves its warpgroups to 208 and 88."""
     out = []
     name, spill = "", 0
     for line in log.splitlines():
@@ -700,6 +704,11 @@ def kernel_instances(log: str) -> list[tuple[str, int, int]]:
                     label += " full" if c.group(3) == "1" else " lean"
                 if c.group(4) is not None:
                     label += f" {RUNG_NAMES[int(c.group(4))]}"
+            w = re.search(r"tf32_kernelIN3tnc4tf324TileILi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELi\d+ELi\d+EEELi([012])E", name)
+            if w:
+                xr, yc, bk, rung = w.groups()
+                label = f"tf32 tile<{xr},{yc},{bk}> {RUNG_NAMES[int(rung)]}"
             if t:
                 ints = ",".join(re.findall(r"Li(\d+)E", t.group(2)))
                 label = f"{'float' if t.group(1) == 'f' else 'double'}<{ints}>"
@@ -711,6 +720,35 @@ def kernel_instances(log: str) -> list[tuple[str, int, int]]:
                     label += f" {RUNG_NAMES[int(tail.group(3))]}"
             out.append((label, int(m.group(1)), spill))
             name = ""
+    return out
+
+
+#: the SASS instructions each library's TF32 kernels must contain: wgmma
+#: (HGMMA ... TF32) in both, TMA loads (UTMALDG) where the tile takes TMA
+#: boxes (fused_complex_dot's operands with a stride-1 free index)
+SASS_NEEDS = {"fused_complex_dot": ("HGMMA", "UTMALDG"), "fused_transpose_dot": ("HGMMA",)}
+
+
+def check_sass(paths: dict) -> dict:
+    """``cuobjdump -sass`` of the ``fused_complex_dot`` and
+    ``fused_transpose_dot`` libraries: the count of each instruction of
+    :data:`SASS_NEEDS` and of the TF32 wgmma shapes; fails where one is
+    missing (a TF32 launch would not reach the tensor cores' wgmma path)."""
+    from tnc_tpu_torch.ops import cuda_complex as cc
+
+    cuobjdump = str(Path(cc._nvcc()).with_name("cuobjdump"))
+    out = {}
+    for name, needs in SASS_NEEDS.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True,
+                              text=True, check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in needs}
+        shapes = collections.Counter(re.findall(r"\bHGMMA\.(\w+)\.F32\.TF32\b", sass))
+        counts["HGMMA TF32"] = sum(shapes.values())
+        print(f"  {name} SASS: {counts}, HGMMA TF32 shapes {dict(shapes)}", flush=True)
+        for op in needs:
+            check(counts[op] > 0, f"{name}: no {op} in its SASS")
+        check(counts["HGMMA TF32"] > 0, f"{name}: no TF32 HGMMA in its SASS")
+        out[name] = {**counts, "hgmma_tf32_shapes": dict(shapes)}
     return out
 
 
@@ -7789,9 +7827,12 @@ RUNG_F64_ELEMS = 1 << 28
 
 def rung_dot_state() -> dict:
     """Where :func:`rung_dot_hold` keeps what it saw: the operands of each
-    distinct launch shape (``recorded``, held by :func:`hold_rung_dots`),
-    ``rows`` by rung and the launches ``counts`` per (shape, rung)."""
-    return {"recorded": {}, "rows": {rung: [] for rung in PRECISION_RUNGS}, "counts": {}}
+    distinct launch shape and the TF32 tile it takes at each rung
+    (``recorded``, held by :func:`hold_rung_dots`), ``rows`` by rung, the
+    launches ``counts`` per (shape, rung) and ``tiles`` per "<rung>
+    <tile>"."""
+    return {"recorded": {}, "rows": {rung: [] for rung in PRECISION_RUNGS}, "counts": {},
+            "tiles": {}}
 
 
 def rung_dot_hold(label: str, state: dict):
@@ -7799,14 +7840,24 @@ def rung_dot_hold(label: str, state: dict):
     records every launch at a TF32 rung: the operands of each distinct pair
     of operand shapes, copied at its first launch (the first batch row
     where a part passes ``RUNG_RECORD_ELEMS``, a leading block of rows and
-    columns where the output passes ``RUNG_RECORD_OUT``), and every launch
-    counted in
-    ``state["counts"]`` under its shapes and rung (a graph host counter:
-    replays count)."""
+    columns where the output passes ``RUNG_RECORD_OUT``) with the tile the
+    launch takes at each TF32 rung (``cuda_complex.tf32_config`` of its
+    whole shape: the held block runs on it), and every launch counted in
+    ``state["counts"]`` under its shapes and rung and in ``state["tiles"]``
+    under its rung and tile (graph host counters: replays count)."""
+    from tnc_tpu_torch.ops import cuda_complex as cc
+
     def hold(ar, ai, br, bi, precision=None):
         if precision in (None, "float32"):
             return
         key = (tuple(ar.shape), tuple(br.shape))
+        (k, m0), n0 = ar.shape[-2:], br.shape[-1]
+        batch = max(t.shape[0] if t.dim() == 3 else 1 for t in (ar, br))
+        tiles = {rung: cc.tf32_config(k, m0, n0, rung, batch=batch,
+                                      sms=cc._sm_count(ar.device)).name
+                 for rung in PRECISION_RUNGS}
+        tile_key = f"{precision} {tiles[precision]}"
+        state["tiles"][tile_key] = state["tiles"].get(tile_key, 0) + 1
         if key not in state["recorded"]:
             parts = (ar, ai, br, bi)
             if max(t.numel() for t in parts) > RUNG_RECORD_ELEMS:
@@ -7816,7 +7867,7 @@ def rung_dot_hold(label: str, state: dict):
             while rows * m * n > RUNG_RECORD_OUT:
                 m, n = (-(-m // 2), n) if m > n else (m, -(-n // 2))
             parts = (parts[0][..., :m], parts[1][..., :m], parts[2][..., :n], parts[3][..., :n])
-            state["recorded"][key] = (label, tuple(t.clone() for t in parts))
+            state["recorded"][key] = (label, tuple(t.clone() for t in parts), tiles)
         state["counts"][(key, precision)] = state["counts"].get((key, precision), 0) + 1
 
     return hold
@@ -7825,7 +7876,9 @@ def rung_dot_hold(label: str, state: dict):
 def hold_rung_dots(state: dict) -> None:
     """Each recorded launch shape not yet held, after the run that made it:
     :func:`hold_rungs` at every rung on its recorded operands (with the
-    probe), the library a complex64 ``matmul`` with TF32 on at
+    probe), each TF32 rung on the tile the whole launch takes there (a
+    held block may be smaller than the launch; its launches must have run
+    on that tile), the library a complex64 ``matmul`` with TF32 on at
     ``default``; its rows weigh the launches counted at its shapes (set by
     :func:`rung_dot_rows`). The holds' own launches are taken back out of
     the kernels' counts."""
@@ -7834,7 +7887,7 @@ def hold_rung_dots(state: dict) -> None:
     from tnc_tpu_torch.ops import cuda_complex as cc
 
     held = {row["key"] for rows in state["rows"].values() for row in rows}
-    for key, (label, parts) in list(state["recorded"].items()):
+    for key, (label, parts, tiles) in list(state["recorded"].items()):
         if key in held:
             continue
         (k, m), n = parts[0].shape[-2:], parts[2].shape[-1]
@@ -7852,25 +7905,31 @@ def hold_rung_dots(state: dict) -> None:
                     return a_c.mT @ b_c
             return call
 
-        saved = dict(cc.LAUNCHES), dict(cc.RUNG_LAUNCHES)
+        saved = dict(cc.LAUNCHES), dict(cc.RUNG_LAUNCHES), dict(cc.TILE_LAUNCHES)
         batch = f" batch {rows}" if rows > 1 else ""
         cut = "" if (parts[0].shape, parts[2].shape) == key else \
             f" (held on a block of {key[0]} x {key[1]})"
         probe = probe_parts(parts)
+        cc.TILE_LAUNCHES.clear()
         out = hold_rungs(
-            f"fused_complex_dot {label}{batch} K={k} M={m} N={n}{cut}",
-            lambda rung: cc.fused_complex_dot(*parts, precision=rung),
+            f"fused_complex_dot {label}{batch} K={k} M={m} N={n}{cut} (tiles {tiles})",
+            lambda rung: cc.fused_complex_dot(*parts, precision=rung, tile=tiles.get(rung)),
             lambda rung: cc.fused_complex_dot_reference(*parts, rung), exact,
             4.0 * 2 * (parts[0].numel() + parts[2].numel() + rows * m * n),
             rows * k * m * n, 0, library, reps=rung_reps(rows * k * m * n),
-            probe=lambda rung: cc.fused_complex_dot(*probe, precision=rung))
-        for live, before in zip((cc.LAUNCHES, cc.RUNG_LAUNCHES), saved):
+            probe=lambda rung: cc.fused_complex_dot(*probe, precision=rung,
+                                                    tile=tiles.get(rung)))
+        check(set(cc.TILE_LAUNCHES) == {f"fused_complex_dot {rung} {tiles[rung]}"
+                                        for rung in PRECISION_RUNGS},
+              f"fused_complex_dot {label} K={k} M={m} N={n}: held on the tiles "
+              f"{cc.TILE_LAUNCHES}, its launch takes {tiles}")
+        for live, before in zip((cc.LAUNCHES, cc.RUNG_LAUNCHES, cc.TILE_LAUNCHES), saved):
             live.clear()
             live.update(before)
         for rung, row in out.items():
-            row.update(k=k, m=m, n=n, batch=rows, key=key)
+            row.update(k=k, m=m, n=n, batch=rows, key=key, tile=tiles[rung])
             state["rows"][rung].append(row)
-        state["recorded"][key] = (label, None)  # held: the copies go
+        state["recorded"][key] = (label, None, tiles)  # held: the copies go
         del parts, probe, exact, a_c, b_c
         torch.cuda.empty_cache()
 
@@ -7883,7 +7942,7 @@ def holding_rung_dots(state: dict, label: str):
     from tnc_tpu_torch.ops import graphs
 
     real = graphs._counters
-    graphs._counters = lambda: real() + (state["counts"],)
+    graphs._counters = lambda: real() + (state["counts"], state["tiles"])
     try:
         with holding("fused_complex_dot", rung_dot_hold(label, state)):
             yield
@@ -7899,7 +7958,7 @@ def held_rung_launches(state: dict, rung: str) -> int:
 def rung_dot_rows(state: dict) -> dict:
     """The held rows by rung, each weighed by the launches counted at its
     shapes and rung; every recorded shape must have been held."""
-    check(all(parts is None for _, parts in state["recorded"].values()),
+    check(all(parts is None for _, parts, _ in state["recorded"].values()),
           "a recorded fused_complex_dot rung launch was never held")
     for rung, rows in state["rows"].items():
         for row in rows:
@@ -7938,6 +7997,7 @@ def rung_transpose_rows(program, gen) -> dict:
             return call
 
         probe = probe_parts(ops, to_kf=lambda i, t: cc._as_kf(t, first if i < 2 else second))
+        tiles_before = dict(cc.TILE_LAUNCHES)
         held = hold_rungs(
             f"fused_transpose_dot steps {steps} K={k} M={m} N={n}",
             lambda rung: cc.fused_transpose_dot(*ops, first, second, rung),
@@ -7946,8 +8006,14 @@ def rung_transpose_rows(program, gen) -> dict:
             library, reps=rung_reps(k * m * n),
             probe=lambda rung: cc.fused_transpose_dot(*probe, first, second, rung))
         del probe
+        # the tile each rung's launches ran on
+        tiles = {key.split()[1]: key.split()[2] for key, n_ in cc.TILE_LAUNCHES.items()
+                 if key.startswith("fused_transpose_dot ") and n_ != tiles_before.get(key, 0)}
+        check(sorted(tiles) == sorted(PRECISION_RUNGS),
+              f"fused_transpose_dot steps {steps}: TF32 launches by tile {cc.TILE_LAUNCHES}")
         for rung, row in held.items():
-            rows[rung].append({**row, "k": k, "m": m, "n": n, "steps": steps})
+            rows[rung].append({**row, "k": k, "m": m, "n": n, "steps": steps,
+                               "tile": tiles[rung]})
         del ops, exact, a_c, b_c
         torch.cuda.empty_cache()
     return rows
@@ -8178,18 +8244,33 @@ def run_precision(refs: dict, gen) -> dict:
         torch.cuda.reset_peak_memory_stats()
         cc.reset_launches()
         seen, before = len(dots["recorded"]), held_rung_launches(dots, rung)
+        tiles_before = dict(dots["tiles"])
         t0 = time.perf_counter()
         with holding_rung_dots(dots, label):
             out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         run = {"out": out, "wall_s": wall, "launches": dict(cc.RUNG_LAUNCHES),
+               "tile_launches": dict(cc.TILE_LAUNCHES),
                "peak_bytes": torch.cuda.max_memory_allocated(),
                "shapes_recorded": len(dots["recorded"]) - seen}
         got = run["launches"].get(f"fused_complex_dot {rung}", 0)
         print(f"[precision {label}] wall {wall:.4f} s ({run['shapes_recorded']} launch "
               f"shapes first recorded in it), max_memory_allocated {run['peak_bytes']} "
-              f"bytes, launches by rung {run['launches']}", flush=True)
+              f"bytes, launches by rung {run['launches']}, TF32 launches by tile "
+              f"{run['tile_launches']}", flush=True)
+        check(sum(n for key, n in run["tile_launches"].items() if key.endswith(
+            tuple(f" {t.name}" for t in cc.TF32_TILES)) and f" {rung} " in key)
+              == sum(n for key, n in run["launches"].items() if key.endswith(f" {rung}")
+                     and not key.startswith("fused_chain")),
+              f"{label}: TF32 launches by tile {run['tile_launches']} do not add up to the "
+              f"kernels' {run['launches']}")
+        hook_tiles = {f"fused_complex_dot {key}": n - tiles_before.get(key, 0)
+                      for key, n in dots["tiles"].items() if n != tiles_before.get(key, 0)}
+        check(hook_tiles == {key: n for key, n in run["tile_launches"].items()
+                             if key.startswith("fused_complex_dot ")},
+              f"{label}: the holds recorded fused_complex_dot launches on the tiles "
+              f"{hook_tiles}, the kernel counted {run['tile_launches']}")
         check(got == held_rung_launches(dots, rung) - before,
               f"{label}: {got} fused_complex_dot launches at {rung}, the holds counted "
               f"{held_rung_launches(dots, rung) - before}")
@@ -8234,6 +8315,9 @@ def run_precision(refs: dict, gen) -> dict:
                          "random28_shapes_recorded": main["shapes_recorded"],
                          "random28_peak_bytes": main["peak_bytes"],
                          "random28_launches": main["launches"],
+                         "random28_tile_launches": main["tile_launches"],
+                         "random28_fused_tile_launches": fused["tile_launches"],
+                         "peps44_b32_fused_transpose_tile_launches": ft["tile_launches"],
                          "random28_fused_wall_s": fused["wall_s"],
                          "random28_fused_launches": fused["launches"],
                          "peps44_b32_fused_transpose_wall_s": ft["wall_s"],
@@ -8263,6 +8347,7 @@ def run_precision(refs: dict, gen) -> dict:
                   f"m10 at high: {sl['launches']} against {sum(m10_counts.values())} recorded")
             records[rung].update(m10_wall_s=sl["wall_s"], m10_peak_bytes=sl["peak_bytes"],
                                  m10_launches=sl["launches"], m10_over_gate=m10_over,
+                                 m10_tile_launches=sl["tile_launches"],
                                  m10_shapes_recorded=sl["shapes_recorded"],
                                  amplitude_m10=[got.real, got.imag])
             for over in (main_err["worst"], fused_err["worst"], peps_rel / 1e-4):
@@ -8283,8 +8368,38 @@ def run_precision(refs: dict, gen) -> dict:
         chain_rows[rung].append(held[rung])
     records["holds_s"] = holds_s
     records["tf32_dot_steps"] = steps_of
-    return {"record": records, "dot_rows": rung_dot_rows(dots),
+    dot_rows = rung_dot_rows(dots)
+    records["largest"] = {"fused_complex_dot": largest_rows("fused_complex_dot", dot_rows),
+                          "fused_transpose_dot": largest_rows("fused_transpose_dot",
+                                                              transpose_rows)}
+    return {"record": records, "dot_rows": dot_rows,
             "transpose_rows": transpose_rows, "chain_rows": chain_rows}
+
+
+def largest_rows(name: str, rows_by_rung: dict, top: int = 4) -> dict:
+    """The ``top`` held shapes with the most multiply-adds of a kernel at
+    each TF32 rung, printed and returned: the tile, ms beside the library's
+    TF32 call (``default``) and the bound, and the share of the bound."""
+    from tnc_tpu_torch.ops import cuda_complex as cc
+
+    out = {}
+    for rung, rows in rows_by_rung.items():
+        big = sorted(rows, key=lambda r: -r.get("batch", 1) * r["k"] * r["m"] * r["n"])[:top]
+        out[rung] = []
+        for r in big:
+            tile = r.get("tile") or cc.tf32_config(r["k"], r["m"], r["n"], rung).name
+            lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            share = r["bound_ms"] / r["ms"]
+            print(f"[precision] {name} {rung} largest: batch {r.get('batch', 1)} K={r['k']} "
+                  f"M={r['m']} N={r['n']} ({tile}, {r['launches']} launches): {r['ms']:.4f} ms, "
+                  f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"{share:.1%} of the bound", flush=True)
+            out[rung].append({"k": r["k"], "m": r["m"], "n": r["n"],
+                              "batch": r.get("batch", 1), "tile": tile,
+                              "launches": r["launches"], "ms": r["ms"],
+                              "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                              "share_of_bound": share})
+    return out
 
 
 def precision_kernels(prec: dict, calibrated_dots: dict | None = None) -> dict:
@@ -8366,13 +8481,16 @@ def main() -> int:
         clock[0] = now
         print(f"[phase {n}] {phase_s[n]:.1f} s", flush=True)
 
-    cuda_complex.build_kernels()
+    libs = cuda_complex.build_kernels()
     print(f"[build] {len(cuda_complex.BUILD_LOG)} kernels in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in cuda_complex.BUILD_LOG.items():
         for label, regs, spill in kernel_instances(log):
             print(f"  {name} {label}: {regs} registers, {spill} bytes spill stores",
                   flush=True)
+            check(not label.startswith("tf32") or spill == 0,
+                  f"{name} {label} spills {spill} bytes")
+    sass = check_sass(libs)
 
     backend = TorchBackend()  # turns TF32 off
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul left on")
@@ -8499,7 +8617,7 @@ def main() -> int:
         # the dot-precision rungs alone: phase 21, its references made here
         prec = run_precision(precision_refs(backend),
                              torch.Generator(device="cuda").manual_seed(SEED))
-        print(json.dumps({"precision": prec["record"],
+        print(json.dumps({"precision": prec["record"], "sass": sass,
                           "kernels_by_rung": precision_kernels(prec)}), flush=True)
         print(card_line(), flush=True)
         return 0
@@ -8885,6 +9003,7 @@ def main() -> int:
         "qasm": qasm["record"],
         "examples": examples["record"],
         "precision": prec["record"],
+        "sass": sass,
         "phase_seconds": phase_s,
         "launches_by_path": {"fused_chain": chain_launches,
                              "fused_complex_dot": dot_launches},

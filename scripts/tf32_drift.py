@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""How far a cuBLAS TF32 product drifts from float64 as its contraction
-grows, beside the port's own TF32 rungs, on one NVIDIA GPU: why the port's
-TF32 products run the hand kernels' tensor-core tile and not cuBLAS.
+"""How far TF32 products drift from float64 as their contraction grows, on
+one NVIDIA GPU: one cuBLAS TF32 call beside the port's own TF32 rungs, and
+the TF32 tile's accumulation depth.
 
-For K in 1024, 4096 and 16384 (M = N = 1024, seeded normal FP32 operands)
-it prints the relative Frobenius error against a float64 product of the same
-inputs of:
+For K in 1024, 4096, 16384 and 262144 (M = N = 1024, seeded normal FP32
+operands) it prints the relative Frobenius error against a float64 product
+of the same inputs of:
 
 - the FP32 product (TF32 off);
 - at ``high`` (3xTF32) and ``default`` (one TF32 pass): the rung's terms
@@ -13,10 +13,21 @@ inputs of:
   products in one call each, TF32 switched on here around them; and
   ``split_complex.rung_matmul``, the plain version (the same terms in FP32);
 - the ``fused_complex_dot`` kernel at each rung (its four real products
-  against the float64 complex product), which adds each k8 step's
-  tensor-core products in FP32.
+  against the float64 complex product) for each chain depth of
+  :data:`CHAINS`: the k8 steps one ``wgmma`` chain sums in the tensor cores
+  (whose sum does not round to nearest) before its FP32 fold into the
+  partial sums, and its time at each depth. The depth is a compile-time
+  constant of ``csrc/tf32_tile.cuh`` (0, the kernels' own: one stage at
+  ``high``, ``kDefaultChainK8`` at ``default``); the script builds a
+  library for each other depth with ``-DTNC_TF32_CHAIN_K8=n`` under
+  ``_build/tf32_drift/``, all at once.
 
-Run from the repository root on the card (a minute with the kernel build)::
+The wgmma tile takes the products of 2^30 multiply-adds or more that
+``cuda_complex.tf32_config`` routes to it; the script names it (``tile=``)
+so that every K runs it.
+
+Run from the repository root on the card (four minutes with the kernel
+builds)::
 
     python3 scripts/tf32_drift.py
 
@@ -32,6 +43,34 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+#: the contraction lengths measured
+KS = (1024, 4096, 16384, 262144)
+#: the chain depths measured, in k8 steps (0: the kernels' own)
+CHAINS = (0, 1, 2, 4, 8, 16, 64)
+
+
+def chain_libraries(cc) -> dict:
+    """``{depth: library path}`` of ``fused_complex_dot`` built at each
+    depth of :data:`CHAINS` but 0 (one ``nvcc`` each, all started
+    together)."""
+    out_dir = cc.build_dir() / "tf32_drift"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = cc.CSRC_DIR / "fused_complex_dot.cu"
+    procs = {}
+    for depth in CHAINS[1:]:
+        path = out_dir / f"fused_complex_dot-chain{depth}.so"
+        cmd = [cc._nvcc(), *cc.NVCC_FLAGS, f"-DTNC_TF32_CHAIN_K8={depth}", "-o", str(path),
+               str(source)]
+        procs[depth] = (path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True))
+    out = {0: cc.build_kernels(["fused_complex_dot"])["fused_complex_dot"]}
+    for depth, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc at chain depth {depth} exited {proc.returncode}\n{log}")
+        out[depth] = path
+    return out
+
 
 def main() -> int:
     import torch
@@ -44,6 +83,7 @@ def main() -> int:
     from tnc_tpu_torch.ops.backends import TorchBackend
 
     TorchBackend()  # TF32 off
+    libraries = chain_libraries(cc)
     matmul = torch.backends.cuda.matmul
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -65,8 +105,18 @@ def main() -> int:
             matmul.allow_tf32 = False
         return out
 
+    def event_ms(fn, reps=3):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
     rows = []
-    for k in (1024, 4096, 16384):
+    for k in KS:
         m = n = 1024
         x, y = (torch.randn(k, s, generator=gen, device="cuda") for s in (m, n))
         exact = x.double().mT @ y.double()
@@ -74,17 +124,30 @@ def main() -> int:
         for rung in ("high", "default"):
             row[f"{rung} cuBLAS TF32"] = rel(cublas_tf32(x.mT, y, rung), exact)
             row[f"{rung} plain"] = rel(sc.rung_matmul(x.mT, y, rung), exact)
+        del x, y, exact
         ops = [torch.randn(k, s, generator=gen, device="cuda") for s in (m, m, n, n)]
         exact = cc.fused_complex_dot_reference(*(t.double() for t in ops))
-        for rung in ("float32", "high", "default"):
-            got = cc.fused_complex_dot(*ops, precision=rung)
-            num = sum(float(((g.double() - e) ** 2).sum()) for g, e in zip(got, exact))
-            den = sum(float((e ** 2).sum()) for e in exact)
-            row[f"fused_complex_dot {rung}"] = (num / den) ** 0.5
+        den = sum(float((e ** 2).sum()) for e in exact)
+        try:
+            for rung in ("float32", "high", "default"):
+                tile = None if rung == "float32" else cc.wgmma_tile(m, n)
+                for chain in (CHAINS if rung != "float32" else (0,)):
+                    cc._LIBS["fused_complex_dot"] = cc.bind_library("fused_complex_dot",
+                                                                    libraries[chain])
+                    got = cc.fused_complex_dot(*ops, precision=rung, tile=tile)
+                    num = sum(float(((g.double() - e) ** 2).sum()) for g, e in zip(got, exact))
+                    del got
+                    key = f"fused_complex_dot {rung}" + ("" if rung == "float32" else
+                                                          f" chain {chain}")
+                    row[key] = (num / den) ** 0.5
+                    row[f"{key} ms"] = event_ms(
+                        lambda: cc.fused_complex_dot(*ops, precision=rung, tile=tile))
+        finally:
+            cc._LIBS["fused_complex_dot"] = cc.bind_library("fused_complex_dot", libraries[0])
         print(" ".join(f"{key} {value:.3e}" if isinstance(value, float) else f"{key} {value}"
                        for key, value in row.items()), flush=True)
         rows.append(row)
-        del x, y, exact, ops
+        del ops, exact
         torch.cuda.empty_cache()
     print(json.dumps({"tf32_drift": rows}), flush=True)
     print(subprocess.run(

@@ -87,20 +87,19 @@
 //            small terms first, on the tensor cores;
 //   kTf32    `default`: one TF32 product of rna(a) and rna(b).
 //
-// The TF32 rungs run complex_gemm_tile_tc: the same sources, ring and
-// staged pipeline, but naive four-product arithmetic (the plain version's:
-// each part rounded on its own, so the kernel and its plain version round
-// the same values; Gauss sums would round other ones) through
-// mma.sync.m16n8k8 TF32 with FP32 accumulation. The tiles are the float
-// variants' with wider row padding (the *Tc variants): a warp's fragment
-// loads read element (k, f) at k * P + f for 4 contract indices x 8 free
-// indices, on 32 distinct banks only when P = 8 (mod 32); the FMA
-// variants' P = 132 and 68 (4 mod 32) put two lanes on a bank. A tile of
-// fewer than 16 rows (Flat, 8 x 512) is computed transposed, C^T = B^T A:
-// its 512 columns take the mma rows. Accumulation is three-level: each
-// k8 step's tensor-core products start from zero (the tensor cores' sum
-// is not rounded to nearest, so a long chain of them in one accumulator
-// drifts), are added to partial sums with FP32 adds, and the partials of
+// The TF32 rungs run tf32_tile.cuh's wgmma tile on launches of 2^30
+// multiply-adds or more; a smaller launch runs complex_gemm_tile_tc below,
+// whose light per-stage cost and many non-persistent blocks beat the
+// wgmma tile's ring there (cuda_complex.tf32_config routes by size;
+// chip_smoke.py phase 21 times both forms). It is the engine's direct and
+// staged pipelines with naive four-product arithmetic (each part rounded
+// on its own, as the plain version rounds) through mma.sync.m16n8k8 TF32,
+// on the float variants padded for conflict-free fragment loads (the *Tc
+// variants: a warp's fragment loads read element (k, f) at k * P + f for
+// 4 contract indices x 8 free indices, on 32 distinct banks only when P =
+// 8 mod 32); a tile of fewer than 16 rows (FlatTc, 8 x 512) is computed
+// transposed, C^T = B^T A. Accumulation is three-level: each k8 step's tensor-core products start
+// from zero, are added to partial sums with FP32 adds, and the partials of
 // kFold stages folded into the running totals.
 #pragma once
 
@@ -1065,19 +1064,20 @@ __host__ __device__ inline long long tile_count(long long M, long long N) {
 // The tile variants the host chooses between (mirrored by
 // cuda_complex.GEMM_VARIANTS): 0 = float 128 x 64, 1 = float 64 x 64,
 // 2 = float 8 x 512 (a few rows, long columns: the outer-product steps),
-// 3 = double 64 x 64; the float ones padded otherwise at the TF32 rungs.
+// 3 = double 64 x 64.
 using Wide = Variant<float, 16, 8, 4, 32, 3, 4, 8>;
 using Narrow = Variant<float, 16, 4, 4, 16, 3, 2, 4>;
 using Flat = Variant<float, 2, 4, 4, 8, 3, 4, 1>;
 using Double = Variant<double, 16, 4, 4, 16, 3, 2, 2>;
-// the float variants' tiles at the TF32 rungs, rows padded to 8 (mod 32)
-// floats: 128 x 64 (P 136, 72), 64 x 64 (72, 72), 8 x 512 (24, 520)
+// the float variants' tiles at the TF32 rungs' small launches, rows padded
+// to 8 (mod 32) floats: 128 x 64 (P 136, 72), 64 x 64 (72, 72), 8 x 512
+// (24, 520)
 using WideTc = Variant<float, 16, 8, 4, 32, 3, 4, 8, 8, 8>;
 using NarrowTc = Variant<float, 16, 4, 4, 16, 3, 2, 4, 8, 8>;
 using FlatTc = Variant<float, 2, 4, 4, 8, 3, 4, 1, 16, 8>;
 
 // A block's opt-in shared memory on an H100 (cuda_complex.MAX_SMEM_BYTES).
-// Every TF32 tile fits it in both pipelines, beside fused_transpose_dot's
+// Every mma.sync tile fits it in both pipelines, beside fused_transpose_dot's
 // offset tables of 8-byte entries (BM + BN of them).
 constexpr size_t kMaxSmemBytes = 232448;
 template <class Cfg>
@@ -1085,15 +1085,7 @@ constexpr bool kTcFits =
     Cfg::kTcTileBytes + 8 * (Cfg::BM + Cfg::BN) <= kMaxSmemBytes &&
     Cfg::kTcStagedBytes + 8 * (Cfg::BM + Cfg::BN) <= kMaxSmemBytes;
 static_assert(kTcFits<WideTc> && kTcFits<NarrowTc> && kTcFits<FlatTc>,
-              "a TF32 tile exceeds a block's shared memory");
-
-// The float tile variants a launch at rung R takes (0 / 1 / 2 as above)
-template <int R>
-struct FloatTiles {
-  using Wide = std::conditional_t<R == kFp32, gemm::Wide, WideTc>;
-  using Narrow = std::conditional_t<R == kFp32, gemm::Narrow, NarrowTc>;
-  using Flat = std::conditional_t<R == kFp32, gemm::Flat, FlatTc>;
-};
+              "an mma.sync tile exceeds a block's shared memory");
 
 // Sets the kernel's dynamic shared memory limit to its `bytes`, once per
 // device (`done`: the caller's flags for this kernel). Returns a CUDA error

@@ -59,17 +59,23 @@
 //
 // Dot-precision rungs (a launch argument of the float entry, as in
 // fused_complex_dot.cu): float32 runs the FMA engine; `high` (3xTF32) and
-// `default` (one TF32 pass) the engine's tensor-core tile on the same
-// sources and pipelines (complex_gemm_tile_tc: the staged pipeline's
-// compute slots then hold the four parts, no Gauss sums). wgmma with TMA
-// boxes for the gather is later work; double ignores the rung.
+// `default` (one TF32 pass) run tf32_tile.cuh's wgmma tile on the same
+// gathered sources, loaded by cp.async into raw slots in the copy mode's
+// layout ([k][f] along a stride-1 free index, [f][k] along a stride-1
+// contract index) and rounded into K-major compute slots by its conversion
+// stage; the loading warpgroup keeps each tile's free offsets in shared
+// memory. The launches of fewer than 2^30 multiply-adds, those with M <= 8
+// and those with int64 offset tables run complex_gemm.cuh's mma.sync tiles
+// instead (tile variants 2-4). double ignores the rung.
 #include <cuda_runtime.h>
 
 #include "complex_gemm.cuh"
+#include "tf32_tile.cuh"
 
 namespace {
 
 namespace g = tnc::gemm;
+namespace tf = tnc::tf32;
 
 template <class Cfg, bool kStaged, int R>
 __host__ __device__ constexpr size_t tile_bytes() {
@@ -167,26 +173,129 @@ int launch_any(const typename Cfg::T* ar, const typename Cfg::T* ai,
                                  stream);
 }
 
-// A float launch at rung R on tile variant `variant`
-template <int R>
-int launch_float(const float* ar, const float* ai, const void* a_off_k,
-                 const void* a_off_f, int a_mode, const float* br,
-                 const float* bi, const void* b_off_k, const void* b_off_f,
-                 int b_mode, float* cr, float* ci, long long K, long long M,
-                 long long N, int off64, int variant, void* stream) {
-  using Tiles = g::FloatTiles<R>;
+// A float32 launch of the FMA engine on tile variant `variant`
+int launch_fp32(const float* ar, const float* ai, const void* a_off_k, const void* a_off_f,
+                int a_mode, const float* br, const float* bi, const void* b_off_k,
+                const void* b_off_f, int b_mode, float* cr, float* ci, long long K,
+                long long M, long long N, int off64, int variant, void* stream) {
   if (variant == 0)
-    return launch_any<typename Tiles::Wide, R>(ar, ai, a_off_k, a_off_f, a_mode,
-                                               br, bi, b_off_k, b_off_f, b_mode,
-                                               cr, ci, K, M, N, off64, stream);
+    return launch_any<g::Wide, g::kFp32>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k,
+                                         b_off_f, b_mode, cr, ci, K, M, N, off64, stream);
   if (variant == 1)
-    return launch_any<typename Tiles::Narrow, R>(
-        ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k, b_off_f, b_mode, cr,
-        ci, K, M, N, off64, stream);
+    return launch_any<g::Narrow, g::kFp32>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k,
+                                           b_off_f, b_mode, cr, ci, K, M, N, off64, stream);
   if (variant == 2)
-    return launch_any<typename Tiles::Flat, R>(ar, ai, a_off_k, a_off_f, a_mode,
-                                               br, bi, b_off_k, b_off_f, b_mode,
-                                               cr, ci, K, M, N, off64, stream);
+    return launch_any<g::Flat, g::kFp32>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k,
+                                         b_off_f, b_mode, cr, ci, K, M, N, off64, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---- the TF32 rungs ----------------------------------------------------------
+
+// The loading warpgroup's view of the two gathered operands: at each work
+// item the free offsets of the tile's X rows and Y columns go to shared
+// memory (-1 past the end; the loaders alone read them), then each stage's
+// elements are read at off_k[k] + off_f[f] by cp.async.
+template <class T>
+struct GatheredLoader {
+  using G = g::Gathered<float, int>;
+  const G& a;
+  const G& b;
+  int* tx;  // X rows', then Y columns' free offsets (int32 tables)
+  int* ty;
+
+  __device__ __forceinline__ void begin(long long, long long x0, long long y0, int p,
+                                        unsigned char* tail) {
+    tx = reinterpret_cast<int*>(tail);
+    ty = tx + T::XR;
+    tf::named_barrier<2, tf::kProducers>();  // the last tile's copies are issued
+    for (int i = p; i < T::XR + T::YC; i += tf::kProducers) {
+      if (i < T::XR) {
+        const long long f = x0 + i;
+        tx[i] = f < a.F ? __ldg(a.off_f + f) : -1;
+      } else {
+        const long long f = y0 + (i - T::XR);
+        ty[i - T::XR] = f < b.F ? __ldg(b.off_f + f) : -1;
+      }
+    }
+    tf::named_barrier<2, tf::kProducers>();
+  }
+
+  __device__ __forceinline__ void load(float* xr, float* xi, float* yr, float* yi,
+                                       long long k0, unsigned long long*, int p) const {
+    G x = a;  // X = A, Y = B with this tile's free offsets
+    G y = b;
+    x.tile_off = tx;
+    y.tile_off = ty;
+    tf::load_stage<T::XR, T::BK>(x, xr, xi, k0, p);
+    tf::load_stage<T::YC, T::BK>(y, yr, yi, k0, p);
+  }
+};
+
+// The wgmma tile reads int32 offset tables only (operands of under 2^31
+// elements, the PEPS operands' 2^24 among them): int64 tables take the
+// mma.sync tiles (cuda_complex.tf32_config), which halves the kernel's
+// instantiations
+template <class T, int R>
+__global__ void __launch_bounds__(tf::kThreads, 1)
+    fused_transpose_dot_tf32_kernel(g::Gathered<float, int> a, g::Gathered<float, int> b,
+                                    tf::Work<T> work, float* cr, float* ci) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GatheredLoader<T> ld{a, b, nullptr, nullptr};
+  tf::run_tile<T, R>(ld, work, smem_raw, a.mode, b.mode, cr, ci, 0u);
+}
+
+template <class T, int R>
+int launch_tf32(const float* ar, const float* ai, const void* a_off_k, const void* a_off_f,
+                int a_mode, const float* br, const float* bi, const void* b_off_k,
+                const void* b_off_f, int b_mode, float* cr, float* ci, long long K,
+                long long M, long long N, int off64, void* stream) {
+  static bool done[64] = {false};
+  if (off64) return static_cast<int>(cudaErrorInvalidValue);
+  // the tile, then the free offsets of its X rows and Y columns
+  constexpr size_t bytes = tf::kTileBytes<T, R> + sizeof(int) * (T::XR + T::YC);
+  const int rc = g::prepare(fused_transpose_dot_tf32_kernel<T, R>, bytes, done);
+  if (rc != 0) return rc;
+  const long long tiles = g::tile_count<T>(M, N);
+  if (tiles == 0) return 0;
+  const tf::Work<T> work{tiles, tiles, static_cast<int>((K + T::BK - 1) / T::BK), K, M, N};
+  const int grid = tf::persistent_grid(work.items);
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  using G = g::Gathered<float, int>;
+  const G a{ar, ai, static_cast<const int*>(a_off_k), static_cast<const int*>(a_off_f), K, M,
+            a_mode, nullptr};
+  const G b{br, bi, static_cast<const int*>(b_off_k), static_cast<const int*>(b_off_f), K, N,
+            b_mode, nullptr};
+  fused_transpose_dot_tf32_kernel<T, R>
+      <<<grid, tf::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a, b, work, cr, ci);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A TF32 launch at rung R on tile `variant`: the wgmma tile's 0 wide, 1
+// flat_n (int32 tables), or the mma.sync tile's 2 mma_flat, 3 mma_wide, 4
+// mma_narrow
+template <int R>
+int launch_tf32_variant(const float* ar, const float* ai, const void* a_off_k,
+                        const void* a_off_f, int a_mode, const float* br, const float* bi,
+                        const void* b_off_k, const void* b_off_f, int b_mode, float* cr,
+                        float* ci, long long K, long long M, long long N, int off64,
+                        int variant, void* stream) {
+  using Wide = std::conditional_t<R == g::kTf32, tf::Wide, tf::WideHigh>;
+  if (variant == 0)
+    return launch_tf32<Wide, R>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k, b_off_f,
+                                b_mode, cr, ci, K, M, N, off64, stream);
+  if (variant == 1)
+    return launch_tf32<tf::FlatN, R>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k,
+                                     b_off_f, b_mode, cr, ci, K, M, N, off64, stream);
+  if (variant == 2)
+    return launch_any<g::FlatTc, R>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k, b_off_f,
+                                    b_mode, cr, ci, K, M, N, off64, stream);
+  if (variant == 3)
+    return launch_any<g::WideTc, R>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k, b_off_f,
+                                    b_mode, cr, ci, K, M, N, off64, stream);
+  if (variant == 4)
+    return launch_any<g::NarrowTc, R>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k,
+                                      b_off_f, b_mode, cr, ci, K, M, N, off64, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -197,9 +306,12 @@ extern "C" {
 // a_off_k/a_off_f: the first operand's contract (K) and free (M) offset
 // tables; b_off_k/b_off_f the second's (K, N), int64 when off64 else int32.
 // The first operand gives the output rows. a_mode / b_mode: copy modes
-// (tnc::gemm::Mode; kVecK on either selects the staged pipeline); variant:
-// 0 = 128 x 64 tiles, 1 = 64 x 64, 2 = 8 x 512; rung: 0 = float32 (FMA),
-// 1 = high (3xTF32), 2 = default (TF32) (tnc::gemm::Rung).
+// (tnc::gemm::Mode; at float32 kVecK on either selects the staged
+// pipeline); rung: 0 = float32 (FMA), 1 = high (3xTF32), 2 = default (TF32)
+// (tnc::gemm::Rung); variant: at float32 0 = 128 x 64 tiles, 1 = 64 x 64,
+// 2 = 8 x 512; at a TF32 rung the tile of tf32_tile.cuh (0 wide, 1 flat_n;
+// int32 tables only) or complex_gemm.cuh's mma.sync tiles (2 8 x 512, 3
+// 128 x 64, 4 64 x 64; cuda_complex.tf32_config chooses).
 int tnc_fused_transpose_dot_f32(const float* ar, const float* ai,
                                 const void* a_off_k, const void* a_off_f,
                                 int a_mode, const float* br, const float* bi,
@@ -208,17 +320,16 @@ int tnc_fused_transpose_dot_f32(const float* ar, const float* ai,
                                 long long M, long long N, int off64,
                                 int variant, int rung, void* stream) {
   if (rung == g::kFp32)
-    return launch_float<g::kFp32>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
-                                  b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
-                                  off64, variant, stream);
+    return launch_fp32(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k, b_off_f, b_mode,
+                       cr, ci, K, M, N, off64, variant, stream);
   if (rung == g::kTf32x3)
-    return launch_float<g::kTf32x3>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
-                                    b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
-                                    off64, variant, stream);
+    return launch_tf32_variant<g::kTf32x3>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k,
+                                           b_off_f, b_mode, cr, ci, K, M, N, off64, variant,
+                                           stream);
   if (rung == g::kTf32)
-    return launch_float<g::kTf32>(ar, ai, a_off_k, a_off_f, a_mode, br, bi,
-                                  b_off_k, b_off_f, b_mode, cr, ci, K, M, N,
-                                  off64, variant, stream);
+    return launch_tf32_variant<g::kTf32>(ar, ai, a_off_k, a_off_f, a_mode, br, bi, b_off_k,
+                                         b_off_f, b_mode, cr, ci, K, M, N, off64, variant,
+                                         stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

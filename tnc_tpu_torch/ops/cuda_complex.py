@@ -47,11 +47,17 @@ Every wrapper and plain version takes the reference's ``precision``: the
 dot-precision rung (``split_complex.RUNGS``) a float32 call computes. At
 ``float32`` (the default) the arithmetic is FP32 (or FP64) FMA on the CUDA
 cores; at ``high`` (3xTF32) and ``default`` (one TF32 pass) the two
-single-product kernels run the tile engine's tensor-core tile (``mma.sync``
-TF32 on operands rounded with ``cvt.rna.tf32.f32``) and the chain kernel
-its FMA loop on rounded operands; the plain versions round the same values
-in FP32 torch ops (``split_complex.rung_matmul``). float64 ignores the rung.
-:data:`RUNG_LAUNCHES` counts the launches per kernel and rung.
+single-product kernels run the TF32 tile of ``csrc/tf32_tile.cuh``
+(``wgmma`` on operands rounded once to TF32 into K-major shared-memory
+tiles, TMA or ``cp.async`` loads behind an ``mbarrier`` ring) on launches
+of :data:`TF32_WGMMA_MIN_MACS` multiply-adds or more, and the tile
+engine's ``mma.sync`` tiles below that and on the outer products (both
+mirrored by :data:`TF32_TILES` and chosen by :func:`tf32_config`), and the chain
+kernel its FMA loop on rounded
+operands; the plain versions round the same values in FP32 torch ops
+(``split_complex.rung_matmul``). float64 ignores the rung.
+:data:`RUNG_LAUNCHES` counts the launches per kernel and rung,
+:data:`TILE_LAUNCHES` the TF32 launches per kernel, rung and tile.
 """
 
 from __future__ import annotations
@@ -89,13 +95,17 @@ RUNG_CODES = {"float32": 0, "high": 1, "default": 2}
 #: :func:`reset_launches` (float64 launches count as ``float32``)
 RUNG_LAUNCHES: dict[str, int] = {}
 
+#: TF32-rung launches per ``"<kernel> <rung> <tile>"`` (a :data:`TF32_TILES`
+#: name) since the last :func:`reset_launches`
+TILE_LAUNCHES: dict[str, int] = {}
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 _SOURCES = {
     "fused_complex_dot": "fused_complex_dot.cu",
     "fused_chain": "fused_chain.cu",
     "fused_transpose_dot": "fused_transpose_dot.cu",
 }
-_HEADERS = ("complex_gemm.cuh",)
+_HEADERS = ("complex_gemm.cuh", "tf32_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -127,6 +137,7 @@ def reset_launches() -> None:
     for form in CHAIN_FORMS:
         CHAIN_FORMS[form] = 0
     RUNG_LAUNCHES.clear()
+    TILE_LAUNCHES.clear()
 
 
 def _rung(precision, dtype) -> str:
@@ -140,10 +151,13 @@ def _rung(precision, dtype) -> str:
     return _resolve_precision(precision) if dtype == torch.float32 else "float32"
 
 
-def _count(name: str, rung: str, n: int = 1) -> None:
+def _count(name: str, rung: str, n: int = 1, tile: str | None = None) -> None:
     LAUNCHES[name] += n
     key = f"{name} {rung}"
     RUNG_LAUNCHES[key] = RUNG_LAUNCHES.get(key, 0) + n
+    if tile is not None:
+        key = f"{name} {rung} {tile}"
+        TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + n
 
 
 def ineligible_reason(k: int, m: int, n: int) -> str | None:
@@ -264,41 +278,49 @@ def _library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         # the first kernel a process needs builds them all, in parallel
-        path = build_kernels()[name]
-        lib = ctypes.CDLL(str(path))
-        lib.tnc_error_string.argtypes = [_I]
-        lib.tnc_error_string.restype = ctypes.c_char_p
-        # the float entries take the rung before the stream; double takes none
-        if name == "fused_complex_dot":
-            head = [_P, _P, _LL, _LL, _LL, _I, _P, _P, _LL, _LL, _LL, _I,
-                    _P, _P, _I, _LL, _LL, _LL, _I]
-            lib.tnc_fused_complex_dot_f32.argtypes = head + [_I, _P]
-            lib.tnc_fused_complex_dot_f64.argtypes = head + [_P]
-            fns = (lib.tnc_fused_complex_dot_f32, lib.tnc_fused_complex_dot_f64)
-        elif name == "fused_transpose_dot":
-            head = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _LL, _LL, _I, _I]
-            lib.tnc_fused_transpose_dot_f32.argtypes = head + [_I, _P]
-            lib.tnc_fused_transpose_dot_f64.argtypes = head + [_P]
-            fns = (lib.tnc_fused_transpose_dot_f32, lib.tnc_fused_transpose_dot_f64)
-        else:
-            lib.tnc_fused_chain_f32.argtypes = [_P, _I, _P, _I, _P]
-            lib.tnc_fused_chain_f64.argtypes = [_P, _I, _P, _P]
-            fns = (lib.tnc_fused_chain_f32, lib.tnc_fused_chain_f64)
-        for fn in fns:
-            fn.restype = _I
-        if name == "fused_chain":
-            lib.tnc_chain_empty_launch.argtypes = [_I, _I, _P]
-            lib.tnc_chain_empty_launch.restype = _I
-            abi = (lib.tnc_chain_header_fields, lib.tnc_chain_table_fields,
-                   lib.tnc_chain_max_stages, lib.tnc_chain_max_ptrs)
-            for fn in abi:
-                fn.restype = _I
-            if tuple(fn() for fn in abi) != (
-                _CHAIN_HEADER, _CHAIN_FIELDS, CHAIN_STAGES_PER_LAUNCH, _CHAIN_MAX_PTRS
-            ):
-                raise RuntimeError("fused_chain library and wrapper disagree")
+        lib = bind_library(name, build_kernels()[name])
         _LIBS[name] = lib
         return lib
+
+
+def bind_library(name: str, path) -> ctypes.CDLL:
+    """Load kernel ``name``'s shared library from ``path`` and declare its
+    C entries. (A library built with other flags, as
+    ``scripts/tf32_drift.py`` builds one at each TF32 chain depth, is put
+    in place with ``_LIBS[name] = bind_library(name, path)``.)"""
+    lib = ctypes.CDLL(str(path))
+    lib.tnc_error_string.argtypes = [_I]
+    lib.tnc_error_string.restype = ctypes.c_char_p
+    # the float entries take the rung before the stream; double does not
+    if name == "fused_complex_dot":
+        head = [_P, _P, _LL, _LL, _LL, _I, _P, _P, _LL, _LL, _LL, _I,
+                _P, _P, _I, _LL, _LL, _LL, _I]
+        lib.tnc_fused_complex_dot_f32.argtypes = head + [_I, _P]
+        lib.tnc_fused_complex_dot_f64.argtypes = head + [_P]
+        fns = (lib.tnc_fused_complex_dot_f32, lib.tnc_fused_complex_dot_f64)
+    elif name == "fused_transpose_dot":
+        head = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _LL, _LL, _LL, _I, _I]
+        lib.tnc_fused_transpose_dot_f32.argtypes = head + [_I, _P]
+        lib.tnc_fused_transpose_dot_f64.argtypes = head + [_P]
+        fns = (lib.tnc_fused_transpose_dot_f32, lib.tnc_fused_transpose_dot_f64)
+    else:
+        lib.tnc_fused_chain_f32.argtypes = [_P, _I, _P, _I, _P]
+        lib.tnc_fused_chain_f64.argtypes = [_P, _I, _P, _P]
+        fns = (lib.tnc_fused_chain_f32, lib.tnc_fused_chain_f64)
+    for fn in fns:
+        fn.restype = _I
+    if name == "fused_chain":
+        lib.tnc_chain_empty_launch.argtypes = [_I, _I, _P]
+        lib.tnc_chain_empty_launch.restype = _I
+        abi = (lib.tnc_chain_header_fields, lib.tnc_chain_table_fields,
+               lib.tnc_chain_max_stages, lib.tnc_chain_max_ptrs)
+        for fn in abi:
+            fn.restype = _I
+        if tuple(fn() for fn in abi) != (
+            _CHAIN_HEADER, _CHAIN_FIELDS, CHAIN_STAGES_PER_LAUNCH, _CHAIN_MAX_PTRS
+        ):
+            raise RuntimeError("fused_chain library and wrapper disagree")
+    return lib
 
 
 def _check(lib, rc: int, what: str) -> None:
@@ -374,6 +396,9 @@ def _check_pair(what: str, re, im) -> None:
 #: walking the free index; 16-byte copies along the stride-1 contract index
 #: into a K-fastest tile that the staged pipeline transposes
 COPY_VEC, COPY_WALK_K, COPY_WALK_F, COPY_VEC_K = 0, 1, 2, 3
+#: the TF32 tile's TMA boxes (``tf32::kTma``): its launcher takes them for a
+#: :data:`COPY_VEC` operand of ``fused_complex_dot`` whose rows do not overlap
+COPY_TMA = 4
 
 #: shared memory one block may use on an H100, in bytes
 MAX_SMEM_BYTES = 232_448
@@ -417,9 +442,8 @@ class GemmConfig(NamedTuple):
     """A launch of the engine: the variant, its tile (``bm x bn``, ``bk``
     deep), ring depth, elements per 16-byte copy (``vec``) and dynamic
     shared memory in bytes (the kernel sizes its launch from its own
-    ``kTileBytes`` / ``kStagedBytes``, which this count mirrors; the TF32
-    rungs' tiles, ``kTcTileBytes`` / ``kTcStagedBytes``, are checked
-    against the limit where they are defined)."""
+    ``kTileBytes`` / ``kStagedBytes``, which this count mirrors). The
+    TF32 rungs launch another tile: :func:`tf32_config`."""
 
     variant: int
     bm: int
@@ -479,6 +503,154 @@ def gemm_config(m: int, n: int, itemsize: int, offset_itemsize: int = 0,
         elems = stages * slot + 2 * var.bk * (pn + pm)  # + br + bi, ar + ai, two stages
     smem = itemsize * elems + offset_itemsize * (bm + bn)
     return GemmConfig(var.index, bm, bn, var.bk, stages, vec, smem)
+
+
+class Tf32Tile(NamedTuple):
+    """One tile of the TF32 rungs (``csrc/tf32_tile.cuh``: ``Wide`` and
+    ``WideHigh``, ``FlatN``; ``csrc/complex_gemm.cuh``'s mma.sync
+    ``FlatTc``, ``WideTc``, ``NarrowTc``): ``xr`` rows of ``wgmma`` (groups
+    of 64) from the X operand, ``yc`` columns (its N) from the Y operand;
+    X is A (the output's rows) unless ``swap``, where the tile computes Cᵀ;
+    at each TF32 rung ``bk_*`` contract indices a stage and ``raw_*`` raw
+    slots in the load ring (the stages the loads run ahead)."""
+
+    index: int
+    name: str
+    xr: int
+    yc: int
+    swap: bool
+    bk_default: int
+    bk_high: int
+    raw_default: int
+    raw_high: int
+
+    @property
+    def bm(self) -> int:
+        return self.yc if self.swap else self.xr
+
+    @property
+    def bn(self) -> int:
+        return self.xr if self.swap else self.yc
+
+
+TF32_TILES = (
+    # the wgmma tile (csrc/tf32_tile.cuh)
+    Tf32Tile(0, "wide", 64, 128, False, 32, 16, 2, 5),
+    Tf32Tile(1, "flat_n", 256, 8, False, 16, 16, 4, 2),   # N <= 8
+    # complex_gemm.cuh's mma.sync tiles (FlatTc, WideTc, NarrowTc: a
+    # three-stage cp.async ring, 256 threads), for the classes tf32_config
+    # routes there; xr is the tile's output rows (columns for the
+    # transposed mma_flat), raw its ring's stages
+    Tf32Tile(2, "mma_flat", 512, 8, True, 8, 8, 3, 3),
+    Tf32Tile(3, "mma_wide", 128, 64, False, 32, 32, 3, 3),
+    Tf32Tile(4, "mma_narrow", 64, 64, False, 16, 16, 3, 3),
+)
+_TF32_BY_NAME = {t.name: t for t in TF32_TILES}
+#: the mma.sync tiles' row padding of the A and B tiles (``PadM_``,
+#: ``PadN_`` of their ``Variant``s), in floats
+_MMA_PADS = {"mma_flat": (16, 8), "mma_wide": (8, 8), "mma_narrow": (8, 8)}
+#: a TF32 launch of fewer complex multiply-adds (batch rows included) keeps
+#: the mma.sync tiles: below it neither tile wins throughout, above it the
+#: wgmma tile ran every launch but the outer products faster on an H100
+#: (``scripts/tf32_tile_shapes.py --tiles`` times both on the same launch)
+TF32_WGMMA_MIN_MACS = 1 << 30
+#: the kernels' threads at a TF32 rung: two consumer warpgroups, one loading
+TF32_THREADS = 384
+
+
+class Tf32Config(NamedTuple):
+    """A TF32-rung launch: the tile, its output tile (``bm x bn``), stage
+    depth ``bk``, raw slots ``raw`` and dynamic shared memory in bytes (the
+    raw slots and two compute slots, a hi and, at ``high``, a lo level
+    each, of the operands' parts in whole 1 KB swizzle atoms; the
+    mbarriers, the 1 KB alignment slack and the transpose kernel's offset
+    tables), as the kernel sizes its launch (``tf32::kTileBytes``)."""
+
+    variant: int
+    name: str
+    bm: int
+    bn: int
+    bk: int
+    raw: int
+    smem_bytes: int
+
+    def tiles(self, m: int, n: int) -> int:
+        return -(-m // self.bm) * -(-n // self.bn)
+
+
+def wgmma_tile(m: int, n: int) -> str:
+    """The wgmma tile of an ``(M, N)`` output: ``flat_n`` when ``N <= 8``,
+    else ``wide``."""
+    return "flat_n" if n <= 8 else "wide"
+
+
+def mma_tile(m: int, n: int, sms: int = H100_SMS) -> str:
+    """The mma.sync tile of an ``(M, N)`` output, chosen as
+    :func:`gemm_config` chooses the FMA engine's: ``mma_flat`` when ``M <=
+    8``, ``mma_wide`` when ``M > 64`` and its tiles give every SM a block,
+    else ``mma_narrow``."""
+    wide = _TF32_BY_NAME["mma_wide"]
+    if m <= 8:
+        return "mma_flat"
+    if m > 64 and -(-m // wide.bm) * -(-n // wide.bn) >= sms:
+        return "mma_wide"
+    return "mma_narrow"
+
+
+def tf32_config(k: int, m: int, n: int, rung: str, offset_itemsize: int = 0,
+                staged: bool = False, batch: int = 1, sms: int = H100_SMS,
+                tile: str | None = None) -> Tf32Config:
+    """The TF32 tile of a ``(K, M) x (K, N)`` product (``batch`` rows) at
+    ``rung`` (``high`` or ``default``): ``tile`` (a :data:`TF32_TILES`
+    name) if given, else :func:`mma_tile`'s for three classes and
+    :func:`wgmma_tile`'s for the rest (64 x 128 ``wide`` outputs; 32
+    contract indices a stage at ``default``, 16 at ``high``, whose compute
+    slots hold hi and lo tiles). The classes, at both rungs: under
+    :data:`TF32_WGMMA_MIN_MACS` multiply-adds; ``M <= 8`` (the outer
+    products, which the wgmma tile's transposed form ran 1.06-1.51x slower
+    on an H100, so it is not built); int64 offset tables (the wgmma
+    transpose kernel reads int32 ones).
+    ``offset_itemsize``: the transpose kernel's table width (0:
+    ``fused_complex_dot``); ``staged``: its staged pipeline (a
+    ``COPY_VEC_K`` operand; an mma.sync tile's shared memory depends on it).
+
+    >>> tf32_config(16384, 8192, 16384, "default")   # the random28 stem
+    Tf32Config(variant=0, name='wide', bm=64, bn=128, bk=32, raw=2, smem_bytes=197888)
+    >>> tf32_config(16384, 8192, 16384, "high", 4)[:6]
+    (0, 'wide', 64, 128, 16, 5)
+    >>> tf32_config(2, 2, 2**27, "high")[:4]    # an outer product
+    (2, 'mma_flat', 8, 512)
+    >>> tf32_config(1024, 64, 2048, "default")[:4]
+    (4, 'mma_narrow', 64, 64)
+    >>> tf32_config(2**20, 8, 2**10, "high")[:4]   # 2^33 multiply-adds, M <= 8
+    (2, 'mma_flat', 8, 512)
+    """
+    if rung not in ("high", "default"):
+        raise ValueError(f"no TF32 tile at rung {rung!r}")
+    if tile is None:
+        small = k * m * n * batch < TF32_WGMMA_MIN_MACS or m <= 8 or offset_itemsize == 8
+        tile = mma_tile(m, n, sms) if small else wgmma_tile(m, n)
+    t = _TF32_BY_NAME[tile]
+    if t.name.startswith("mma"):
+        # complex_gemm.cuh's kTcTileBytes / kTcStagedBytes: the ring's three
+        # slots (or two raw and two compute slots) of the four parts, rows
+        # padded by _MMA_PADS
+        pad_m, pad_n = _MMA_PADS[t.name]
+        bk = t.bk_default
+        slot = 2 * bk * (t.bm + pad_m) + 2 * bk * (t.bn + pad_n)
+        smem = 4 * (4 if staged else 3) * slot + offset_itemsize * (t.bm + t.bn)
+        return Tf32Config(t.index, t.name, t.bm, t.bn, bk, t.raw_default, smem)
+    high = rung == "high"
+    bk, raw = (t.bk_high, t.raw_high) if high else (t.bk_default, t.raw_default)
+    levels = 2 if high else 1
+
+    def part(rows):
+        return -(-rows * bk * 4 // 1024) * 1024
+
+    slot = 2 * part(t.xr) + 2 * part(t.yc)
+    smem = (1024 + raw * slot + 2 * levels * slot + 256
+            + offset_itemsize * (t.xr + t.yc))
+    return Tf32Config(t.index, t.name, t.bm, t.bn, bk, raw, smem)
 
 
 _SMS: dict = {}
@@ -542,7 +714,7 @@ def fused_complex_dot_reference(ar, ai, br, bi, precision=None):
     return re, im
 
 
-def fused_complex_dot(ar, ai, br, bi, precision=None):
+def fused_complex_dot(ar, ai, br, bi, precision=None, *, tile=None):
     """``(re, im)`` of the complex product ``(ar+i·ai)ᵀ · (br+i·bi)``.
 
     ``ar, ai: (K, M)``; ``br, bi: (K, N)``, float32 or float64 (any
@@ -555,9 +727,11 @@ def fused_complex_dot(ar, ai, br, bi, precision=None):
     FMA engine; ``high``, 3xTF32; ``default``, one TF32 pass, both on the
     tensor cores). CPU tensors run :func:`fused_complex_dot_reference` at
     that rung; CUDA tensors launch the kernel at it on the current stream,
-    with the tile variant of :func:`gemm_config` and each operand's
-    :func:`strided_copy_mode`.
+    with the tile variant of :func:`gemm_config` (at a TF32 rung
+    :func:`tf32_config`'s, or the :data:`TF32_TILES` one named by
+    ``tile``) and each operand's :func:`strided_copy_mode`.
     """
+    _check_tile(tile, precision)
     _check_parts("fused_complex_dot", (ar, ai, br, bi))
     _check_pair("fused_complex_dot", ar, ai)
     _check_pair("fused_complex_dot", br, bi)
@@ -571,18 +745,30 @@ def fused_complex_dot(ar, ai, br, bi, precision=None):
         return fused_complex_dot_reference(ar, ai, br, bi, rung)
     if batch is not None and not 0 < batch < 65536:
         raise ValueError(f"fused_complex_dot: batch {batch} outside 1..65535")
-    pieces = 1
+    pieces, cfg = 1, None
     if rung != "float32":
-        tiles = gemm_config(m, n, 4).tiles(m, n)
-        pieces = split_k_pieces(k, tiles, batch or 1, _sm_count(ar.device))
+        sms = _sm_count(ar.device)
+        cfg = tf32_config(k, m, n, rung, batch=batch or 1, sms=sms, tile=tile)
+        pieces = split_k_pieces(k, cfg.tiles(m, n), batch or 1, sms)
     if pieces == 1:
-        out = _launch_complex_dot(ar, ai, br, bi, batch, rung)
+        out = _launch_complex_dot(ar, ai, br, bi, batch, rung, cfg)
     else:
         parts = split_contraction((ar, ai, br, bi), batch, pieces)
-        re, im = _launch_complex_dot(*parts, (batch or 1) * pieces, rung)
+        re, im = _launch_complex_dot(*parts, (batch or 1) * pieces, rung, cfg)
         out = tuple(merge_pieces(t, batch, pieces) for t in (re, im))
-    _count("fused_complex_dot", rung)
+    _count("fused_complex_dot", rung, tile=None if cfg is None else cfg.name)
     return out
+
+
+def _check_tile(tile, precision) -> None:
+    """A wrapper's ``tile``: ``None``, or a :data:`TF32_TILES` name at a
+    TF32 rung."""
+    if tile is None:
+        return
+    if precision not in ("high", "default"):
+        raise ValueError(f"tile {tile!r} at rung {precision!r}: tiles are the TF32 rungs'")
+    if tile not in {t.name for t in TF32_TILES}:
+        raise ValueError(f"no TF32 tile {tile!r}")
 
 
 #: a split contraction's pieces are at least this many contract indices
@@ -592,7 +778,8 @@ SPLIT_K_MIN = 2048
 def split_k_pieces(k: int, tiles: int, batch: int, sms: int = H100_SMS) -> int:
     """Pieces a TF32-rung :func:`fused_complex_dot` cuts its contraction
     into, each a row of one batched launch: 1 when the output's ``tiles``
-    times the ``batch`` already give every SM four blocks, else the least
+    (:func:`tf32_config`'s) times the ``batch`` already give every SM four
+    work items (the tile's blocks are persistent, one an SM), else the least
     power of two that does, while it divides ``k``, leaves pieces of at
     least :data:`SPLIT_K_MIN` indices and keeps the grid's rows within
     65535. A block walks its whole contraction one stage after another, so
@@ -604,6 +791,11 @@ def split_k_pieces(k: int, tiles: int, batch: int, sms: int = H100_SMS) -> int:
     128
     >>> split_k_pieces(16384, 128 * 256, 1), split_k_pieces(1024, 1, 1)
     (1, 1)
+
+    Shorter pieces (512) made a call of ``K <= 2048`` up to twice as slow
+    on an H100 (the cut, the FP32 sum and a second launch), and won only
+    where a long dot has one output tile (``K = 65536, M = N = 1``;
+    ``scripts/tf32_tile_shapes.py --tiles``).
     """
     pieces = 1
     while (tiles * batch * pieces < 4 * sms and k % (2 * pieces) == 0
@@ -644,14 +836,18 @@ def _outputs(m: int, n: int, like, batch: int | None = None):
 
 
 def _launch_complex_dot(ar, ai, br, bi, batch: int | None = None,
-                        rung: str = "float32"):
+                        rung: str = "float32", cfg: "Tf32Config | None" = None):
     """One launch of the kernel on checked operands at ``rung`` (float32
-    parts; float64 takes ``float32``); raises on a CUDA error."""
+    parts; float64 takes ``float32``), at a TF32 rung on ``cfg``'s tile;
+    raises on a CUDA error."""
     import torch
 
     (k, m), n = ar.shape[-2:], br.shape[-1]
     lib = _library("fused_complex_dot")
-    cfg = gemm_config(m, n, ar.element_size(), sms=_sm_count(ar.device))
+    if rung == "float32":
+        variant = gemm_config(m, n, ar.element_size(), sms=_sm_count(ar.device)).variant
+    else:
+        variant = cfg.variant
     re, im = _outputs(m, n, ar, batch)
     args = (
         ar.data_ptr(), ai.data_ptr(), _batch_stride(ar), ar.stride(-2),
@@ -659,7 +855,7 @@ def _launch_complex_dot(ar, ai, br, bi, batch: int | None = None,
         br.data_ptr(), bi.data_ptr(), _batch_stride(br), br.stride(-2),
         br.stride(-1), strided_copy_mode(br, bi),
         re.data_ptr(), im.data_ptr(), 1 if batch is None else batch, k, m, n,
-        cfg.variant,
+        variant,
     )
     with torch.cuda.device(ar.device):
         if ar.dtype == torch.float32:
@@ -951,7 +1147,7 @@ def gather_copy_mode(re, im, lay: OperandLayout, table_dtype: str = "int32") -> 
     return COPY_WALK_K if k_unit else COPY_WALK_F
 
 
-def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout, precision=None):
+def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout, precision=None, *, tile=None):
     """``(re, im)`` of the complex product ``Aᵀ·B`` where ``A`` and ``B``
     are the logical ``(K, M)`` / ``(K, N)`` matrices of two stored operands.
 
@@ -966,8 +1162,10 @@ def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout, precision=None):
     :func:`fused_transpose_reference` at that rung; CUDA tensors (float32
     or float64) launch the kernel at it on the current stream, with the
     offset tables of :func:`offset_dtype`'s width and each operand's
-    :func:`gather_copy_mode`.
+    :func:`gather_copy_mode`; at a TF32 rung on :func:`tf32_config`'s tile,
+    or the :data:`TF32_TILES` one named by ``tile``.
     """
+    _check_tile(tile, precision)
     what = "fused_transpose_dot"
     _check_parts(what, (ar, ai, br, bi), two_d=False)
     _check_pair(what, ar, ai)
@@ -992,14 +1190,17 @@ def fused_transpose_dot(ar, ai, br, bi, a_layout, b_layout, precision=None):
     rung = _rung(precision, ar.dtype)
     if ar.device.type == "cpu":
         return fused_transpose_reference(ar, ai, br, bi, a_layout, b_layout, rung)
-    out = _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout, rung)
-    _count(what, rung)
-    return out
+    re, im, cfg = _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout, rung, tile)
+    _count(what, rung, tile=None if cfg is None else cfg.name)
+    return re, im
 
 
-def _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout, rung: str = "float32"):
+def _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout, rung: str = "float32",
+                          tile: str | None = None):
     """One launch of the kernel on checked operands at ``rung`` (float32
-    parts; float64 takes ``float32``); raises on a CUDA error."""
+    parts; float64 takes ``float32``): ``(re, im, cfg)``, ``cfg`` the TF32
+    launch's :class:`Tf32Config` (``None`` at ``float32``); raises on a CUDA
+    error."""
     import torch
 
     k, m, n = a_layout.k_size, a_layout.f_size, b_layout.f_size
@@ -1013,13 +1214,19 @@ def _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout, rung: str = "float
     off_bytes = 8 if off == "int64" else 4
     a_mode = gather_copy_mode(ar, ai, a_layout, off)
     b_mode = gather_copy_mode(br, bi, b_layout, off)
-    cfg = gemm_config(m, n, ar.element_size(), off_bytes, _sm_count(ar.device),
-                      staged=COPY_VEC_K in (a_mode, b_mode))
+    cfg = None
+    if rung == "float32":
+        variant = gemm_config(m, n, ar.element_size(), off_bytes, _sm_count(ar.device),
+                              staged=COPY_VEC_K in (a_mode, b_mode)).variant
+    else:
+        cfg = tf32_config(k, m, n, rung, off_bytes, COPY_VEC_K in (a_mode, b_mode),
+                          sms=_sm_count(ar.device), tile=tile)
+        variant = cfg.variant
     re, im = _outputs(m, n, ar)
     args = (
         ar.data_ptr(), ai.data_ptr(), a_k.data_ptr(), a_f.data_ptr(), a_mode,
         br.data_ptr(), bi.data_ptr(), b_k.data_ptr(), b_f.data_ptr(), b_mode,
-        re.data_ptr(), im.data_ptr(), k, m, n, int(off == "int64"), cfg.variant,
+        re.data_ptr(), im.data_ptr(), k, m, n, int(off == "int64"), variant,
     )
     with torch.cuda.device(ar.device):
         if ar.dtype == torch.float32:
@@ -1028,7 +1235,7 @@ def _launch_transpose_dot(ar, ai, br, bi, a_layout, b_layout, rung: str = "float
         else:
             rc = lib.tnc_fused_transpose_dot_f64(*args, _stream(ar.device))
     _check(lib, rc, "fused_transpose_dot")
-    return re, im
+    return re, im, cfg
 
 
 # -- fused multi-step chains ------------------------------------------------

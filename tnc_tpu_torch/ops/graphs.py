@@ -28,8 +28,8 @@ issues one graph launch where it issued every step, copy and kernel.
 
 Counters. The kernel wrappers and the step glue count on the host as a
 unit is issued (``cuda_complex.LAUNCHES``, ``CHAIN_FORMS``, ``RUNG_LAUNCHES``,
-``split_complex.FUSED_ROUTED``, ``FUSED_TRANSPOSE_ROUTED``): under a graph
-they would count at capture only. A capture records what it added and
+``TILE_LAUNCHES``, ``split_complex.FUSED_ROUTED``, ``FUSED_TRANSPOSE_ROUTED``):
+under a graph they would count at capture only. A capture records what it added and
 takes it back; each replay adds it again. :data:`STATS` counts the graphs
 captured, their capture time and their replays.
 
@@ -71,7 +71,8 @@ def _counters() -> tuple[dict, ...]:
     from tnc_tpu_torch.ops import cuda_complex, split_complex
 
     return (cuda_complex.LAUNCHES, cuda_complex.CHAIN_FORMS, cuda_complex.RUNG_LAUNCHES,
-            split_complex.FUSED_ROUTED, split_complex.FUSED_TRANSPOSE_ROUTED)
+            cuda_complex.TILE_LAUNCHES, split_complex.FUSED_ROUTED,
+            split_complex.FUSED_TRANSPOSE_ROUTED)
 
 
 def _snapshot() -> tuple[dict, ...]:
